@@ -172,6 +172,47 @@ class PerfModel:
         )
         return L_out * max(comp, mem)
 
+    def t_decode_paged(self, cfg: ArchConfig, lens) -> float:
+        """One paged batched decode step over slots with live context lengths
+        ``lens`` (the block-table layout of ``kernels/paged_decode.py``).
+
+        vs ``t_decode(cfg, 1, max(lens), batch=n)`` — the dense slotted
+        cache's pricing, where every slot is billed the longest slot's HBM
+        stream: the paged kernel reads exactly each slot's live blocks, so
+        the KV term prices ``sum(lens)`` and the parameter read still streams
+        once per step for the whole batch.  Mixed-length batches get strictly
+        cheaper; a UNIFORM batch delegates to ``t_decode`` — exact equality
+        there is a contract (the dense/paged golden replay), not a numeric
+        coincidence, mirroring ``t_prefill_packed``'s single-segment
+        delegation.
+        """
+        lens = [int(L) for L in lens if L > 0]
+        if not lens:
+            return 0.0
+        if len(set(lens)) == 1:
+            return self.t_decode(cfg, 1, lens[0], batch=len(lens))
+        hw = self.hw
+        from repro_torch.models.registry import count_active_params
+
+        param_bytes = count_active_params(cfg) * 2
+        kv_bytes = 0.0
+        comp_flops = 0.0
+        for L in lens:
+            l_att = min(L, cfg.sliding_window) if cfg.sliding_window else L
+            kv_bytes += cfg.kv_bytes_per_token(2) * l_att + cfg.fixed_state_bytes(2)
+            comp_flops += self.decode_flops_per_token(cfg, L)
+        mem = (param_bytes + kv_bytes) / (hw.devices * hw.hbm_bw * hw.membw_eff)
+        comp = comp_flops / (hw.devices * hw.peak_flops * hw.mfu)
+        return max(comp, mem)
+
+    def decode_kv_bytes(self, cfg: ArchConfig, L: int) -> float:
+        """Per-slot HBM bytes one decode step streams for a live context of
+        ``L`` tokens — the KV term of ``t_decode_paged``'s sum, so the engine
+        can bill each slot of a shared step by its own live-block traffic
+        instead of an equal split."""
+        l_att = min(L, cfg.sliding_window) if cfg.sliding_window else L
+        return cfg.kv_bytes_per_token(2) * l_att + cfg.fixed_state_bytes(2)
+
     # ----------------------------------------------------------------- #
     # KV movement (the paper's transmission delay)
     # ----------------------------------------------------------------- #

@@ -21,7 +21,7 @@ import time
 from typing import Dict, Iterable, Optional
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-KERNELS = ("packed_prefill", "decode_attention")
+KERNELS = ("packed_prefill", "decode_attention", "flash_prefill", "paged_decode")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,6 +44,20 @@ _SIGNATURES = {
         [_P] * 7
         # B L H KV hd dtype has_window window
         + [_I] * 8 + [_F, _P],  # scale stream
+    ),
+    "flash_prefill": (
+        "flash_attention_launch",
+        # q k v q_pos kv_pos kv_valid out
+        [_P] * 7
+        # B Sq Skv H KV hd dtype causal has_window window
+        + [_I] * 10 + [_F, _P],  # scale stream
+    ),
+    "paged_decode": (
+        "paged_decode_attention_launch",
+        # q k_pool v_pool block_table q_pos out
+        [_P] * 6
+        # B nb n_blocks block H KV hd dtype has_window window
+        + [_I] * 10 + [_F, _P],  # scale stream
     ),
 }
 

@@ -1,0 +1,184 @@
+// The body shared by the decode kernels `decode_attention`
+// (decode_attention.cu, dense slotted cache) and `paged_decode_attention`
+// (paged_decode.cu, shared block pool): one query token per sequence, one
+// block per (sequence, kv head).
+//
+// What bounds both on the H100: bytes.  Each kept cache row is read once and
+// feeds only 4 * G * hd FLOPs, far below the card's operations-per-byte
+// balance, so the time is the KV bytes over the memory rate.
+//
+// What the design does about it: the G = H / KV query heads of a kv head
+// share every K and V row read from memory, and only rows the mask keeps are
+// loaded.  Each warp takes R rows at a time with vector loads (a lane holds
+// hd/32 contiguous elements), keeping several rows in flight; the warps'
+// partial (m, l, acc) are merged through shared memory at the end.  A
+// `Rows` source says where row j lives and whether the query keeps it; the
+// two kernels differ only in that source, so over the same rows they do the
+// same arithmetic in the same order.  Splitting one sequence's cache over
+// several blocks (split-K) is later work.
+#pragma once
+
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace repro_torch {
+namespace decode {
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int NW = THREADS / 32;
+constexpr int R = 4;  // cache rows a warp keeps in flight
+
+inline size_t smem_bytes(int G, int epl) {
+  return sizeof(float) * size_t(NW) * G * (2 + 32 * epl);
+}
+
+// Attend the rows j in [begin, end) that `rows.keep(j)` keeps; the K/V row of
+// j starts at element `rows.offset(j)` of k and v (kv head included).  Warp w
+// takes the chunks starting at begin + w*R + i*NW*R, so `begin` must be a
+// multiple of NW*R for two sources to split the same rows alike.  q and out
+// point at the block's G heads ([G, HD] contiguous); sm holds
+// smem_bytes(G, EPL) bytes.
+template <typename T, int EPL, int GM, typename Rows>
+__device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restrict__ k,
+                                       const T* __restrict__ v, T* __restrict__ out,
+                                       const Rows& rows, int begin, int end, int G,
+                                       float scale, float* sm) {
+  constexpr int HD = 32 * EPL;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  float qr[GM][EPL], acc[GM][EPL], m[GM], l[GM];
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[g][e] = qr[g][e] = 0.f;
+    if (g < G) load_f32<T, EPL>(q + size_t(g) * HD + lane * EPL, qr[g]);
+  }
+
+  for (int j0 = begin + warp * R; j0 < end; j0 += NW * R) {
+    bool keep[R];
+    bool any = false;
+    float kr[R][EPL], vr[R][EPL];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int j = j0 + i;
+      const bool kk = j < end && rows.keep(j);
+      keep[i] = kk;  // the same on every lane: the branches below are uniform
+      any = any || kk;
+      if (kk) {
+        const size_t off = rows.offset(j) + lane * EPL;
+        load_f32<T, EPL>(k + off, kr[i]);
+        load_f32<T, EPL>(v + off, vr[i]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) kr[i][e] = vr[i][e] = 0.f;
+      }
+    }
+    if (!any) continue;
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (g >= G) break;
+      float s[R];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        s[i] = -INFINITY;
+        if (keep[i]) {
+          float part = 0.f;
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) part = fmaf(qr[g][e], kr[i][e], part);
+          s[i] = warp_sum(part) * scale;
+        }
+        mx = fmaxf(mx, s[i]);
+      }
+      const float m_new = fmaxf(m[g], mx);
+      const float alpha = expf(m[g] - m_new);
+      l[g] *= alpha;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        if (!keep[i]) continue;
+        const float p = expf(s[i] - m_new);
+        l[g] += p;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(p, vr[i][e], acc[g][e]);
+      }
+      m[g] = m_new;
+    }
+  }
+
+  // ---- merge the warps' partial softmax states
+  float* sm_m = sm;              // [NW][G]
+  float* sm_l = sm_m + NW * G;   // [NW][G]
+  float* sm_acc = sm_l + NW * G; // [NW][G][HD]
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    if (g >= G) break;
+    if (lane == 0) {
+      sm_m[warp * G + g] = m[g];
+      sm_l[warp * G + g] = l[g];
+    }
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) sm_acc[(warp * G + g) * HD + lane * EPL + e] = acc[g][e];
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < G * HD; t += THREADS) {
+    const int g = t / HD, c = t % HD;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, sm_m[w * G + g]);
+    float den = 0.f, num = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float sc = expf(sm_m[w * G + g] - M);
+      den = fmaf(sm_l[w * G + g], sc, den);
+      num = fmaf(sm_acc[(w * G + g) * HD + c], sc, num);
+    }
+    out[size_t(g) * HD + c] = from_float<T>(num / fmaxf(den, 1e-30f));
+  }
+}
+
+// Call `l.run<T, EPL, GM>()` for the element type of `dtype`, EPL = hd / 32
+// and the smallest GM >= G of 1, 2, 4, 8; cudaErrorInvalidValue for anything
+// else (a dtype other than f32/bf16, a head_dim not in {32, 64, 128, 256}, or
+// more than 8 query heads per kv head).
+template <typename L, typename T, int EPL>
+int dispatch_g(const L& l, int G) {
+  if (G < 1) return int(cudaErrorInvalidValue);
+  if (G <= 1) return l.template run<T, EPL, 1>();
+  if (G <= 2) return l.template run<T, EPL, 2>();
+  if (G <= 4) return l.template run<T, EPL, 4>();
+  if (G <= 8) return l.template run<T, EPL, 8>();
+  return int(cudaErrorInvalidValue);
+}
+
+template <typename L, typename T>
+int dispatch_hd(const L& l, int hd, int G) {
+  switch (hd) {
+    case 32:
+      return dispatch_g<L, T, 1>(l, G);
+    case 64:
+      return dispatch_g<L, T, 2>(l, G);
+    case 128:
+      return dispatch_g<L, T, 4>(l, G);
+    case 256:
+      return dispatch_g<L, T, 8>(l, G);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+}
+
+template <typename L>
+int dispatch(const L& l, int dtype, int hd, int G) {
+  if (dtype == DTYPE_F32) return dispatch_hd<L, float>(l, hd, G);
+  if (dtype == DTYPE_BF16) return dispatch_hd<L, __nv_bfloat16>(l, hd, G);
+  return int(cudaErrorInvalidValue);
+}
+
+}  // namespace
+}  // namespace decode
+}  // namespace repro_torch

@@ -1,0 +1,330 @@
+// The tiled flash-attention kernel shared by `flash_attention`
+// (flash_prefill.cu) and `packed_flash_attention` (packed_prefill.cu).
+//
+// A key row j is kept for a query i iff kv_pos[j] >= 0, kv_valid[j] (when
+// given), q_seg[i] == kv_seg[j] (SEG only), kv_pos[j] <= q_pos[i] (causal)
+// and, with a window, kv_pos[j] > q_pos[i] - window.  Queries that every key
+// masks output zeros.
+//
+// What bounds both kernels on the H100: operations.  At the serving path's
+// shapes (thousands of queries, 32 heads, hd 128) the QK^T and PV products
+// over the tiles the mask leaves take longer at the card's peak rate than
+// reading q, k, v once and writing the output at its memory rate.
+//
+// What this design does about it: it skips every kv tile that cannot meet
+// the query tile — no valid row, disjoint segment-id ranges (SEG), a
+// smallest kv position above the tile's largest query position (causal), or
+// a largest kv position at or below the smallest query position minus the
+// window — so the work follows the causal (and segment-diagonal) blocks
+// instead of the full Sq x Skv rectangle; a per-request prefill against a
+// max_len cache whose rows past offset+S are invalid skips that tail whole.
+// Inside a tile, the products run on the CUDA cores in f32 from f32 copies
+// in shared memory (register-tiled 4x2 for QK^T and 4x(hd/16) for PV) with
+// an online softmax (m, l, acc) in f32.  Tensor-core (wgmma) tiles, TMA
+// loads and warp specialisation are later work.
+//
+// Layouts (all contiguous): q, out [B, Sq, H, hd]; k, v [B, Skv, KV, hd];
+// q_pos [B, Sq] int32; kv_pos [B, Skv] int32; q_seg [B, Sq], kv_seg [B, Skv]
+// int32 (SEG only); kv_valid [B, Skv] bool or null.
+// Grid (ceil(Sq / BQ), H, B), 256 threads.
+#pragma once
+
+#include <climits>
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace repro_torch {
+namespace flash {
+namespace {
+
+constexpr int BQ = 64;    // query rows per block
+constexpr int BKV = 32;   // kv rows per tile (one per lane of warp 0)
+constexpr int SP = BKV + 1;  // padded row stride of the score tile
+constexpr int THREADS = 256;
+
+template <int HD>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (size_t(BQ) * HD + size_t(BKV) * (HD + 1) + size_t(BKV) * HD +
+                          size_t(BQ) * SP + 3 * BQ) +
+         sizeof(int) * (2 * BQ + 2 * BKV);
+}
+
+__device__ __forceinline__ int warp_min(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ int warp_max(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// SEG: segment-isolated (packed) attention; q_seg/kv_seg are read only then.
+template <typename T, int HD, bool SEG>
+__global__ void __launch_bounds__(THREADS)
+tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+            const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
+            const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
+            const unsigned char* __restrict__ kv_valid, T* __restrict__ out, int Sq,
+            int Skv, int H, int KV, int causal, int has_window, int window, float scale) {
+  static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
+  constexpr int CT = HD / 16;  // output columns per thread
+  extern __shared__ float smem[];
+  float* Qs = smem;                   // [BQ][HD]
+  float* Ks = Qs + BQ * HD;           // [BKV][HD + 1]
+  float* Vs = Ks + BKV * (HD + 1);    // [BKV][HD]
+  float* S = Vs + BKV * HD;           // [BQ][SP] scores, then probabilities
+  float* m_s = S + BQ * SP;           // [BQ] running max
+  float* l_s = m_s + BQ;              // [BQ] running denominator
+  float* a_s = l_s + BQ;              // [BQ] this tile's rescale factor
+  int* qp_s = reinterpret_cast<int*>(a_s + BQ);  // [BQ]
+  int* qs_s = qp_s + BQ;              // [BQ]
+  int* kp_s = qs_s + BQ;              // [BKV] (-1 = invalid row)
+  int* ks_s = kp_s + BKV;             // [BKV]
+  __shared__ int q_info[4];           // seg_lo, seg_hi, pos_lo, pos_hi
+  __shared__ int tile_skip;
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+
+  for (int i = tid; i < BQ * HD; i += THREADS) {
+    const int r = i / HD, d = i % HD, qi = q0 + r;
+    Qs[i] = qi < Sq ? to_float(q[((size_t(b) * Sq + qi) * H + h) * HD + d]) : 0.f;
+  }
+  if (tid < BQ) {
+    const int qi = q0 + tid;
+    // rows past Sq are never written; INT_MIN keeps them out of every segment
+    qp_s[tid] = qi < Sq ? q_pos[size_t(b) * Sq + qi] : INT_MIN;
+    qs_s[tid] = !SEG ? 0 : qi < Sq ? q_seg[size_t(b) * Sq + qi] : INT_MIN;
+    m_s[tid] = NEG_INF;
+    l_s[tid] = 0.f;
+  }
+  __syncthreads();
+  if (tid < 32) {
+    int slo = INT_MAX, shi = INT_MIN, plo = INT_MAX, phi = INT_MIN;
+    for (int r = tid; r < BQ; r += 32) {
+      if (q0 + r < Sq) {
+        slo = min(slo, qs_s[r]);
+        shi = max(shi, qs_s[r]);
+        plo = min(plo, qp_s[r]);
+        phi = max(phi, qp_s[r]);
+      }
+    }
+    slo = warp_min(slo);
+    shi = warp_max(shi);
+    plo = warp_min(plo);
+    phi = warp_max(phi);
+    if (tid == 0) {
+      q_info[0] = slo;
+      q_info[1] = shi;
+      q_info[2] = plo;
+      q_info[3] = phi;
+    }
+  }
+
+  const int rg = tid >> 4;  // rows rg*4 .. rg*4+3 of the QK^T and PV tiles
+  const int cg = tid & 15;
+  float acc[4][CT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int t = 0; t < CT; ++t) acc[i][t] = 0.f;
+
+  for (int kv0 = 0; kv0 < Skv; kv0 += BKV) {
+    // ---- tile metadata and the skip test (warp 0, one kv row per lane)
+    if (tid < 32) {
+      const int j = kv0 + tid;
+      int kp = -1, ks = 0;
+      if (j < Skv) {
+        kp = kv_pos[size_t(b) * Skv + j];
+        if (kv_valid != nullptr && kv_valid[size_t(b) * Skv + j] == 0) kp = -1;
+        if (SEG) ks = kv_seg[size_t(b) * Skv + j];
+      }
+      const bool valid = kp >= 0;
+      kp_s[tid] = valid ? kp : -1;
+      ks_s[tid] = ks;
+      const int slo = warp_min(valid ? ks : INT_MAX);
+      const int shi = warp_max(valid ? ks : INT_MIN);
+      const int plo = warp_min(valid ? kp : INT_MAX);
+      const int phi = warp_max(valid ? kp : INT_MIN);
+      if (tid == 0) {
+        bool skip = plo == INT_MAX || shi < q_info[0] || slo > q_info[1];
+        skip = skip || (causal && plo > q_info[3]);
+        skip = skip || (has_window && (long long)phi <= (long long)q_info[2] - window);
+        tile_skip = skip;
+      }
+    }
+    __syncthreads();
+    const bool skip = tile_skip;
+    __syncthreads();  // every thread has read the flag before warp 0 rewrites it
+    if (skip) continue;
+
+    for (int i = tid; i < BKV * HD; i += THREADS) {
+      const int r = i / HD, d = i % HD, j = kv0 + r;
+      float kk = 0.f, vv = 0.f;
+      if (j < Skv) {
+        const size_t off = ((size_t(b) * Skv + j) * KV + kvh) * HD + d;
+        kk = to_float(k[off]);
+        vv = to_float(v[off]);
+      }
+      Ks[r * (HD + 1) + d] = kk;
+      Vs[r * HD + d] = vv;
+    }
+    __syncthreads();
+
+    // ---- scores: each thread a 4 (query) x 2 (kv) micro-tile
+    {
+      float sc[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[i][0] = sc[i][1] = 0.f;
+      const float* k0 = Ks + (cg * 2) * (HD + 1);
+      const float* k1 = k0 + (HD + 1);
+      const float* qr = Qs + (rg * 4) * HD;
+#pragma unroll 8
+      for (int d = 0; d < HD; ++d) {
+        const float a0 = k0[d], a1 = k1[d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float qv = qr[i * HD + d];
+          sc[i][0] = fmaf(qv, a0, sc[i][0]);
+          sc[i][1] = fmaf(qv, a1, sc[i][1]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = rg * 4 + i;
+        const int qp = qp_s[r], qs = qs_s[r];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = cg * 2 + c;
+          const int kp = kp_s[j];
+          bool keep = kp >= 0 && (!SEG || qs == ks_s[j]);
+          keep = keep && (!causal || kp <= qp);
+          keep = keep && (!has_window || (long long)kp > (long long)qp - window);
+          S[r * SP + j] = keep ? sc[i][c] * scale : -INFINITY;
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- online softmax: four threads per query row, eight columns each
+    {
+      const int r = tid >> 2, sub = tid & 3;
+      float* row = S + r * SP + sub * 8;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) mx = fmaxf(mx, row[c]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float s = row[c];
+        const float p = s == -INFINITY ? 0.f : expf(s - m_new);
+        row[c] = p;
+        sum += p;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (sub == 0) {
+        const float alpha = expf(m_old - m_new);
+        m_s[r] = m_new;
+        l_s[r] = l_s[r] * alpha + sum;
+        a_s[r] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // ---- acc = acc * alpha + P V: rows rg*4.., columns cg + 16 t
+    {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float alpha = a_s[rg * 4 + i];
+#pragma unroll
+        for (int t = 0; t < CT; ++t) acc[i][t] *= alpha;
+      }
+      for (int j = 0; j < BKV; ++j) {
+        float p[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) p[i] = S[(rg * 4 + i) * SP + j];
+        const float* vr = Vs + j * HD + cg;
+#pragma unroll
+        for (int t = 0; t < CT; ++t) {
+          const float vv = vr[16 * t];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[i][t] = fmaf(p[i], vv, acc[i][t]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = rg * 4 + i, qi = q0 + r;
+    if (qi >= Sq) continue;
+    const float l = fmaxf(l_s[r], 1e-30f);
+    T* o = out + ((size_t(b) * Sq + qi) * H + h) * HD + cg;
+#pragma unroll
+    for (int t = 0; t < CT; ++t) o[16 * t] = from_float<T>(acc[i][t] / l);
+  }
+}
+
+// Everything one launch needs besides the tensors' element type and head_dim.
+struct Args {
+  const void *q, *k, *v;
+  const int *q_pos, *kv_pos, *q_seg, *kv_seg;
+  const unsigned char* kv_valid;
+  void* out;
+  int B, Sq, Skv, H, KV, causal, has_window, window;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int HD, bool SEG>
+int launch(const Args& a) {
+  const size_t smem = smem_bytes<HD>();
+  auto kernel = tile_kernel<T, HD, SEG>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return int(err);
+  dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
+  kernel<<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      a.q_pos, a.kv_pos, a.q_seg, a.kv_seg, a.kv_valid, static_cast<T*>(a.out), a.Sq, a.Skv,
+      a.H, a.KV, a.causal, a.has_window, a.window, a.scale);
+  return int(cudaGetLastError());
+}
+
+// Check the shapes, pick the instantiation for (dtype, head_dim) and launch.
+// Returns the CUDA status: cudaErrorInvalidValue for an unsupported head_dim,
+// dtype or head grouping.
+template <bool SEG>
+int dispatch(int dtype, int hd, const Args& a) {
+  if (a.KV <= 0 || a.H % a.KV != 0 || a.Sq <= 0 || a.Skv <= 0 || a.B <= 0)
+    return int(cudaErrorInvalidValue);
+  if (dtype != DTYPE_F32 && dtype != DTYPE_BF16) return int(cudaErrorInvalidValue);
+  const bool f32 = dtype == DTYPE_F32;
+  switch (hd) {
+    case 32:
+      return f32 ? launch<float, 32, SEG>(a) : launch<__nv_bfloat16, 32, SEG>(a);
+    case 64:
+      return f32 ? launch<float, 64, SEG>(a) : launch<__nv_bfloat16, 64, SEG>(a);
+    case 128:
+      return f32 ? launch<float, 128, SEG>(a) : launch<__nv_bfloat16, 128, SEG>(a);
+    case 256:
+      return f32 ? launch<float, 256, SEG>(a) : launch<__nv_bfloat16, 256, SEG>(a);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+}  // namespace flash
+}  // namespace repro_torch

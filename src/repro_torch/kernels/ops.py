@@ -11,7 +11,21 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import decode_attention as dk
+from repro_torch.kernels import flash_prefill as fk
 from repro_torch.kernels import packed_prefill as pk
+from repro_torch.kernels import paged_decode as pdk
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_pos: torch.Tensor,
+    kv_pos: torch.Tensor, causal: bool = True, window: Optional[int] = None,
+    kv_valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Position-masked GQA attention (see ``ref.attention_ref``): the
+    per-request prefill's attention."""
+    fn = fk.flash_attention if q.is_cuda else fk.flash_attention_plain
+    return fn(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=causal, window=window,
+              kv_valid=kv_valid)
 
 
 def packed_attention(
@@ -35,3 +49,15 @@ def decode_attention(
     ``ref.attention_ref``)."""
     fn = dk.decode_attention if q.is_cuda else dk.decode_attention_plain
     return fn(q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=window, kv_valid=kv_valid)
+
+
+def paged_decode(
+    q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor, *,
+    block_table: torch.Tensor, q_pos: torch.Tensor, block: int = 128,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """One query token per sequence against the shared block pool, through
+    each sequence's block table (see ``ref.paged_decode_ref``)."""
+    fn = pdk.paged_decode_attention if q.is_cuda else pdk.paged_decode_attention_plain
+    return fn(q, k_pool, v_pool, block_table=block_table, q_pos=q_pos, block=block,
+              window=window)

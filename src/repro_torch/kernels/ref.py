@@ -90,3 +90,34 @@ def packed_attention_ref(
     mask = _position_mask(q_pos, kv_pos, causal, window)
     mask = mask & (q_seg.long()[:, :, None] == kv_seg.long()[:, None, :])
     return _masked_attention(q, k, v, mask)
+
+
+def paged_decode_ref(
+    q: torch.Tensor,  # [B, 1, H, hd] one query token per sequence
+    k_pool: torch.Tensor,  # [N_rows, KV, hd] the shared block pool, flat rows
+    v_pool: torch.Tensor,
+    *,
+    block_table: torch.Tensor,  # [B, nb] int32 pool-block id per sequence block
+    q_pos: torch.Tensor,  # [B, 1] position of the query token (live length - 1)
+    block: int = 128,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Decode attention over the paged layout: a sequence's cache is the
+    concatenation, in table order, of the ``block``-row pool blocks its
+    ``block_table`` row names.  Row ``r`` of table entry ``j`` holds
+    position ``j*block + r``, so validity is positional: rows past
+    ``q_pos`` (the boundary block's tail, table padding pointing at the
+    dump block 0) are masked as a dense cache's unwritten tail is.  The
+    gathered rows then go through ``attention_ref``, so the result is
+    bit-identical to dense decode over a cache of the same padded length."""
+    B, nb = block_table.shape
+    dev = k_pool.device
+    rows = (
+        block_table.long()[:, :, None] * block
+        + torch.arange(block, device=dev)[None, None, :]
+    ).reshape(B, nb * block)
+    k = k_pool[rows]  # [B, nb*block, KV, hd]
+    v = v_pool[rows]
+    idx = torch.arange(nb * block, dtype=torch.int32, device=dev)[None]
+    kv_pos = torch.where(idx <= q_pos.to(torch.int32), idx, -1)
+    return attention_ref(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=True, window=window)

@@ -7,15 +7,16 @@ layout (``[n_layers, 1, L, KV, hd]``).  bf16 rows are kept as their 2-byte
 pattern (``uint16``), so byte accounting matches the reference's; an f32
 artifact is the same tree, byte for byte, as the reference's.
 
-This is the array half of the reference's ``kvcache/paged.py`` that the
-packed-prefill, dense-decode path needs.  The shared block pool of paged
-decode (``BlockPool``, ``PagedSlots``) comes with ``paged_decode``, ROADMAP
-queue B item 4.
+Under paged decode the device state is instead one shared KV block pool
+(``init_pool_caches``): host-side ``PagedSlots`` keep each slot's block
+table, and packed admissions land their block-aligned spans in the pool.
+
+This is the port of the reference's ``kvcache/paged.py`` for dense archs.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Tuple
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,7 +24,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import KVCache
 from repro_torch.models.blocks import BlockCache
-from repro_torch.models.common import resolve_dtype
+from repro_torch.models.common import resolve_device, resolve_dtype
 from repro_torch.models.lm import LMState
 
 
@@ -258,3 +259,226 @@ def packed_to_artifact(
             BlockCache(KVCache(c.attn.k[:, :, rows], c.attn.v[:, :, rows])) for c in caches
         ),
     )
+
+
+# --------------------------------------------------------------------------- #
+# Shared KV block pool: paged batched decode state
+# --------------------------------------------------------------------------- #
+KV_BLOCK = 128  # pool block size in tokens
+
+
+class BlockPool:
+    """Host-side bookkeeping for the shared device KV block pool.
+
+    Block ids index one device buffer of ``n_blocks * block`` KV rows shared
+    by every batch slot.  Block 0 is the reserved *dump* block: a slot whose
+    block table is zeroed (freed or inactive) computes its decode write row
+    inside block 0, so a stale slot never corrupts a block recycled to
+    another sequence.
+
+    Blocks are reference-counted so batch-mates that loaded the same stored
+    context can point their table prefixes at ONE copy of the shared-prefix
+    blocks.  ``release`` returns a block to the free list exactly once, when
+    its last reference drops, and ``PagedSlots.prepare_append`` is the
+    copy-on-write primitive: appending into a shared boundary block first
+    splits it onto a fresh private block.
+    """
+
+    def __init__(self, n_blocks: int, block: int = KV_BLOCK):
+        assert n_blocks >= 2, "need the dump block plus at least one real block"
+        self.block = block
+        self.n_blocks = n_blocks
+        self.ref = np.zeros(n_blocks, np.int64)
+        self.ref[0] = 1  # dump block: permanently held by the pool itself
+        self._free: List[int] = list(range(n_blocks - 1, 0, -1))
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def n_used(self) -> int:
+        """Distinct non-dump blocks currently referenced."""
+        return self.n_blocks - 1 - len(self._free)
+
+    def alloc(self, n: int) -> List[int]:
+        assert n <= len(self._free), (n, len(self._free))
+        out = [self._free.pop() for _ in range(n)]
+        for b in out:
+            assert self.ref[b] == 0, b
+            self.ref[b] = 1
+        return out
+
+    def share(self, bid: int) -> int:
+        assert 0 < bid < self.n_blocks and self.ref[bid] > 0, bid
+        self.ref[bid] += 1
+        return bid
+
+    def release(self, bid: int) -> None:
+        assert 0 < bid < self.n_blocks and self.ref[bid] > 0, bid
+        self.ref[bid] -= 1
+        if self.ref[bid] == 0:
+            self._free.append(bid)
+
+    def free_list(self) -> List[int]:
+        return list(self._free)
+
+
+@dataclasses.dataclass(frozen=True)
+class CowSplit:
+    """A copy-on-write split: pool rows of block ``src`` must be copied to
+    block ``dst`` before the next write touches it."""
+
+    src: int
+    dst: int
+
+
+class PagedSlots:
+    """Block tables and live lengths for a batch of slots over one BlockPool.
+
+    The engine's host-side view of the paged decode state: per-slot tables
+    (0-padded, fixed width ``max_len // block``), live token counts, and the
+    alloc/share/append/free lifecycle.  The device buffers are the engine's;
+    this class only decides which pool blocks hold what.
+    """
+
+    def __init__(self, n_slots: int, max_len: int, block: int = KV_BLOCK):
+        assert max_len % block == 0, (max_len, block)
+        self.block = block
+        self.nb_max = max_len // block
+        # worst case every slot fills max_len with private blocks (+ dump)
+        self.pool = BlockPool(1 + n_slots * self.nb_max, block)
+        self.tables = np.zeros((n_slots, self.nb_max), np.int32)
+        self.lens = np.zeros(n_slots, np.int64)
+        self.n_blocks = np.zeros(n_slots, np.int64)  # table entries in use
+        self.live = np.zeros(n_slots, bool)
+        self.shared_block_hits = 0  # blocks deduped across batch-mates
+        self.pool_blocks_peak = 0  # high-water distinct blocks in use
+
+    def admit(
+        self,
+        slot: int,
+        n_total: int,
+        *,
+        shared_from: Optional[int] = None,
+        shared_blocks: int = 0,
+    ) -> List[int]:
+        """Allocate the slot's table for ``n_total`` live rows; the first
+        ``shared_blocks`` entries alias slot ``shared_from``'s (same stored
+        context).  Returns the NEWLY allocated block ids, the ones whose rows
+        the caller must fill; shared blocks already hold the right rows."""
+        assert not self.live[slot], slot
+        nb = -(-n_total // self.block)
+        assert 0 < nb <= self.nb_max, (n_total, self.nb_max)
+        assert shared_blocks <= nb
+        if shared_blocks:
+            assert shared_from is not None and self.live[shared_from]
+            assert shared_blocks <= self.n_blocks[shared_from]
+            for j in range(shared_blocks):
+                self.tables[slot, j] = self.pool.share(int(self.tables[shared_from, j]))
+            self.shared_block_hits += shared_blocks
+        own = self.pool.alloc(nb - shared_blocks)
+        self.tables[slot, shared_blocks:nb] = own
+        self.tables[slot, nb:] = 0
+        self.lens[slot] = n_total
+        self.n_blocks[slot] = nb
+        self.live[slot] = True
+        self.pool_blocks_peak = max(self.pool_blocks_peak, self.pool.n_used)
+        return own
+
+    def prepare_append(self, slot: int) -> Optional[CowSplit]:
+        """Make the row for the NEXT token (position ``lens[slot]``)
+        writable: grow the table by a fresh block at a block boundary, or
+        copy-on-write split a shared boundary block.  Returns the split to
+        copy on the device, or None.  The caller bumps ``note_token`` after
+        the write lands."""
+        assert self.live[slot], slot
+        pos = int(self.lens[slot])
+        ib = pos // self.block
+        assert ib < self.nb_max, "append past max_len"
+        if ib == self.n_blocks[slot]:
+            (bid,) = self.pool.alloc(1)
+            self.tables[slot, ib] = bid
+            self.n_blocks[slot] += 1
+            self.pool_blocks_peak = max(self.pool_blocks_peak, self.pool.n_used)
+            return None
+        bid = int(self.tables[slot, ib])
+        if self.pool.ref[bid] > 1:
+            (fresh,) = self.pool.alloc(1)
+            self.pool.release(bid)
+            self.tables[slot, ib] = fresh
+            return CowSplit(src=bid, dst=fresh)
+        return None
+
+    def note_token(self, slot: int) -> None:
+        self.lens[slot] += 1
+
+    def free(self, slot: int) -> None:
+        """Return the slot's blocks to the pool (each freed exactly once, on
+        its last reference) and zero its table AND length, so a stale decode
+        write computes a row inside the dump block (table entry 0)."""
+        assert self.live[slot], slot
+        for j in range(int(self.n_blocks[slot])):
+            self.pool.release(int(self.tables[slot, j]))
+        self.tables[slot, :] = 0
+        self.lens[slot] = 0
+        self.n_blocks[slot] = 0
+        self.live[slot] = False
+
+    def stats(self) -> dict:
+        """One pool snapshot (``engine.decode_stats()`` embeds it under the
+        paged path)."""
+        return {
+            "block": self.block,
+            "pool_blocks": self.pool.n_blocks,
+            "pool_blocks_used": self.pool.n_used,
+            "pool_blocks_peak": self.pool_blocks_peak,
+            "shared_block_hits": self.shared_block_hits,
+            "live_slots": int(self.live.sum()),
+            "live_tokens": int(self.lens[self.live].sum()),
+        }
+
+    def audit(self) -> None:
+        """Pool-accounting invariants: ref counts == live table references,
+        the free list disjoint from them and free of duplicates, and the used
+        block count == the distinct blocks of the live table entries."""
+        refs: dict = {}
+        for slot in range(self.tables.shape[0]):
+            if not self.live[slot]:
+                assert self.n_blocks[slot] == 0
+                assert not self.tables[slot].any(), slot
+                continue
+            for j in range(int(self.n_blocks[slot])):
+                bid = int(self.tables[slot, j])
+                assert bid > 0, (slot, j)
+                refs[bid] = refs.get(bid, 0) + 1
+        for bid in range(1, self.pool.n_blocks):
+            assert self.pool.ref[bid] == refs.get(bid, 0), bid
+        free = self.pool.free_list()
+        assert len(free) == len(set(free))
+        assert not (set(free) & set(refs)), "freed block still referenced"
+        assert self.pool.n_used == len(refs)
+
+
+def block_rows(block_ids, block: int) -> np.ndarray:
+    """Flat pool-row indices covered by ``block_ids`` (for the engine's
+    one-scatter landings and copy-on-write copies)."""
+    ids = np.asarray(list(block_ids), np.int64)
+    return (ids[:, None] * block + np.arange(block, dtype=np.int64)[None, :]).reshape(-1)
+
+
+def init_pool_caches(
+    cfg: ArchConfig, n_blocks: int, block: int = KV_BLOCK, device=None, dtype=None
+) -> Tuple[BlockCache, ...]:
+    """The shared KV block pool on ``device`` (the card unless the caller
+    asks for another): one flat-row KV buffer ``[n_layers, n_blocks * block,
+    KV, hd]``, the paged counterpart of ``lm.init_state``'s slotted caches."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.family} archs are not ported yet (ROADMAP queue A item 12)"
+        )
+    device = resolve_device(device)
+    dtype = dtype or resolve_dtype(cfg.dtype)
+    shape = (cfg.n_layers, n_blocks * block, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return (BlockCache(KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                               torch.zeros(shape, dtype=dtype, device=device))),)

@@ -1,15 +1,21 @@
-"""Grouped-query self-attention against a slotted dense KV cache.
+"""Grouped-query self-attention against the slotted KV cache or the shared block pool.
 
-Two call modes of the serving path share one weight set:
+Four call modes of the serving path share one weight set:
+  * ``prefill`` — ``S`` new tokens per sequence written at ``offset`` into
+    the slotted cache, attending causally over ``[0, offset+S)``; with
+    ``offset > 0`` this is the paper's suffix prefill over reused context.
   * ``prefill_packed`` — several requests' new tokens packed into one
     sequence; their K/V land in a packed buffer holding each request's
     reused context KV, and attention isolates the segments.
   * ``decode`` — one token per sequence against the slotted cache.
+  * ``decode_paged`` — one token per sequence against the shared block
+    pool, through each sequence's block table.
 
-Cache layout: k/v ``[B, L_cache, KV_heads, head_dim]``.  Unlike the JAX
-package, which returns new cache arrays, both modes write the new rows into
-the cache tensors in place: the dense cache of a full-width model is
-gigabytes, and a copy per layer per step would double it.
+Cache layout: k/v ``[B, L_cache, KV_heads, head_dim]`` (the pool: ``[N_rows,
+KV_heads, head_dim]``).  Unlike the JAX package, which returns new cache
+arrays, every mode writes the new rows into the cache tensors in place: the
+dense cache of a full-width model is gigabytes, and a copy per layer per
+step would double it.
 """
 from __future__ import annotations
 
@@ -78,6 +84,39 @@ def _no_ring(cfg: ArchConfig, L: int) -> None:
 
 
 # --------------------------------------------------------------------------- #
+# Prefill (full or suffix) against the slotted cache
+# --------------------------------------------------------------------------- #
+def prefill(
+    p: Params,
+    cfg: ArchConfig,
+    x: torch.Tensor,  # [B, S, D] — the new (non-reused) tokens
+    cache: KVCache,  # [B, L, KV, hd], written in place
+    offset: torch.Tensor,  # [B] int32 — tokens already in the cache
+) -> torch.Tensor:
+    """Write the new tokens' K/V at rows ``[offset, offset+S)`` and attend
+    every row below ``offset+S`` causally at absolute positions."""
+    B, S, _ = x.shape
+    L = cache.k.shape[1]
+    _no_ring(cfg, L)
+    q, k_new, v_new = _qkv(p, cfg, x)
+    offset = offset.to(torch.int32)[:, None]  # [B, 1]
+    positions = offset + torch.arange(S, dtype=torch.int32, device=x.device)[None]  # [B, S]
+    if cfg.rope_theta is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    rows = torch.arange(B, device=x.device)[:, None]
+    cache.k[rows, positions.long()] = k_new
+    cache.v[rows, positions.long()] = v_new
+    idx = torch.arange(L, dtype=torch.int32, device=x.device)[None]
+    kv_pos = torch.where(idx < offset + S, idx, -1).to(torch.int32)  # [B, L]
+    o = ops.flash_attention(
+        q.contiguous(), cache.k, cache.v, q_pos=positions, kv_pos=kv_pos, causal=True,
+        window=cfg.sliding_window,
+    )
+    return _out(p, o)
+
+
+# --------------------------------------------------------------------------- #
 # Packed ragged (suffix-)prefill: many requests, one kernel launch
 # --------------------------------------------------------------------------- #
 def prefill_packed(
@@ -141,5 +180,41 @@ def decode(
     o = ops.decode_attention(
         q.contiguous(), cache.k, cache.v, q_pos=positions, kv_pos=kv_pos,
         window=cfg.sliding_window,
+    )
+    return _out(p, o)
+
+
+# --------------------------------------------------------------------------- #
+# Paged decode (one token per sequence against the shared block pool)
+# --------------------------------------------------------------------------- #
+def decode_paged(
+    p: Params,
+    cfg: ArchConfig,
+    x: torch.Tensor,  # [B, 1, D]
+    pool: KVCache,  # k/v [N_rows, KV, hd]: the shared block pool, written in place
+    block_table: torch.Tensor,  # [B, nb] int32 pool block per sequence block
+    pos: torch.Tensor,  # [B] int32 — position of this token (== cached length)
+    *,
+    block: int,
+) -> torch.Tensor:
+    """``decode`` over the paged layout: the new token's K/V row lands in
+    the pool at ``table[pos // block] * block + pos % block`` and attention
+    reads each sequence's live blocks through its table.  A slot whose table
+    is zeroed (freed or inactive) writes onto the dump block's rows, never
+    into a block that may belong to another sequence."""
+    q, k_new, v_new = _qkv(p, cfg, x)
+    positions = pos[:, None].to(torch.int32).contiguous()  # [B, 1]
+    if cfg.rope_theta is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    table = block_table.to(torch.int32).contiguous()
+    pos64 = pos.long()
+    blk = table.long().gather(1, (pos64 // block)[:, None])[:, 0]
+    rows = blk * block + pos64 % block  # [B]: dump rows where blk == 0
+    pool.k.index_copy_(0, rows, k_new[:, 0])
+    pool.v.index_copy_(0, rows, v_new[:, 0])
+    o = ops.paged_decode(
+        q.contiguous(), pool.k, pool.v, block_table=table, q_pos=positions,
+        block=block, window=cfg.sliding_window,
     )
     return _out(p, o)

@@ -32,6 +32,16 @@ def _apply_ffn(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return x + layers.apply_mlp(p["ffn"], cfg, layers.apply_norm(p["norm2"], cfg, x))
 
 
+def prefill(
+    p: Params, cfg: ArchConfig, x: torch.Tensor, cache: attention.KVCache,
+    offset: torch.Tensor,
+) -> torch.Tensor:
+    """Full or suffix prefill of one block (``attention.prefill``)."""
+    h = layers.apply_norm(p["norm1"], cfg, x)
+    x = x + attention.prefill(p["attn"], cfg, h, cache, offset)
+    return _apply_ffn(p, cfg, x)
+
+
 def prefill_packed(
     p: Params, cfg: ArchConfig, x: torch.Tensor, cache: attention.KVCache, **layout
 ) -> torch.Tensor:
@@ -47,4 +57,14 @@ def decode(
 ) -> torch.Tensor:
     h = layers.apply_norm(p["norm1"], cfg, x)
     x = x + attention.decode(p["attn"], cfg, h, cache, pos)
+    return _apply_ffn(p, cfg, x)
+
+
+def decode_paged(
+    p: Params, cfg: ArchConfig, x: torch.Tensor, pool: attention.KVCache,
+    block_table: torch.Tensor, pos: torch.Tensor, *, block: int,
+) -> torch.Tensor:
+    """Paged decode of one block (``attention.decode_paged``)."""
+    h = layers.apply_norm(p["norm1"], cfg, x)
+    x = x + attention.decode_paged(p["attn"], cfg, h, pool, block_table, pos, block=block)
     return _apply_ffn(p, cfg, x)

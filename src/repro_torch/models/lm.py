@@ -1,10 +1,17 @@
-"""Decoder-only dense LM: the serving path's packed prefill and decode.
+"""Decoder-only dense LM: per-request and packed prefill, dense and paged decode.
 
 API:
   init(cfg, seed=0, device=None) -> params
   init_state(cfg, batch, max_len, device=None) -> LMState
+  prefill(params, cfg, tokens [B, S], state) -> (last logits [B, V], LMState)
   prefill_packed(params, cfg, tokens, caches, **layout) -> (logits [n, V], caches)
   decode(params, cfg, tokens [B, 1], state) -> (logits [B, V], LMState)
+  decode_paged(params, cfg, tokens [B, 1], caches, block_table=, pos=, block=)
+      -> (logits [B, V], caches)
+
+``prefill`` is a suffix prefill whenever ``state.pos > 0``: positions
+``[0, state.pos)`` of the caches are reused context state (the paper's
+technique) and are not recomputed.
 
 Layer weights are one dict per layer (the JAX package stacks them over
 periods for ``lax.scan``; ``models.convert`` unstacks them).  Caches keep the
@@ -73,6 +80,26 @@ def _layer(cache: KVCache, i: int) -> KVCache:
 
 
 # --------------------------------------------------------------------------- #
+# Prefill (full when state.pos == 0; suffix when state.pos > 0)
+# --------------------------------------------------------------------------- #
+def prefill(
+    params: Params, cfg: ArchConfig, tokens: torch.Tensor, state: LMState
+) -> Tuple[torch.Tensor, LMState]:
+    """Prefill ``tokens`` [B, S] after the ``state.pos`` tokens already in
+    the caches (written in place); returns the last token's logits [B, V]
+    and the state with ``pos + S``."""
+    _check_dense(cfg)
+    x = layers.embed_tokens(params["embed"], cfg, tokens)
+    S = x.shape[1]
+    cache = state.caches[0].attn
+    for i, lp in enumerate(params["layers"]):
+        x = blocks.prefill(lp, cfg, x, _layer(cache, i), state.pos)
+    x = layers.apply_norm(params["final_norm"], cfg, x[:, -1:])
+    logits = layers.lm_logits(params["embed"], cfg, x)[:, 0]
+    return logits, LMState(pos=state.pos + S, caches=state.caches)
+
+
+# --------------------------------------------------------------------------- #
 # Packed ragged prefill (many requests, one launch per layer)
 # --------------------------------------------------------------------------- #
 def prefill_packed(
@@ -119,3 +146,31 @@ def decode(
     x = layers.apply_norm(params["final_norm"], cfg, x)
     logits = layers.lm_logits(params["embed"], cfg, x)[:, 0]
     return logits, LMState(pos=state.pos + 1, caches=state.caches)
+
+
+# --------------------------------------------------------------------------- #
+# Paged decode (one token per sequence over the shared KV block pool)
+# --------------------------------------------------------------------------- #
+def decode_paged(
+    params: Params,
+    cfg: ArchConfig,
+    tokens: torch.Tensor,  # [B, 1]
+    caches: Tuple[blocks.BlockCache, ...],  # the pool (paged.init_pool_caches)
+    *,
+    block_table: torch.Tensor,  # [B, nb] int32 pool block per sequence block
+    pos: torch.Tensor,  # [B] int32 cached length per slot (freed slots: 0,
+    # with zeroed tables routing their writes to the dump block)
+    block: int = 128,
+) -> Tuple[torch.Tensor, Tuple[blocks.BlockCache, ...]]:
+    """``decode`` against the shared block pool instead of slotted caches;
+    the pool is updated in place.  Positions and tables are the caller's
+    (the serving engine's ``PagedSlots``), so only the pool flows through:
+    returns (logits [B, V], caches)."""
+    _check_dense(cfg)
+    x = layers.embed_tokens(params["embed"], cfg, tokens)
+    pool = caches[0].attn
+    for i, lp in enumerate(params["layers"]):
+        x = blocks.decode_paged(lp, cfg, x, _layer(pool, i), block_table, pos, block=block)
+    x = layers.apply_norm(params["final_norm"], cfg, x)
+    logits = layers.lm_logits(params["embed"], cfg, x)[:, 0]
+    return logits, caches

@@ -17,8 +17,10 @@ class ModelApi(NamedTuple):
 
     init: Callable[..., Any]
     init_state: Callable[..., Any]
+    prefill: Callable[..., Any]
     prefill_packed: Callable[..., Any]
     decode: Callable[..., Any]
+    decode_paged: Callable[..., Any]
 
 
 def _check_dense(cfg: ArchConfig) -> None:
@@ -32,8 +34,8 @@ def _check_dense(cfg: ArchConfig) -> None:
 def get_model(cfg: ArchConfig) -> ModelApi:
     _check_dense(cfg)
     return ModelApi(
-        init=lm.init, init_state=lm.init_state,
-        prefill_packed=lm.prefill_packed, decode=lm.decode,
+        init=lm.init, init_state=lm.init_state, prefill=lm.prefill,
+        prefill_packed=lm.prefill_packed, decode=lm.decode, decode_paged=lm.decode_paged,
     )
 
 

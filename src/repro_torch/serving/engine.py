@@ -6,7 +6,9 @@ up in the ``TieredStore`` (chain-hash prefix match); a ``ReusePlanner`` turns
 load / partial-load, plus write-back); the engine executes it — storage
 fetch through the tier's backend, one packed suffix-prefill of every
 admitted request's unmatched context tail and prompt, break-even-gated
-write-back — and decode runs batched across slots, one dense step at a time.
+write-back — and decode runs batched across slots, one step at a time, over
+the slotted dense cache or, with ``paged_decode``, over one shared KV block
+pool that the packed admissions land in block-aligned.
 
 The engine is step-driven: ``submit()`` enqueues, ``step()`` performs one
 scheduling step (admit a batch of requests, or one batched decode step, or a
@@ -15,14 +17,15 @@ produced; ``drain()`` iterates steps to completion; ``run()`` drains and
 summarizes.
 
 This is the port of the JAX engine's main path under the default
-``EngineConfig``.  Compute runs eagerly in PyTorch (no jit): on CUDA tensors
-the attention goes through the hand-written kernels, on CPU tensors through
-their plain versions.  Times and dollars are modelled (``PerfModel``), as in
-the reference, so the reference's golden records replay on the port.  The
-paths behind non-default options (paged decode, the unified step, fused
-reuse, the int8 tier, faults, hedging, prefetch, migration, the market) and
-the per-request admission path raise ``NotImplementedError`` naming the
-ROADMAP item that will carry them.
+``EngineConfig`` and under ``paged_decode=True``.  Compute runs eagerly in
+PyTorch (no jit): on CUDA tensors the attention goes through the
+hand-written kernels, on CPU tensors through their plain versions.  Times
+and dollars are modelled (``PerfModel``), as in the reference, so the
+reference's golden records replay on the port.  The paths behind the other
+non-default options (the unified step, fused reuse, the int8 tier, faults,
+hedging, prefetch, migration, the market) and the per-request admission
+path of embeds and non-packable archs raise ``NotImplementedError`` naming
+the ROADMAP item that will carry them.
 """
 from __future__ import annotations
 
@@ -117,8 +120,6 @@ class EngineConfig:
 # option -> the ROADMAP item that will carry it (set away from its default,
 # each raises NotImplementedError rather than silently taking another path)
 _NOT_PORTED = {
-    "paged_decode": "queue B item 4 (paged_decode_attention, the next slice)",
-    "kv_block": "queue B item 4 (paged_decode_attention, the next slice)",
     "unified_step": "queue A item 6 (unified continuous batching)",
     "step_token_budget": "queue A item 6 (unified continuous batching)",
     "fusion_enabled": "queue A item 7 (fused reuse)",
@@ -189,7 +190,7 @@ class ServingEngine:
         if not paged.packable_arch(cfg, self.ec.max_len):
             raise NotImplementedError(
                 f"{cfg.name} cannot be packed at max_len={self.ec.max_len}: the "
-                "per-request admission path is ROADMAP queue B item 3 (flash_attention)"
+                "per-request admission path is ROADMAP queue A item 12 (other families)"
             )
         if self.ec.cost_arch is not None:
             from repro_torch.configs import get_config
@@ -232,9 +233,34 @@ class ServingEngine:
         self.queue = AdmissionQueue()
         self.slots = [Slot(i) for i in range(self.ec.max_slots)]
         self.records: List[RequestRecord] = []
-        self._state = self.api.init_state(
-            cfg, self.ec.max_slots, self.ec.max_len, device=self.device
-        )
+        # Paged batched decode over the shared KV block pool: packed spans
+        # land block-aligned in the pool, and the pool IS the device KV
+        # state (no dense slotted cache beside it).
+        self._paged_on = self.ec.paged_decode
+        self._paged: Optional[paged.PagedSlots] = None
+        self._state = None
+        if self._paged_on:
+            if self.ec.kv_block != self.ec.pack_align:
+                raise ValueError(
+                    "paged_decode needs kv_block == pack_align, so packed spans "
+                    f"land block-aligned in the pool (got {self.ec.kv_block}, "
+                    f"{self.ec.pack_align})"
+                )
+            if self.ec.max_len % self.ec.kv_block:
+                raise ValueError(
+                    f"paged_decode needs max_len ({self.ec.max_len}) to be a "
+                    f"multiple of kv_block ({self.ec.kv_block})"
+                )
+            self._paged = paged.PagedSlots(
+                self.ec.max_slots, self.ec.max_len, self.ec.kv_block
+            )
+            self._pool_caches = paged.init_pool_caches(
+                cfg, self._paged.pool.n_blocks, self.ec.kv_block, device=self.device
+            )
+        else:
+            self._state = self.api.init_state(
+                cfg, self.ec.max_slots, self.ec.max_len, device=self.device
+            )
         # packed-admission observability: launch-shape buckets (the same
         # (q_len, kv_len) keys as the reference's jit cache counters)
         self.jit_stats = JitBucketStats()
@@ -254,7 +280,7 @@ class ServingEngine:
         if req.embeds is not None:
             raise NotImplementedError(
                 "embedding contexts take the per-request admission path: "
-                "ROADMAP queue B item 3 (flash_attention)"
+                "ROADMAP queue A item 12 (other families)"
             )
         self.queue.push(req)
 
@@ -312,12 +338,19 @@ class ServingEngine:
         }
 
     def decode_stats(self) -> Dict[str, Any]:
-        """Decode-side counters: steps, tokens and modeled busy time."""
-        return {
+        """Decode-side counters: steps, tokens and modeled busy time, and
+        under paged decode the block pool's occupancy and the blocks shared
+        across batch-mates."""
+        out: Dict[str, Any] = {
+            "paged": self._paged_on,
             "decode_steps": self.decode_steps,
             "decode_busy_s": self.decode_busy_s,
             "decode_tokens": self.decode_tokens,
         }
+        if self._paged_on:
+            ps = self._paged.stats()
+            out.update(kv_block=ps.pop("block"), **ps)
+        return out
 
     # ------------------------------------------------------------------ #
     # Admission: pop -> plan (per request) -> execute (one packed batch)
@@ -501,11 +534,16 @@ class ServingEngine:
         self.clock.advance(batch_load + prefill_s)
         self.admission_busy_s += batch_load + prefill_s
 
+        if self._paged_on:
+            # the packed outputs land straight in the shared block pool: one
+            # scatter for the whole batch
+            self._land_packed_in_pool(admissions, layout, new_caches)
         for i, (a, seg) in enumerate(zip(admissions, layout.segments)):
-            paged.insert_slot(
-                self.cfg, self._state, seg.slot,
-                paged.packed_to_artifact(self.cfg, new_caches, seg, seg.n_total),
-            )
+            if not self._paged_on:
+                paged.insert_slot(
+                    self.cfg, self._state, seg.slot,
+                    paged.packed_to_artifact(self.cfg, new_caches, seg, seg.n_total),
+                )
             a.rec.matched_tokens = a.matched
             # every batch member waits the load BARRIER (max of the batch's
             # fetches) before the shared launch
@@ -513,6 +551,61 @@ class ServingEngine:
             a.rec.prefill_s = prefill_s
             a.rec.compute_cost += self._c_gpu_s * prefill_s * (len(a.new_tokens) / total_new)
             self._finish_admission(a, int(first[i]), events)
+
+    # -- shared-block-pool landings (paged decode) ----------------------- #
+    def _pool_update(self, dst: np.ndarray, k_rows: torch.Tensor, v_rows: torch.Tensor) -> None:
+        """Land KV rows at pool rows ``dst`` in place: the one scatter every
+        landing shares.  The pool holds one attention cache, since the port
+        builds it for dense archs only (``paged.init_pool_caches``)."""
+        idx = self._tensor(dst)
+        pool = self._pool_caches[0].attn
+        pool.k.index_copy_(1, idx, k_rows)
+        pool.v.index_copy_(1, idx, v_rows)
+
+    def _land_packed_in_pool(
+        self, admissions: List[_Admission], layout: paged.PackLayout, new_caches
+    ) -> None:
+        """Move every segment's kv span from the packed buffers into the
+        shared block pool.  Segments are kv_block-aligned (pack_align ==
+        kv_block), so a span is a run of whole blocks and the batch lands as
+        ONE scatter.  Batch-mates that loaded the same stored entry point
+        their table prefixes at one refcounted copy of its full blocks; only
+        each segment's own blocks are copied."""
+        block = self.ec.kv_block
+        src_blocks: List[int] = []
+        dst_blocks: List[int] = []
+        leaders: Dict[str, tuple] = {}  # entry_id -> (slot, matched)
+        for a, seg in zip(admissions, layout.segments):
+            shared_from, shared = None, 0
+            if a.artifact is not None and a.lookup.entry is not None:
+                led = leaders.get(a.lookup.entry.entry_id)
+                if led is not None:
+                    shared_from, led_matched = led
+                    # a block is shareable iff BOTH mates' reused prefixes
+                    # cover it fully; the boundary block stays private
+                    shared = min(a.matched, led_matched) // block
+                else:
+                    leaders[a.lookup.entry.entry_id] = (seg.slot, a.matched)
+            own = self._paged.admit(
+                seg.slot, seg.n_total, shared_from=shared_from, shared_blocks=shared,
+            )
+            first = seg.kv_start // block
+            for j, bid in enumerate(own, start=shared):
+                src_blocks.append(first + j)
+                dst_blocks.append(bid)
+        src = self._tensor(paged.block_rows(src_blocks, block))
+        dst = paged.block_rows(dst_blocks, block)
+        packed = new_caches[0].attn
+        self._pool_update(dst, packed.k[:, 0, src], packed.v[:, 0, src])
+
+    def _copy_pool_blocks(self, splits: List[paged.CowSplit]) -> None:
+        """Copy-on-write: duplicate shared boundary blocks onto private ones
+        before a decode write touches them (one gather/scatter pair)."""
+        block = self.ec.kv_block
+        src = self._tensor(paged.block_rows([s.src for s in splits], block))
+        dst = paged.block_rows([s.dst for s in splits], block)
+        pool = self._pool_caches[0].attn
+        self._pool_update(dst, pool.k[:, src], pool.v[:, src])
 
     # -- storage fetch with cost-aware retry ----------------------------- #
     def _fetch_kv(self, req: Request, plan: ReusePlan, lookup: StoreLookup):
@@ -662,21 +755,24 @@ class ServingEngine:
         return self.store.tier_order[-1]  # cloud tier (paper's EBS)
 
     # ------------------------------------------------------------------ #
-    # Batched dense decode
+    # Batched decode
     # ------------------------------------------------------------------ #
     def _decode_step(self, events: List[ev.Event]) -> None:
         active = np.array([s.active for s in self.slots])
         toks = np.array([[s.last_token if s.active else 0] for s in self.slots], np.int32)
-        state = self._state
-        with torch.inference_mode():
-            logits, new_state = self.api.decode(
-                self.params, self.cfg, self._tensor(toks), state
+        if self._paged_on:
+            logits = self._decode_paged_launch(toks)
+        else:
+            state = self._state
+            with torch.inference_mode():
+                logits, new_state = self.api.decode(
+                    self.params, self.cfg, self._tensor(toks), state
+                )
+            # inactive slots keep their position (their cache row writes are
+            # masked by position for the next request placed there)
+            self._state = new_state._replace(
+                pos=torch.where(self._tensor(active), new_state.pos, state.pos)
             )
-        # inactive slots keep their position (their cache row writes are
-        # masked by position for the next request placed there)
-        self._state = new_state._replace(
-            pos=torch.where(self._tensor(active), new_state.pos, state.pos)
-        )
         nxt = logits.argmax(dim=-1).tolist()
         n_active = int(active.sum())
         lens = [
@@ -684,19 +780,32 @@ class ServingEngine:
             for s in self.slots
             if s.active
         ]
-        step_s = self.perf.t_decode(self.cost_cfg, 1, max(lens), batch=n_active)
+        if self._paged_on:
+            # live-blocks pricing: each slot is priced the KV bytes its
+            # block table streams, not the longest slot's padded length
+            step_s = self.perf.t_decode_paged(self.cost_cfg, lens)
+        else:
+            step_s = self.perf.t_decode(self.cost_cfg, 1, max(lens), batch=n_active)
         self.decode_steps += 1
         self.decode_busy_s += step_s
         self.decode_tokens += n_active
         self.clock.advance(step_s)
-        cost = self._c_gpu_s * step_s / n_active
+        if self._paged_on:
+            # bill each slot by the KV bytes its own live blocks stream (the
+            # weights are normalised, so the split conserves the step's
+            # dollars; uniform lengths give the dense equal split)
+            w = [self.perf.decode_kv_bytes(self.cost_cfg, n) for n in lens]
+            costs = [self._c_gpu_s * step_s * wi / sum(w) for wi in w]
+        else:
+            costs = [self._c_gpu_s * step_s / n_active] * n_active
+        cost_it = iter(costs)
         for s in self.slots:
             if not s.active:
                 continue
             tok = int(nxt[s.index])
             s.record.tokens.append(tok)
             s.record.decode_s += step_s
-            s.record.compute_cost += cost
+            s.record.compute_cost += next(cost_it)
             s.last_token = tok
             tok_ev = ev.TokenEmitted(
                 t_s=self.clock.now, req_id=s.request.req_id, token=tok, index=s.generated,
@@ -706,6 +815,31 @@ class ServingEngine:
                 self.on_token(tok_ev)
             s.generated += 1
             self._maybe_finish(s, events)
+
+    def _decode_paged_launch(self, toks: np.ndarray) -> torch.Tensor:
+        """One paged decode step across all slots: grow or copy-on-write
+        split the active slots' block tables for the incoming token, run the
+        shared-pool step, and count the appended tokens (tables and lengths
+        live on the host, in ``PagedSlots``)."""
+        ps = self._paged
+        splits = []
+        for s in self.slots:
+            if s.active:
+                cow = ps.prepare_append(s.index)
+                if cow is not None:
+                    splits.append(cow)
+        if splits:
+            self._copy_pool_blocks(splits)
+        with torch.inference_mode():
+            logits, self._pool_caches = self.api.decode_paged(
+                self.params, self.cfg, self._tensor(toks), self._pool_caches,
+                block_table=self._tensor(ps.tables),
+                pos=self._tensor(ps.lens.astype(np.int32)), block=self.ec.kv_block,
+            )
+        for s in self.slots:
+            if s.active:
+                ps.note_token(s.index)
+        return logits
 
     def _maybe_finish(self, s: Slot, events: List[ev.Event]) -> None:
         req = s.request
@@ -720,3 +854,8 @@ class ServingEngine:
             )
             s.active = False
             s.request = None
+            if self._paged_on:
+                # the slot's blocks go back to the pool (shared ones on their
+                # last reference) and its zeroed table sends stale writes to
+                # the dump block
+                self._paged.free(s.index)

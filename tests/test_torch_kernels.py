@@ -16,10 +16,14 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.decode_attention import decode_attention as pallas_decode  # noqa: E402
+from repro.kernels.flash_prefill import flash_attention as pallas_flash  # noqa: E402
 from repro.kernels.packed_prefill import packed_flash_attention as pallas_packed  # noqa: E402
-from repro_torch.kernels import build, ops  # noqa: E402
+from repro.kernels.paged_decode import paged_decode_attention as pallas_paged  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as dk  # noqa: E402
+from repro_torch.kernels import flash_prefill as fk  # noqa: E402
 from repro_torch.kernels import packed_prefill as pk  # noqa: E402
+from repro_torch.kernels import paged_decode as pdk  # noqa: E402
 
 torch.set_num_threads(1)
 ATOL = 2e-5
@@ -124,19 +128,160 @@ def test_fully_masked_decode_query_outputs_zeros():
     assert torch.count_nonzero(out) == 0
 
 
-@pytest.mark.parametrize("wrapper", ["packed", "decode"])
+FLASH_CASES = [
+    # (B, Sq, Skv, H, KV, hd, causal, window, offset, kv_valid)
+    (2, 24, 40, 4, 2, 16, True, None, 8, False),  # GQA suffix prefill, Sq < 128
+    (1, 40, 64, 4, 4, 16, True, None, 0, False),  # full prefill, invalid tail rows
+    (2, 33, 48, 8, 2, 32, True, 9, 5, False),  # sliding window
+    (2, 12, 20, 4, 1, 16, False, None, 0, False),  # non-causal (cross-attention), MQA
+    (1, 16, 32, 6, 3, 16, True, None, 4, True),  # kv_valid
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal,window,offset,valid", FLASH_CASES)
+def test_flash_plain_matches_reference(B, Sq, Skv, H, KV, hd, causal, window, offset, valid):
+    """The per-request prefill's attention: queries at ``offset + i`` over a
+    cache whose rows past ``offset + Sq`` carry kv_pos -1, as
+    ``attention.prefill`` lays it out."""
+    rng = np.random.default_rng(Sq * Skv + H)
+    q = rng.standard_normal((B, Sq, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, Skv, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Skv, KV, hd)).astype(np.float32)
+    offs = np.array([offset + b for b in range(B)])[:, None]
+    q_pos = (offs + np.arange(Sq)[None]).astype(np.int32)
+    idx = np.arange(Skv)[None]
+    if causal:
+        kv_pos = np.where(idx < offs + Sq, idx, -1).astype(np.int32)
+    else:
+        kv_pos = np.broadcast_to(idx, (B, Skv)).astype(np.int32)
+        q_pos[:] = 0
+    assert (kv_pos < 0).any() or not causal
+    args = dict(q=q, k=k, v=v, q_pos=q_pos, kv_pos=kv_pos)
+    kv_valid = rng.random((B, Skv)) > 0.3 if valid else None
+    extra_t = {} if kv_valid is None else {"kv_valid": torch.from_numpy(kv_valid)}
+    extra_j = {} if kv_valid is None else {"kv_valid": jnp.asarray(kv_valid)}
+    got = ops.flash_attention(**_torch(args), causal=causal, window=window, **extra_t).numpy()
+    want = np.asarray(jref.attention_ref(**_jnp(args), causal=causal, window=window, **extra_j))
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    if kv_valid is None:  # the Pallas kernel takes no kv_valid
+        pallas = np.asarray(pallas_flash(
+            **_jnp(args), causal=causal, window=window, interpret=True, block_q=16,
+            block_kv=16,
+        ))
+        np.testing.assert_allclose(got, pallas, atol=ATOL)
+
+
+def _pool_case(lens, KV, hd, block, max_len, seed=0, H=None):
+    """A random pool and block tables for ``lens`` live tokens per slot (the
+    blocks scattered over the pool), plus the equivalent dense slotted cache
+    of the same padded length, as ``tests/test_paged_decode.py`` builds it."""
+    rng = np.random.default_rng(seed)
+    B = len(lens)
+    nb = max_len // block
+    n_blocks = 1 + B * nb
+    pool_k = rng.standard_normal((n_blocks * block, KV, hd)).astype(np.float32)
+    pool_v = rng.standard_normal((n_blocks * block, KV, hd)).astype(np.float32)
+    tables = np.zeros((B, nb), np.int32)
+    dense_k = np.zeros((B, max_len, KV, hd), np.float32)
+    dense_v = np.zeros((B, max_len, KV, hd), np.float32)
+    order = rng.permutation(np.arange(1, n_blocks))
+    nxt = 0
+    for b, L in enumerate(lens):
+        for j in range(-(-L // block)):
+            bid = order[nxt]
+            tables[b, j] = bid
+            rows = slice(bid * block, (bid + 1) * block)
+            dense_k[b, j * block:(j + 1) * block] = pool_k[rows]
+            dense_v[b, j * block:(j + 1) * block] = pool_v[rows]
+            nxt += 1
+    q_pos = np.array([[L - 1] for L in lens], np.int32)
+    idx = np.arange(max_len, dtype=np.int32)[None]
+    kv_pos = np.where(idx <= q_pos, idx, -1).astype(np.int32)
+    q = rng.standard_normal((B, 1, H or 2 * KV, hd)).astype(np.float32)
+    return dict(q=q, pool_k=pool_k, pool_v=pool_v, tables=tables, q_pos=q_pos,
+                dense_k=dense_k, dense_v=dense_v, kv_pos=kv_pos)
+
+
+def _paged_args(c):
+    return (c["q"], c["pool_k"], c["pool_v"]), dict(block_table=c["tables"], q_pos=c["q_pos"])
+
+
+@pytest.mark.parametrize("KV,window", [(4, None), (2, None), (2, 200)])
+def test_paged_plain_matches_reference(KV, window):
+    """Multi-block sequences, scattered blocks, table padding pointing at
+    the dump block, against the jnp oracle and the Pallas kernel in
+    interpret mode."""
+    c = _pool_case([130, 257, 33], KV=KV, hd=16, block=128, max_len=384, seed=3)
+    (q, kp, vp), kw = _paged_args(c)
+    got = ops.paged_decode(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        **{n: torch.from_numpy(a) for n, a in kw.items()}, block=128, window=window,
+    ).numpy()
+    jargs = [jnp.asarray(a) for a in (q, kp, vp)]
+    jkw = {n: jnp.asarray(a) for n, a in kw.items()}
+    want = np.asarray(jref.paged_decode_ref(*jargs, **jkw, block=128, window=window))
+    pallas = np.asarray(pallas_paged(*jargs, **jkw, block=128, window=window, interpret=True))
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    np.testing.assert_allclose(got, pallas, atol=ATOL)
+
+
+@pytest.mark.parametrize("KV,window", [(4, None), (2, None), (2, 96)])
+def test_paged_plain_bit_identical_to_dense_plain(KV, window):
+    """The port's paged plain version gathers the live blocks and attends:
+    bitwise the port's dense plain decode over a slotted cache of the same
+    padded length (the contract of ``tests/test_paged_decode.py``)."""
+    c = _pool_case([5, 97, 128, 64], KV=KV, hd=16, block=32, max_len=128)
+    t = {n: torch.from_numpy(a) for n, a in c.items()}
+    paged_out = pdk.paged_decode_attention_plain(
+        t["q"], t["pool_k"], t["pool_v"], block_table=t["tables"], q_pos=t["q_pos"],
+        block=32, window=window,
+    )
+    dense_out = dk.decode_attention_plain(
+        t["q"], t["dense_k"], t["dense_v"], q_pos=t["q_pos"], kv_pos=t["kv_pos"],
+        window=window,
+    )
+    assert torch.equal(paged_out, dense_out)
+
+
+def test_paged_plain_freed_slot_reads_the_dump_row():
+    """A freed slot (zeroed table, position 0) attends row 0 of the dump
+    block only, so its output is that row's V for every head."""
+    c = _pool_case([40, 1], KV=2, hd=16, block=16, max_len=64, seed=4)
+    t = {n: torch.from_numpy(a) for n, a in c.items()}
+    t["tables"][1] = 0
+    t["q_pos"][1] = 0
+    out = ref.paged_decode_ref(t["q"], t["pool_k"], t["pool_v"], block_table=t["tables"],
+                               q_pos=t["q_pos"], block=16)
+    want = t["pool_v"][0].repeat_interleave(2, dim=0)  # [H, hd], G = 2
+    assert torch.equal(out[1, 0], want)
+
+
+WRAPPER_CALLS = {
+    "packed": lambda a: pk.packed_flash_attention(**a),
+    "decode": lambda a: dk.decode_attention(a["q"][:, :1], a["k"], a["v"],
+                                            q_pos=a["q_pos"][:, :1], kv_pos=a["kv_pos"]),
+    "flash": lambda a: fk.flash_attention(a["q"], a["k"], a["v"], q_pos=a["q_pos"],
+                                          kv_pos=a["kv_pos"]),
+    "paged": lambda a: pdk.paged_decode_attention(
+        a["q"][:, :1], a["k"][0], a["v"][0], block_table=torch.zeros(1, 1, dtype=torch.int32),
+        q_pos=a["q_pos"][:, :1], block=16),
+}
+
+
+def _launch_counts():
+    return (pk.packed_flash_attention.launches, dk.decode_attention.launches,
+            fk.flash_attention.launches, pdk.paged_decode_attention.launches)
+
+
+@pytest.mark.parametrize("wrapper", ["packed", "decode", "flash", "paged"])
 def test_kernel_wrappers_never_fall_back(wrapper):
     """A kernel wrapper given a CPU tensor raises: only ``ops`` picks the
     plain version, and only by the tensors' device."""
     args = _torch(_packed_inputs([(0, 8)], 2, 2, 32, 8, seed=0))
-    before = (pk.packed_flash_attention.launches, dk.decode_attention.launches)
+    before = _launch_counts()
     with pytest.raises(ValueError, match="CUDA tensor"):
-        if wrapper == "packed":
-            pk.packed_flash_attention(**args)
-        else:
-            dk.decode_attention(args["q"][:, :1], args["k"], args["v"],
-                                q_pos=args["q_pos"][:, :1], kv_pos=args["kv_pos"])
-    assert (pk.packed_flash_attention.launches, dk.decode_attention.launches) == before
+        WRAPPER_CALLS[wrapper](args)
+    assert _launch_counts() == before
 
 
 def test_library_name_tracks_sources():

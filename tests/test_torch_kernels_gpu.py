@@ -15,7 +15,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import decode_attention as dk  # noqa: E402
+from repro_torch.kernels import flash_prefill as fk  # noqa: E402
 from repro_torch.kernels import packed_prefill as pk  # noqa: E402
+from repro_torch.kernels import paged_decode as pdk  # noqa: E402
 
 F32_ATOL = 2e-5
 BF16_ATOL = 1e-2
@@ -127,3 +129,133 @@ def test_wrappers_count_launches_and_refuse_what_they_cannot_run(cuda):
         dk.decode_attention(q, k, k, q_pos=torch.zeros(1, 1, dtype=torch.int32, device=cuda),
                             kv_pos=torch.zeros(1, 8, dtype=torch.int32, device=cuda))
     assert pk.packed_flash_attention.launches == before + 1
+
+
+FLASH_CASES = [
+    # (B, Sq, L, H, KV, hd, causal, window, offset, with kv_valid)
+    (2, 24, 40, 4, 2, 32, True, None, 8, False),
+    (1, 300, 1024, 8, 8, 128, True, None, 100, False),  # max_len cache, invalid tail
+    (2, 70, 160, 8, 2, 64, True, 33, 20, False),
+    (2, 40, 96, 4, 1, 256, False, None, 0, False),  # cross-attention
+    (1, 64, 128, 6, 3, 128, True, None, 30, True),
+    (1, 130, 256, 16, 2, 128, True, 50, 0, True),  # GQA 8:1, window and kv_valid
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [("float32", F32_ATOL), ("bfloat16", BF16_ATOL)])
+@pytest.mark.parametrize("B,Sq,L,H,KV,hd,causal,window,offset,valid", FLASH_CASES)
+def test_flash_kernel_matches_plain_on_card(cuda, dtype, atol, B, Sq, L, H, KV, hd, causal,
+                                            window, offset, valid):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(Sq * L)
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dt)
+    k = torch.randn(B, L, KV, hd, generator=g, device=cuda).to(dt)
+    v = torch.randn(B, L, KV, hd, generator=g, device=cuda).to(dt)
+    offs = offset + torch.arange(B, device=cuda, dtype=torch.int32)[:, None]
+    q_pos = (offs + torch.arange(Sq, device=cuda, dtype=torch.int32)[None]).contiguous()
+    idx = torch.arange(L, device=cuda, dtype=torch.int32)[None]
+    kv_pos = torch.where(idx < offs + Sq, idx, -1).to(torch.int32).contiguous()
+    if not causal:
+        q_pos = torch.zeros_like(q_pos)
+        kv_pos = idx.expand(B, L).contiguous()
+    kv_valid = torch.rand(B, L, generator=g, device=cuda) > 0.3 if valid else None
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, causal=causal, window=window, kv_valid=kv_valid)
+    got = fk.flash_attention(q, k, v, **kw)
+    want = fk.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= atol
+
+
+def _pool(cuda, dt, lens, KV, H, hd, block, max_len, seed):
+    """A pool whose live blocks are scattered at random, with the block
+    tables and the equivalent dense cache of the same padded length."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed)
+    B, nb = len(lens), max_len // block
+    n_blocks = 1 + B * nb
+    k_pool = torch.randn(n_blocks * block, KV, hd, generator=g, device=cuda).to(dt)
+    v_pool = torch.randn(n_blocks * block, KV, hd, generator=g, device=cuda).to(dt)
+    order = (torch.randperm(n_blocks - 1, generator=g, device=cuda) + 1).tolist()
+    tables = torch.zeros(B, nb, dtype=torch.int32)
+    for b, L in enumerate(lens):
+        for j in range(-(-L // block)):
+            tables[b, j] = order.pop()
+    tables = tables.to(cuda)
+    q = torch.randn(B, 1, H, hd, generator=g, device=cuda).to(dt)
+    q_pos = torch.tensor([[max(L - 1, 0)] for L in lens], dtype=torch.int32, device=cuda)
+    return q, k_pool, v_pool, tables, q_pos
+
+
+PAGED_CASES = [
+    # (live lengths (0 = freed slot), H, KV, hd, block, max_len, window)
+    ([130, 257, 33], 4, 2, 32, 128, 384, None),
+    ([5, 0, 97, 128], 8, 8, 64, 32, 128, None),  # a freed slot
+    ([2050, 0, 2049, 0], 32, 32, 128, 128, 4096, None),  # the serve run's shape
+    ([300, 17], 16, 2, 128, 64, 512, 100),  # GQA 8:1 and a window
+    ([64, 200], 4, 4, 256, 16, 256, 40),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [("float32", F32_ATOL), ("bfloat16", BF16_ATOL)])
+@pytest.mark.parametrize("lens,H,KV,hd,block,max_len,window", PAGED_CASES)
+def test_paged_kernel_matches_plain_on_card(cuda, dtype, atol, lens, H, KV, hd, block,
+                                            max_len, window):
+    q, kp, vp, tables, q_pos = _pool(cuda, getattr(torch, dtype), lens, KV, H, hd, block,
+                                     max_len, seed=len(lens) * hd)
+    kw = dict(block_table=tables, q_pos=q_pos, block=block, window=window)
+    got = pdk.paged_decode_attention(q, kp, vp, **kw)
+    want = pdk.paged_decode_attention_plain(q, kp, vp, **kw)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    freed = [b for b, L in enumerate(lens) if L == 0]
+    assert torch.equal(got[freed], want[freed])  # a freed slot reads the dump row only
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 70])
+def test_paged_kernel_gives_the_dense_kernels_bits(cuda, window):
+    """Over the same rows the paged and dense decode kernels split the work
+    alike, so the paged kernel gives the dense kernel's output bit for bit."""
+    block, max_len, lens = 32, 512, [300, 1, 511, 96]
+    q, kp, vp, tables, q_pos = _pool(cuda, torch.bfloat16, lens, 4, 8, 128, block, max_len,
+                                     seed=7)
+    rows = (tables.long()[:, :, None] * block
+            + torch.arange(block, device=cuda)[None, None]).reshape(len(lens), max_len)
+    idx = torch.arange(max_len, device=cuda, dtype=torch.int32)[None]
+    kv_pos = torch.where(idx <= q_pos, idx, -1).to(torch.int32)
+    dense = dk.decode_attention(q, kp[rows].contiguous(), vp[rows].contiguous(), q_pos=q_pos,
+                                kv_pos=kv_pos, window=window)
+    got = pdk.paged_decode_attention(q, kp, vp, block_table=tables, q_pos=q_pos, block=block,
+                                     window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dense)
+
+
+@pytest.mark.gpu
+def test_new_wrappers_count_launches_and_refuse_what_they_cannot_run(cuda):
+    """The flash and paged decode wrappers count each launch and raise on a
+    CUDA tensor their kernel does not take."""
+    q, kp, vp, tables, q_pos = _pool(cuda, torch.float32, [40], 2, 4, 32, 16, 64, seed=1)
+    before = (fk.flash_attention.launches, pdk.paged_decode_attention.launches)
+    pdk.paged_decode_attention(q, kp, vp, block_table=tables, q_pos=q_pos, block=16)
+    k = kp[None, :64].contiguous()
+    pos = torch.arange(64, device=cuda, dtype=torch.int32)[None]
+    fk.flash_attention(q.expand(1, 1, 4, 32).contiguous(), k, k, q_pos=pos[:, :1], kv_pos=pos)
+    assert (fk.flash_attention.launches, pdk.paged_decode_attention.launches) == (
+        before[0] + 1, before[1] + 1)
+    with pytest.raises(ValueError, match="block"):
+        pdk.paged_decode_attention(q, kp[:-1], vp[:-1], block_table=tables, q_pos=q_pos,
+                                   block=16)
+    with pytest.raises(ValueError, match="H / KV"):
+        pdk.paged_decode_attention(q.repeat(1, 1, 5, 1), kp, vp, block_table=tables,
+                                   q_pos=q_pos, block=16)
+    with pytest.raises(ValueError, match="int32"):
+        fk.flash_attention(q[:, :, :4], k, k, q_pos=pos[:, :1].long(), kv_pos=pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.flash_attention(q[:, :, :4], k.transpose(2, 3).contiguous().transpose(2, 3), k,
+                           q_pos=pos[:, :1], kv_pos=pos)
+    assert (fk.flash_attention.launches, pdk.paged_decode_attention.launches) == (
+        before[0] + 1, before[1] + 1)

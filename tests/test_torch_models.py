@@ -177,3 +177,103 @@ def test_bf16_artifacts_keep_their_bit_pattern():
     paged.insert_slot(cfg, st2, 1, art)
     assert torch.equal(st2.caches[0].attn.k[:, 1, :10], src[:, 0, :10])
     assert st2.pos.tolist() == [0, 10]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_full_and_suffix_match_reference(arch):
+    """``lm.prefill`` through the port's flash attention: a full prefill of
+    a 40-token context into a fresh state, then the ``_execute_load`` shape
+    (the stored 40-row artifact inserted into a fresh slot, a 12-token
+    suffix prefilled after it) and two decode steps, against
+    ``repro.models.lm`` on the same weights."""
+    jcfg, jparams, cfg, params = _setup(arch)
+    rng = np.random.default_rng(5)
+    ctx = rng.integers(0, cfg.vocab, (2, 40)).astype(np.int32)
+    suffix = rng.integers(0, cfg.vocab, (2, 12)).astype(np.int32)
+
+    jl, jst = jlm.prefill(jparams, jcfg, jnp.asarray(ctx), jlm.init_state(jcfg, 2, MAX_LEN))
+    tl, tst = lm.prefill(params, cfg, torch.from_numpy(ctx),
+                         lm.init_state(cfg, 2, MAX_LEN, device="cpu"))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+    assert tl.argmax(-1).tolist() == np.asarray(jl).argmax(-1).tolist()
+    assert tst.pos.tolist() == np.asarray(jst.pos).tolist() == [40, 40]
+    for b in range(2):
+        want = jpaged.extract_slot(jcfg, jst, b, 40)
+        got = paged.extract_slot(cfg, tst, b, 40)
+        np.testing.assert_allclose(got.caches[0].attn.k, want.caches[0].attn.k, atol=ATOL)
+        np.testing.assert_allclose(got.caches[0].attn.v, want.caches[0].attn.v, atol=ATOL)
+
+    # suffix prefill after insert_slot of the stored rows (batch 1, as the
+    # reference's per-request load path runs it)
+    jart = jpaged.extract_slot(jcfg, jst, 1, 40)
+    js1 = jpaged.insert_slot(jcfg, jlm.init_state(jcfg, 1, MAX_LEN), 0, jart)
+    ts1 = paged.insert_slot(cfg, lm.init_state(cfg, 1, MAX_LEN, device="cpu"), 0,
+                            _port_artifact(jart))
+    jl, js1 = jlm.prefill(jparams, jcfg, jnp.asarray(suffix[1:]), js1)
+    tl, ts1 = lm.prefill(params, cfg, torch.from_numpy(suffix[1:]), ts1)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+    assert tl.argmax(-1).tolist() == np.asarray(jl).argmax(-1).tolist()
+    assert ts1.pos.tolist() == [52]
+    toks = np.asarray(jl).argmax(-1)[:, None].astype(np.int32)
+    for _ in range(2):
+        jl, js1 = jlm.decode(jparams, jcfg, jnp.asarray(toks), js1)
+        tl, ts1 = lm.decode(params, cfg, torch.from_numpy(toks), ts1)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+        assert tl.argmax(-1).tolist() == np.asarray(jl).argmax(-1).tolist()
+        toks = np.asarray(jl).argmax(-1)[:, None].astype(np.int32)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_paged_matches_reference(arch):
+    """``lm.decode_paged`` through the port's paged decode: two slots of 13
+    and 37 tokens land in a block pool of 16-row blocks and decode greedily
+    for 19 steps, so the shorter slot appends across a block boundary;
+    logits and the pool rows are held against ``repro.models.lm`` on the
+    same weights and tables."""
+    jcfg, jparams, cfg, params = _setup(arch)
+    rng = np.random.default_rng(2)
+    block, lens = 16, [13, 37]
+    B = len(lens)
+    ps, jps = paged.PagedSlots(B, MAX_LEN, block), jpaged.PagedSlots(B, MAX_LEN, block)
+    jpool = jpaged.init_pool_caches(jcfg, jps.pool.n_blocks, block, dtype=jnp.float32)
+    tpool = paged.init_pool_caches(cfg, ps.pool.n_blocks, block, device="cpu")
+    jk, jv = jpool[0].attn.k, jpool[0].attn.v
+    for b, L in enumerate(lens):
+        toks = rng.integers(0, cfg.vocab, (1, L)).astype(np.int32)
+        _, jst = jlm.prefill(jparams, jcfg, jnp.asarray(toks), jlm.init_state(jcfg, 1, MAX_LEN))
+        nb = -(-L // block)
+        own, jown = ps.admit(b, L), jps.admit(b, L)
+        assert own == jown
+        dst = paged.block_rows(own, block)
+        k_rows = np.asarray(jst.caches[0].attn.k[:, 0, : nb * block])
+        v_rows = np.asarray(jst.caches[0].attn.v[:, 0, : nb * block])
+        jk, jv = jk.at[:, dst].set(k_rows), jv.at[:, dst].set(v_rows)
+        tpool[0].attn.k[:, torch.from_numpy(dst)] = torch.from_numpy(k_rows)
+        tpool[0].attn.v[:, torch.from_numpy(dst)] = torch.from_numpy(v_rows)
+    jpool = (jpool[0]._replace(attn=jpool[0].attn._replace(k=jk, v=jv)),)
+
+    toks = np.array([[3], [7]], np.int32)
+    for _ in range(block + 3):
+        for b in range(B):
+            assert ps.prepare_append(b) is None and jps.prepare_append(b) is None
+        assert np.array_equal(ps.tables, jps.tables)
+        jl, jpool = jlm.decode_paged(
+            jparams, jcfg, jnp.asarray(toks), jpool, block_table=jnp.asarray(jps.tables),
+            pos=jnp.asarray(jps.lens, jnp.int32), block=block)
+        tl, tpool = lm.decode_paged(
+            params, cfg, torch.from_numpy(toks), tpool,
+            block_table=torch.from_numpy(ps.tables),
+            pos=torch.from_numpy(ps.lens.astype(np.int32)), block=block)
+        for b in range(B):
+            ps.note_token(b)
+            jps.note_token(b)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+        assert tl.argmax(-1).tolist() == np.asarray(jl).argmax(-1).tolist()
+        toks = np.asarray(jl).argmax(-1)[:, None].astype(np.int32)
+    for b in range(B):
+        rows = paged.block_rows(ps.tables[b, : int(ps.n_blocks[b])], block)[: int(ps.lens[b])]
+        np.testing.assert_allclose(tpool[0].attn.k[:, torch.from_numpy(rows)].numpy(),
+                                   np.asarray(jpool[0].attn.k[:, rows]), atol=ATOL)
+        np.testing.assert_allclose(tpool[0].attn.v[:, torch.from_numpy(rows)].numpy(),
+                                   np.asarray(jpool[0].attn.v[:, rows]), atol=ATOL)
+    ps.audit()
