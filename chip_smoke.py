@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels from ``src/repro_torch/kernels/csrc``
-with nvcc (one nvcc per source, all started together), then drives three
+Builds the port's five CUDA kernels from ``src/repro_torch/kernels/csrc``
+with nvcc (one nvcc per source, all started together), then drives four
 paths of the port, each with every launch counter zeroed just before it and
 read just after it:
 
@@ -11,17 +11,28 @@ read just after it:
    weights from a seeded generator) behind the port's ``ServingEngine``: the
    default ``EngineConfig`` but ``max_slots=4, max_len=4096``, H100
    ``PerfModel`` and prices, ``CostAwarePlanner``.  Two ~2,000-token
-   contexts, three requests each, arrive in three waves: the first
-   recomputes and writes back, the second loads, the third loads one context
-   and partially reuses a variant of the other.  The same traffic is then
-   served with reuse off, and each reused request's first-token logits are
-   held against it.
+   contexts arrive in four waves of two requests: the first recomputes and
+   writes back, the second loads, the third loads one context and partially
+   reuses a variant of the other, the fourth loads one context twice.  The
+   same traffic is then served with reuse off, and each reused request's
+   first-token logits are held against it.
 2. paged serve phase — the same traffic through ``EngineConfig(
    paged_decode=True, kv_block=128)``, after the dense engines are dropped:
    the same actions, first-token logits and every decode step's logits as
    the dense run, bit for bit, 32 paged-decode launches per decode step and
-   no dense-decode launch.
-3. per-request prefill phase — ``ModelApi.prefill`` of each request's
+   no dense-decode launch; the fourth wave's two loads share the stored
+   context's full pool blocks.  Then one copy-on-write split, built by hand
+   (engine traffic never needs one: the shared blocks lie below every
+   decode write), is copied on the card and held bit for bit.
+3. unified serve phase — the same traffic through ``EngineConfig(
+   paged_decode=True, unified_step=True, kv_block=128)``: every step is one
+   launch over the pool that mixes decode rows with 128-token prefill
+   chunks (32 chunked-prefill launches per mixed step, none of the packed
+   kernel), or a paged decode step when no chunk is ready.  The same
+   actions as the paged run, first-token logits within ``LOGIT_ATOL`` of
+   it, and its tokens, but where a request's tokens first part, the paged
+   run's logits there must be a near-tie (top two within ``LOGIT_ATOL``).
+4. per-request prefill phase — ``ModelApi.prefill`` of each request's
    context and prompt into a fresh batch-1 state (32 flash launches per
    call), held against the engine's first-token logits of the recompute
    run; then one load request's stored context inserted into a fresh slot
@@ -34,8 +45,11 @@ PyTorch version: in bf16 at atol 1e-2, and cast to f32 (TF32 off) at the
 CPU tests' atol 2e-5.  Times come from CUDA events after warm-up, beside
 the plain version's, one PyTorch library call's
 (``scaled_dot_product_attention`` with an explicit boolean mask, timed here
-only; for paged decode on rows gathered beforehand, the gather excluded)
-and the card's bound for the same work.
+only; for the paged kernels on rows gathered beforehand, the gather
+excluded)
+and the card's bound for the same work.  Last, both decode kernels run at
+granite-34b's heads (48 query heads on one kv head) against their plain
+versions, the paged kernel bit for bit equal to the dense one.
 
 Any failed check raises, so the script exits non-zero.  The line before the
 last is ``{"kernels": [...]}``; the last is the ``{"ok": true, ...}`` line.
@@ -60,6 +74,7 @@ import numpy as np  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import chunked_prefill as cpk  # noqa: E402
 from repro_torch.kernels import decode_attention as dk  # noqa: E402
 from repro_torch.kernels import flash_prefill as fk  # noqa: E402
 from repro_torch.kernels import packed_prefill as pk  # noqa: E402
@@ -89,14 +104,17 @@ F32_ATOL = 2e-5
 # norm into a 1/sqrt(d) head); 0.25 is a quarter of that scale.
 LOGIT_ATOL = 0.25
 SEED = 0
+DEVICE = "cuda"
 
 SERVE = dict(max_slots=4, max_len=4096)
 CTX_LEN, PROMPT_LEN, NEW_TOKENS = 2000, 32, 16
+VARIANT_SHARED = 1600  # leading tokens the variant of context B shares with it
 # the launch counter of each kernel, by the name the JSON line gives it
 COUNTERS = {"packed_flash_attention": pk.packed_flash_attention,
             "decode_attention": dk.decode_attention,
             "flash_attention": fk.flash_attention,
-            "paged_decode_attention": pdk.paged_decode_attention}
+            "paged_decode_attention": pdk.paged_decode_attention,
+            "chunked_prefill_attention": cpk.chunked_prefill_attention}
 
 
 def zero_counts() -> None:
@@ -116,16 +134,18 @@ def log(msg: str) -> None:
 # Traffic
 # --------------------------------------------------------------------------- #
 def traffic(vocab: int):
-    """Six requests over two ~2,000-token contexts A and B, in three waves
+    """Eight requests over two ~2,000-token contexts A and B, in four waves
     one modelled second apart (each wave finishes well inside a second on
     the H100 model, so later waves find the earlier contexts stored):
     wave 0 recomputes A and B and writes them back, wave 1 loads them, wave
-    2 loads A and reuses the first 1,600 tokens of a variant of B."""
+    2 loads A and reuses the first 1,600 tokens of a variant of B, wave 3
+    loads A twice (the paged engine's shared-prefix dedup)."""
     rng = np.random.default_rng(SEED)
     a = rng.integers(0, vocab, CTX_LEN).tolist()
     b = rng.integers(0, vocab, CTX_LEN).tolist()
-    b_variant = b[:1600] + rng.integers(0, vocab, 416).tolist()
-    contexts = [a, b, a, b, a, b_variant]
+    b_variant = b[:VARIANT_SHARED] + rng.integers(
+        0, vocab, CTX_LEN - VARIANT_SHARED + 16).tolist()
+    contexts = [a, b, a, b, a, b_variant, a, a]
     return [
         dict(req_id=i, context_tokens=ctx,
              prompt_tokens=rng.integers(0, vocab, PROMPT_LEN).tolist(),
@@ -151,17 +171,19 @@ class Recorder:
 
     def __init__(self, eng: ServingEngine, n_layers: int):
         self.eng, self.n_layers = eng, n_layers
-        self.packed_inputs, self.decode_inputs = None, None
-        self.first_logits = {}
+        self.packed_inputs, self.decode_inputs, self.chunked_inputs = None, None, None
         self.step_logits = []  # every decode step's logits of the active slots
+        self.last_logits = None  # the last model call's logits [rows, V], on the host
         self.spent = {}
-        self._calls = {"packed": 0, "decode": 0}
+        self._calls = {"packed": 0, "decode": 0, "chunked": 0}
         self._patched = [
             (ops, "packed_attention", self._packed),
             (ops, "decode_attention", self._decode),
             (ops, "paged_decode", self._paged),
+            (ops, "chunked_prefill", self._chunked),
             (eng, "api", eng.api._replace(prefill_packed=self._prefill, decode=self._step,
-                                          decode_paged=self._step_paged)),
+                                          decode_paged=self._step_paged,
+                                          prefill_chunked=self._step_chunked)),
         ]
         for name in ("fetch", "put"):
             self._patched.append((eng.store, name, self._timed(f"store_{name}",
@@ -171,6 +193,8 @@ class Recorder:
         if eng._paged_on:
             self._patched.append((eng, "_land_packed_in_pool", self._timed(
                 "land_in_pool", eng._land_packed_in_pool)))
+            self._patched.append((eng, "_pool_slot_artifact", self._timed(
+                "pool_to_host", eng._pool_slot_artifact)))
         self._orig = [(obj, name, getattr(obj, name)) for obj, name, _ in self._patched]
         self._orig_api = eng.api
         for obj, name, fn in self._patched:
@@ -210,10 +234,25 @@ class Recorder:
         self._calls["decode"] += 1
         return fn(*args, **kw)
 
+    def _chunked(self, *args, **kw):
+        # the first layer of the first launch that holds a decode row, a
+        # prefill chunk and an idle row
+        if self.chunked_inputs is None and self._calls["chunked"] % self.n_layers == 0:
+            valid = (kw["q_pos"] >= 0).sum(dim=1).tolist()
+            if 1 in valid and 0 in valid and max(valid) > 1:
+                self.chunked_inputs = keep(args, kw)
+        self._calls["chunked"] += 1
+        return self._orig[3][2](*args, **kw)
+
     def _prefill(self, *args, **kw):
         logits, caches = self._timed("model", self._orig_api.prefill_packed)(*args, **kw)
         assert torch.isfinite(logits).all(), "non-finite prefill logits"
-        self.batch_logits = logits.float().cpu()
+        self.last_logits = logits.float().cpu()
+        return logits, caches
+
+    def _step_chunked(self, *args, **kw):
+        logits, caches = self._timed("model", self._orig_api.prefill_chunked)(*args, **kw)
+        self.last_logits = logits.float().cpu()
         return logits, caches
 
     def _step(self, *args, **kw):
@@ -227,23 +266,28 @@ class Recorder:
         logits, state = self._timed("model", fn)(*args, **kw)
         assert torch.isfinite(logits[active]).all(), "non-finite decode logits"
         self.step_logits.append((active, logits[active].float().cpu()))
+        self.last_logits = logits.float().cpu()
         return logits, state
 
 
 def serve(cfg, params, *, reuse: bool = True, **ec_kw):
     """Serve the traffic once; returns (engine, records by id, recorder,
-    per-step rows (kind, wall_s, modelled load_s, modelled prefill or decode
-    s, q_len, kv_len, wall s by part), write-back count)."""
+    per-step rows (kind, wall_s, modelled load_s, modelled step s, q_len or
+    decode rows, kv_len or chunk tokens, wall s by part), write-back count).
+    The recorder keeps, per request, the logits each of its tokens was
+    taken from (``req_logits``, ``first_logits``) and the wall-clock instant
+    of each token (``token_wall``, seconds from the first step)."""
     eng = ServingEngine(
         cfg, params, engine_cfg=EngineConfig(reuse_enabled=reuse, **SERVE, **ec_kw),
-        planner=CostAwarePlanner(), device="cuda",
+        planner=CostAwarePlanner(), device=DEVICE,
     )
     for r in traffic(cfg.vocab):
         eng.submit(Request(**r))
     rec = Recorder(eng, cfg.n_layers)
     steps = []
-    first_logits = {}
+    slot_of, req_logits, token_wall = {}, {}, {}
     writebacks = 0
+    start = time.perf_counter()
     try:
         while not eng.idle:
             busy0 = eng.admission_busy_s + eng.decode_busy_s
@@ -254,19 +298,33 @@ def serve(cfg, params, *, reuse: bool = True, **ec_kw):
             wall = time.perf_counter() - t0
             modelled = eng.admission_busy_s + eng.decode_busy_s - busy0
             writebacks += sum(isinstance(e, ev.StoreWriteBack) for e in events)
+            slot_of.update((e.req_id, e.slot) for e in events
+                           if isinstance(e, ev.RequestAdmitted))
             batch = [e for e in events if isinstance(e, ev.BatchAdmitted)]
+            mixed = [e for e in events if isinstance(e, ev.UnifiedStep)]
+            tokens = [e for e in events if isinstance(e, ev.TokenEmitted)]
+            for e in tokens:
+                # a packed batch's logits are in batch order, a step's by slot
+                row = batch[0].req_ids.index(e.req_id) if batch else slot_of[e.req_id]
+                req_logits.setdefault(e.req_id, []).append(rec.last_logits[row])
+                token_wall.setdefault(e.req_id, []).append(t0 + wall - start)
             if batch:
                 prefill_s = next(e.prefill_s for e in events if isinstance(e, ev.PrefillDone))
                 steps.append(("prefill", wall, modelled - prefill_s, prefill_s,
                               batch[0].q_len, batch[0].kv_len, dict(rec.spent)))
-                for i, rid in enumerate(batch[0].req_ids):
-                    first_logits[rid] = rec.batch_logits[i]
-            elif any(isinstance(e, ev.TokenEmitted) for e in events):
+            elif mixed:
+                steps.append(("mixed", wall, 0.0, mixed[0].step_s, mixed[0].n_decode,
+                              mixed[0].chunk_tokens, dict(rec.spent)))
+            elif tokens:
                 steps.append(("decode", wall, 0.0, modelled, 0, 0, dict(rec.spent)))
+            elif any(isinstance(e, ev.RequestAdmitted) for e in events):
+                # a unified intake with no chunk ready yet: plan, fetch, land
+                steps.append(("intake", wall, 0.0, 0.0, 0, 0, dict(rec.spent)))
             rec.spent.clear()
     finally:
         rec.close()
-    rec.first_logits = first_logits
+    rec.req_logits, rec.token_wall = req_logits, token_wall
+    rec.first_logits = {i: lg[0] for i, lg in req_logits.items()}
     return eng, {r.req_id: r for r in eng.records}, rec, steps, writebacks
 
 
@@ -298,13 +356,14 @@ def bound_ms(bytes_: float, flops: float, dtype) -> tuple:
 
 def check_kernel(name, source, replaces, launches, inputs, kernel, plain, *, mask4,
                  index, kv_rows, pairs, note, label="", reps=10, plain_reps=3,
-                 sdpa_kv=lambda t: t, sdpa_note=""):
+                 q_rows=None, sdpa_kv=lambda t: t, sdpa_note=""):
     """Hold one kernel against its plain version on the inputs one of its
     launches received, in bf16 at ``BF16_ATOL`` and cast to f32 at
     ``F32_ATOL``, and time it, its plain version and SDPA with the explicit
     boolean mask ``mask4`` (on ``sdpa_kv`` of the K/V operands).  The bound
-    counts the bytes of q, the output, the ``index`` tensors and ``kv_rows``
-    K/V rows, and 4·hd·H operations per kept (query, kv row) pair.  Returns
+    counts the bytes of q (only its ``q_rows`` valid query rows where given),
+    the output, the ``index`` tensors and ``kv_rows`` K/V rows, and 4·hd·H
+    operations per kept (query, kv row) pair.  Returns
     the kernel's entry of the ``{"kernels": [...]}`` line, from the bf16 run."""
     (q, k, v), kw = inputs
     H, hd, KV = q.shape[2], q.shape[3], k.shape[-2]
@@ -323,7 +382,8 @@ def check_kernel(name, source, replaces, launches, inputs, kernel, plain, *, mas
         lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask4), reps=reps)
         kv_bytes = 2 * kv_rows * KV * hd * qq.element_size()
-        b, by = bound_ms(nbytes(qq, got, *index) + kv_bytes, 4.0 * hd * H * pairs, dtype)
+        q_bytes = nbytes(qq) if q_rows is None else q_rows * H * hd * qq.element_size()
+        b, by = bound_ms(q_bytes + nbytes(got, *index) + kv_bytes, 4.0 * hd * H * pairs, dtype)
         rows[dtype] = dict(err=err, ms=ms, plain=plain_ms, lib=lib, bound=b, by=by)
         log(f"kernel {name}{' ' + label if label else ''} {str(dtype)[6:]} "
             f"q{tuple(q.shape)} {note}: max_err={err:.3e} ms={ms:.4f} "
@@ -402,6 +462,85 @@ def check_paged(inputs, launches):
         reps=20, plain_reps=5, sdpa_kv=lambda t: t[rows], sdpa_note=" (gather excluded)")
 
 
+def check_chunked(inputs, launches):
+    (q, k_pool, _), kw = inputs
+    B = q.shape[0]
+    table, block = kw["block_table"], kw["block"]
+    L = table.shape[1] * block
+    rows = (table.long()[:, :, None] * block
+            + torch.arange(block, device=q.device)[None, None]).reshape(B, L)
+    idx = torch.arange(L, device=q.device)[None, None]
+    qp = kw["q_pos"].long()[:, :, None]
+    mask = idx <= qp  # [B, C, L]: validity is positional, padding keeps nothing
+    if kw.get("window") is not None:
+        mask = mask & (idx > qp - kw["window"])
+    pairs = int(mask.sum())  # per head
+    kept = int(mask.any(dim=1).sum())  # pool rows some query keeps
+    n_valid = (kw["q_pos"] >= 0).sum(dim=1).tolist()
+    # the kernel reads no padding query's row of q, so the bound counts only
+    # the valid query rows; SDPA runs on the rows gathered beforehand (the
+    # gather is not timed)
+    return check_kernel(
+        "chunked_prefill_attention", "chunked_prefill.cu",
+        "src/repro/kernels/chunked_prefill.py:104", launches, inputs,
+        cpk.chunked_prefill_attention, cpk.chunked_prefill_attention_plain,
+        mask4=mask[:, None], index=[table, kw["q_pos"]], kv_rows=kept, pairs=pairs,
+        q_rows=sum(n_valid),
+        note=f"pool{tuple(k_pool.shape)} table{tuple(table.shape)} valid queries/row "
+             f"{n_valid} kept_pairs/head={pairs} kept_rows={kept}",
+        reps=20, plain_reps=5, sdpa_kv=lambda t: t[rows], sdpa_note=" (gather excluded)")
+
+
+def check_wide_group(H=48, KV=1, hd=128, lens=(2050, 1, 2047, 700), block=128,
+                     max_len=4096):
+    """Both decode kernels at granite-34b's heads (48 query heads on one kv
+    head, split over tiles of 8), on seeded random rows: each against its
+    plain version (bf16 at ``BF16_ATOL``, f32 at ``F32_ATOL``), and the paged
+    kernel against the dense kernel over the same rows, bit for bit; each
+    kernel's time beside the bytes bound of q, the output and the kept
+    K/V rows."""
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED)
+    B, nb = len(lens), max_len // block
+    n_blocks = 1 + B * nb
+    order = (torch.randperm(n_blocks - 1, generator=g, device=DEVICE) + 1).tolist()
+    table = torch.zeros(B, nb, dtype=torch.int32)
+    for b, L in enumerate(lens):
+        for j in range(-(-L // block)):
+            table[b, j] = order.pop()
+    table = table.to(DEVICE)
+    q_pos = torch.tensor([[L - 1] for L in lens], dtype=torch.int32, device=DEVICE)
+    rows = (table.long()[:, :, None] * block
+            + torch.arange(block, device=DEVICE)[None, None]).reshape(B, max_len)
+    idx = torch.arange(max_len, device=DEVICE, dtype=torch.int32)[None]
+    kv_pos = torch.where(idx <= q_pos, idx, -1).to(torch.int32)
+    q32 = torch.randn(B, 1, H, hd, generator=g, device=DEVICE)
+    kp32 = torch.randn(n_blocks * block, KV, hd, generator=g, device=DEVICE)
+    vp32 = torch.randn(n_blocks * block, KV, hd, generator=g, device=DEVICE)
+    for dtype, atol in ((torch.bfloat16, BF16_ATOL), (torch.float32, F32_ATOL)):
+        q, kp, vp = (t.to(dtype) for t in (q32, kp32, vp32))
+        k, v = kp[rows].contiguous(), vp[rows].contiguous()
+        dense = dk.decode_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos)
+        dense_err = (dense.float() - dk.decode_attention_plain(
+            q, k, v, q_pos=q_pos, kv_pos=kv_pos).float()).abs().max().item()
+        kw = dict(block_table=table, q_pos=q_pos, block=block)
+        pool = pdk.paged_decode_attention(q, kp, vp, **kw)
+        paged_err = (pool.float() - pdk.paged_decode_attention_plain(
+            q, kp, vp, **kw).float()).abs().max().item()
+        torch.cuda.synchronize()
+        dense_ms = time_ms(lambda: dk.decode_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos),
+                           reps=20)
+        paged_ms = time_ms(lambda: pdk.paged_decode_attention(q, kp, vp, **kw), reps=20)
+        b, by = bound_ms(2 * nbytes(q) + 2 * sum(lens) * KV * hd * q.element_size(),
+                         4.0 * hd * H * sum(lens), dtype)
+        log(f"decode at H {H}, KV {KV} (G {H // KV}) {str(dtype)[6:]} q{tuple(q.shape)} "
+            f"lens {list(lens)}: dense max_err={dense_err:.3e} ms={dense_ms:.4f}, paged "
+            f"max_err={paged_err:.3e} ms={paged_ms:.4f}, bound_ms={b:.4f} ({by}); paged == "
+            f"dense bit for bit: {torch.equal(pool, dense)}")
+        assert dense_err <= atol and paged_err <= atol, (dtype, dense_err, paged_err)
+        assert torch.equal(pool, dense), f"G {H // KV} {dtype}: paged differs from dense"
+
+
 def log_steps(label, steps):
     for kind, wall, load_s, modelled, q_len, kv_len, parts in steps:
         parts = " ".join(f"{k}={1e3 * v:.2f}" for k, v in sorted(parts.items()))
@@ -409,9 +548,49 @@ def log_steps(label, steps):
             log(f"{label} step prefill q_len={q_len} kv_len={kv_len}: "
                 f"wall_ms={1e3 * wall:.2f} modelled_prefill_ms={1e3 * modelled:.3f} "
                 f"modelled_load_ms={1e3 * load_s:.3f} | wall ms by part: {parts}")
+        elif kind == "intake":
+            log(f"{label} step intake (no launch): wall_ms={1e3 * wall:.2f} | {parts}")
+        elif kind == "mixed":
+            log(f"{label} step mixed decode_rows={q_len} chunk_tokens={kv_len}: "
+                f"wall_ms={1e3 * wall:.2f} t_step_unified_ms={1e3 * modelled:.3f} | {parts}")
         else:
             log(f"{label} step decode: wall_ms={1e3 * wall:.2f} "
                 f"modelled_ms={1e3 * modelled:.3f} | {parts}")
+
+
+def log_decode_gaps(label, recs, rec):
+    """Each request's gaps between consecutive tokens: modelled (the
+    engine's clock) and wall (host clock at the end of each step)."""
+    for i, r in sorted(recs.items()):
+        wall = np.diff(rec.token_wall[i]) * 1e3
+        if len(wall) == 0:
+            continue
+        log(f"{label} request {i} decode gaps: wall ms median {np.median(wall):.2f} "
+            f"max {wall.max():.2f}; modelled ms per token "
+            f"{1e3 * r.decode_s / max(len(r.tokens) - 1, 1):.3f}")
+
+
+def top2_gap(logits) -> float:
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def check_cow(eng) -> None:
+    """Copy one pool block onto another through the engine's copy-on-write
+    path and hold the copied rows against the source rows, bit for bit."""
+    pool = eng._pool_caches[0].attn
+    block = eng.ec.kv_block
+    src, dst = 1, eng._paged.pool.n_blocks - 1
+    rows = lambda b: torch.arange(b * block, (b + 1) * block, device=pool.k.device)  # noqa: E731
+    before = pool.k[:, rows(src)].clone()
+    assert before.abs().sum() > 0, "the source block holds no rows"
+    eng._copy_pool_blocks([paged.CowSplit(src=src, dst=dst)])
+    torch.cuda.synchronize()
+    assert torch.equal(pool.k[:, rows(dst)], before), "copy-on-write: K rows differ"
+    assert torch.equal(pool.v[:, rows(dst)], pool.v[:, rows(src)]), "copy-on-write: V rows differ"
+    assert torch.equal(pool.k[:, rows(src)], before), "copy-on-write changed its source"
+    log(f"copy-on-write: pool block {src} copied onto block {dst} on the card, "
+        f"{2 * before.numel()} elements equal bit for bit")
 
 
 def stored_artifact(eng, tokens):
@@ -446,12 +625,12 @@ def per_request_prefill(cfg, params, reqs, recompute_logits, load_req, artifact,
             label[0] = None if recorded else "full"
             before = fk.flash_attention.launches
             tokens = r["context_tokens"] + r["prompt_tokens"]
-            state = api.init_state(cfg, 1, SERVE["max_len"], device="cuda")
+            state = api.init_state(cfg, 1, SERVE["max_len"], device=DEVICE)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with torch.inference_mode():
                 logits, state = api.prefill(
-                    params, cfg, torch.tensor([tokens], device="cuda"), state)
+                    params, cfg, torch.tensor([tokens], device=DEVICE), state)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             n = fk.flash_attention.launches - before
@@ -469,13 +648,13 @@ def per_request_prefill(cfg, params, reqs, recompute_logits, load_req, artifact,
         for attempt in range(2):
             label[0] = "suffix"
             before = fk.flash_attention.launches
-            state = api.init_state(cfg, 1, SERVE["max_len"], device="cuda")
+            state = api.init_state(cfg, 1, SERVE["max_len"], device=DEVICE)
             paged.insert_slot(cfg, state, 0, artifact)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with torch.inference_mode():
                 logits, state = api.prefill(
-                    params, cfg, torch.tensor([prompt], device="cuda"), state)
+                    params, cfg, torch.tensor([prompt], device=DEVICE), state)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             n = fk.flash_attention.launches - before
@@ -510,7 +689,7 @@ def main() -> None:
     # ---- dense serve phase ------------------------------------------------
     cfg = get_config("llama-7b")
     t0 = time.perf_counter()
-    params = lm.init(cfg, seed=SEED, device="cuda")
+    params = lm.init(cfg, seed=SEED, device=DEVICE)
     torch.cuda.synchronize()
     log(f"llama-7b bf16: {sum(p.numel() for p in _leaves(params)) / 1e9:.2f} B params "
         f"drawn in {time.perf_counter() - t0:.1f} s")
@@ -525,7 +704,7 @@ def main() -> None:
     actions = {i: (r.action, r.matched_tokens) for i, r in sorted(recs.items())}
     log(f"actions (action, matched tokens): {actions}")
     log(f"write-backs: {writebacks}, store entries: {len(eng.store.entries)}")
-    assert len(recs) == 6 and all(len(r.tokens) == NEW_TOKENS for r in recs.values())
+    assert len(recs) == 8 and all(len(r.tokens) == NEW_TOKENS for r in recs.values())
     assert any(a in ("load", "partial") for a, _ in actions.values()), actions
     assert any(a == "recompute" for a, _ in actions.values()) and writebacks >= 1, (
         actions, writebacks)
@@ -571,6 +750,8 @@ def main() -> None:
     assert paged_counts["paged_decode_attention"] == cfg.n_layers * pn_decode > 0, paged_counts
     assert paged_counts["decode_attention"] == paged_counts["flash_attention"] == 0
     assert paged_counts["packed_flash_attention"] > 0, paged_counts
+    assert paged_counts["chunked_prefill_attention"] == 0, paged_counts
+    assert peng.decode_stats()["shared_block_hits"] > 0, peng.decode_stats()
     for i in first_logits:
         assert torch.equal(prec.first_logits[i], first_logits[i]), f"first logits {i} differ"
     assert len(prec.step_logits) == len(step_logits), (len(prec.step_logits), len(step_logits))
@@ -583,7 +764,54 @@ def main() -> None:
         f"equal, tokens agreeing {agree}/{NEW_TOKENS * len(recs)}")
     assert peng._paged.pool.n_used == 0
     paged_inputs = prec.decode_inputs
-    del peng, prec
+    check_cow(peng)
+    del peng
+    torch.cuda.empty_cache()
+
+    # ---- unified serve phase ----------------------------------------------
+    zero_counts()
+    ueng, urecs, urec, usteps, _ = serve(cfg, params, paged_decode=True, unified_step=True,
+                                         kv_block=128)
+    unified_counts = counts()
+    ustats = ueng.unified_stats()
+    un_decode = ueng.decode_stats()["decode_steps"]
+    log(f"unified serve launches: {unified_counts} (mixed steps {ustats['steps']}, "
+        f"decode-only steps {un_decode})")
+    log_steps("unified", usteps)
+    log_decode_gaps("unified", urecs, urec)
+    log_decode_gaps("paged", precs, prec)
+    log(f"unified_stats: {json.dumps(ustats)}")
+    log(f"unified decode_stats: {json.dumps(ueng.decode_stats())}")
+    uactions = {i: (r.action, r.matched_tokens) for i, r in sorted(urecs.items())}
+    assert uactions == actions, (uactions, actions)
+    assert unified_counts["chunked_prefill_attention"] == cfg.n_layers * ustats["steps"] > 0, (
+        unified_counts, ustats)
+    assert unified_counts["packed_flash_attention"] == 0, unified_counts
+    assert unified_counts["paged_decode_attention"] == cfg.n_layers * un_decode, unified_counts
+    assert unified_counts["decode_attention"] == unified_counts["flash_attention"] == 0
+    assert ustats["jit"]["misses"] == 1, ustats
+    agree = same_requests = 0
+    for i in sorted(urecs):
+        diff = (urec.first_logits[i] - prec.first_logits[i]).abs().max().item()
+        assert diff <= LOGIT_ATOL, (i, diff)
+        ut, pt = urecs[i].tokens, precs[i].tokens
+        part = next((n for n, (x, y) in enumerate(zip(ut, pt)) if x != y), None)
+        note = "all equal"
+        if part is not None:
+            gap = top2_gap(prec.req_logits[i][part])
+            note = f"first differ at token {part}, paged top-two gap there {gap:.4f}"
+            assert gap < LOGIT_ATOL, (i, part, gap)
+        agree += sum(x == y for x, y in zip(ut, pt))
+        same_requests += part is None
+        log(f"unified request {i}: first-token logits max|unified - paged| = {diff:.4f}; "
+            f"tokens {note}")
+    log(f"unified vs paged: {same_requests}/{len(urecs)} requests' tokens equal, "
+        f"tokens agreeing {agree}/{NEW_TOKENS * len(urecs)}")
+    ueng._paged.audit()
+    assert ueng._paged.pool.n_used == 0
+    chunked_inputs = urec.chunked_inputs
+    assert chunked_inputs is not None, "no launch held a decode, a chunk and an idle row"
+    del ueng, urec, prec
     torch.cuda.empty_cache()
 
     # ---- per-request prefill phase ----------------------------------------
@@ -601,8 +829,10 @@ def main() -> None:
     kernels = [check_packed(packed_inputs, dense_counts["packed_flash_attention"]),
                check_decode(decode_inputs, dense_counts["decode_attention"]),
                check_flash(flash_full, prefill_counts["flash_attention"], "full"),
-               check_paged(paged_inputs, paged_counts["paged_decode_attention"])]
+               check_paged(paged_inputs, paged_counts["paged_decode_attention"]),
+               check_chunked(chunked_inputs, unified_counts["chunked_prefill_attention"])]
     check_flash(flash_suffix, prefill_counts["flash_attention"], "suffix")
+    check_wide_group()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

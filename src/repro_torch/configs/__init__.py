@@ -2,7 +2,7 @@
 
 ``llama-7b`` is the paper's own model; ``qwen2-1.5b`` adds QKV bias, GQA and
 tied embeddings.  The other archs of the reference's registry come with
-their model families (ROADMAP queue A item 12)."""
+their model families (ROADMAP queue A items 4 and 9)."""
 from __future__ import annotations
 
 import dataclasses
@@ -28,7 +28,7 @@ def reduced_config(cfg: ArchConfig, **overrides) -> ArchConfig:
     restricted to the dense family)."""
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.family} archs are not ported yet (ROADMAP queue A item 12)"
+            f"{cfg.family} archs are not ported yet (ROADMAP queue A items 4 and 9)"
         )
     small = dict(
         n_layers=2,

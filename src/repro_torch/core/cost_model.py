@@ -21,7 +21,7 @@ Beyond-paper extensions (kept separate, clearly flagged):
   * O(1) SSM/hybrid stored state (``ArchConfig.fixed_state_bytes``).
 
 The reference's fused-reuse and routed-request terms come with those
-features (ROADMAP queue A items 7 and 9).
+features (ROADMAP queue A items 2 and 6).
 """
 from __future__ import annotations
 

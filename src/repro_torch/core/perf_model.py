@@ -213,6 +213,78 @@ class PerfModel:
         l_att = min(L, cfg.sliding_window) if cfg.sliding_window else L
         return cfg.kv_bytes_per_token(2) * l_att + cfg.fixed_state_bytes(2)
 
+    def _chunk_flops(self, cfg: ArchConfig, n_new: int, L_end: int) -> float:
+        """FLOPs of one prefill chunk: ``n_new`` tokens at positions
+        ``[L_end - n_new, L_end)``, each attending its full causal prefix
+        (the token at position p reads p+1 KV rows)."""
+        from repro_torch.models.registry import count_active_params
+
+        flops = 2.0 * count_active_params(cfg) * n_new
+        if cfg.n_attn_layers:
+            rows = n_new * (L_end - n_new) + n_new * (n_new + 1) / 2.0
+            flops += (
+                4.0 * cfg.n_attn_layers * cfg.n_heads * cfg.resolved_head_dim * rows
+            )
+        return flops
+
+    def t_step_unified(self, cfg: ArchConfig, decode_lens, chunks) -> float:
+        """One unified continuous-batching step: decode rows with live
+        context lengths ``decode_lens`` and prefill chunks ``chunks`` (each
+        ``(n_new, L_end)``: ``n_new`` tokens ending at total length
+        ``L_end``) in one launch over the block pool
+        (``kernels/chunked_prefill.py``).
+
+        FLOPs and KV bytes add up across rows; the parameters stream from
+        HBM once for the whole launch.  With no chunks this delegates to
+        ``t_decode_paged``: the unified engine's decode-only steps price
+        exactly as the paged path's, the golden-parity anchor.
+        """
+        decode_lens = [int(L) for L in decode_lens if L > 0]
+        chunks = [(int(n), int(L)) for n, L in chunks if n > 0]
+        if not chunks:
+            return self.t_decode_paged(cfg, decode_lens)
+        hw = self.hw
+        from repro_torch.models.registry import count_active_params
+
+        param_bytes = count_active_params(cfg) * 2
+        flops = 0.0
+        kv_bytes = 0.0
+        for L in decode_lens:
+            flops += self.decode_flops_per_token(cfg, L)
+            kv_bytes += self.decode_kv_bytes(cfg, L)
+        for n, L_end in chunks:
+            flops += self._chunk_flops(cfg, n, L_end)
+            kv_bytes += cfg.kv_bytes_per_token(2) * L_end
+        mem = (param_bytes + kv_bytes) / (hw.devices * hw.hbm_bw * hw.membw_eff)
+        comp = flops / (hw.devices * hw.peak_flops * hw.mfu)
+        return max(comp, mem)
+
+    def step_unified_shares(self, cfg: ArchConfig, decode_lens, chunks):
+        """Per-row shares of one unified step's cost: each row's standalone
+        launch cost under the same roofline, normalised.  Returns
+        ``(decode_shares, chunk_shares)`` aligned with the inputs; they sum
+        to 1, so billing ``share * step_s`` per row conserves the launch's
+        dollars exactly."""
+        w_dec = [self.t_decode(cfg, 1, int(L), batch=1) for L in decode_lens]
+        hw = self.hw
+        from repro_torch.models.registry import count_active_params
+
+        param_bytes = count_active_params(cfg) * 2
+        w_chk = []
+        for n, L_end in chunks:
+            comp = self._chunk_flops(cfg, int(n), int(L_end)) / (
+                hw.devices * hw.peak_flops * hw.mfu
+            )
+            mem = (param_bytes + cfg.kv_bytes_per_token(2) * int(L_end)) / (
+                hw.devices * hw.hbm_bw * hw.membw_eff
+            )
+            w_chk.append(max(comp, mem))
+        total = sum(w_dec) + sum(w_chk)
+        if total <= 0.0:
+            n = max(len(w_dec) + len(w_chk), 1)
+            return [1.0 / n] * len(w_dec), [1.0 / n] * len(w_chk)
+        return [w / total for w in w_dec], [w / total for w in w_chk]
+
     # ----------------------------------------------------------------- #
     # KV movement (the paper's transmission delay)
     # ----------------------------------------------------------------- #

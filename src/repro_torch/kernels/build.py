@@ -21,7 +21,8 @@ import time
 from typing import Dict, Iterable, Optional
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-KERNELS = ("packed_prefill", "decode_attention", "flash_prefill", "paged_decode")
+KERNELS = ("packed_prefill", "decode_attention", "flash_prefill", "paged_decode",
+           "chunked_prefill")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -58,6 +59,13 @@ _SIGNATURES = {
         [_P] * 6
         # B nb n_blocks block H KV hd dtype has_window window
         + [_I] * 10 + [_F, _P],  # scale stream
+    ),
+    "chunked_prefill": (
+        "chunked_prefill_attention_launch",
+        # q k_pool v_pool block_table q_pos out
+        [_P] * 6
+        # B C nb n_blocks block H KV hd dtype has_window window
+        + [_I] * 11 + [_F, _P],  # scale stream
     ),
 }
 

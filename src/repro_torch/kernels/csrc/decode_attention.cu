@@ -7,15 +7,15 @@
 // p - window, and (when given) kv_valid; a query that every row masks
 // outputs zeros.
 //
-// The body is decode_block.cuh's (one block per (sequence, kv head), G query
-// heads sharing each row; its header says what bounds it, bytes, and what
+// The body is decode_block.cuh's (one block per (sequence, kv head, tile of
+// up to 8 of its G query heads), the tile's heads sharing each row; its header says what bounds it, bytes, and what
 // the design does about it).  This kernel's row source reads the int32
 // positions first and loads only the rows the mask keeps, so a slot that has
 // filled 2,000 of 4,096 cache rows streams 2,000 rows.
 //
 // Layouts (all contiguous): q, out [B, 1, H, hd]; k, v [B, L, KV, hd];
 // q_pos [B, 1] int32; kv_pos [B, L] int32; kv_valid [B, L] bool or null.
-// Grid (KV, B), 256 threads.
+// Grid (KV, B, ceil(G / 8)), 256 threads.
 
 #include "decode_block.cuh"
 
@@ -58,8 +58,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
                        q_pos[b],
                        has_window,
                        window};
-  const size_t qo = (size_t(b) * H + size_t(kvh) * G) * HD;
-  attend<T, EPL, GM>(q + qo, k, v, out + qo, rows, 0, L, G, scale, sm);
+  const size_t qo = (size_t(b) * H + size_t(kvh) * G + tile_first()) * HD;
+  attend<T, EPL, GM>(q + qo, k, v, out + qo, rows, 0, L, tile_count(G), scale, sm);
 }
 
 // One launch's arguments; `run` launches the instantiation `dispatch` picks.
@@ -78,7 +78,7 @@ struct DenseLaunch {
     auto kernel = decode_kernel<T, EPL, GM>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return int(err);
-    kernel<<<dim3(KV, B), THREADS, smem, stream>>>(
+    kernel<<<dim3(KV, B, g_tiles(H / KV)), THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), q_pos,
         kv_pos, kv_valid, static_cast<T*>(out), L, H, KV, has_window, window, scale);
     return int(cudaGetLastError());
@@ -91,7 +91,7 @@ struct DenseLaunch {
 
 // Plain C entry point (bound with ctypes).  Returns the CUDA status of the
 // launch: 0 on success, cudaErrorInvalidValue for an unsupported head_dim,
-// dtype or head grouping (G = H / KV must be at most 8).
+// dtype or head grouping.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const int* q_pos, const int* kv_pos,
                                        const unsigned char* kv_valid, void* out, int B, int L,

@@ -1,7 +1,7 @@
 // The body shared by the decode kernels `decode_attention`
 // (decode_attention.cu, dense slotted cache) and `paged_decode_attention`
 // (paged_decode.cu, shared block pool): one query token per sequence, one
-// block per (sequence, kv head).
+// block per (sequence, kv head, tile of up to GT of its query heads).
 //
 // What bounds both on the H100: bytes.  Each kept cache row is read once and
 // feeds only 4 * G * hd FLOPs, far below the card's operations-per-byte
@@ -14,8 +14,12 @@
 // partial (m, l, acc) are merged through shared memory at the end.  A
 // `Rows` source says where row j lives and whether the query keeps it; the
 // two kernels differ only in that source, so over the same rows they do the
-// same arithmetic in the same order.  Splitting one sequence's cache over
-// several blocks (split-K) is later work.
+// same arithmetic in the same order.  A block holds at most GT = 8 query
+// heads in registers; a kv head with more (granite-34b's 48 on one kv head)
+// is split over blockIdx.z into tiles of GT heads, each re-reading the kv
+// head's rows.  For G <= GT there is one tile, and the arithmetic is that of
+// one block per kv head.  Splitting one sequence's cache over several blocks
+// (split-K) is later work.
 #pragma once
 
 #include <cstdint>
@@ -29,10 +33,19 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int NW = THREADS / 32;
 constexpr int R = 4;  // cache rows a warp keeps in flight
+constexpr int GT = 8;  // query heads a block takes (a tile of one kv head's G)
+
+// The blocks of one kv head (grid axis z) and the heads one block holds.
+inline int g_tiles(int G) { return (G + GT - 1) / GT; }
+inline int tile_heads(int G) { return G < GT ? G : GT; }
 
 inline size_t smem_bytes(int G, int epl) {
-  return sizeof(float) * size_t(NW) * G * (2 + 32 * epl);
+  return sizeof(float) * size_t(NW) * tile_heads(G) * (2 + 32 * epl);
 }
+
+// The first of this block's query heads within its kv head, and their count.
+__device__ __forceinline__ int tile_first() { return int(blockIdx.z) * GT; }
+__device__ __forceinline__ int tile_count(int G) { return min(GT, G - int(blockIdx.z) * GT); }
 
 // Attend the rows j in [begin, end) that `rows.keep(j)` keeps; the K/V row of
 // j starts at element `rows.offset(j)` of k and v (kv head included).  Warp w
@@ -143,17 +156,17 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
 }
 
 // Call `l.run<T, EPL, GM>()` for the element type of `dtype`, EPL = hd / 32
-// and the smallest GM >= G of 1, 2, 4, 8; cudaErrorInvalidValue for anything
-// else (a dtype other than f32/bf16, a head_dim not in {32, 64, 128, 256}, or
-// more than 8 query heads per kv head).
+// and the smallest GM of 1, 2, 4, 8 that holds a block's tile_heads(G);
+// cudaErrorInvalidValue for anything else (a dtype other than f32/bf16, a
+// head_dim not in {32, 64, 128, 256}, or G < 1).
 template <typename L, typename T, int EPL>
 int dispatch_g(const L& l, int G) {
   if (G < 1) return int(cudaErrorInvalidValue);
-  if (G <= 1) return l.template run<T, EPL, 1>();
-  if (G <= 2) return l.template run<T, EPL, 2>();
-  if (G <= 4) return l.template run<T, EPL, 4>();
-  if (G <= 8) return l.template run<T, EPL, 8>();
-  return int(cudaErrorInvalidValue);
+  const int Gt = tile_heads(G);
+  if (Gt <= 1) return l.template run<T, EPL, 1>();
+  if (Gt <= 2) return l.template run<T, EPL, 2>();
+  if (Gt <= 4) return l.template run<T, EPL, 4>();
+  return l.template run<T, EPL, GT>();
 }
 
 template <typename L, typename T>

@@ -36,5 +36,5 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const Args a{q,     k,   v,  q_pos, kv_pos, nullptr, nullptr,    kv_valid,
                out,   B,   Sq, Skv,   H,      KV,      causal,     has_window,
                window, scale, static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(dtype, hd, a);
+  return dispatch<ROWS_DENSE>(dtype, hd, a);
 }

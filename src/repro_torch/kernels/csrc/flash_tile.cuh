@@ -1,10 +1,17 @@
 // The tiled flash-attention kernel shared by `flash_attention`
-// (flash_prefill.cu) and `packed_flash_attention` (packed_prefill.cu).
+// (flash_prefill.cu), `packed_flash_attention` (packed_prefill.cu) and
+// `chunked_prefill_attention` (chunked_prefill.cu).  The three differ only
+// in where kv row j comes from (the SRC template argument):
+//
+//   ROWS_DENSE      row j of the sequence's own k/v, at position kv_pos[j];
+//   ROWS_SEGMENTED  the same, plus a segment id kv_seg[j] (packed batches);
+//   ROWS_PAGED      position j itself, read from the shared block pool at
+//                   row table[b, j / block] * block + j % block.
 //
 // A key row j is kept for a query i iff kv_pos[j] >= 0, kv_valid[j] (when
-// given), q_seg[i] == kv_seg[j] (SEG only), kv_pos[j] <= q_pos[i] (causal)
-// and, with a window, kv_pos[j] > q_pos[i] - window.  Queries that every key
-// masks output zeros.
+// given), q_seg[i] == kv_seg[j] (segmented only), kv_pos[j] <= q_pos[i]
+// (causal) and, with a window, kv_pos[j] > q_pos[i] - window.  Queries that
+// every key masks output zeros.
 //
 // What bounds both kernels on the H100: operations.  At the serving path's
 // shapes (thousands of queries, 32 heads, hd 128) the QK^T and PV products
@@ -23,9 +30,18 @@
 // an online softmax (m, l, acc) in f32.  Tensor-core (wgmma) tiles, TMA
 // loads and warp specialisation are later work.
 //
-// Layouts (all contiguous): q, out [B, Sq, H, hd]; k, v [B, Skv, KV, hd];
-// q_pos [B, Sq] int32; kv_pos [B, Skv] int32; q_seg [B, Sq], kv_seg [B, Skv]
-// int32 (SEG only); kv_valid [B, Skv] bool or null.
+// The paged source reads no kv_pos: a query tile loops over positions
+// [max(0, min_q - window + 1), min(max_q, nb * block - 1)] only, where min_q
+// and max_q are its smallest and largest valid (>= 0) query positions, so
+// table padding on the dump block is never read, no padding query's q row
+// is read, and a tile whose queries are all padding writes zeros without
+// touching q or the pool.  A table entry outside [0, n_blocks) on that
+// range traps.
+//
+// Layouts (all contiguous): q, out [B, Sq, H, hd]; k, v [B, Skv, KV, hd]
+// (paged: the pool [n_blocks * block, KV, hd]); q_pos [B, Sq] int32; kv_pos
+// [B, Skv] int32; q_seg [B, Sq], kv_seg [B, Skv] int32 (segmented only);
+// kv_valid [B, Skv] bool or null; table [B, nb] int32 (paged only).
 // Grid (ceil(Sq / BQ), H, B), 256 threads.
 #pragma once
 
@@ -43,11 +59,18 @@ constexpr int BKV = 32;   // kv rows per tile (one per lane of warp 0)
 constexpr int SP = BKV + 1;  // padded row stride of the score tile
 constexpr int THREADS = 256;
 
+// kv row sources (see the header)
+constexpr int ROWS_DENSE = 0;
+constexpr int ROWS_SEGMENTED = 1;
+constexpr int ROWS_PAGED = 2;
+
 template <int HD>
 constexpr size_t smem_bytes() {
+  // the int arrays end on an 8-byte boundary (HD is a multiple of 16), so
+  // the paged row offsets that follow them are aligned
   return sizeof(float) * (size_t(BQ) * HD + size_t(BKV) * (HD + 1) + size_t(BKV) * HD +
                           size_t(BQ) * SP + 3 * BQ) +
-         sizeof(int) * (2 * BQ + 2 * BKV);
+         sizeof(int) * (2 * BQ + 2 * BKV) + sizeof(long long) * BKV;
 }
 
 __device__ __forceinline__ int warp_min(int x) {
@@ -61,15 +84,19 @@ __device__ __forceinline__ int warp_max(int x) {
   return x;
 }
 
-// SEG: segment-isolated (packed) attention; q_seg/kv_seg are read only then.
-template <typename T, int HD, bool SEG>
+// SRC: the kv row source; q_seg/kv_seg are read only for ROWS_SEGMENTED,
+// table/nb/n_blocks/block only for ROWS_PAGED, kv_pos/kv_valid never then.
+template <typename T, int HD, int SRC>
 __global__ void __launch_bounds__(THREADS)
 tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
             const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
-            const unsigned char* __restrict__ kv_valid, T* __restrict__ out, int Sq,
-            int Skv, int H, int KV, int causal, int has_window, int window, float scale) {
+            const unsigned char* __restrict__ kv_valid, const int* __restrict__ table,
+            T* __restrict__ out, int Sq, int Skv, int H, int KV, int causal, int has_window,
+            int window, float scale, int nb, int n_blocks, int block) {
   static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
+  constexpr bool SEG = SRC == ROWS_SEGMENTED;
+  constexpr bool PAGED = SRC == ROWS_PAGED;
   constexpr int CT = HD / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;                   // [BQ][HD]
@@ -83,6 +110,7 @@ tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   int* qs_s = qp_s + BQ;              // [BQ]
   int* kp_s = qs_s + BQ;              // [BKV] (-1 = invalid row)
   int* ks_s = kp_s + BKV;             // [BKV]
+  long long* ko_s = reinterpret_cast<long long*>(ks_s + BKV);  // [BKV] pool offsets (paged)
   __shared__ int q_info[4];           // seg_lo, seg_hi, pos_lo, pos_hi
   __shared__ int tile_skip;
 
@@ -92,10 +120,6 @@ tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
 
-  for (int i = tid; i < BQ * HD; i += THREADS) {
-    const int r = i / HD, d = i % HD, qi = q0 + r;
-    Qs[i] = qi < Sq ? to_float(q[((size_t(b) * Sq + qi) * H + h) * HD + d]) : 0.f;
-  }
   if (tid < BQ) {
     const int qi = q0 + tid;
     // rows past Sq are never written; INT_MIN keeps them out of every segment
@@ -108,7 +132,8 @@ tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   if (tid < 32) {
     int slo = INT_MAX, shi = INT_MIN, plo = INT_MAX, phi = INT_MIN;
     for (int r = tid; r < BQ; r += 32) {
-      if (q0 + r < Sq) {
+      // a paged tile's padding queries (q_pos < 0) set no bounds
+      if (q0 + r < Sq && (!PAGED || qp_s[r] >= 0)) {
         slo = min(slo, qs_s[r]);
         shi = max(shi, qs_s[r]);
         plo = min(plo, qp_s[r]);
@@ -127,6 +152,35 @@ tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     }
   }
 
+  __syncthreads();  // q_info is read by every thread below
+
+  // the kv rows this query tile visits: every row, or (paged) the positions
+  // its valid queries can reach; rows of [kv_begin, lo_row) stay masked
+  int kv_begin = 0, kv_end = Skv, lo_row = 0;
+  if constexpr (PAGED) {
+    if (q_info[3] == INT_MIN) {  // all padding: zeros, q and the pool unread
+      for (int i = tid; i < BQ * HD; i += THREADS) {
+        const int r = i / HD, d = i % HD, qi = q0 + r;
+        if (qi < Sq) out[((size_t(b) * Sq + qi) * H + h) * HD + d] = from_float<T>(0.f);
+      }
+      return;
+    }
+    long long lo = has_window ? (long long)q_info[2] - window + 1 : 0;
+    if (lo < 0) lo = 0;
+    const long long last = min((long long)q_info[3], (long long)nb * block - 1);
+    lo_row = lo > last ? int(last) + 1 : int(lo);
+    kv_end = int(last) + 1;
+    kv_begin = lo_row - lo_row % BKV;
+  }
+
+  // the tile's queries (a paged tile reads no padding query's row); the
+  // kv loop's first barrier orders these writes before their first use
+  for (int i = tid; i < BQ * HD; i += THREADS) {
+    const int r = i / HD, d = i % HD, qi = q0 + r;
+    const bool read = qi < Sq && (!PAGED || qp_s[r] >= 0);
+    Qs[i] = read ? to_float(q[((size_t(b) * Sq + qi) * H + h) * HD + d]) : 0.f;
+  }
+
   const int rg = tid >> 4;  // rows rg*4 .. rg*4+3 of the QK^T and PV tiles
   const int cg = tid & 15;
   float acc[4][CT];
@@ -135,12 +189,19 @@ tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 #pragma unroll
     for (int t = 0; t < CT; ++t) acc[i][t] = 0.f;
 
-  for (int kv0 = 0; kv0 < Skv; kv0 += BKV) {
+  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BKV) {
     // ---- tile metadata and the skip test (warp 0, one kv row per lane)
     if (tid < 32) {
       const int j = kv0 + tid;
       int kp = -1, ks = 0;
-      if (j < Skv) {
+      if constexpr (PAGED) {
+        if (j >= lo_row && j < kv_end) {
+          const int bid = __ldg(table + size_t(b) * nb + j / block);
+          if (bid < 0 || bid >= n_blocks) __trap();
+          kp = j;
+          ko_s[tid] = ((long long)bid * block + j % block) * KV * HD + (long long)kvh * HD;
+        }
+      } else if (j < Skv) {
         kp = kv_pos[size_t(b) * Skv + j];
         if (kv_valid != nullptr && kv_valid[size_t(b) * Skv + j] == 0) kp = -1;
         if (SEG) ks = kv_seg[size_t(b) * Skv + j];
@@ -167,7 +228,13 @@ tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     for (int i = tid; i < BKV * HD; i += THREADS) {
       const int r = i / HD, d = i % HD, j = kv0 + r;
       float kk = 0.f, vv = 0.f;
-      if (j < Skv) {
+      if constexpr (PAGED) {
+        if (kp_s[r] >= 0) {
+          const size_t off = size_t(ko_s[r]) + d;
+          kk = to_float(k[off]);
+          vv = to_float(v[off]);
+        }
+      } else if (j < Skv) {
         const size_t off = ((size_t(b) * Skv + j) * KV + kvh) * HD + d;
         kk = to_float(k[off]);
         vv = to_float(v[off]);
@@ -278,6 +345,8 @@ tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 }
 
 // Everything one launch needs besides the tensors' element type and head_dim.
+// The paged fields follow the rest, so the other sources' initializers leave
+// them zero.
 struct Args {
   const void *q, *k, *v;
   const int *q_pos, *kv_pos, *q_seg, *kv_seg;
@@ -286,26 +355,28 @@ struct Args {
   int B, Sq, Skv, H, KV, causal, has_window, window;
   float scale;
   cudaStream_t stream;
+  const int* table;  // ROWS_PAGED: [B, nb] pool block per sequence block
+  int nb, n_blocks, block;
 };
 
-template <typename T, int HD, bool SEG>
+template <typename T, int HD, int SRC>
 int launch(const Args& a) {
   const size_t smem = smem_bytes<HD>();
-  auto kernel = tile_kernel<T, HD, SEG>;
+  auto kernel = tile_kernel<T, HD, SRC>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return int(err);
   dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
   kernel<<<grid, THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      a.q_pos, a.kv_pos, a.q_seg, a.kv_seg, a.kv_valid, static_cast<T*>(a.out), a.Sq, a.Skv,
-      a.H, a.KV, a.causal, a.has_window, a.window, a.scale);
+      a.q_pos, a.kv_pos, a.q_seg, a.kv_seg, a.kv_valid, a.table, static_cast<T*>(a.out), a.Sq,
+      a.Skv, a.H, a.KV, a.causal, a.has_window, a.window, a.scale, a.nb, a.n_blocks, a.block);
   return int(cudaGetLastError());
 }
 
 // Check the shapes, pick the instantiation for (dtype, head_dim) and launch.
 // Returns the CUDA status: cudaErrorInvalidValue for an unsupported head_dim,
 // dtype or head grouping.
-template <bool SEG>
+template <int SRC>
 int dispatch(int dtype, int hd, const Args& a) {
   if (a.KV <= 0 || a.H % a.KV != 0 || a.Sq <= 0 || a.Skv <= 0 || a.B <= 0)
     return int(cudaErrorInvalidValue);
@@ -313,13 +384,13 @@ int dispatch(int dtype, int hd, const Args& a) {
   const bool f32 = dtype == DTYPE_F32;
   switch (hd) {
     case 32:
-      return f32 ? launch<float, 32, SEG>(a) : launch<__nv_bfloat16, 32, SEG>(a);
+      return f32 ? launch<float, 32, SRC>(a) : launch<__nv_bfloat16, 32, SRC>(a);
     case 64:
-      return f32 ? launch<float, 64, SEG>(a) : launch<__nv_bfloat16, 64, SEG>(a);
+      return f32 ? launch<float, 64, SRC>(a) : launch<__nv_bfloat16, 64, SRC>(a);
     case 128:
-      return f32 ? launch<float, 128, SEG>(a) : launch<__nv_bfloat16, 128, SEG>(a);
+      return f32 ? launch<float, 128, SRC>(a) : launch<__nv_bfloat16, 128, SRC>(a);
     case 256:
-      return f32 ? launch<float, 256, SEG>(a) : launch<__nv_bfloat16, 256, SEG>(a);
+      return f32 ? launch<float, 256, SRC>(a) : launch<__nv_bfloat16, 256, SRC>(a);
     default:
       return int(cudaErrorInvalidValue);
   }

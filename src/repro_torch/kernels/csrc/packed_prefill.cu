@@ -29,5 +29,5 @@ extern "C" int packed_flash_attention_launch(
   const Args a{q,     k,   v,  q_pos, kv_pos, q_seg,  kv_seg,     nullptr,
                out,   B,   Sq, Skv,   H,      KV,     causal,     has_window,
                window, scale, static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(dtype, hd, a);
+  return dispatch<ROWS_SEGMENTED>(dtype, hd, a);
 }

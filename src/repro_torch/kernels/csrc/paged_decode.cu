@@ -8,8 +8,8 @@
 // The result is `ref.paged_decode_ref`: attention over the rows the table
 // names, in table order.
 //
-// The body is decode_block.cuh's (one block per (sequence, kv head), G query
-// heads sharing each row; its header says what bounds it, bytes, and what
+// The body is decode_block.cuh's (one block per (sequence, kv head, tile of
+// up to 8 of its G query heads), the tile's heads sharing each row; its header says what bounds it, bytes, and what
 // the design does about it).  On the TPU the table is a scalar-prefetch
 // operand and the grid (B, KV, nb) streams every table entry, the dump-block
 // padding included.  Validity is positional, so this kernel's row source
@@ -24,7 +24,7 @@
 //
 // Layouts (all contiguous): q, out [B, 1, H, hd]; k_pool, v_pool
 // [n_blocks * block, KV, hd]; block_table [B, nb] int32; q_pos [B, 1] int32.
-// Grid (KV, B), 256 threads.
+// Grid (KV, B, ceil(G / 8)), 256 threads.
 
 #include "decode_block.cuh"
 
@@ -67,8 +67,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int begin = first - first % (NW * R);  // warp chunks aligned as in dense decode
   const PagedRows rows{block_table + size_t(b) * nb, size_t(kvh) * HD, size_t(KV) * HD,
                        block, n_blocks, first};
-  const size_t qo = (size_t(b) * H + size_t(kvh) * G) * HD;
-  attend<T, EPL, GM>(q + qo, k_pool, v_pool, out + qo, rows, begin, end, G, scale, sm);
+  const size_t qo = (size_t(b) * H + size_t(kvh) * G + tile_first()) * HD;
+  attend<T, EPL, GM>(q + qo, k_pool, v_pool, out + qo, rows, begin, end, tile_count(G), scale,
+                     sm);
 }
 
 // One launch's arguments; `run` launches the instantiation `dispatch` picks.
@@ -86,7 +87,7 @@ struct PagedLaunch {
     auto kernel = paged_decode_kernel<T, EPL, GM>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return int(err);
-    kernel<<<dim3(KV, B), THREADS, smem, stream>>>(
+    kernel<<<dim3(KV, B, g_tiles(H / KV)), THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k_pool),
         static_cast<const T*>(v_pool), block_table, q_pos, static_cast<T*>(out), nb, n_blocks,
         block, H, KV, has_window, window, scale);
@@ -100,7 +101,7 @@ struct PagedLaunch {
 
 // Plain C entry point (bound with ctypes).  Returns the CUDA status of the
 // launch: 0 on success, cudaErrorInvalidValue for an unsupported head_dim,
-// dtype or head grouping (G = H / KV must be at most 8) or bad sizes.
+// dtype or head grouping, or bad sizes.
 extern "C" int paged_decode_attention_launch(const void* q, const void* k_pool,
                                              const void* v_pool, const int* block_table,
                                              const int* q_pos, void* out, int B, int nb,

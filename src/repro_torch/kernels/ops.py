@@ -10,6 +10,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import chunked_prefill as cpk
 from repro_torch.kernels import decode_attention as dk
 from repro_torch.kernels import flash_prefill as fk
 from repro_torch.kernels import packed_prefill as pk
@@ -59,5 +60,18 @@ def paged_decode(
     """One query token per sequence against the shared block pool, through
     each sequence's block table (see ``ref.paged_decode_ref``)."""
     fn = pdk.paged_decode_attention if q.is_cuda else pdk.paged_decode_attention_plain
+    return fn(q, k_pool, v_pool, block_table=block_table, q_pos=q_pos, block=block,
+              window=window)
+
+
+def chunked_prefill(
+    q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor, *,
+    block_table: torch.Tensor, q_pos: torch.Tensor, block: int = 128,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Up to ``C`` query tokens per sequence against the shared block pool,
+    through each sequence's block table: the unified step's mixed launch of
+    decode, prefill-chunk and idle rows (see ``ref.chunked_prefill_ref``)."""
+    fn = cpk.chunked_prefill_attention if q.is_cuda else cpk.chunked_prefill_attention_plain
     return fn(q, k_pool, v_pool, block_table=block_table, q_pos=q_pos, block=block,
               window=window)

@@ -121,3 +121,35 @@ def paged_decode_ref(
     idx = torch.arange(nb * block, dtype=torch.int32, device=dev)[None]
     kv_pos = torch.where(idx <= q_pos.to(torch.int32), idx, -1)
     return attention_ref(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=True, window=window)
+
+
+def chunked_prefill_ref(
+    q: torch.Tensor,  # [B, C, H, hd] up to C new tokens per sequence (a chunk)
+    k_pool: torch.Tensor,  # [N_rows, KV, hd] the shared block pool, flat rows
+    v_pool: torch.Tensor,
+    *,
+    block_table: torch.Tensor,  # [B, nb] int32 pool-block id per sequence block
+    q_pos: torch.Tensor,  # [B, C] positions of the chunk tokens (-2^30 padding)
+    block: int = 128,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Chunked-prefill attention over the paged layout: ``paged_decode_ref``
+    with up to ``C`` queries per sequence.  The chunk's own K/V already sit
+    in the pool (the caller lands them first), so the query at position
+    ``p`` attends the rows at positions ``[0, p]``: its reused context plus
+    the chunk's causal prefix.  A decode row is one valid query at the live
+    length, an idle row is all padding (``q_pos`` -2^30 masks every key and
+    gives zeros).  Validity is positional only: row ``r`` of table entry
+    ``j`` holds position ``j*block + r``, and rows past a query's position
+    (the boundary block's tail, table padding on the dump block) mask out
+    causally.  A C=1 call gives ``paged_decode_ref``'s bits."""
+    B, nb = block_table.shape
+    dev = k_pool.device
+    rows = (
+        block_table.long()[:, :, None] * block
+        + torch.arange(block, device=dev)[None, None, :]
+    ).reshape(B, nb * block)
+    k = k_pool[rows]  # [B, nb*block, KV, hd]
+    v = v_pool[rows]
+    kv_pos = torch.arange(nb * block, dtype=torch.int32, device=dev)[None].expand(B, -1)
+    return attention_ref(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=True, window=window)

@@ -3,7 +3,7 @@
 The port carries only ``tree_nbytes`` over host (numpy) artifacts, which the
 tiered store bills storage and transfer by.  The int8 storage tier
 (``compress_tree`` / ``decompress_tree`` over the ``kv_quant`` kernels) is
-ROADMAP queue A item 8; until it lands, both raise, and so does
+ROADMAP queue A item 3; until it lands, both raise, and so does
 ``EngineConfig(compress_tier=...)``.
 """
 from __future__ import annotations
@@ -34,11 +34,11 @@ def tree_nbytes(tree: Any) -> int:
 
 def compress_tree(tree: Any) -> Any:
     raise NotImplementedError(
-        "the int8 storage tier is not ported yet (ROADMAP queue A item 8)"
+        "the int8 storage tier is not ported yet (ROADMAP queue A item 3)"
     )
 
 
 def decompress_tree(tree: Any) -> Any:
     raise NotImplementedError(
-        "the int8 storage tier is not ported yet (ROADMAP queue A item 8)"
+        "the int8 storage tier is not ported yet (ROADMAP queue A item 3)"
     )

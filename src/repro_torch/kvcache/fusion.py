@@ -25,7 +25,7 @@ This module is the content side of that subsystem:
 The port carries only this host half, which the tiered store's chunk index
 and the planners read.  The launch assembly (``fused_layout``,
 ``fused_arrays``, ``build_fused_caches``) and the fused prefill kernel are
-ROADMAP queue A item 7; ``EngineConfig(fusion_enabled=True)`` raises until
+ROADMAP queue A item 2; ``EngineConfig(fusion_enabled=True)`` raises until
 then.
 
 At ``recompute_frac=1.0`` every reused token is recomputed, so the fused

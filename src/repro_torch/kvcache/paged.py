@@ -203,7 +203,7 @@ def build_packed_caches(
     scratch row the padding tokens' K/V land on."""
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.family} archs are not ported yet (ROADMAP queue A item 12)"
+            f"{cfg.family} archs are not ported yet (ROADMAP queue A items 4 and 9)"
         )
     dtype = dtype or resolve_dtype(cfg.dtype)
     shape = (cfg.n_layers, 1, layout.kv_len + 1, cfg.n_kv_heads, cfg.resolved_head_dim)
@@ -475,7 +475,7 @@ def init_pool_caches(
     KV, hd]``, the paged counterpart of ``lm.init_state``'s slotted caches."""
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.family} archs are not ported yet (ROADMAP queue A item 12)"
+            f"{cfg.family} archs are not ported yet (ROADMAP queue A items 4 and 9)"
         )
     device = resolve_device(device)
     dtype = dtype or resolve_dtype(cfg.dtype)

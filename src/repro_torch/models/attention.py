@@ -1,6 +1,6 @@
 """Grouped-query self-attention against the slotted KV cache or the shared block pool.
 
-Four call modes of the serving path share one weight set:
+Five call modes of the serving path share one weight set:
   * ``prefill`` — ``S`` new tokens per sequence written at ``offset`` into
     the slotted cache, attending causally over ``[0, offset+S)``; with
     ``offset > 0`` this is the paper's suffix prefill over reused context.
@@ -10,6 +10,9 @@ Four call modes of the serving path share one weight set:
   * ``decode`` — one token per sequence against the slotted cache.
   * ``decode_paged`` — one token per sequence against the shared block
     pool, through each sequence's block table.
+  * ``prefill_chunked`` — up to ``C`` tokens per sequence against the
+    shared block pool: the unified step's mix of decode, prefill-chunk and
+    idle rows.
 
 Cache layout: k/v ``[B, L_cache, KV_heads, head_dim]`` (the pool: ``[N_rows,
 KV_heads, head_dim]``).  Unlike the JAX package, which returns new cache
@@ -79,7 +82,7 @@ def _out(p: Params, o: torch.Tensor) -> torch.Tensor:
 def _no_ring(cfg: ArchConfig, L: int) -> None:
     if cfg.sliding_window and L >= cfg.sliding_window:
         raise NotImplementedError(
-            "sliding-window ring caches are not ported yet (ROADMAP queue A item 12)"
+            "sliding-window ring caches are not ported yet (ROADMAP queue A item 9)"
         )
 
 
@@ -215,6 +218,49 @@ def decode_paged(
     pool.v.index_copy_(0, rows, v_new[:, 0])
     o = ops.paged_decode(
         q.contiguous(), pool.k, pool.v, block_table=table, q_pos=positions,
+        block=block, window=cfg.sliding_window,
+    )
+    return _out(p, o)
+
+
+# --------------------------------------------------------------------------- #
+# Chunked prefill (mixed prefill-chunk + decode rows over the block pool)
+# --------------------------------------------------------------------------- #
+def prefill_chunked(
+    p: Params,
+    cfg: ArchConfig,
+    x: torch.Tensor,  # [B, C, D] up to C new tokens per sequence
+    pool: KVCache,  # k/v [N_rows, KV, hd]: the shared block pool, written in place
+    block_table: torch.Tensor,  # [B, nb] int32 pool block per sequence block
+    q_pos: torch.Tensor,  # [B, C] int32 token positions (-2^30 = padding)
+    *,
+    block: int,
+) -> torch.Tensor:
+    """``decode_paged`` generalised to a chunk of up to ``C`` tokens per
+    sequence: every valid token's K/V row lands in the pool at
+    ``table[pos // block] * block + pos % block``, then each query attends
+    causally at its absolute position.  Padding tokens get rope position 0
+    and write onto row 0 of the dump block, which no valid query attends
+    (its positions lie past every query's).  Several padding tokens share
+    that row, so on CUDA ``index_copy_`` leaves any one of them there: only
+    garbage lands on it either way."""
+    B, C, _ = x.shape
+    q, k_new, v_new = _qkv(p, cfg, x)
+    q_pos = q_pos.to(torch.int32)
+    valid = q_pos >= 0
+    positions = torch.where(valid, q_pos, 0)
+    if cfg.rope_theta is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    table = block_table.to(torch.int32).contiguous()
+    pos64 = positions.long()
+    blk = table.long().gather(1, pos64 // block)  # [B, C]
+    rows = torch.where(valid, blk * block + pos64 % block, 0).reshape(B * C)
+    KVh, hd = pool.k.shape[1], pool.k.shape[2]
+    pool.k.index_copy_(0, rows, k_new.reshape(B * C, KVh, hd))
+    pool.v.index_copy_(0, rows, v_new.reshape(B * C, KVh, hd))
+    o = ops.chunked_prefill(
+        q.contiguous(), pool.k, pool.v, block_table=table, q_pos=q_pos.contiguous(),
         block=block, window=cfg.sliding_window,
     )
     return _out(p, o)

@@ -68,3 +68,14 @@ def decode_paged(
     h = layers.apply_norm(p["norm1"], cfg, x)
     x = x + attention.decode_paged(p["attn"], cfg, h, pool, block_table, pos, block=block)
     return _apply_ffn(p, cfg, x)
+
+
+def prefill_chunked(
+    p: Params, cfg: ArchConfig, x: torch.Tensor, pool: attention.KVCache,
+    block_table: torch.Tensor, q_pos: torch.Tensor, *, block: int,
+) -> torch.Tensor:
+    """Chunked prefill of one block over the pool (``attention.prefill_chunked``)."""
+    h = layers.apply_norm(p["norm1"], cfg, x)
+    x = x + attention.prefill_chunked(p["attn"], cfg, h, pool, block_table, q_pos,
+                                      block=block)
+    return _apply_ffn(p, cfg, x)

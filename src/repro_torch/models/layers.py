@@ -35,7 +35,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # --------------------------------------------------------------------------- #
 def init_norm(cfg: ArchConfig, device) -> Params:
     if cfg.norm_type != "rmsnorm":
-        raise NotImplementedError("LayerNorm archs are not ported yet (ROADMAP queue A item 12)")
+        raise NotImplementedError("LayerNorm archs are not ported yet (ROADMAP queue A item 9)")
     return {"scale": torch.ones(cfg.d_model, dtype=common.resolve_dtype(cfg.param_dtype),
                                 device=device)}
 
@@ -75,7 +75,7 @@ def lm_logits(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 def init_mlp(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
     if cfg.mlp_type != "swiglu":
-        raise NotImplementedError("GELU MLPs are not ported yet (ROADMAP queue A item 12)")
+        raise NotImplementedError("GELU MLPs are not ported yet (ROADMAP queue A item 9)")
     pdtype = common.resolve_dtype(cfg.param_dtype)
     D, F = cfg.d_model, cfg.d_ff
     return {

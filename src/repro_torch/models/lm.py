@@ -1,4 +1,4 @@
-"""Decoder-only dense LM: per-request and packed prefill, dense and paged decode.
+"""Decoder-only dense LM: per-request, packed and chunked prefill, dense and paged decode.
 
 API:
   init(cfg, seed=0, device=None) -> params
@@ -8,6 +8,8 @@ API:
   decode(params, cfg, tokens [B, 1], state) -> (logits [B, V], LMState)
   decode_paged(params, cfg, tokens [B, 1], caches, block_table=, pos=, block=)
       -> (logits [B, V], caches)
+  prefill_chunked(params, cfg, tokens [B, C], caches, block_table=, q_pos=,
+      last_idx=, block=) -> (logits [B, V], caches)
 
 ``prefill`` is a suffix prefill whenever ``state.pos > 0``: positions
 ``[0, state.pos)`` of the caches are reused context state (the paper's
@@ -40,7 +42,7 @@ class LMState(NamedTuple):
 def _check_dense(cfg: ArchConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.family} archs are not ported yet (ROADMAP queue A item 12)"
+            f"{cfg.family} archs are not ported yet (ROADMAP queue A items 4 and 9)"
         )
 
 
@@ -171,6 +173,39 @@ def decode_paged(
     pool = caches[0].attn
     for i, lp in enumerate(params["layers"]):
         x = blocks.decode_paged(lp, cfg, x, _layer(pool, i), block_table, pos, block=block)
+    x = layers.apply_norm(params["final_norm"], cfg, x)
+    logits = layers.lm_logits(params["embed"], cfg, x)[:, 0]
+    return logits, caches
+
+
+# --------------------------------------------------------------------------- #
+# Chunked prefill (mixed prefill-chunk + decode rows over the block pool)
+# --------------------------------------------------------------------------- #
+def prefill_chunked(
+    params: Params,
+    cfg: ArchConfig,
+    tokens: torch.Tensor,  # [B, C] up to C new tokens per slot (0 on padding)
+    caches: Tuple[blocks.BlockCache, ...],  # the pool (paged.init_pool_caches)
+    *,
+    block_table: torch.Tensor,  # [B, nb] int32 pool block per sequence block
+    q_pos: torch.Tensor,  # [B, C] int32 token positions (-2^30 = padding)
+    last_idx: torch.Tensor,  # [B] chunk index of each row's last valid token
+    block: int = 128,
+) -> Tuple[torch.Tensor, Tuple[blocks.BlockCache, ...]]:
+    """The unified continuous-batching step: one launch per layer over the
+    shared block pool whose rows mix prefill chunks (up to ``C`` new tokens
+    each), decode rows (one token at the live length) and idle rows (all
+    padding).  Every valid token's K/V lands in the pool blocks its slot's
+    table names (in place), then attends causally at its absolute position.
+    Returns the logits ``[B, V]`` at ``last_idx`` (meaningful for rows that
+    finish a prefill or carry a decode token) and the caches."""
+    _check_dense(cfg)
+    x = layers.embed_tokens(params["embed"], cfg, tokens)
+    pool = caches[0].attn
+    for i, lp in enumerate(params["layers"]):
+        x = blocks.prefill_chunked(lp, cfg, x, _layer(pool, i), block_table, q_pos,
+                                   block=block)
+    x = x[torch.arange(x.shape[0], device=x.device), last_idx.long()][:, None]
     x = layers.apply_norm(params["final_norm"], cfg, x)
     logits = layers.lm_logits(params["embed"], cfg, x)[:, 0]
     return logits, caches

@@ -21,13 +21,14 @@ class ModelApi(NamedTuple):
     prefill_packed: Callable[..., Any]
     decode: Callable[..., Any]
     decode_paged: Callable[..., Any]
+    prefill_chunked: Callable[..., Any]
 
 
 def _check_dense(cfg: ArchConfig) -> None:
     if cfg.family != "dense" or cfg.norm_type != "rmsnorm" or cfg.mlp_type != "swiglu":
         raise NotImplementedError(
             f"{cfg.name}: only dense RMSNorm/SwiGLU archs are ported yet "
-            "(ROADMAP queue A item 12)"
+            "(ROADMAP queue A items 4 and 9)"
         )
 
 
@@ -36,6 +37,7 @@ def get_model(cfg: ArchConfig) -> ModelApi:
     return ModelApi(
         init=lm.init, init_state=lm.init_state, prefill=lm.prefill,
         prefill_packed=lm.prefill_packed, decode=lm.decode, decode_paged=lm.decode_paged,
+        prefill_chunked=lm.prefill_chunked,
     )
 
 

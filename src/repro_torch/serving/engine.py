@@ -16,13 +16,18 @@ clock jump to the next arrival) and returns the typed ``events`` it
 produced; ``drain()`` iterates steps to completion; ``run()`` drains and
 summarizes.
 
+With ``paged_decode`` and ``unified_step`` a step is instead one launch over
+the block pool that mixes every active slot's decode token with kv_block-wide
+prefill chunks of pending admissions (``_step_unified``): admission never
+stalls the slots that are decoding.
+
 This is the port of the JAX engine's main path under the default
-``EngineConfig`` and under ``paged_decode=True``.  Compute runs eagerly in
-PyTorch (no jit): on CUDA tensors the attention goes through the
-hand-written kernels, on CPU tensors through their plain versions.  Times
-and dollars are modelled (``PerfModel``), as in the reference, so the
-reference's golden records replay on the port.  The paths behind the other
-non-default options (the unified step, fused reuse, the int8 tier, faults,
+``EngineConfig``, under ``paged_decode=True`` and under ``unified_step=True``.
+Compute runs eagerly in PyTorch (no jit): on CUDA tensors the attention goes
+through the hand-written kernels, on CPU tensors through their plain
+versions.  Times and dollars are modelled (``PerfModel``), as in the
+reference, so the reference's golden records replay on the port.  The paths
+behind the other non-default options (fused reuse, the int8 tier, faults,
 hedging, prefetch, migration, the market) and the per-request admission
 path of embeds and non-packable archs raise ``NotImplementedError`` naming
 the ROADMAP item that will carry them.
@@ -120,16 +125,14 @@ class EngineConfig:
 # option -> the ROADMAP item that will carry it (set away from its default,
 # each raises NotImplementedError rather than silently taking another path)
 _NOT_PORTED = {
-    "unified_step": "queue A item 6 (unified continuous batching)",
-    "step_token_budget": "queue A item 6 (unified continuous batching)",
-    "fusion_enabled": "queue A item 7 (fused reuse)",
-    "compress_tier": "queue A item 8 (compressed tier)",
-    "faults": "queue A item 9 (faults, cluster and router)",
-    "hedge": "queue A item 9 (faults, cluster and router)",
-    "overlap_load": "queue A item 9 (faults, cluster and router)",
-    "prefetch_lookahead": "queue A item 9 (faults, cluster and router)",
-    "migration_interval_s": "queue A item 9 (faults, cluster and router)",
-    "migration_policy": "queue A item 9 (faults, cluster and router)",
+    "fusion_enabled": "queue A item 2 (fused reuse)",
+    "compress_tier": "queue A item 3 (compressed tier)",
+    "faults": "queue A item 6 (faults, cluster and router)",
+    "hedge": "queue A item 6 (faults, cluster and router)",
+    "overlap_load": "queue A item 6 (faults, cluster and router)",
+    "prefetch_lookahead": "queue A item 6 (faults, cluster and router)",
+    "migration_interval_s": "queue A item 6 (faults, cluster and router)",
+    "migration_policy": "queue A item 6 (faults, cluster and router)",
 }
 
 
@@ -158,6 +161,28 @@ class _Admission:
     nbytes: float = 0.0
     matched: int = 0
     new_tokens: List[int] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class _ChunkStream:
+    """One admission's pending suffix-prefill under the unified step: the
+    query tokens still to land (context tail + prompt) with each token's
+    absolute position.  The slot's pool blocks are admitted up front; chunks
+    of up to kv_block tokens land per unified launch until the stream
+    drains, when the first generated token is emitted and the slot starts
+    decoding."""
+
+    a: _Admission
+    tokens: np.ndarray  # int32 [n_q] query tokens still to prefill
+    positions: np.ndarray  # int32 [n_q] absolute positions, increasing
+    n_ctx: int  # context length (write-back row count)
+    ready_s: float  # clock time the storage fetch completes
+    store_after: bool = False  # write the context rows back on completion
+    done: int = 0  # tokens already landed
+
+    @property
+    def remaining(self) -> int:
+        return len(self.tokens) - self.done
 
 
 class ServingEngine:
@@ -190,7 +215,7 @@ class ServingEngine:
         if not paged.packable_arch(cfg, self.ec.max_len):
             raise NotImplementedError(
                 f"{cfg.name} cannot be packed at max_len={self.ec.max_len}: the "
-                "per-request admission path is ROADMAP queue A item 12 (other families)"
+                "per-request admission path is ROADMAP queue A items 4 and 9 (other families)"
             )
         if self.ec.cost_arch is not None:
             from repro_torch.configs import get_config
@@ -261,6 +286,19 @@ class ServingEngine:
             self._state = self.api.init_state(
                 cfg, self.ec.max_slots, self.ec.max_len, device=self.device
             )
+        # Unified continuous-batching step: chunked prefill interleaved with
+        # decode in one launch over the block pool (the reference's rule:
+        # without paged decode the option leaves the legacy loop in place).
+        self._unified_on = self.ec.unified_step and self._paged_on
+        # slot index -> in-flight prefill stream (unified mode only)
+        self._chunks: Dict[int, _ChunkStream] = {}
+        # context-token tuples an unfinished chunk stream will write back:
+        # the unified analogue of the packed batch's write-back dedup
+        self._wb_inflight: Dict[tuple, int] = {}
+        self.unified_jit = JitBucketStats()
+        self.unified_steps = 0  # mixed (chunk-carrying) launches
+        self.unified_chunk_tokens = 0  # prefill tokens landed through chunks
+        self.unified_busy_s = 0.0  # modelled time in mixed launches
         # packed-admission observability: launch-shape buckets (the same
         # (q_len, kv_len) keys as the reference's jit cache counters)
         self.jit_stats = JitBucketStats()
@@ -280,20 +318,27 @@ class ServingEngine:
         if req.embeds is not None:
             raise NotImplementedError(
                 "embedding contexts take the per-request admission path: "
-                "ROADMAP queue A item 12 (other families)"
+                "ROADMAP queue A items 4 and 9 (other families)"
             )
         self.queue.push(req)
 
     @property
     def idle(self) -> bool:
-        """Nothing queued and nothing decoding."""
-        return len(self.queue) == 0 and not any(s.active for s in self.slots)
+        """Nothing queued, nothing decoding, no prefill chunks in flight."""
+        return (
+            len(self.queue) == 0
+            and not any(s.active for s in self.slots)
+            and not self._chunks
+        )
 
     def step(self) -> List[ev.Event]:
         """Advance the engine by one scheduling step and return its events:
         admit every admissible request with a free slot as one packed batch
         (one ragged suffix-prefill launch per layer), else run one batched
-        decode step, else jump the clock to the next arrival."""
+        decode step, else jump the clock to the next arrival.  Under the
+        unified step, one mixed launch instead (``_step_unified``)."""
+        if self._unified_on:
+            return self._step_unified()
         events: List[ev.Event] = []
         if self._admit_batch(events):
             return events
@@ -302,9 +347,13 @@ class ServingEngine:
             return events
         nxt = self.queue.next_arrival()
         if nxt is not None:
-            self.clock.at_least(nxt)
-            events.append(ev.ClockAdvanced(t_s=self.clock.now, req_id=-1, to_s=nxt))
+            self._advance_clock(nxt, events)
         return events
+
+    def _advance_clock(self, to_s: float, events: List[ev.Event]) -> None:
+        """Jump the idle clock to ``to_s``."""
+        self.clock.at_least(to_s)
+        events.append(ev.ClockAdvanced(t_s=self.clock.now, req_id=-1, to_s=to_s))
 
     def drain(self) -> Iterator[ev.Event]:
         """Iterate events until every submitted request has finished."""
@@ -420,7 +469,7 @@ class ServingEngine:
         plan = self.planner.plan(req, lookup, workload)
         if plan.action not in ("recompute", "load", "partial") or plan.market is not None:
             raise NotImplementedError(
-                f"plan action {plan.action!r} is not ported yet (ROADMAP queue A items 7, 11)"
+                f"plan action {plan.action!r} is not ported yet (ROADMAP queue A items 2, 8)"
             )
         events.append(ev.PlanChosen(t_s=self.clock.now, req_id=req.req_id, plan=plan))
         return _Admission(req=req, rec=rec, slot=slot, plan=plan, lookup=lookup)
@@ -753,6 +802,256 @@ class ServingEngine:
         if self.ec.store_tier is not None:
             return self.ec.store_tier
         return self.store.tier_order[-1]  # cloud tier (paper's EBS)
+
+    # ------------------------------------------------------------------ #
+    # Unified continuous-batching step (chunked prefill + decode)
+    # ------------------------------------------------------------------ #
+    def _step_unified(self) -> List[ev.Event]:
+        """One unified scheduling step: take admissible requests in as chunk
+        streams (plan, fetch, pool-block admission; no compute yet), then
+        launch: every active slot's decode token with the ready streams'
+        prefill chunks in ONE launch over the block pool.  A long
+        suffix-prefill lands kv_block tokens at a time while the slots that
+        are decoding keep stepping in the same launches."""
+        events: List[ev.Event] = []
+        admitted = self._unified_intake(events)
+        if self._unified_launch(events) or admitted:
+            return events
+        # idle: jump to the next instant something can happen, the next
+        # arrival or the earliest fetch completion
+        targets = [c.ready_s for c in self._chunks.values() if c.ready_s > self.clock.now]
+        nxt = self.queue.next_arrival()
+        if nxt is not None and nxt > self.clock.now:
+            targets.append(nxt)
+        if targets:
+            self._advance_clock(min(targets), events)
+        return events
+
+    def _unified_intake(self, events: List[ev.Event]) -> bool:
+        """Take every admissible request with a free slot in as a pending
+        chunk stream: plan it, execute its storage fetch (the delay becomes
+        the stream's ready time, so a load overlaps other slots' compute)
+        and admit its pool blocks.  Plans the port does not carry (fused,
+        market) raise in ``_plan_admission``; embeds already in ``submit``."""
+        free = [s for s in self.slots if not s.active and s.index not in self._chunks]
+        if not free:
+            return False
+        limit = min(len(free), self.ec.admit_batch or self.ec.max_slots)
+        pending: Dict[str, List[float]] = {}
+        n = 0
+        while n < limit and self.queue.peek_next(self.clock.now) is not None:
+            req = self.queue.pop_admissible(self.clock.now)
+            a = self._plan_admission(req, free[n], events, pending=pending)
+            if a.plan.loads_kv and a.lookup.entry is not None:
+                pending.setdefault(a.lookup.entry.tier, []).append(
+                    self._entry_fetch_bytes(a.lookup.entry, a.plan.matched_tokens)
+                )
+            self._start_chunk_stream(a, events)
+            n += 1
+        return n > 0
+
+    def _start_chunk_stream(self, a: _Admission, events: List[ev.Event]) -> None:
+        """Turn one planned admission into a pending chunk stream: fetch the
+        stored prefix (load and partial plans), admit the slot's pool blocks
+        for the whole context + prompt, land the reused rows, and queue the
+        remaining tokens for chunked landing."""
+        req, t0 = a.req, self.clock.now
+        ctx, prompt = list(req.context_tokens), list(req.prompt_tokens)
+        n_ctx, n_total = len(ctx), len(ctx) + len(prompt)
+        ps = self._paged
+        block = self.ec.kv_block
+        if a.plan.loads_kv and a.lookup.entry is not None:
+            self._fetch_kv_resilient(a, events)
+        ps.admit(a.slot.index, n_total)
+        if a.artifact is not None:
+            matched = a.matched
+            rows = paged.block_rows(ps.tables[a.slot.index, : -(-matched // block)], block)
+            stored = a.artifact.caches[0].attn
+            dtype = self._pool_caches[0].attn.k.dtype
+            self._pool_update(
+                rows[:matched],
+                paged.to_device(stored.k[:, 0, :matched], dtype, self.device),
+                paged.to_device(stored.v[:, 0, :matched], dtype, self.device),
+            )
+            events.append(ev.KVLoaded(
+                t_s=t0, req_id=req.req_id, tier=a.lookup.entry.tier, nbytes=a.nbytes,
+                load_s=a.delay, matched_tokens=matched,
+            ))
+            tokens = np.asarray(ctx[matched:] + prompt, np.int32)
+            positions = np.arange(matched, n_total, dtype=np.int32)
+        else:
+            # plain recompute, or a degraded fetch falling back to exact
+            # recompute (the burned time rides on a.delay -> ready_s)
+            tokens = np.asarray(ctx + prompt, np.int32)
+            positions = np.arange(0, n_total, dtype=np.int32)
+
+        store_after = a.plan.store_after and a.artifact is None
+        if store_after:
+            key = tuple(ctx)
+            if key in self._wb_inflight:
+                # a pending stream already owes this context's write-back
+                # (the packed batch's dedup, carried over)
+                store_after = False
+            else:
+                self._wb_inflight[key] = a.slot.index
+        self._chunks[a.slot.index] = _ChunkStream(
+            a=a, tokens=tokens, positions=positions, n_ctx=n_ctx,
+            ready_s=t0 + a.delay, store_after=store_after,
+        )
+
+    def _unified_launch(self, events: List[ev.Event]) -> bool:
+        """Run one launch if there is anything to run: a mixed chunked
+        launch when any chunk stream is ready, else a plain paged decode
+        step (the legacy path's numerics, pricing and billing)."""
+        now = self.clock.now
+        ready = [self._chunks[i] for i in sorted(self._chunks) if self._chunks[i].ready_s <= now]
+        if not ready:
+            if any(s.active for s in self.slots):
+                self._decode_step(events)
+                return True
+            return False
+        self._unified_mixed_step(ready, events)
+        return True
+
+    def _unified_mixed_step(self, ready: List[_ChunkStream], events: List[ev.Event]) -> None:
+        """ONE launch over the block pool: a decode row for every active
+        slot (always granted) and prefill chunks of the ready streams (up to
+        kv_block tokens each, under the step token budget).  Priced once
+        (``PerfModel.t_step_unified``: the parameters stream once) and
+        billed per row by normalised standalone-cost shares, so the step's
+        dollars are conserved exactly."""
+        ps = self._paged
+        B, C = self.ec.max_slots, self.ec.kv_block
+        t0 = self.clock.now
+        decoding = [s for s in self.slots if s.active]
+        splits = []
+        for s in decoding:
+            cow = ps.prepare_append(s.index)
+            if cow is not None:
+                splits.append(cow)
+        if splits:
+            self._copy_pool_blocks(splits)
+
+        toks = np.zeros((B, C), np.int32)
+        q_pos = np.full((B, C), -(2 ** 30), np.int32)
+        last_idx = np.zeros((B,), np.int32)
+        decode_lens = []
+        for s in decoding:
+            toks[s.index, 0] = s.last_token
+            q_pos[s.index, 0] = int(ps.lens[s.index])
+            decode_lens.append(s.record.context_len + s.record.prompt_len + s.generated)
+        budget = max(self.ec.step_token_budget - len(decoding), 0)
+        grants: List[tuple] = []  # (stream, tokens granted this step)
+        chunk_desc: List[tuple] = []  # (n_new, L_end) for pricing
+        for c in ready:
+            g = min(C, c.remaining, budget)
+            if g <= 0:
+                if grants or decoding:
+                    continue  # budget spent; this stream waits a step
+                g = min(C, c.remaining)  # guarantee progress
+            budget -= g
+            sl = c.a.slot.index
+            toks[sl, :g] = c.tokens[c.done:c.done + g]
+            q_pos[sl, :g] = c.positions[c.done:c.done + g]
+            last_idx[sl] = g - 1
+            grants.append((c, g))
+            chunk_desc.append((g, int(c.positions[c.done + g - 1]) + 1))
+
+        jit_hit = self.unified_jit.record((B, C, ps.nb_max))
+        with torch.inference_mode():
+            logits, self._pool_caches = self.api.prefill_chunked(
+                self.params, self.cfg, self._tensor(toks), self._pool_caches,
+                block_table=self._tensor(ps.tables), q_pos=self._tensor(q_pos),
+                last_idx=self._tensor(last_idx), block=C,
+            )
+        nxt_tok = logits.argmax(dim=-1).tolist()
+        for s in decoding:
+            ps.note_token(s.index)
+
+        step_s = self.perf.t_step_unified(self.cost_cfg, decode_lens, chunk_desc)
+        dec_sh, chk_sh = self.perf.step_unified_shares(self.cost_cfg, decode_lens, chunk_desc)
+        self.clock.advance(step_s)
+        n_chunk_tokens = sum(g for _, g in grants)
+        self.unified_steps += 1
+        self.unified_chunk_tokens += n_chunk_tokens
+        self.unified_busy_s += step_s
+        self.decode_tokens += len(decoding)
+        dec_busy = step_s * sum(dec_sh)
+        self.decode_busy_s += dec_busy
+        self.admission_busy_s += step_s - dec_busy
+        events.append(ev.UnifiedStep(
+            t_s=t0, req_id=-1,
+            req_ids=tuple([s.request.req_id for s in decoding]
+                          + [c.a.req.req_id for c, _ in grants]),
+            n_decode=len(decoding), chunk_tokens=n_chunk_tokens, step_s=step_s,
+            jit_hit=jit_hit,
+        ))
+
+        for s, share in zip(decoding, dec_sh):
+            tok = int(nxt_tok[s.index])
+            s.record.tokens.append(tok)
+            s.record.decode_s += step_s
+            s.record.compute_cost += self._c_gpu_s * step_s * share
+            s.last_token = tok
+            tok_ev = ev.TokenEmitted(
+                t_s=self.clock.now, req_id=s.request.req_id, token=tok, index=s.generated,
+            )
+            events.append(tok_ev)
+            if self.on_token is not None:
+                self.on_token(tok_ev)
+            s.generated += 1
+            self._maybe_finish(s, events)
+        for (c, g), share in zip(grants, chk_sh):
+            a = c.a
+            a.rec.compute_cost += self._c_gpu_s * step_s * share
+            c.done += g
+            if c.remaining > 0:
+                continue
+            del self._chunks[a.slot.index]
+            key = tuple(a.req.context_tokens)
+            if self._wb_inflight.get(key) == a.slot.index:
+                self._wb_inflight.pop(key)
+            if c.store_after:
+                self._write_back(a.req, self._pool_slot_artifact(a.slot.index, c.n_ctx), events)
+            a.rec.matched_tokens = a.matched
+            a.rec.load_s = a.delay
+            # ttft_s = queue_s + load_s + prefill_s must equal the first
+            # token's instant: prefill_s absorbs the chunked landing time,
+            # the steps spent waiting on the budget included
+            a.rec.prefill_s = max(0.0, self.clock.now - a.rec.start_s - a.delay)
+            events.append(ev.PrefillDone(
+                t_s=self.clock.now, req_id=a.req.req_id, n_tokens=len(c.tokens),
+                prefill_s=a.rec.prefill_s,
+            ))
+            self._finish_admission(a, int(nxt_tok[a.slot.index]), events)
+
+    def _pool_slot_artifact(self, slot: int, n_tokens: int) -> paged.LMState:
+        """A slot's first ``n_tokens`` pool rows as a batch-1 host artifact
+        in the reference's layout (bf16 as its ``uint16`` pattern), the pool
+        side of ``paged.extract_slot``: the unified path's write-backs."""
+        block = self.ec.kv_block
+        rows = paged.block_rows(self._paged.tables[slot, : -(-n_tokens // block)], block)
+        idx = self._tensor(rows[:n_tokens])
+        pool = self._pool_caches[0].attn
+        return paged.LMState(
+            pos=np.full((1,), n_tokens, np.int32),
+            caches=(paged.BlockCache(paged.KVCache(
+                paged.to_host(pool.k[:, idx])[:, None], paged.to_host(pool.v[:, idx])[:, None],
+            )),),
+        )
+
+    def unified_stats(self) -> Dict[str, Any]:
+        """Unified-step counters: mixed launches run, prefill tokens landed
+        through chunks, modelled mixed-launch busy time, and the launch
+        shape's bucket hits and misses (one shape: a whole unified serve
+        shows exactly one miss)."""
+        return {
+            "enabled": self._unified_on,
+            "steps": self.unified_steps,
+            "chunk_tokens": self.unified_chunk_tokens,
+            "busy_s": self.unified_busy_s,
+            "jit": self.unified_jit.as_dict(),
+        }
 
     # ------------------------------------------------------------------ #
     # Batched decode

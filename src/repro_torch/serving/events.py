@@ -13,8 +13,10 @@ Lifecycle of one request:
 (StoreWriteBack precedes PrefillDone: a packed batch writes recomputed
 contexts back before it reports the batch's prefill.)
 
-The port emits the events of its serving path; the reference's unified-step,
-fused, cluster and market events come with those features.
+Under the unified step (``EngineConfig.unified_step``) a request's prefill
+lands over several ``UnifiedStep`` launches between ``KVLoaded`` and
+``PrefillDone``.  The port emits the events of its serving path; the
+reference's fused, cluster and market events come with those features.
 
 ``ClockAdvanced`` appears between requests when the engine is idle and jumps
 simulated time to the next arrival.
@@ -58,6 +60,22 @@ class BatchAdmitted(Event):
     q_tokens: int  # useful new tokens across all segments
     q_len: int  # bucketed (padded) packed q length
     kv_len: int  # bucketed packed kv length
+    jit_hit: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class UnifiedStep(Event):
+    """One unified continuous-batching launch (req_id is -1): decode rows
+    co-scheduled with prefill-chunk rows in one kernel over the shared block
+    pool.  ``chunk_tokens`` is the prefill quota granted this step;
+    ``jit_hit`` whether the launch shape was seen before (the port runs
+    eagerly, but keeps the reference's bucket key: steady unified serving
+    has one shape)."""
+
+    req_ids: tuple  # decode participants first, then chunk participants
+    n_decode: int  # decode rows in the launch
+    chunk_tokens: int  # prefill-chunk tokens granted this step
+    step_s: float  # modelled duration (PerfModel.t_step_unified)
     jit_hit: bool
 
 
@@ -151,7 +169,7 @@ class DegradedToRecompute(Event):
 
 
 AnyEvent = Union[
-    RequestAdmitted, PlanChosen, BatchAdmitted, KVLoaded, PrefillDone,
+    RequestAdmitted, PlanChosen, BatchAdmitted, UnifiedStep, KVLoaded, PrefillDone,
     StoreWriteBack, TokenEmitted, RequestFinished, ClockAdvanced, TierMigrated,
     FetchFailed, FetchRetried, DegradedToRecompute,
 ]

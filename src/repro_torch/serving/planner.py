@@ -19,7 +19,7 @@ Two planners ship in the port:
     tests, and the paper's own Fig-2 experiment which always reuses).
 
 The reference's ``BlendPlanner`` (CacheBlend-style fused reuse) comes with
-the fused prefill path, ROADMAP queue A item 7.
+the fused prefill path, ROADMAP queue A item 2.
 """
 from __future__ import annotations
 

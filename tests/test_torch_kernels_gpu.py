@@ -9,11 +9,17 @@ no JAX:
 
 f32 is held at the CPU tests' atol 2e-5 with TF32 off; bf16 at atol 1e-2.
 """
+import os
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import chunked_prefill as cpk  # noqa: E402
 from repro_torch.kernels import decode_attention as dk  # noqa: E402
 from repro_torch.kernels import flash_prefill as fk  # noqa: E402
 from repro_torch.kernels import packed_prefill as pk  # noqa: E402
@@ -235,6 +241,35 @@ def test_paged_kernel_gives_the_dense_kernels_bits(cuda, window):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [("float32", F32_ATOL), ("bfloat16", BF16_ATOL)])
+@pytest.mark.parametrize("H,KV,window", [(12, 1, None), (48, 1, None), (48, 1, 70), (24, 2, 70)])
+def test_decode_kernels_take_more_than_eight_heads_per_kv_head(cuda, dtype, atol, H, KV,
+                                                               window):
+    """A kv head with more than 8 query heads (granite-34b: 48 on one) is
+    split over tiles of 8 heads: the dense and paged decode kernels hold
+    their plain versions, and the paged kernel gives the dense kernel's
+    bits over the same rows."""
+    block, max_len, lens = 32, 512, [300, 1, 511, 96]
+    q, kp, vp, tables, q_pos = _pool(cuda, getattr(torch, dtype), lens, KV, H, 128, block,
+                                     max_len, seed=H)
+    rows = (tables.long()[:, :, None] * block
+            + torch.arange(block, device=cuda)[None, None]).reshape(len(lens), max_len)
+    k, v = kp[rows].contiguous(), vp[rows].contiguous()
+    idx = torch.arange(max_len, device=cuda, dtype=torch.int32)[None]
+    kv_pos = torch.where(idx <= q_pos, idx, -1).to(torch.int32)
+    dense = dk.decode_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=window)
+    dense_plain = dk.decode_attention_plain(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                                            window=window)
+    kw = dict(block_table=tables, q_pos=q_pos, block=block, window=window)
+    got = pdk.paged_decode_attention(q, kp, vp, **kw)
+    want = pdk.paged_decode_attention_plain(q, kp, vp, **kw)
+    torch.cuda.synchronize()
+    assert (dense.float() - dense_plain.float()).abs().max().item() <= atol
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    assert torch.equal(got, dense)
+
+
+@pytest.mark.gpu
 def test_new_wrappers_count_launches_and_refuse_what_they_cannot_run(cuda):
     """The flash and paged decode wrappers count each launch and raise on a
     CUDA tensor their kernel does not take."""
@@ -249,8 +284,8 @@ def test_new_wrappers_count_launches_and_refuse_what_they_cannot_run(cuda):
     with pytest.raises(ValueError, match="block"):
         pdk.paged_decode_attention(q, kp[:-1], vp[:-1], block_table=tables, q_pos=q_pos,
                                    block=16)
-    with pytest.raises(ValueError, match="H / KV"):
-        pdk.paged_decode_attention(q.repeat(1, 1, 5, 1), kp, vp, block_table=tables,
+    with pytest.raises(ValueError, match="not a multiple of KV"):
+        pdk.paged_decode_attention(q[:, :, :3].contiguous(), kp, vp, block_table=tables,
                                    q_pos=q_pos, block=16)
     with pytest.raises(ValueError, match="int32"):
         fk.flash_attention(q[:, :, :4], k, k, q_pos=pos[:, :1].long(), kv_pos=pos)
@@ -259,3 +294,104 @@ def test_new_wrappers_count_launches_and_refuse_what_they_cannot_run(cuda):
                            q_pos=pos[:, :1], kv_pos=pos)
     assert (fk.flash_attention.launches, pdk.paged_decode_attention.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+def _chunked(cuda, dt, rows, KV, H, hd, block, max_len, C, seed):
+    """A pool with each row's blocks scattered at random and a mixed batch
+    of queries: row ``(n_landed, n_chunk)`` holds ``n_landed`` live rows, the
+    last ``n_chunk`` of them this launch's queries (1 = a decode row, 0 = an
+    idle row, all padding at -2^30).  Table padding points at the dump
+    block 0."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed)
+    B, nb = len(rows), max_len // block
+    n_blocks = 1 + B * nb
+    k_pool = torch.randn(n_blocks * block, KV, hd, generator=g, device=cuda).to(dt)
+    v_pool = torch.randn(n_blocks * block, KV, hd, generator=g, device=cuda).to(dt)
+    order = (torch.randperm(n_blocks - 1, generator=g, device=cuda) + 1).tolist()
+    tables = torch.zeros(B, nb, dtype=torch.int32)
+    q_pos = torch.full((B, C), -(2**30), dtype=torch.int32)
+    for b, (n_landed, n_chunk) in enumerate(rows):
+        for j in range(-(-n_landed // block)):
+            tables[b, j] = order.pop()
+        q_pos[b, :n_chunk] = torch.arange(n_landed - n_chunk, n_landed, dtype=torch.int32)
+    q = torch.randn(B, C, H, hd, generator=g, device=cuda).to(dt)
+    return q, k_pool, v_pool, tables.to(cuda), q_pos.to(cuda)
+
+
+CHUNKED_CASES = [
+    # (rows (n_landed, n_chunk), H, KV, hd, block, max_len, C, window)
+    ([(97, 32), (128, 1), (0, 0), (40, 8)], 4, 2, 32, 32, 128, 32, None),
+    ([(130, 64), (257, 1), (0, 0), (384, 128)], 8, 8, 64, 128, 384, 128, None),
+    ([(300, 16), (17, 1)], 16, 2, 128, 64, 512, 16, 100),  # GQA 8:1 and a window
+    ([(200, 1), (64, 1), (1, 1)], 4, 4, 256, 16, 256, 1, 40),  # C = 1: decode rows only
+    ([(100, 100), (0, 0)], 4, 1, 128, 48, 192, 128, 30),  # MQA, a 48-row block
+    ([(300, 16), (129, 1), (0, 0)], 48, 1, 128, 64, 512, 16, 100),  # granite-34b's G = 48
+    ([(90, 1), (33, 33)], 24, 2, 64, 32, 128, 64, None),  # G = 12
+    # the unified serve run's shape: two chunks, a decode row and an idle row
+    ([(2032, 128), (2050, 1), (0, 0), (1700, 128)], 32, 32, 128, 128, 4096, 128, None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [("float32", F32_ATOL), ("bfloat16", BF16_ATOL)])
+@pytest.mark.parametrize("rows,H,KV,hd,block,max_len,C,window", CHUNKED_CASES)
+def test_chunked_kernel_matches_plain_on_card(cuda, dtype, atol, rows, H, KV, hd, block,
+                                              max_len, C, window):
+    q, kp, vp, tables, q_pos = _chunked(cuda, getattr(torch, dtype), rows, KV, H, hd, block,
+                                        max_len, C, seed=len(rows) * hd + C)
+    kw = dict(block_table=tables, q_pos=q_pos, block=block, window=window)
+    got = cpk.chunked_prefill_attention(q, kp, vp, **kw)
+    want = cpk.chunked_prefill_attention_plain(q, kp, vp, **kw)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    pad = q_pos < 0  # padding queries, idle rows among them, output zeros
+    assert not got[pad].any()
+
+
+@pytest.mark.gpu
+def test_chunked_wrapper_counts_launches_and_refuses_what_it_cannot_run(cuda):
+    q, kp, vp, tables, q_pos = _chunked(cuda, torch.float32, [(40, 8)], 2, 4, 32, 16, 64, 8,
+                                        seed=1)
+    before = cpk.chunked_prefill_attention.launches
+    cpk.chunked_prefill_attention(q, kp, vp, block_table=tables, q_pos=q_pos, block=16)
+    assert cpk.chunked_prefill_attention.launches == before + 1
+    with pytest.raises(ValueError, match="block"):
+        cpk.chunked_prefill_attention(q, kp[:-1], vp[:-1], block_table=tables, q_pos=q_pos,
+                                      block=16)
+    with pytest.raises(ValueError, match="q_pos shape"):
+        cpk.chunked_prefill_attention(q, kp, vp, block_table=tables, q_pos=q_pos[:, :1],
+                                      block=16)
+    with pytest.raises(ValueError, match="int32"):
+        cpk.chunked_prefill_attention(q, kp, vp, block_table=tables.long(), q_pos=q_pos,
+                                      block=16)
+    assert cpk.chunked_prefill_attention.launches == before + 1
+
+
+_TRAP = """
+import torch
+from repro_torch.kernels import chunked_prefill as cpk
+dev = torch.device("cuda")
+pool = torch.zeros(4 * 16, 2, 32, device=dev)
+q = torch.zeros(1, 4, 2, 32, device=dev)
+table = torch.tensor([[1, 7]], dtype=torch.int32, device=dev)  # block 7 is past the pool
+q_pos = torch.arange(16, 20, dtype=torch.int32, device=dev)[None]
+cpk.chunked_prefill_attention(q, pool, pool, block_table=table, q_pos=q_pos, block=16)
+try:
+    torch.cuda.synchronize()
+except RuntimeError as exc:
+    print("trapped:", exc)
+    raise SystemExit(3)
+print("no trap")
+"""
+
+
+@pytest.mark.gpu
+def test_chunked_kernel_traps_on_a_block_outside_the_pool(cuda):
+    """A table entry that a valid query reaches but that names no pool block
+    stops the kernel (a trap kills the CUDA context, so in a child process)."""
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=f"{src}{os.pathsep}{os.environ.get('PYTHONPATH', '')}")
+    proc = subprocess.run([sys.executable, "-c", _TRAP], env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 3 and "trapped" in proc.stdout, (proc.stdout, proc.stderr)

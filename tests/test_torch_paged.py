@@ -121,6 +121,32 @@ def test_shared_prefix_pool_stats_match_reference(llama):
     eng._paged.audit()
 
 
+@pytest.mark.parametrize("ctx_len", [256, 300])
+def test_engine_traffic_never_splits_a_shared_block(llama, ctx_len):
+    """Batch-mates that load one stored context share only the blocks both
+    reused prefixes cover fully, and a slot's first decode write lands at
+    context + prompt, past those blocks: engine traffic shares blocks but
+    never needs a copy-on-write split (the card's smoke copies one by hand).
+    A context of whole blocks (256) is the edge case."""
+    _, _, cfg, params = llama
+    perf, pricing = _reference_perf_and_pricing()
+    seed_req = _burst(cfg.vocab, n=1, ctx_lens=[ctx_len], new=1, seed=3)
+    mates = [dict(r, req_id=10 + i, arrival_s=1.0, max_new_tokens=3)
+             for i, r in enumerate(_burst(cfg.vocab, n=3, ctx_lens=[ctx_len], new=3, seed=3))]
+    eng = ServingEngine(cfg, params, engine_cfg=EngineConfig(
+        max_slots=4, max_len=512, chunk_tokens=16, paged_decode=True),
+        planner=AlwaysReusePlanner(), perf=perf, pricing=pricing, device="cpu")
+    splits = []
+    copy = eng._copy_pool_blocks
+    eng._copy_pool_blocks = lambda s: (splits.extend(s), copy(s))
+    for r in seed_req + mates:
+        eng.submit(Request(**r))
+    eng.run()
+    assert eng.decode_stats()["shared_block_hits"] >= 2
+    assert splits == []
+    eng._paged.audit()
+
+
 def test_mixed_lengths_bill_live_blocks_like_reference(llama):
     """Ragged context lengths: each slot is billed its own live blocks'
     bytes (``t_decode_paged``, ``decode_kv_bytes``), so the records' decode
