@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Builds the port's five CUDA kernels from ``src/repro_torch/kernels/csrc``
-with nvcc (one nvcc per source, all started together), then drives four
+Builds the port's six CUDA kernels from ``src/repro_torch/kernels/csrc``
+with nvcc (one nvcc per source, all started together), then drives five
 paths of the port, each with every launch counter zeroed just before it and
 read just after it:
 
@@ -38,6 +38,19 @@ read just after it:
    run; then one load request's stored context inserted into a fresh slot
    and its prompt suffix-prefilled after it (twice), held against the reuse
    run.
+5. fused reuse phase — a RAG mix over eight 256-token documents (wave 0
+   asks in the stored order and is recomputed and written back; wave 1
+   asks twice with the documents permuted, once with one document
+   swapped for a fresh one) behind ``BlendPlanner(recompute_frac=0.16,
+   always=True)`` and ``fusion_enabled=True``, served with dense decode,
+   with paged decode (32 fused-prefill launches per fused admission, the
+   reused rows of each launch's buffer equal before and after it), and
+   with the unified step (the fused streams land through the chunked
+   kernel, no fused launch), each fused serve's first-token logits within
+   ``LOGIT_ATOL`` of the dense one's; then once with reuse off, the token
+   agreement reported (r < 1 approximates, so it is not gated); and at
+   r = 1.0 ``lm.prefill_fused`` held against ``lm.prefill`` of the same
+   sequence.
 
 Then the kernel phase: each kernel is called on the inputs one of its
 launches on those paths received (first layer) and held against its plain
@@ -77,12 +90,14 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import chunked_prefill as cpk  # noqa: E402
 from repro_torch.kernels import decode_attention as dk  # noqa: E402
 from repro_torch.kernels import flash_prefill as fk  # noqa: E402
+from repro_torch.kernels import fused_prefill as fuk  # noqa: E402
 from repro_torch.kernels import packed_prefill as pk  # noqa: E402
 from repro_torch.kernels import paged_decode as pdk  # noqa: E402
-from repro_torch.kvcache import paged  # noqa: E402
+from repro_torch.kvcache import fusion, paged  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
+    BlendPlanner,
     CostAwarePlanner,
     EngineConfig,
     Request,
@@ -114,7 +129,12 @@ COUNTERS = {"packed_flash_attention": pk.packed_flash_attention,
             "decode_attention": dk.decode_attention,
             "flash_attention": fk.flash_attention,
             "paged_decode_attention": pdk.paged_decode_attention,
-            "chunked_prefill_attention": cpk.chunked_prefill_attention}
+            "chunked_prefill_attention": cpk.chunked_prefill_attention,
+            "fused_flash_attention": fuk.fused_flash_attention}
+# the fused phase's RAG traffic: documents of DOC_LEN tokens, a 32-token
+# prompt per request, the reference's default chunk_tokens of 16, and
+# CacheBlend's default recompute fraction
+N_DOCS, DOC_LEN, RECOMPUTE_FRAC = 8, 256, 0.16
 
 
 def zero_counts() -> None:
@@ -154,6 +174,27 @@ def traffic(vocab: int):
     ]
 
 
+def fused_traffic(vocab: int):
+    """A RAG mix over eight 256-token documents D: wave 0 asks with D in its
+    stored order (recomputed and written back); wave 1, one modelled second
+    later, asks twice with D's documents permuted (neither starting with
+    D's first), the second time with one document swapped for a fresh one.
+    The prefix trie misses both; the chunk-content index finds every stored
+    document."""
+    rng = np.random.default_rng(SEED + 1)
+    docs = [rng.integers(0, vocab, DOC_LEN).tolist() for _ in range(N_DOCS)]
+    fresh = rng.integers(0, vocab, DOC_LEN).tolist()
+    perm = [5, 2, 7, 0, 3, 6, 1, 4]
+    contexts = [sum(docs, []), sum((docs[i] for i in perm), []),
+                sum((fresh if i == 3 else docs[i] for i in perm), [])]
+    return [
+        dict(req_id=i, context_tokens=ctx,
+             prompt_tokens=rng.integers(0, vocab, PROMPT_LEN).tolist(),
+             max_new_tokens=NEW_TOKENS, arrival_s=float(i > 0), expected_reuses=3)
+        for i, ctx in enumerate(contexts)
+    ]
+
+
 def keep(args, kw):
     """Copies of a kernel call's arguments, kept for the kernel phase."""
     return [a.clone() for a in args], {
@@ -172,27 +213,36 @@ class Recorder:
     def __init__(self, eng: ServingEngine, n_layers: int):
         self.eng, self.n_layers = eng, n_layers
         self.packed_inputs, self.decode_inputs, self.chunked_inputs = None, None, None
+        self.fused_inputs = None  # the first layer of the fused launch with most queries
         self.step_logits = []  # every decode step's logits of the active slots
         self.last_logits = None  # the last model call's logits [rows, V], on the host
+        self.step_fused = []  # this step's fused launches' logits [1, V], in order
+        self.reused_rows_equal = []  # per fused launch: reused rows untouched (torch.equal)
         self.spent = {}
-        self._calls = {"packed": 0, "decode": 0, "chunked": 0}
+        self._calls = {"packed": 0, "decode": 0, "chunked": 0, "fused": 0}
         self._patched = [
             (ops, "packed_attention", self._packed),
             (ops, "decode_attention", self._decode),
             (ops, "paged_decode", self._paged),
             (ops, "chunked_prefill", self._chunked),
+            (ops, "fused_prefill", self._fused_attn),
             (eng, "api", eng.api._replace(prefill_packed=self._prefill, decode=self._step,
                                           decode_paged=self._step_paged,
-                                          prefill_chunked=self._step_chunked)),
+                                          prefill_chunked=self._step_chunked,
+                                          prefill_fused=self._step_fused)),
         ]
         for name in ("fetch", "put"):
             self._patched.append((eng.store, name, self._timed(f"store_{name}",
                                                                getattr(eng.store, name))))
         for name in ("build_packed_caches", "artifact_to_host", "insert_slot"):
             self._patched.append((paged, name, self._timed(name, getattr(paged, name))))
+        self._patched.append((fusion, "build_fused_caches", self._timed(
+            "build_fused_caches", fusion.build_fused_caches)))
         if eng._paged_on:
             self._patched.append((eng, "_land_packed_in_pool", self._timed(
                 "land_in_pool", eng._land_packed_in_pool)))
+            self._patched.append((eng, "_land_state_in_pool", self._timed(
+                "land_in_pool", eng._land_state_in_pool)))
             self._patched.append((eng, "_pool_slot_artifact", self._timed(
                 "pool_to_host", eng._pool_slot_artifact)))
         self._orig = [(obj, name, getattr(obj, name)) for obj, name, _ in self._patched]
@@ -244,6 +294,32 @@ class Recorder:
         self._calls["chunked"] += 1
         return self._orig[3][2](*args, **kw)
 
+    def _fused_attn(self, *args, **kw):
+        # the first layer of the fused launch with the most valid queries
+        if self._calls["fused"] % self.n_layers == 0:
+            n_valid = int((kw["q_pos"] >= 0).sum())
+            best = self.fused_inputs
+            if best is None or n_valid > int((best[1]["q_pos"] >= 0).sum()):
+                self.fused_inputs = keep(args, kw)
+        self._calls["fused"] += 1
+        return self._orig[4][2](*args, **kw)
+
+    def _step_fused(self, params, cfg, tokens, caches, **kw):
+        # the rows the launch must leave alone: valid rows no query lands on
+        buf = caches[0].attn
+        reused = kw["kv_pos"][0] >= 0
+        reused[kw["q_rows"][0][kw["q_pos"][0] >= 0]] = False
+        idx = reused.nonzero()[:, 0]
+        before = (buf.k[:, 0, idx].clone(), buf.v[:, 0, idx].clone())
+        logits, caches = self._timed("model", self._orig_api.prefill_fused)(
+            params, cfg, tokens, caches, **kw)
+        assert torch.isfinite(logits).all(), "non-finite fused prefill logits"
+        self.reused_rows_equal.append(
+            (int(idx.numel()), torch.equal(buf.k[:, 0, idx], before[0])
+             and torch.equal(buf.v[:, 0, idx], before[1])))
+        self.step_fused.append(logits.float().cpu())
+        return logits, caches
+
     def _prefill(self, *args, **kw):
         logits, caches = self._timed("model", self._orig_api.prefill_packed)(*args, **kw)
         assert torch.isfinite(logits).all(), "non-finite prefill logits"
@@ -270,7 +346,7 @@ class Recorder:
         return logits, state
 
 
-def serve(cfg, params, *, reuse: bool = True, **ec_kw):
+def serve(cfg, params, *, reuse: bool = True, planner=None, make_traffic=traffic, **ec_kw):
     """Serve the traffic once; returns (engine, records by id, recorder,
     per-step rows (kind, wall_s, modelled load_s, modelled step s, q_len or
     decode rows, kv_len or chunk tokens, wall s by part), write-back count).
@@ -279,9 +355,9 @@ def serve(cfg, params, *, reuse: bool = True, **ec_kw):
     of each token (``token_wall``, seconds from the first step)."""
     eng = ServingEngine(
         cfg, params, engine_cfg=EngineConfig(reuse_enabled=reuse, **SERVE, **ec_kw),
-        planner=CostAwarePlanner(), device=DEVICE,
+        planner=planner or CostAwarePlanner(), device=DEVICE,
     )
-    for r in traffic(cfg.vocab):
+    for r in make_traffic(cfg.vocab):
         eng.submit(Request(**r))
     rec = Recorder(eng, cfg.n_layers)
     steps = []
@@ -303,15 +379,34 @@ def serve(cfg, params, *, reuse: bool = True, **ec_kw):
             batch = [e for e in events if isinstance(e, ev.BatchAdmitted)]
             mixed = [e for e in events if isinstance(e, ev.UnifiedStep)]
             tokens = [e for e in events if isinstance(e, ev.TokenEmitted)]
+            fused = [e for e in events if isinstance(e, ev.FusedAdmitted)]
+            # the fused launches of this step, in admission order (under the
+            # unified step a fused admission launches none: its tokens land
+            # through chunks)
+            launched = [e.req_id for e in fused] if rec.step_fused else []
+            assert len(launched) == len(rec.step_fused), (launched, len(rec.step_fused))
             for e in tokens:
-                # a packed batch's logits are in batch order, a step's by slot
-                row = batch[0].req_ids.index(e.req_id) if batch else slot_of[e.req_id]
-                req_logits.setdefault(e.req_id, []).append(rec.last_logits[row])
+                # a fused launch's logits are its own, a packed batch's in
+                # batch order, a step's by slot
+                if e.index == 0 and e.req_id in launched:
+                    lg = rec.step_fused[launched.index(e.req_id)][0]
+                elif batch and e.req_id in batch[0].req_ids:
+                    lg = rec.last_logits[batch[0].req_ids.index(e.req_id)]
+                else:
+                    lg = rec.last_logits[slot_of[e.req_id]]
+                req_logits.setdefault(e.req_id, []).append(lg)
                 token_wall.setdefault(e.req_id, []).append(t0 + wall - start)
+            rec.step_fused = []
             if batch:
-                prefill_s = next(e.prefill_s for e in events if isinstance(e, ev.PrefillDone))
+                prefill_s = next(e.prefill_s for e in events
+                                 if isinstance(e, ev.PrefillDone) and e.req_id in batch[0].req_ids)
                 steps.append(("prefill", wall, modelled - prefill_s, prefill_s,
                               batch[0].q_len, batch[0].kv_len, dict(rec.spent)))
+            elif launched:
+                prefill_s = sum(e.prefill_s for e in events if isinstance(e, ev.PrefillDone))
+                steps.append(("fused", wall, modelled - prefill_s, prefill_s,
+                              [e.q_len for e in fused], [e.kv_len for e in fused],
+                              dict(rec.spent)))
             elif mixed:
                 steps.append(("mixed", wall, 0.0, mixed[0].step_s, mixed[0].n_decode,
                               mixed[0].chunk_tokens, dict(rec.spent)))
@@ -491,6 +586,27 @@ def check_chunked(inputs, launches):
         reps=20, plain_reps=5, sdpa_kv=lambda t: t[rows], sdpa_note=" (gather excluded)")
 
 
+def check_fused(inputs, launches):
+    (q, k, _), kw = inputs
+    qp, kp = kw["q_pos"].long()[:, :, None], kw["kv_pos"].long()[:, None, :]
+    mask = (kp >= 0) & (kp <= qp)  # [B, Sq, Skv]: padding queries keep nothing
+    if kw.get("window") is not None:
+        mask = mask & (kp > qp - kw["window"])
+    pairs = int(mask.sum())  # per head
+    n_q = int((kw["q_pos"] >= 0).sum())
+    total = int((kw["kv_pos"] >= 0).sum())
+    # the kernel reads no padding query's q row and skips every kv tile past
+    # the valid rows, so the bound counts the n_q valid queries and the
+    # total valid K/V rows, not the q_len and kv_len buckets
+    return check_kernel(
+        "fused_flash_attention", "fused_prefill.cu", "src/repro/kernels/fused_prefill.py:105",
+        launches, inputs, fuk.fused_flash_attention, fuk.fused_flash_attention_plain,
+        mask4=mask[:, None], index=[kw["q_pos"], kw["kv_pos"]], kv_rows=total, pairs=pairs,
+        q_rows=n_q,
+        note=f"buffer{tuple(k.shape)} valid queries {n_q} of {q.shape[1]}, valid rows "
+             f"{total} of {k.shape[1]}, kept_pairs/head={pairs}")
+
+
 def check_wide_group(H=48, KV=1, hd=128, lens=(2050, 1, 2047, 700), block=128,
                      max_len=4096):
     """Both decode kernels at granite-34b's heads (48 query heads on one kv
@@ -546,6 +662,10 @@ def log_steps(label, steps):
         parts = " ".join(f"{k}={1e3 * v:.2f}" for k, v in sorted(parts.items()))
         if kind == "prefill":
             log(f"{label} step prefill q_len={q_len} kv_len={kv_len}: "
+                f"wall_ms={1e3 * wall:.2f} modelled_prefill_ms={1e3 * modelled:.3f} "
+                f"modelled_load_ms={1e3 * load_s:.3f} | wall ms by part: {parts}")
+        elif kind == "fused":
+            log(f"{label} step fused q_len={q_len} kv_len={kv_len}: "
                 f"wall_ms={1e3 * wall:.2f} modelled_prefill_ms={1e3 * modelled:.3f} "
                 f"modelled_load_ms={1e3 * load_s:.3f} | wall ms by part: {parts}")
         elif kind == "intake":
@@ -670,6 +790,97 @@ def per_request_prefill(cfg, params, reqs, recompute_logits, load_req, artifact,
     finally:
         ops.flash_attention = flash
     return recorded["full"], recorded["suffix"]
+
+
+def fused_phase(cfg, params):
+    """Serve the RAG mix fused (``BlendPlanner(recompute_frac=0.16,
+    always=True)``, ``fusion_enabled=True``) three times — dense decode,
+    paged decode, and the unified step, whose fused streams land through
+    the chunked kernel — and once with reuse off.  Returns the fused
+    kernel's recorded inputs and its launches in the dense serve."""
+    reqs = fused_traffic(cfg.vocab)
+    planner = lambda: BlendPlanner(recompute_frac=RECOMPUTE_FRAC, always=True)  # noqa: E731
+    runs, counts_by = {}, {}
+    for label, ec in (("fused dense", {}), ("fused paged", dict(paged_decode=True)),
+                      ("fused unified", dict(paged_decode=True, unified_step=True))):
+        zero_counts()
+        eng, recs, rec, steps, _ = serve(cfg, params, planner=planner(),
+                                         make_traffic=fused_traffic, fusion_enabled=True,
+                                         kv_block=128, **ec)
+        c = counts_by[label] = counts()
+        stats = eng.fused_stats()
+        log(f"{label} serve launches: {c}")
+        log_steps(label, steps)
+        log(f"{label} fused_stats: {json.dumps(stats)}")
+        actions = {i: (r.action, r.matched_tokens) for i, r in sorted(recs.items())}
+        log(f"{label} actions (action, reused tokens): {actions}")
+        assert [a for a, _ in actions.values()] == ["recompute", "fused", "fused"], actions
+        assert stats["admissions"] == 2 and stats["reused_tokens"] > 0, stats
+        assert all(len(r.tokens) == NEW_TOKENS for r in recs.values())
+        assert all(e.pins == 0 for e in eng.store.entries.values())
+        n_fused = c["fused_flash_attention"]
+        if ec.get("unified_step"):
+            assert n_fused == 0 and c["packed_flash_attention"] == 0, c
+            assert c["chunked_prefill_attention"] == cfg.n_layers * eng.unified_stats()["steps"]
+        else:
+            assert n_fused == 2 * cfg.n_layers, c
+            assert c["packed_flash_attention"] == cfg.n_layers, c
+            assert all(n for n, eq in rec.reused_rows_equal) and len(rec.reused_rows_equal) == 2
+            assert all(eq for _, eq in rec.reused_rows_equal), rec.reused_rows_equal
+            log(f"{label}: reused rows untouched by the fused launch (torch.equal): "
+                f"{rec.reused_rows_equal}")
+        if ec.get("paged_decode"):
+            eng._paged.audit()
+            assert eng._paged.pool.n_used == 0
+        runs[label] = (recs, rec)
+        if label == "fused dense":
+            fused_inputs = rec.fused_inputs
+            comp = eng.store.lookup_composite(reqs[1]["context_tokens"])
+        del eng, rec
+        torch.cuda.empty_cache()
+    dense_recs, dense_rec = runs["fused dense"]
+    for label in ("fused paged", "fused unified"):
+        recs, rec = runs[label]
+        for i in sorted(recs):
+            diff = (rec.first_logits[i] - dense_rec.first_logits[i]).abs().max().item()
+            same = sum(x == y for x, y in zip(recs[i].tokens, dense_recs[i].tokens))
+            log(f"{label} request {i}: first-token logits max|{label[6:]} - dense| = "
+                f"{diff:.4f}, tokens agreeing {same}/{NEW_TOKENS}")
+            assert diff <= LOGIT_ATOL, (label, i, diff)
+    # the fused serve against exact recompute: r < 1 approximates, so this
+    # is reported, not gated
+    _, base_recs, base_rec, _, _ = serve(cfg, params, reuse=False, make_traffic=fused_traffic)
+    for i in (1, 2):
+        diff = (dense_rec.first_logits[i] - base_rec.first_logits[i]).abs().max().item()
+        same = sum(x == y for x, y in zip(dense_recs[i].tokens, base_recs[i].tokens))
+        log(f"fused (r={RECOMPUTE_FRAC}) vs recompute, request {i}: first-token logits "
+            f"max diff {diff:.4f}, tokens agreeing {same}/{NEW_TOKENS}")
+    del base_rec, runs
+    torch.cuda.empty_cache()
+
+    # r = 1.0: every matched token recomputes, so the fused launch is a full
+    # prefill of the sequence
+    r1 = reqs[1]
+    sched = fusion.select_recompute(comp, 1.0)
+    layout = fusion.fused_layout(sched, PROMPT_LEN)
+    a = {n: torch.from_numpy(x).to(DEVICE) for n, x in fusion.fused_arrays(
+        sched, r1["context_tokens"], r1["prompt_tokens"], layout).items()}
+    with torch.inference_mode():
+        fused_logits, _ = lm.prefill_fused(
+            params, cfg, a["tokens"], fusion.build_fused_caches(cfg, sched, {}, layout.kv_len,
+                                                                DEVICE),
+            q_pos=a["q_pos"], q_rows=a["q_rows"], kv_pos=a["kv_pos"], last_idx=a["last_idx"])
+        state = lm.init_state(cfg, 1, SERVE["max_len"], device=DEVICE)
+        full_logits, _ = lm.prefill(params, cfg, torch.tensor(
+            [r1["context_tokens"] + r1["prompt_tokens"]], device=DEVICE), state)
+    diff = (fused_logits[0].float() - full_logits[0].float()).abs().max().item()
+    log(f"r=1.0: lm.prefill_fused ({layout.n_q} queries) vs lm.prefill of the same "
+        f"{layout.total} tokens: last-token logits max diff {diff:.4f}")
+    assert diff <= LOGIT_ATOL, diff
+    del state
+    torch.cuda.empty_cache()
+    assert counts_by["fused paged"]["fused_flash_attention"] > 0
+    return fused_inputs, counts_by["fused dense"]["fused_flash_attention"]
 
 
 def main() -> None:
@@ -822,7 +1033,12 @@ def main() -> None:
     log(f"per-request prefill launches: {prefill_counts}")
     assert prefill_counts["flash_attention"] == cfg.n_layers * (len(reqs) + 2), prefill_counts
     assert sum(prefill_counts.values()) == prefill_counts["flash_attention"], prefill_counts
-    del params, artifact
+    del artifact
+    torch.cuda.empty_cache()
+
+    # ---- fused (CacheBlend-style) reuse phase ------------------------------
+    fused_inputs, fused_launches = fused_phase(cfg, params)
+    del params
     torch.cuda.empty_cache()
 
     # ---- kernel phase -----------------------------------------------------
@@ -830,7 +1046,8 @@ def main() -> None:
                check_decode(decode_inputs, dense_counts["decode_attention"]),
                check_flash(flash_full, prefill_counts["flash_attention"], "full"),
                check_paged(paged_inputs, paged_counts["paged_decode_attention"]),
-               check_chunked(chunked_inputs, unified_counts["chunked_prefill_attention"])]
+               check_chunked(chunked_inputs, unified_counts["chunked_prefill_attention"]),
+               check_fused(fused_inputs, fused_launches)]
     check_flash(flash_suffix, prefill_counts["flash_attention"], "suffix")
     check_wide_group()
     print(json.dumps({"kernels": kernels}))

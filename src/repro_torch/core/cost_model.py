@@ -18,10 +18,12 @@ Beyond-paper extensions (kept separate, clearly flagged):
   * int8 KV compression factor on S_storage (halves storage+transfer),
   * partial prefix reuse (suffix prefill of the unmatched tail),
   * prefetch overlap in the delay model,
-  * O(1) SSM/hybrid stored state (``ArchConfig.fixed_state_bytes``).
+  * O(1) SSM/hybrid stored state (``ArchConfig.fixed_state_bytes``),
+  * the fused (CacheBlend-style) non-prefix reuse term (``delay_fused``,
+    ``cost_fused_request``).
 
-The reference's fused-reuse and routed-request terms come with those
-features (ROADMAP queue A items 2 and 6).
+The reference's routed-request terms come with the cluster (ROADMAP queue A
+item 6).
 """
 from __future__ import annotations
 
@@ -200,6 +202,69 @@ def break_even_reuses(
 # --------------------------------------------------------------------------- #
 # Fused-prefill pipeline term (CacheBlend-style non-prefix chunk reuse)
 # --------------------------------------------------------------------------- #
+def delay_fused(
+    cfg: ArchConfig,
+    w: Workload,
+    perf: PerfModel,
+    pricing: Pricing,
+    *,
+    bytes_by_tier: "dict[str, float]",
+    n_recompute_ctx: int,
+    overlap_load: bool = False,
+    queue_wait_s: Optional["dict[str, float]"] = None,
+) -> DelayBreakdown:
+    """Per-request delay under fused non-prefix reuse: the matched chunks'
+    stored bytes move (possibly from several tiers — fetches issue
+    concurrently, so the load term is the slowest tier's, including any
+    predicted queueing delay on that tier's contended link), then one fused
+    launch recomputes only ``n_recompute_ctx`` context tokens plus the
+    prompt while attending the full assembled KV."""
+    load = max(
+        (
+            perf.kv_load_time(b, pricing.tier(t))
+            + (queue_wait_s or {}).get(t, 0.0)
+            for t, b in bytes_by_tier.items()
+            if b > 0
+        ),
+        default=0.0,
+    )
+    prefill = perf.t_prefill_fused(
+        cfg, w.L_context + w.L_prompt, n_recompute_ctx + w.L_prompt
+    )
+    if overlap_load:
+        load = max(0.0, load - prefill)
+    return DelayBreakdown(
+        load_s=load,
+        prefill_s=prefill,
+        decode_s=perf.t_decode(
+            cfg, w.L_output, w.L_context + w.L_prompt, batch=w.decode_batch
+        ),
+    )
+
+
+def cost_fused_request(
+    cfg: ArchConfig,
+    w: Workload,
+    pricing: Pricing,
+    perf: PerfModel,
+    *,
+    bytes_by_tier: "dict[str, float]",
+    n_recompute_ctx: int,
+) -> float:
+    """Marginal $ for one fused-reuse request: compute for only the
+    recompute spans (fused launch + decode) plus per-GB transfer fees for
+    the bytes fetched for ALL matched chunks."""
+    c_gpu = pricing.compute.cost_per_hour / 3600.0
+    compute_s = perf.t_prefill_fused(
+        cfg, w.L_context + w.L_prompt, n_recompute_ctx + w.L_prompt
+    ) + perf.t_decode(
+        cfg, w.L_output, w.L_context + w.L_prompt, batch=w.decode_batch
+    )
+    cost = c_gpu * compute_s
+    for tier_name, nbytes in bytes_by_tier.items():
+        cost += pricing.tier(tier_name).per_gb_transfer_fee * nbytes / GB
+    return cost
+
 
 
 # --------------------------------------------------------------------------- #

@@ -146,6 +146,36 @@ class PerfModel:
             cfg, sum(self.prefill_flops(cfg, L) for L in lens), sum(lens)
         )
 
+    def t_prefill_fused(self, cfg: ArchConfig, L_total: int, n_recompute: int) -> float:
+        """One fused selective-recompute prefill launch (CacheBlend-style):
+        reused chunk KV for ``L_total - n_recompute`` tokens is preloaded and
+        only ``n_recompute`` tokens flow through the layer stack, each
+        attending the full assembled buffer.
+
+        vs ``t_prefill(L_total)``: matmul FLOPs scale with the recompute
+        tokens only, attention FLOPs with ``n_recompute * L_total`` instead
+        of the full quadratic, while the memory side is unchanged (parameters
+        stream once, the whole assembled KV still moves through HBM) — so a
+        small r turns a compute-bound long-context prefill into a
+        parameter/KV-read-bound launch.  At ``n_recompute == L_total`` this
+        delegates to ``t_prefill`` — exact equality is a contract (the r=1.0
+        anchor's pricing analogue), not a numeric coincidence.
+        """
+        if L_total <= 0 or n_recompute <= 0:
+            return 0.0
+        n_recompute = min(int(n_recompute), int(L_total))
+        if n_recompute == L_total:
+            return self.t_prefill(cfg, L_total)
+        from repro_torch.models.registry import count_active_params
+
+        flops = 2.0 * count_active_params(cfg) * n_recompute
+        if cfg.n_attn_layers:
+            l_att = min(L_total, cfg.sliding_window) if cfg.sliding_window else L_total
+            flops += 4.0 * cfg.n_attn_layers * cfg.n_heads * cfg.resolved_head_dim * (
+                n_recompute * (l_att / 2.0 if l_att == L_total else l_att)
+            )
+        return self._prefill_roofline(cfg, flops, L_total)
+
     def t_decode(
         self, cfg: ArchConfig, L_out: int, context_len: int, batch: int = 1
     ) -> float:

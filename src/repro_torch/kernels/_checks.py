@@ -6,7 +6,7 @@ import torch
 
 from repro_torch.kernels.build import DTYPE_CODES
 
-HEAD_DIMS = (32, 64, 128, 256)
+MAX_HEAD_DIM = 256  # every kernel takes any head_dim in [1, MAX_HEAD_DIM]
 
 
 def require(cond: bool, kernel: str, what: str) -> None:

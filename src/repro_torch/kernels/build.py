@@ -22,7 +22,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 KERNELS = ("packed_prefill", "decode_attention", "flash_prefill", "paged_decode",
-           "chunked_prefill")
+           "chunked_prefill", "fused_prefill")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -66,6 +66,13 @@ _SIGNATURES = {
         [_P] * 6
         # B C nb n_blocks block H KV hd dtype has_window window
         + [_I] * 11 + [_F, _P],  # scale stream
+    ),
+    "fused_prefill": (
+        "fused_flash_attention_launch",
+        # q k v q_pos kv_pos out
+        [_P] * 6
+        # B Sq Skv H KV hd dtype has_window window
+        + [_I] * 9 + [_F, _P],  # scale stream
     ),
 }
 

@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels._checks import HEAD_DIMS, cuda_operands, dtype_code, int32, require
+from repro_torch.kernels._checks import MAX_HEAD_DIM, cuda_operands, dtype_code, int32, require
 
 NAME = "chunked_prefill_attention"
 
@@ -61,7 +61,7 @@ def chunked_prefill_attention(
     require(block > 0 and N_rows % block == 0 and N_rows > 0, NAME,
             f"pool rows {N_rows} not a positive multiple of block {block}")
     require(KV > 0 and H % KV == 0, NAME, f"H={H} not a multiple of KV={KV}")
-    require(hd in HEAD_DIMS, NAME, f"head_dim {hd} not in {HEAD_DIMS}")
+    require(1 <= hd <= MAX_HEAD_DIM, NAME, f"head_dim {hd} not in [1, {MAX_HEAD_DIM}]")
     require(k_pool.dtype == q.dtype and v_pool.dtype == q.dtype, NAME, "q, k, v dtypes differ")
     require(block_table.dim() == 2 and block_table.shape[0] == B and block_table.shape[1] > 0,
             NAME, f"block_table shape {tuple(block_table.shape)}")

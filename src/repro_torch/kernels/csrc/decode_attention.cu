@@ -40,26 +40,26 @@ struct DenseRows {
   __device__ __forceinline__ size_t offset(int j) const { return base + size_t(j) * stride; }
 };
 
-template <typename T, int EPL, int GM>
+template <typename T, int EPL, int GM, bool FULL>
 __global__ void __launch_bounds__(THREADS)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
               const unsigned char* __restrict__ kv_valid, T* __restrict__ out, int L, int H,
-              int KV, int has_window, int window, float scale) {
-  constexpr int HD = 32 * EPL;
+              int KV, int hd_arg, int has_window, int window, float scale) {
+  const int hd = FULL ? 32 * EPL : hd_arg;  // FULL: the bucket's own head_dim
   extern __shared__ float sm[];
   const int kvh = blockIdx.x, b = blockIdx.y;
   const int G = H / KV;
-  const size_t stride = size_t(KV) * HD;
+  const size_t stride = size_t(KV) * hd;
   const DenseRows rows{kv_pos + size_t(b) * L,
                        kv_valid ? kv_valid + size_t(b) * L : nullptr,
-                       size_t(b) * L * stride + size_t(kvh) * HD,
+                       size_t(b) * L * stride + size_t(kvh) * hd,
                        stride,
                        q_pos[b],
                        has_window,
                        window};
-  const size_t qo = (size_t(b) * H + size_t(kvh) * G + tile_first()) * HD;
-  attend<T, EPL, GM>(q + qo, k, v, out + qo, rows, 0, L, tile_count(G), scale, sm);
+  const size_t qo = (size_t(b) * H + size_t(kvh) * G + tile_first()) * hd;
+  attend<T, EPL, GM>(q + qo, k, v, out + qo, rows, 0, L, tile_count(G), hd, scale, sm);
 }
 
 // One launch's arguments; `run` launches the instantiation `dispatch` picks.
@@ -68,19 +68,20 @@ struct DenseLaunch {
   const int *q_pos, *kv_pos;
   const unsigned char* kv_valid;
   void* out;
-  int B, L, H, KV, has_window, window;
+  int B, L, H, KV, hd, has_window, window;
   float scale;
   cudaStream_t stream;
 
   template <typename T, int EPL, int GM>
   int run() const {
     const size_t smem = smem_bytes(H / KV, EPL);
-    auto kernel = decode_kernel<T, EPL, GM>;
+    auto kernel = hd == 32 * EPL ? decode_kernel<T, EPL, GM, true>
+                                 : decode_kernel<T, EPL, GM, false>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return int(err);
     kernel<<<dim3(KV, B, g_tiles(H / KV)), THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), q_pos,
-        kv_pos, kv_valid, static_cast<T*>(out), L, H, KV, has_window, window, scale);
+        kv_pos, kv_valid, static_cast<T*>(out), L, H, KV, hd, has_window, window, scale);
     return int(cudaGetLastError());
   }
 };
@@ -99,7 +100,7 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
                                        int window, float scale, void* stream) {
   using namespace repro_torch::decode;
   if (KV <= 0 || H % KV != 0 || L <= 0 || B <= 0) return int(cudaErrorInvalidValue);
-  const DenseLaunch l{q, k, v, q_pos, kv_pos, kv_valid, out, B, L, H, KV, has_window,
+  const DenseLaunch l{q, k, v, q_pos, kv_pos, kv_valid, out, B, L, H, KV, hd, has_window,
                       window, scale, static_cast<cudaStream_t>(stream)};
   return dispatch(l, dtype, hd, H / KV);
 }

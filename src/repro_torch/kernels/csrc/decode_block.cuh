@@ -20,6 +20,15 @@
 // head's rows.  For G <= GT there is one tile, and the arithmetic is that of
 // one block per kv head.  Splitting one sequence's cache over several blocks
 // (split-K) is later work.
+//
+// Any head_dim hd in [1, 256] runs, on the instantiation of the smallest
+// bucket HD = 32 * EPL in {32, 64, 128, 256} that holds it: rows are hd
+// elements apart, a lane's elements past hd read as zeros (adding nothing to
+// q.k or p.v) and are not stored.  At hd == HD the kernels run their FULL
+// instantiation, whose hd is the constant HD: each lane loads its EPL
+// elements as vectors, the code of a kernel built for hd alone.  At any
+// other hd a lane loads its elements one by one, since a row's start need
+// not be vector-aligned.
 #pragma once
 
 #include <cstdint>
@@ -39,6 +48,22 @@ constexpr int GT = 8;  // query heads a block takes (a tile of one kv head's G)
 inline int g_tiles(int G) { return (G + GT - 1) / GT; }
 inline int tile_heads(int G) { return G < GT ? G : GT; }
 
+// Lane `lane`'s EPL elements of one hd-element row, widened to f32: vector
+// loads at hd == 32 * EPL, element loads (zeros past hd) otherwise.
+template <typename T, int EPL>
+__device__ __forceinline__ void load_row(const T* __restrict__ row, int lane, int hd,
+                                         float (&dst)[EPL]) {
+  if (hd == 32 * EPL) {
+    load_f32<T, EPL>(row + lane * EPL, dst);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < EPL; ++e) {
+    const int d = lane * EPL + e;
+    dst[e] = d < hd ? to_float(row[d]) : 0.f;
+  }
+}
+
 inline size_t smem_bytes(int G, int epl) {
   return sizeof(float) * size_t(NW) * tile_heads(G) * (2 + 32 * epl);
 }
@@ -51,12 +76,12 @@ __device__ __forceinline__ int tile_count(int G) { return min(GT, G - int(blockI
 // j starts at element `rows.offset(j)` of k and v (kv head included).  Warp w
 // takes the chunks starting at begin + w*R + i*NW*R, so `begin` must be a
 // multiple of NW*R for two sources to split the same rows alike.  q and out
-// point at the block's G heads ([G, HD] contiguous); sm holds
+// point at the block's G heads ([G, hd] contiguous); sm holds
 // smem_bytes(G, EPL) bytes.
 template <typename T, int EPL, int GM, typename Rows>
 __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restrict__ k,
                                        const T* __restrict__ v, T* __restrict__ out,
-                                       const Rows& rows, int begin, int end, int G,
+                                       const Rows& rows, int begin, int end, int G, int hd,
                                        float scale, float* sm) {
   constexpr int HD = 32 * EPL;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -68,7 +93,7 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
     l[g] = 0.f;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) acc[g][e] = qr[g][e] = 0.f;
-    if (g < G) load_f32<T, EPL>(q + size_t(g) * HD + lane * EPL, qr[g]);
+    if (g < G) load_row<T, EPL>(q + size_t(g) * hd, lane, hd, qr[g]);
   }
 
   for (int j0 = begin + warp * R; j0 < end; j0 += NW * R) {
@@ -82,9 +107,9 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
       keep[i] = kk;  // the same on every lane: the branches below are uniform
       any = any || kk;
       if (kk) {
-        const size_t off = rows.offset(j) + lane * EPL;
-        load_f32<T, EPL>(k + off, kr[i]);
-        load_f32<T, EPL>(v + off, vr[i]);
+        const size_t off = rows.offset(j);
+        load_row<T, EPL>(k + off, lane, hd, kr[i]);
+        load_row<T, EPL>(v + off, lane, hd, vr[i]);
       } else {
 #pragma unroll
         for (int e = 0; e < EPL; ++e) kr[i][e] = vr[i][e] = 0.f;
@@ -151,14 +176,14 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
       den = fmaf(sm_l[w * G + g], sc, den);
       num = fmaf(sm_acc[(w * G + g) * HD + c], sc, num);
     }
-    out[size_t(g) * HD + c] = from_float<T>(num / fmaxf(den, 1e-30f));
+    if (c < hd) out[size_t(g) * hd + c] = from_float<T>(num / fmaxf(den, 1e-30f));
   }
 }
 
-// Call `l.run<T, EPL, GM>()` for the element type of `dtype`, EPL = hd / 32
-// and the smallest GM of 1, 2, 4, 8 that holds a block's tile_heads(G);
-// cudaErrorInvalidValue for anything else (a dtype other than f32/bf16, a
-// head_dim not in {32, 64, 128, 256}, or G < 1).
+// Call `l.run<T, EPL, GM>()` for the element type of `dtype`, EPL = HD / 32
+// for the head_dim bucket HD that holds hd, and the smallest GM of 1, 2, 4, 8
+// that holds a block's tile_heads(G); cudaErrorInvalidValue for anything else
+// (a dtype other than f32/bf16, a head_dim outside [1, 256], or G < 1).
 template <typename L, typename T, int EPL>
 int dispatch_g(const L& l, int G) {
   if (G < 1) return int(cudaErrorInvalidValue);
@@ -171,18 +196,11 @@ int dispatch_g(const L& l, int G) {
 
 template <typename L, typename T>
 int dispatch_hd(const L& l, int hd, int G) {
-  switch (hd) {
-    case 32:
-      return dispatch_g<L, T, 1>(l, G);
-    case 64:
-      return dispatch_g<L, T, 2>(l, G);
-    case 128:
-      return dispatch_g<L, T, 4>(l, G);
-    case 256:
-      return dispatch_g<L, T, 8>(l, G);
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  if (hd < 1 || hd > 256) return int(cudaErrorInvalidValue);
+  if (hd <= 32) return dispatch_g<L, T, 1>(l, G);
+  if (hd <= 64) return dispatch_g<L, T, 2>(l, G);
+  if (hd <= 128) return dispatch_g<L, T, 4>(l, G);
+  return dispatch_g<L, T, 8>(l, G);
 }
 
 template <typename L>

@@ -1,12 +1,16 @@
 // The tiled flash-attention kernel shared by `flash_attention`
-// (flash_prefill.cu), `packed_flash_attention` (packed_prefill.cu) and
-// `chunked_prefill_attention` (chunked_prefill.cu).  The three differ only
-// in where kv row j comes from (the SRC template argument):
+// (flash_prefill.cu), `packed_flash_attention` (packed_prefill.cu),
+// `chunked_prefill_attention` (chunked_prefill.cu) and
+// `fused_flash_attention` (fused_prefill.cu).  The four differ only in where
+// kv row j comes from and which queries are padding (the SRC template
+// argument):
 //
 //   ROWS_DENSE      row j of the sequence's own k/v, at position kv_pos[j];
 //   ROWS_SEGMENTED  the same, plus a segment id kv_seg[j] (packed batches);
 //   ROWS_PAGED      position j itself, read from the shared block pool at
-//                   row table[b, j / block] * block + j % block.
+//                   row table[b, j / block] * block + j % block;
+//   ROWS_FUSED      as ROWS_DENSE, with queries at q_pos < 0 treated as
+//                   padding (the gappy recompute queries of fused reuse).
 //
 // A key row j is kept for a query i iff kv_pos[j] >= 0, kv_valid[j] (when
 // given), q_seg[i] == kv_seg[j] (segmented only), kv_pos[j] <= q_pos[i]
@@ -30,13 +34,22 @@
 // an online softmax (m, l, acc) in f32.  Tensor-core (wgmma) tiles, TMA
 // loads and warp specialisation are later work.
 //
+// The paged and fused sources treat a query at q_pos < 0 as padding: it
+// sets none of the tile's position bounds (so a -2^30 neither widens the
+// range nor disables the window skip), its q row is not read, and a tile
+// whose queries are all padding writes zeros without touching q or k/v.
 // The paged source reads no kv_pos: a query tile loops over positions
 // [max(0, min_q - window + 1), min(max_q, nb * block - 1)] only, where min_q
-// and max_q are its smallest and largest valid (>= 0) query positions, so
-// table padding on the dump block is never read, no padding query's q row
-// is read, and a tile whose queries are all padding writes zeros without
-// touching q or the pool.  A table entry outside [0, n_blocks) on that
-// range traps.
+// and max_q are its smallest and largest valid query positions, so table
+// padding on the dump block is never read.  A table entry outside
+// [0, n_blocks) on that range traps.
+//
+// Any head_dim hd in [1, 256] runs, on the instantiation of the smallest
+// bucket HD in {32, 64, 128, 256} that holds it: global offsets use the true
+// hd, loads past it read zeros into shared memory (adding nothing to q.k or
+// p.v) and stores past it are skipped.  At hd == HD the FULL instantiation
+// runs, whose hd is the constant HD: the code of a kernel built for hd
+// alone, with no bounds test left in it.
 //
 // Layouts (all contiguous): q, out [B, Sq, H, hd]; k, v [B, Skv, KV, hd]
 // (paged: the pool [n_blocks * block, KV, hd]); q_pos [B, Sq] int32; kv_pos
@@ -63,6 +76,7 @@ constexpr int THREADS = 256;
 constexpr int ROWS_DENSE = 0;
 constexpr int ROWS_SEGMENTED = 1;
 constexpr int ROWS_PAGED = 2;
+constexpr int ROWS_FUSED = 3;
 
 template <int HD>
 constexpr size_t smem_bytes() {
@@ -86,17 +100,21 @@ __device__ __forceinline__ int warp_max(int x) {
 
 // SRC: the kv row source; q_seg/kv_seg are read only for ROWS_SEGMENTED,
 // table/nb/n_blocks/block only for ROWS_PAGED, kv_pos/kv_valid never then.
-template <typename T, int HD, int SRC>
+// HD is the head_dim bucket the shared tiles are sized for, hd_arg <= HD the
+// true head_dim of the tensors (FULL: hd_arg == HD, known when compiling).
+template <typename T, int HD, int SRC, bool FULL>
 __global__ void __launch_bounds__(THREADS)
 tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
             const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
             const unsigned char* __restrict__ kv_valid, const int* __restrict__ table,
-            T* __restrict__ out, int Sq, int Skv, int H, int KV, int causal, int has_window,
-            int window, float scale, int nb, int n_blocks, int block) {
-  static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
+            T* __restrict__ out, int Sq, int Skv, int H, int KV, int hd_arg, int causal,
+            int has_window, int window, float scale, int nb, int n_blocks, int block) {
+  const int hd = FULL ? HD : hd_arg;
+  static_assert(HD % 16 == 0, "the head_dim bucket must be a multiple of 16");
   constexpr bool SEG = SRC == ROWS_SEGMENTED;
   constexpr bool PAGED = SRC == ROWS_PAGED;
+  constexpr bool QPAD = PAGED || SRC == ROWS_FUSED;  // q_pos < 0 marks padding
   constexpr int CT = HD / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;                   // [BQ][HD]
@@ -132,8 +150,8 @@ tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   if (tid < 32) {
     int slo = INT_MAX, shi = INT_MIN, plo = INT_MAX, phi = INT_MIN;
     for (int r = tid; r < BQ; r += 32) {
-      // a paged tile's padding queries (q_pos < 0) set no bounds
-      if (q0 + r < Sq && (!PAGED || qp_s[r] >= 0)) {
+      // padding queries (q_pos < 0) of a paged or fused tile set no bounds
+      if (q0 + r < Sq && (!QPAD || qp_s[r] >= 0)) {
         slo = min(slo, qs_s[r]);
         shi = max(shi, qs_s[r]);
         plo = min(plo, qp_s[r]);
@@ -154,17 +172,20 @@ tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 
   __syncthreads();  // q_info is read by every thread below
 
+  if constexpr (QPAD) {
+    if (q_info[3] == INT_MIN) {  // all padding: zeros, q and k/v unread
+      for (int i = tid; i < BQ * hd; i += THREADS) {
+        const int r = i / hd, d = i % hd, qi = q0 + r;
+        if (qi < Sq) out[((size_t(b) * Sq + qi) * H + h) * hd + d] = from_float<T>(0.f);
+      }
+      return;
+    }
+  }
+
   // the kv rows this query tile visits: every row, or (paged) the positions
   // its valid queries can reach; rows of [kv_begin, lo_row) stay masked
   int kv_begin = 0, kv_end = Skv, lo_row = 0;
   if constexpr (PAGED) {
-    if (q_info[3] == INT_MIN) {  // all padding: zeros, q and the pool unread
-      for (int i = tid; i < BQ * HD; i += THREADS) {
-        const int r = i / HD, d = i % HD, qi = q0 + r;
-        if (qi < Sq) out[((size_t(b) * Sq + qi) * H + h) * HD + d] = from_float<T>(0.f);
-      }
-      return;
-    }
     long long lo = has_window ? (long long)q_info[2] - window + 1 : 0;
     if (lo < 0) lo = 0;
     const long long last = min((long long)q_info[3], (long long)nb * block - 1);
@@ -173,12 +194,13 @@ tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     kv_begin = lo_row - lo_row % BKV;
   }
 
-  // the tile's queries (a paged tile reads no padding query's row); the
-  // kv loop's first barrier orders these writes before their first use
+  // the tile's queries (a paged or fused tile reads no padding query's
+  // row); the kv loop's first barrier orders these writes before their
+  // first use
   for (int i = tid; i < BQ * HD; i += THREADS) {
     const int r = i / HD, d = i % HD, qi = q0 + r;
-    const bool read = qi < Sq && (!PAGED || qp_s[r] >= 0);
-    Qs[i] = read ? to_float(q[((size_t(b) * Sq + qi) * H + h) * HD + d]) : 0.f;
+    const bool read = qi < Sq && d < hd && (!QPAD || qp_s[r] >= 0);
+    Qs[i] = read ? to_float(q[((size_t(b) * Sq + qi) * H + h) * hd + d]) : 0.f;
   }
 
   const int rg = tid >> 4;  // rows rg*4 .. rg*4+3 of the QK^T and PV tiles
@@ -199,7 +221,7 @@ tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
           const int bid = __ldg(table + size_t(b) * nb + j / block);
           if (bid < 0 || bid >= n_blocks) __trap();
           kp = j;
-          ko_s[tid] = ((long long)bid * block + j % block) * KV * HD + (long long)kvh * HD;
+          ko_s[tid] = ((long long)bid * block + j % block) * KV * hd + (long long)kvh * hd;
         }
       } else if (j < Skv) {
         kp = kv_pos[size_t(b) * Skv + j];
@@ -228,14 +250,16 @@ tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     for (int i = tid; i < BKV * HD; i += THREADS) {
       const int r = i / HD, d = i % HD, j = kv0 + r;
       float kk = 0.f, vv = 0.f;
-      if constexpr (PAGED) {
+      if (d >= hd) {
+        // padded columns stay zero
+      } else if constexpr (PAGED) {
         if (kp_s[r] >= 0) {
           const size_t off = size_t(ko_s[r]) + d;
           kk = to_float(k[off]);
           vv = to_float(v[off]);
         }
       } else if (j < Skv) {
-        const size_t off = ((size_t(b) * Skv + j) * KV + kvh) * HD + d;
+        const size_t off = ((size_t(b) * Skv + j) * KV + kvh) * hd + d;
         kk = to_float(k[off]);
         vv = to_float(v[off]);
       }
@@ -338,9 +362,10 @@ tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     const int r = rg * 4 + i, qi = q0 + r;
     if (qi >= Sq) continue;
     const float l = fmaxf(l_s[r], 1e-30f);
-    T* o = out + ((size_t(b) * Sq + qi) * H + h) * HD + cg;
+    T* o = out + ((size_t(b) * Sq + qi) * H + h) * hd + cg;
 #pragma unroll
-    for (int t = 0; t < CT; ++t) o[16 * t] = from_float<T>(acc[i][t] / l);
+    for (int t = 0; t < CT; ++t)
+      if (cg + 16 * t < hd) o[16 * t] = from_float<T>(acc[i][t] / l);
   }
 }
 
@@ -360,40 +385,35 @@ struct Args {
 };
 
 template <typename T, int HD, int SRC>
-int launch(const Args& a) {
+int launch(const Args& a, int hd) {
   const size_t smem = smem_bytes<HD>();
-  auto kernel = tile_kernel<T, HD, SRC>;
+  auto kernel = hd == HD ? tile_kernel<T, HD, SRC, true> : tile_kernel<T, HD, SRC, false>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return int(err);
   dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
   kernel<<<grid, THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       a.q_pos, a.kv_pos, a.q_seg, a.kv_seg, a.kv_valid, a.table, static_cast<T*>(a.out), a.Sq,
-      a.Skv, a.H, a.KV, a.causal, a.has_window, a.window, a.scale, a.nb, a.n_blocks, a.block);
+      a.Skv, a.H, a.KV, hd, a.causal, a.has_window, a.window, a.scale, a.nb, a.n_blocks,
+      a.block);
   return int(cudaGetLastError());
 }
 
-// Check the shapes, pick the instantiation for (dtype, head_dim) and launch.
-// Returns the CUDA status: cudaErrorInvalidValue for an unsupported head_dim,
-// dtype or head grouping.
+// Check the shapes, pick the instantiation for (dtype, head_dim bucket) and
+// launch.  Returns the CUDA status: cudaErrorInvalidValue for a head_dim
+// outside [1, 256], an unsupported dtype or head grouping.
 template <int SRC>
 int dispatch(int dtype, int hd, const Args& a) {
   if (a.KV <= 0 || a.H % a.KV != 0 || a.Sq <= 0 || a.Skv <= 0 || a.B <= 0)
     return int(cudaErrorInvalidValue);
   if (dtype != DTYPE_F32 && dtype != DTYPE_BF16) return int(cudaErrorInvalidValue);
+  if (hd < 1 || hd > 256) return int(cudaErrorInvalidValue);
   const bool f32 = dtype == DTYPE_F32;
-  switch (hd) {
-    case 32:
-      return f32 ? launch<float, 32, SRC>(a) : launch<__nv_bfloat16, 32, SRC>(a);
-    case 64:
-      return f32 ? launch<float, 64, SRC>(a) : launch<__nv_bfloat16, 64, SRC>(a);
-    case 128:
-      return f32 ? launch<float, 128, SRC>(a) : launch<__nv_bfloat16, 128, SRC>(a);
-    case 256:
-      return f32 ? launch<float, 256, SRC>(a) : launch<__nv_bfloat16, 256, SRC>(a);
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  if (hd <= 32) return f32 ? launch<float, 32, SRC>(a, hd) : launch<__nv_bfloat16, 32, SRC>(a, hd);
+  if (hd <= 64) return f32 ? launch<float, 64, SRC>(a, hd) : launch<__nv_bfloat16, 64, SRC>(a, hd);
+  if (hd <= 128)
+    return f32 ? launch<float, 128, SRC>(a, hd) : launch<__nv_bfloat16, 128, SRC>(a, hd);
+  return f32 ? launch<float, 256, SRC>(a, hd) : launch<__nv_bfloat16, 256, SRC>(a, hd);
 }
 
 }  // namespace

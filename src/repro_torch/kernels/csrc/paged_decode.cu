@@ -47,13 +47,14 @@ struct PagedRows {
   }
 };
 
-template <typename T, int EPL, int GM>
+template <typename T, int EPL, int GM, bool FULL>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                     const T* __restrict__ v_pool, const int* __restrict__ block_table,
                     const int* __restrict__ q_pos, T* __restrict__ out, int nb, int n_blocks,
-                    int block, int H, int KV, int has_window, int window, float scale) {
-  constexpr int HD = 32 * EPL;
+                    int block, int H, int KV, int hd_arg, int has_window, int window,
+                    float scale) {
+  const int hd = FULL ? 32 * EPL : hd_arg;  // FULL: the bucket's own head_dim
   extern __shared__ float sm[];
   const int kvh = blockIdx.x, b = blockIdx.y;
   const int G = H / KV;
@@ -65,11 +66,11 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int end = last < 0 ? 0 : int(last + 1);
   const int first = lo > last ? end : int(lo);
   const int begin = first - first % (NW * R);  // warp chunks aligned as in dense decode
-  const PagedRows rows{block_table + size_t(b) * nb, size_t(kvh) * HD, size_t(KV) * HD,
+  const PagedRows rows{block_table + size_t(b) * nb, size_t(kvh) * hd, size_t(KV) * hd,
                        block, n_blocks, first};
-  const size_t qo = (size_t(b) * H + size_t(kvh) * G + tile_first()) * HD;
-  attend<T, EPL, GM>(q + qo, k_pool, v_pool, out + qo, rows, begin, end, tile_count(G), scale,
-                     sm);
+  const size_t qo = (size_t(b) * H + size_t(kvh) * G + tile_first()) * hd;
+  attend<T, EPL, GM>(q + qo, k_pool, v_pool, out + qo, rows, begin, end, tile_count(G), hd,
+                     scale, sm);
 }
 
 // One launch's arguments; `run` launches the instantiation `dispatch` picks.
@@ -77,20 +78,21 @@ struct PagedLaunch {
   const void *q, *k_pool, *v_pool;
   const int *block_table, *q_pos;
   void* out;
-  int B, nb, n_blocks, block, H, KV, has_window, window;
+  int B, nb, n_blocks, block, H, KV, hd, has_window, window;
   float scale;
   cudaStream_t stream;
 
   template <typename T, int EPL, int GM>
   int run() const {
     const size_t smem = smem_bytes(H / KV, EPL);
-    auto kernel = paged_decode_kernel<T, EPL, GM>;
+    auto kernel = hd == 32 * EPL ? paged_decode_kernel<T, EPL, GM, true>
+                                 : paged_decode_kernel<T, EPL, GM, false>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return int(err);
     kernel<<<dim3(KV, B, g_tiles(H / KV)), THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k_pool),
         static_cast<const T*>(v_pool), block_table, q_pos, static_cast<T*>(out), nb, n_blocks,
-        block, H, KV, has_window, window, scale);
+        block, H, KV, hd, has_window, window, scale);
     return int(cudaGetLastError());
   }
 };
@@ -113,6 +115,6 @@ extern "C" int paged_decode_attention_launch(const void* q, const void* k_pool,
     return int(cudaErrorInvalidValue);
   const PagedLaunch l{q,     k_pool,     v_pool, block_table, q_pos, out,
                       B,     nb,         n_blocks, block,     H,     KV,
-                      has_window, window, scale, static_cast<cudaStream_t>(stream)};
+                      hd,    has_window, window, scale, static_cast<cudaStream_t>(stream)};
   return dispatch(l, dtype, hd, H / KV);
 }

@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels._checks import HEAD_DIMS, cuda_operands, dtype_code, int32, require
+from repro_torch.kernels._checks import MAX_HEAD_DIM, cuda_operands, dtype_code, int32, require
 
 NAME = "flash_attention"
 
@@ -55,7 +55,7 @@ def flash_attention(
     Skv, KV = k.shape[1], k.shape[2]
     require(v.shape == k.shape, NAME, "v must have k's shape")
     require(KV > 0 and H % KV == 0, NAME, f"H={H} not a multiple of KV={KV}")
-    require(hd in HEAD_DIMS, NAME, f"head_dim {hd} not in {HEAD_DIMS}")
+    require(1 <= hd <= MAX_HEAD_DIM, NAME, f"head_dim {hd} not in [1, {MAX_HEAD_DIM}]")
     require(k.dtype == q.dtype and v.dtype == q.dtype, NAME, "q, k, v dtypes differ")
     require(q_pos.shape == (B, Sq) and kv_pos.shape == (B, Skv), NAME, "q_pos/kv_pos shape")
     int32(NAME, q_pos=q_pos, kv_pos=kv_pos)

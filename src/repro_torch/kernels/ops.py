@@ -13,6 +13,7 @@ import torch
 from repro_torch.kernels import chunked_prefill as cpk
 from repro_torch.kernels import decode_attention as dk
 from repro_torch.kernels import flash_prefill as fk
+from repro_torch.kernels import fused_prefill as fuk
 from repro_torch.kernels import packed_prefill as pk
 from repro_torch.kernels import paged_decode as pdk
 
@@ -75,3 +76,14 @@ def chunked_prefill(
     fn = cpk.chunked_prefill_attention if q.is_cuda else cpk.chunked_prefill_attention_plain
     return fn(q, k_pool, v_pool, block_table=block_table, q_pos=q_pos, block=block,
               window=window)
+
+
+def fused_prefill(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_pos: torch.Tensor,
+    kv_pos: torch.Tensor, window: Optional[int] = None,
+) -> torch.Tensor:
+    """Selective-recompute attention of fused (CacheBlend-style) reuse: the
+    recompute tokens at gappy positions ``q_pos`` against the assembled
+    buffer (see ``ref.fused_prefill_ref``)."""
+    fn = fuk.fused_flash_attention if q.is_cuda else fuk.fused_flash_attention_plain
+    return fn(q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=window)

@@ -92,6 +92,27 @@ def packed_attention_ref(
     return _masked_attention(q, k, v, mask)
 
 
+def fused_prefill_ref(
+    q: torch.Tensor,  # [B, Sq, H, hd] the selectively recomputed tokens only
+    k: torch.Tensor,  # [B, Skv, KV, hd] the assembled context buffer
+    v: torch.Tensor,
+    *,
+    q_pos: torch.Tensor,  # [B, Sq] absolute (gappy, ascending) positions; -2^30 padding
+    kv_pos: torch.Tensor,  # [B, Skv] row positions (-1 = invalid row)
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Selective-recompute (CacheBlend-style) fused prefill attention.
+
+    ``k``/``v`` hold one query-ordered buffer assembled from reused chunk
+    spans plus the recompute tokens' fresh K/V (scattered in by the caller
+    at their ``q_pos`` rows).  The queries are only the recompute tokens, a
+    gappy subset of positions, and each attends causally over the whole
+    buffer at its absolute position: key position ``s`` is kept for query
+    position ``p`` iff ``s >= 0``, ``s <= p`` (and ``s > p - window``).  With
+    every position recomputed this is ``attention_ref`` of a full prefill."""
+    return _masked_attention(q, k, v, _position_mask(q_pos, kv_pos, True, window))
+
+
 def paged_decode_ref(
     q: torch.Tensor,  # [B, 1, H, hd] one query token per sequence
     k_pool: torch.Tensor,  # [N_rows, KV, hd] the shared block pool, flat rows

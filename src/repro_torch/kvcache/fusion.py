@@ -22,11 +22,12 @@ This module is the content side of that subsystem:
     (the *head* of each span — the cross-chunk boundary tokens whose KV
     deviates most), yielding a ``FusedSchedule`` of execution spans.
 
-The port carries only this host half, which the tiered store's chunk index
-and the planners read.  The launch assembly (``fused_layout``,
-``fused_arrays``, ``build_fused_caches``) and the fused prefill kernel are
-ROADMAP queue A item 2; ``EngineConfig(fusion_enabled=True)`` raises until
-then.
+  * ``fused_layout`` / ``fused_arrays`` / ``build_fused_caches`` — the
+    assembly of the selective-recompute prefill launch
+    (``kernels/fused_prefill.py``): one KV buffer in query order on the
+    engine's device with the reused rows copied in (K re-aligned to its
+    target position by delta-RoPE), and index arrays for the scattered
+    recompute queries.
 
 At ``recompute_frac=1.0`` every reused token is recomputed, so the fused
 launch degenerates to an ordinary full prefill — the bit-exactness anchor
@@ -39,9 +40,10 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.kvcache.chunks import DEFAULT_CHUNK_TOKENS
 
@@ -303,3 +305,136 @@ def select_recompute(match: CompositeMatch, recompute_frac: float) -> FusedSched
         recompute_tokens=match.total_tokens - reused,
         selected_tokens=budget,
     )
+
+
+# --------------------------------------------------------------------------- #
+# Launch assembly: layout, index arrays, KV buffers
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class FusedLayout:
+    """Geometry of one fused prefill launch (context + prompt)."""
+
+    total: int  # context + prompt tokens == valid kv rows after the launch
+    n_q: int  # recompute context tokens + prompt tokens (query side)
+    q_len: int  # bucketed q length (power-of-two launch-shape bucket)
+    kv_len: int  # bucketed kv length (align-multiple, whole-block landable)
+
+
+def fused_layout(
+    schedule: FusedSchedule,
+    n_prompt: int,
+    *,
+    align: int = 128,
+    bucket_min: int = 16,
+) -> FusedLayout:
+    from repro_torch.kvcache.paged import pack_bucket
+
+    total = schedule.match.total_tokens + n_prompt
+    n_q = schedule.recompute_tokens + n_prompt
+    assert n_q >= 1, "fused launch needs at least one query token"
+    kv_needed = -(-total // align) * align
+    return FusedLayout(
+        total=total,
+        n_q=n_q,
+        q_len=pack_bucket(n_q, bucket_min),
+        kv_len=pack_bucket(kv_needed, max(align, bucket_min)),
+    )
+
+
+def fused_arrays(
+    schedule: FusedSchedule,
+    ctx_tokens: Sequence[int],
+    prompt_tokens: Sequence[int],
+    layout: FusedLayout,
+) -> dict:
+    """Host-side index arrays for the fused launch: the recompute tokens
+    (context gaps/heads in order, then the whole prompt), their absolute
+    positions (``q_pos``, int32 — also the buffer row each token's new KV
+    lands in, ``q_rows``, int64; padding lands on the scratch row
+    ``kv_len``), and the kv-row validity positions (``kv_pos = 0..total``,
+    -1 beyond)."""
+    Sq, Skv = layout.q_len, layout.kv_len
+    tokens = np.zeros((1, Sq), np.int32)
+    q_pos = np.full((1, Sq), -(2**30), np.int32)
+    q_rows = np.full((1, Sq), Skv, np.int64)  # padding -> scratch row
+    kv_pos = np.full((1, Skv), -1, np.int32)
+    kv_pos[0, : layout.total] = np.arange(layout.total, dtype=np.int32)
+
+    n_ctx = schedule.match.total_tokens
+    off = 0
+    for s in schedule.spans:
+        if s.kind != "recompute":
+            continue
+        n = s.n_tokens
+        tokens[0, off : off + n] = np.asarray(ctx_tokens[s.start : s.end], np.int32)
+        q_pos[0, off : off + n] = np.arange(s.start, s.end, dtype=np.int32)
+        off += n
+    n_p = len(prompt_tokens)
+    tokens[0, off : off + n_p] = np.asarray(prompt_tokens, np.int32)
+    q_pos[0, off : off + n_p] = np.arange(n_ctx, n_ctx + n_p, dtype=np.int32)
+    off += n_p
+    assert off == layout.n_q, (off, layout)
+    q_rows[0, : layout.n_q] = q_pos[0, : layout.n_q]
+    return {
+        "tokens": tokens, "q_pos": q_pos, "q_rows": q_rows, "kv_pos": kv_pos,
+        "last_idx": np.asarray([layout.n_q - 1], np.int64),
+    }
+
+
+def _delta_rope(k_rows: torch.Tensor, delta: int, theta: float) -> torch.Tensor:
+    """Re-align stored (already-RoPE'd) K rows from their source position to
+    their target position: RoPE rotations compose, so applying RoPE at the
+    constant position *delta* rotates K(src) into K(src + delta) == K(dst).
+    ``apply_rope`` computes in f32 and casts back to the rows' dtype.  V
+    carries no positional encoding and moves as-is."""
+    from repro_torch.models.layers import apply_rope
+
+    P, n = k_rows.shape[:2]
+    pos = torch.full((P, n), delta, dtype=torch.int32, device=k_rows.device)
+    return apply_rope(k_rows, pos, theta)
+
+
+def build_fused_caches(
+    cfg: Any,
+    schedule: FusedSchedule,
+    sources: Dict[str, Any],
+    kv_len: int,
+    device,
+    dtype: Optional[torch.dtype] = None,
+) -> Tuple[Any, ...]:
+    """Per-layer KV buffers for the fused launch, ``[n_layers, 1, kv_len + 1,
+    KV, hd]`` on ``device``, with every reuse span's stored rows preloaded at
+    its query offset — the non-prefix analogue of
+    ``paged.build_packed_caches``.  ``sources[entry_id]`` is that entry's
+    fetched artifact; only the reused rows of each are copied to the device.
+    K rows placed at a different position than they were stored at are
+    re-aligned by delta-RoPE, after the cast to the cache dtype (the
+    reference's order).  Recompute rows stay zero: the launch scatters their
+    fresh K/V before attending.  The extra last row is the scratch row the
+    padding tokens' K/V land on."""
+    from repro_torch.kvcache.paged import to_device
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.blocks import BlockCache
+    from repro_torch.models.common import resolve_dtype
+
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.family} archs are not ported yet (ROADMAP queue A items 4 and 9)"
+        )
+    dtype = dtype or resolve_dtype(cfg.dtype)
+    shape = (cfg.n_layers, 1, kv_len + 1, cfg.n_kv_heads, cfg.resolved_head_dim)
+    k_buf = torch.zeros(shape, dtype=dtype, device=device)
+    v_buf = torch.zeros(shape, dtype=dtype, device=device)
+    for s in schedule.spans:
+        if s.kind != "reuse":
+            continue
+        a = sources[s.entry_id].caches[0].attn
+        src = slice(s.src_start, s.src_start + s.n_tokens)
+        k_rows = to_device(a.k[:, 0, src], dtype, device)
+        v_rows = to_device(a.v[:, 0, src], dtype, device)
+        delta = s.start - s.src_start
+        if delta != 0 and cfg.rope_theta is not None:
+            k_rows = _delta_rope(k_rows, delta, cfg.rope_theta)
+        k_buf[:, 0, s.start : s.end] = k_rows
+        v_buf[:, 0, s.start : s.end] = v_rows
+    return (BlockCache(KVCache(k_buf, v_buf)),)

@@ -1,6 +1,6 @@
 """Grouped-query self-attention against the slotted KV cache or the shared block pool.
 
-Five call modes of the serving path share one weight set:
+Six call modes of the serving path share one weight set:
   * ``prefill`` — ``S`` new tokens per sequence written at ``offset`` into
     the slotted cache, attending causally over ``[0, offset+S)``; with
     ``offset > 0`` this is the paper's suffix prefill over reused context.
@@ -13,6 +13,9 @@ Five call modes of the serving path share one weight set:
   * ``prefill_chunked`` — up to ``C`` tokens per sequence against the
     shared block pool: the unified step's mix of decode, prefill-chunk and
     idle rows.
+  * ``prefill_fused`` — the recompute tokens of a fused (CacheBlend-style)
+    reuse admission, at gappy positions, against one assembled buffer whose
+    reused spans were preloaded from storage.
 
 Cache layout: k/v ``[B, L_cache, KV_heads, head_dim]`` (the pool: ``[N_rows,
 KV_heads, head_dim]``).  Unlike the JAX package, which returns new cache
@@ -153,6 +156,45 @@ def prefill_packed(
     o = ops.packed_attention(
         q, cache.k[:, :Skv], cache.v[:, :Skv], q_pos=q_pos, kv_pos=kv_pos,
         q_seg=q_seg, kv_seg=kv_seg, causal=True, window=cfg.sliding_window,
+    )
+    return _out(p, o)
+
+
+# --------------------------------------------------------------------------- #
+# Fused selective-recompute prefill (CacheBlend-style non-prefix reuse)
+# --------------------------------------------------------------------------- #
+def prefill_fused(
+    p: Params,
+    cfg: ArchConfig,
+    x: torch.Tensor,  # [1, Sq, D] — ONLY the tokens chosen for recompute
+    cache: KVCache,  # [1, Skv + 1, KV, hd]: assembled buffer + one scratch row
+    *,
+    q_pos: torch.Tensor,  # [1, Sq] int32 absolute positions (gappy; -2^30 padding)
+    q_rows: torch.Tensor,  # [1, Sq] int64 buffer row of each token's KV (Skv = scratch)
+    kv_pos: torch.Tensor,  # [1, Skv] int32 row positions (-1 invalid)
+) -> torch.Tensor:
+    """Selective-recompute prefill of one request over an assembled buffer.
+
+    ``cache`` holds the context KV in query order, with reused chunk spans
+    preloaded from storage (``kvcache.fusion.build_fused_caches``) and zeros
+    at the recompute rows.  The recompute tokens (a gappy subset of
+    positions, not a suffix) get fresh K/V written at ``q_rows``; padding
+    tokens carry row ``Skv``, the scratch row past the buffer, which
+    attention never reads (the reference's ``_scatter_rows_padded``).  Then
+    they attend causally over the whole buffer at their absolute positions
+    (``ops.fused_prefill``).  At r=1.0 every row is overwritten and this is
+    ``prefill`` of the whole sequence."""
+    Skv = kv_pos.shape[1]
+    _no_ring(cfg, Skv)
+    q, k_new, v_new = _qkv(p, cfg, x)
+    if cfg.rope_theta is not None:
+        q = apply_rope(q, q_pos, cfg.rope_theta)
+        k_new = apply_rope(k_new, q_pos, cfg.rope_theta)
+    cache.k[0].index_copy_(0, q_rows[0], k_new[0])
+    cache.v[0].index_copy_(0, q_rows[0], v_new[0])
+    o = ops.fused_prefill(
+        q.contiguous(), cache.k[:, :Skv], cache.v[:, :Skv], q_pos=q_pos, kv_pos=kv_pos,
+        window=cfg.sliding_window,
     )
     return _out(p, o)
 

@@ -51,6 +51,15 @@ def prefill_packed(
     return _apply_ffn(p, cfg, x)
 
 
+def prefill_fused(
+    p: Params, cfg: ArchConfig, x: torch.Tensor, cache: attention.KVCache, **layout
+) -> torch.Tensor:
+    """Selective-recompute fused prefill of one block (``attention.prefill_fused``)."""
+    h = layers.apply_norm(p["norm1"], cfg, x)
+    x = x + attention.prefill_fused(p["attn"], cfg, h, cache, **layout)
+    return _apply_ffn(p, cfg, x)
+
+
 def decode(
     p: Params, cfg: ArchConfig, x: torch.Tensor, cache: attention.KVCache,
     pos: torch.Tensor,

@@ -1,10 +1,12 @@
-"""Decoder-only dense LM: per-request, packed and chunked prefill, dense and paged decode.
+"""Decoder-only dense LM: per-request, packed, fused and chunked prefill, dense and paged decode.
 
 API:
   init(cfg, seed=0, device=None) -> params
   init_state(cfg, batch, max_len, device=None) -> LMState
   prefill(params, cfg, tokens [B, S], state) -> (last logits [B, V], LMState)
   prefill_packed(params, cfg, tokens, caches, **layout) -> (logits [n, V], caches)
+  prefill_fused(params, cfg, tokens, caches, q_pos=, q_rows=, kv_pos=, last_idx=)
+      -> (logits [1, V], caches)
   decode(params, cfg, tokens [B, 1], state) -> (logits [B, V], LMState)
   decode_paged(params, cfg, tokens [B, 1], caches, block_table=, pos=, block=)
       -> (logits [B, V], caches)
@@ -128,6 +130,42 @@ def prefill_packed(
             lp, cfg, x, _layer(cache, i), q_pos=q_pos, q_seg=q_seg, q_rows=q_rows,
             kv_pos=kv_pos, kv_seg=kv_seg,
         )
+    x = x[0, last_idx.long()]
+    x = layers.apply_norm(params["final_norm"], cfg, x)
+    return layers.lm_logits(params["embed"], cfg, x), caches
+
+
+# --------------------------------------------------------------------------- #
+# Fused selective-recompute prefill (non-prefix chunk reuse)
+# --------------------------------------------------------------------------- #
+def prefill_fused(
+    params: Params,
+    cfg: ArchConfig,
+    tokens: torch.Tensor,  # [1, Sq] the recompute tokens, in position order
+    caches: Tuple[blocks.BlockCache, ...],  # assembled buffers (fusion.build_fused_caches)
+    *,
+    q_pos: torch.Tensor,  # [1, Sq] int32 absolute positions (gappy; padding -2^30)
+    q_rows: torch.Tensor,  # [1, Sq] int64 buffer row per token (padding -> scratch)
+    kv_pos: torch.Tensor,  # [1, Skv] int32 row positions (-1 invalid)
+    last_idx: torch.Tensor,  # [1] q index of the final (prompt) token
+) -> Tuple[torch.Tensor, Tuple[blocks.BlockCache, ...]]:
+    """Selective-recompute prefill over a chunk-composite KV assembly.
+
+    The CacheBlend-style execute path: reused chunk spans sit preloaded in
+    ``caches`` and only the selected r-fraction of tokens (plus every prompt
+    token) flows through the layer stack, each attending the whole assembled
+    buffer at its absolute position.  Everything outside attention is
+    positionwise, so the gappy token subset is transparent to norms and MLP.
+    Returns the last-token logits ``[1, V]`` and the caches, with every
+    recompute token's K/V written in place: rows ``[0, total)`` are then the
+    full context+prompt state.  At ``recompute_frac=1.0`` the token set is
+    the whole sequence and the result is ``prefill``'s."""
+    _check_dense(cfg)
+    x = layers.embed_tokens(params["embed"], cfg, tokens)
+    cache = caches[0].attn
+    for i, lp in enumerate(params["layers"]):
+        x = blocks.prefill_fused(lp, cfg, x, _layer(cache, i), q_pos=q_pos, q_rows=q_rows,
+                                 kv_pos=kv_pos)
     x = x[0, last_idx.long()]
     x = layers.apply_norm(params["final_norm"], cfg, x)
     return layers.lm_logits(params["embed"], cfg, x), caches

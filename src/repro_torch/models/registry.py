@@ -22,6 +22,7 @@ class ModelApi(NamedTuple):
     decode: Callable[..., Any]
     decode_paged: Callable[..., Any]
     prefill_chunked: Callable[..., Any]
+    prefill_fused: Callable[..., Any]
 
 
 def _check_dense(cfg: ArchConfig) -> None:
@@ -37,7 +38,7 @@ def get_model(cfg: ArchConfig) -> ModelApi:
     return ModelApi(
         init=lm.init, init_state=lm.init_state, prefill=lm.prefill,
         prefill_packed=lm.prefill_packed, decode=lm.decode, decode_paged=lm.decode_paged,
-        prefill_chunked=lm.prefill_chunked,
+        prefill_chunked=lm.prefill_chunked, prefill_fused=lm.prefill_fused,
     )
 
 

@@ -2,6 +2,7 @@
 from repro_torch.serving.engine import EngineConfig, ServingEngine  # noqa: F401
 from repro_torch.serving.planner import (  # noqa: F401
     AlwaysReusePlanner,
+    BlendPlanner,
     CostAwarePlanner,
     ReusePlan,
     ReusePlanner,

@@ -21,16 +21,25 @@ the block pool that mixes every active slot's decode token with kv_block-wide
 prefill chunks of pending admissions (``_step_unified``): admission never
 stalls the slots that are decoding.
 
+With ``fusion_enabled`` (and a ``BlendPlanner``) a context whose stored
+chunks match out of order is admitted ``"fused"`` (CacheBlend-style): the
+matched chunks' KV is fetched from every source entry, assembled in query
+order with delta-RoPE, and only a recompute fraction of it, with the
+unmatched tokens and the prompt, runs through one selective-recompute launch
+(``_execute_fused``); under the unified step those tokens land as chunks
+instead.  A source that cannot be fetched degrades the admission to exact
+recompute.
+
 This is the port of the JAX engine's main path under the default
-``EngineConfig``, under ``paged_decode=True`` and under ``unified_step=True``.
-Compute runs eagerly in PyTorch (no jit): on CUDA tensors the attention goes
-through the hand-written kernels, on CPU tensors through their plain
-versions.  Times and dollars are modelled (``PerfModel``), as in the
-reference, so the reference's golden records replay on the port.  The paths
-behind the other non-default options (fused reuse, the int8 tier, faults,
-hedging, prefetch, migration, the market) and the per-request admission
-path of embeds and non-packable archs raise ``NotImplementedError`` naming
-the ROADMAP item that will carry them.
+``EngineConfig``, under ``paged_decode=True``, ``unified_step=True`` and
+``fusion_enabled=True``.  Compute runs eagerly in PyTorch (no jit): on CUDA
+tensors the attention goes through the hand-written kernels, on CPU tensors
+through their plain versions.  Times and dollars are modelled
+(``PerfModel``), as in the reference, so the reference's golden records
+replay on the port.  The paths behind the other non-default options (the
+int8 tier, faults, hedging, prefetch, migration, the market) and the
+per-request admission path of embeds and non-packable archs raise
+``NotImplementedError`` naming the ROADMAP item that will carry them.
 """
 from __future__ import annotations
 
@@ -44,7 +53,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.cost_model import Workload, s_storage_bytes
 from repro_torch.core.perf_model import PerfModel, h100
 from repro_torch.core.pricing import Pricing, h100_pricing
-from repro_torch.kvcache import paged
+from repro_torch.kvcache import fusion, paged
 from repro_torch.kvcache.backend import StorageBackend
 from repro_torch.kvcache.faults import RetryPolicy, StorageError
 from repro_torch.kvcache.hierarchy import (
@@ -125,7 +134,6 @@ class EngineConfig:
 # option -> the ROADMAP item that will carry it (set away from its default,
 # each raises NotImplementedError rather than silently taking another path)
 _NOT_PORTED = {
-    "fusion_enabled": "queue A item 2 (fused reuse)",
     "compress_tier": "queue A item 3 (compressed tier)",
     "faults": "queue A item 6 (faults, cluster and router)",
     "hedge": "queue A item 6 (faults, cluster and router)",
@@ -161,16 +169,19 @@ class _Admission:
     nbytes: float = 0.0
     matched: int = 0
     new_tokens: List[int] = dataclasses.field(default_factory=list)
+    # fused admissions: source entries pinned between plan and execute (a
+    # batch-mate's write-back pressure must not evict a fusion source)
+    pins: List[str] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
 class _ChunkStream:
     """One admission's pending suffix-prefill under the unified step: the
-    query tokens still to land (context tail + prompt) with each token's
-    absolute position.  The slot's pool blocks are admitted up front; chunks
-    of up to kv_block tokens land per unified launch until the stream
-    drains, when the first generated token is emitted and the slot starts
-    decoding."""
+    query tokens still to land (context tail + prompt; for fused plans the
+    recompute spans + prompt) with each token's absolute position.  The
+    slot's pool blocks are admitted up front; chunks of up to kv_block
+    tokens land per unified launch until the stream drains, when the first
+    generated token is emitted and the slot starts decoding."""
 
     a: _Admission
     tokens: np.ndarray  # int32 [n_q] query tokens still to prefill
@@ -299,6 +310,16 @@ class ServingEngine:
         self.unified_steps = 0  # mixed (chunk-carrying) launches
         self.unified_chunk_tokens = 0  # prefill tokens landed through chunks
         self.unified_busy_s = 0.0  # modelled time in mixed launches
+        # Fused non-prefix reuse (CacheBlend-style): chunk-composite lookups
+        # and the selective-recompute launch (packable archs only, which the
+        # constructor already requires)
+        self._fusion_on = self.ec.fusion_enabled and self.ec.reuse_enabled
+        self.fused_jit = JitBucketStats()
+        self.fused_admissions = 0
+        self.fused_reused_tokens = 0
+        self.fused_recompute_tokens = 0
+        self.fused_sources = 0
+        self.fused_busy_s = 0.0
         # packed-admission observability: launch-shape buckets (the same
         # (q_len, kv_len) keys as the reference's jit cache counters)
         self.jit_stats = JitBucketStats()
@@ -401,13 +422,29 @@ class ServingEngine:
             out.update(kv_block=ps.pop("block"), **ps)
         return out
 
+    def fused_stats(self) -> Dict[str, Any]:
+        """Fusion-path counters: fused admissions, reused-vs-recomputed
+        context tokens (the realized CacheBlend ratio), distinct source
+        entries fetched, modelled fused busy time, and the fused launch's
+        own shape-bucket hit/miss split."""
+        return {
+            "enabled": self._fusion_on,
+            "admissions": self.fused_admissions,
+            "reused_tokens": self.fused_reused_tokens,
+            "recompute_tokens": self.fused_recompute_tokens,
+            "sources": self.fused_sources,
+            "busy_s": self.fused_busy_s,
+            "jit": self.fused_jit.as_dict(),
+        }
+
     # ------------------------------------------------------------------ #
     # Admission: pop -> plan (per request) -> execute (one packed batch)
     # ------------------------------------------------------------------ #
     def _admit_batch(self, events: List[ev.Event]) -> bool:
         """Admit every admissible request with a free slot (up to
         ``admit_batch``): plan each individually, then execute all their
-        suffix-prefills as ONE packed ragged launch."""
+        suffix-prefills as ONE packed ragged launch, and each fused plan as
+        its own selective-recompute launch."""
         free = [s for s in self.slots if not s.active]
         if not free:
             return False
@@ -426,12 +463,32 @@ class ServingEngine:
         for req, slot in zip(reqs, free):
             a = self._plan_admission(req, slot, events, pending=pending)
             admissions.append(a)
-            if a.plan.loads_kv and a.lookup.entry is not None:
-                pending.setdefault(a.lookup.entry.tier, []).append(
-                    self._entry_fetch_bytes(a.lookup.entry, a.plan.matched_tokens)
-                )
-        self._execute_packed(admissions, events)
+            self._note_pending(a, pending)
+        packed = [a for a in admissions if a.plan.action != "fused"]
+        if packed:
+            self._execute_packed(packed, events)
+        for a in admissions:
+            if a.plan.action == "fused":
+                self._execute_fused(a, events)
         return True
+
+    def _note_pending(self, a: _Admission, pending: Dict[str, List[float]]) -> None:
+        """Carry a planned admission's fetches into ``pending`` for the
+        batch-mates planned after it.  A fused plan first pins its sources:
+        a batch-mate's write-back could otherwise evict one before the fused
+        fetch executes; its fetches hit their tiers' links at the shared
+        admission instant too."""
+        if a.plan.action == "fused":
+            for eid in a.plan.fused.source_entries:
+                if eid in self.store.entries:
+                    self.store.pin(eid)
+                    a.pins.append(eid)
+            for tier, b in a.lookup.fused_bytes_by_tier.items():
+                pending.setdefault(tier, []).append(b)
+        if a.plan.loads_kv and a.lookup.entry is not None:
+            pending.setdefault(a.lookup.entry.tier, []).append(
+                self._entry_fetch_bytes(a.lookup.entry, a.plan.matched_tokens)
+            )
 
     def _plan_admission(
         self,
@@ -467,9 +524,9 @@ class ServingEngine:
             slo_ttft_s=req.slo_ttft_s,
         )
         plan = self.planner.plan(req, lookup, workload)
-        if plan.action not in ("recompute", "load", "partial") or plan.market is not None:
+        if plan.action not in ("recompute", "load", "partial", "fused") or plan.market is not None:
             raise NotImplementedError(
-                f"plan action {plan.action!r} is not ported yet (ROADMAP queue A items 2, 8)"
+                f"plan action {plan.action!r} is not ported yet (ROADMAP queue A item 8)"
             )
         events.append(ev.PlanChosen(t_s=self.clock.now, req_id=req.req_id, plan=plan))
         return _Admission(req=req, rec=rec, slot=slot, plan=plan, lookup=lookup)
@@ -601,6 +658,180 @@ class ServingEngine:
             a.rec.compute_cost += self._c_gpu_s * prefill_s * (len(a.new_tokens) / total_new)
             self._finish_admission(a, int(first[i]), events)
 
+    # -- fused (chunk-composite) execution ------------------------------- #
+    def _execute_fused(self, a: _Admission, events: List[ev.Event]) -> None:
+        """Execute a ``"fused"`` plan: fetch each source entry's matched rows
+        (fetches issue concurrently — the request waits the slowest),
+        assemble one query-ordered KV buffer on the device with the reused
+        spans preloaded (K delta-RoPE'd to its target position), run ONE
+        selective-recompute launch over just the recompute spans + prompt,
+        and land the whole context+prompt state in the slot (block pool or
+        dense).  At ``recompute_frac=1.0`` the launch is a full prefill of
+        the sequence."""
+        t0 = self.clock.now
+        req, schedule = a.req, a.plan.fused
+        ctx, prompt = list(req.context_tokens), list(req.prompt_tokens)
+
+        out = self._fetch_fused_sources(a, events)
+        if out is None:
+            # one lost source spoils the composite: the whole admission
+            # degrades to exact recompute (time already burned on earlier
+            # sources rides along, on a.delay)
+            self._degrade_fused(a, events)
+            return
+        sources, fetched = out
+
+        layout = fusion.fused_layout(
+            schedule, len(prompt), align=self.ec.pack_align, bucket_min=self.ec.pack_bucket_min,
+        )
+        caches = fusion.build_fused_caches(
+            self.cfg, schedule, sources, layout.kv_len, self.device
+        )
+        arrays = fusion.fused_arrays(schedule, ctx, prompt, layout)
+        jit_hit = self.fused_jit.record((layout.q_len, layout.kv_len))
+        with torch.inference_mode():
+            logits, new_caches = self.api.prefill_fused(
+                self.params, self.cfg, self._tensor(arrays["tokens"]), caches,
+                q_pos=self._tensor(arrays["q_pos"]), q_rows=self._tensor(arrays["q_rows"]),
+                kv_pos=self._tensor(arrays["kv_pos"]),
+                last_idx=self._tensor(arrays["last_idx"]),
+            )
+        first_tok = int(logits[0].argmax())
+
+        prefill_s = self.perf.t_prefill_fused(self.cost_cfg, layout.total, layout.n_q)
+        load_s = max((d for _, _, d, _ in fetched), default=0.0)
+        for tier, nbytes, delay, rows in fetched:
+            events.append(ev.KVLoaded(
+                t_s=t0, req_id=req.req_id, tier=tier, nbytes=nbytes, load_s=delay,
+                matched_tokens=rows,
+            ))
+        events.append(ev.FusedAdmitted(
+            t_s=t0, req_id=req.req_id, slot=a.slot.index,
+            reused_tokens=schedule.reused_tokens,
+            recompute_tokens=schedule.recompute_tokens,
+            n_spans=len(schedule.spans), n_sources=len(sources),
+            q_len=layout.q_len, kv_len=layout.kv_len, jit_hit=jit_hit,
+        ))
+        events.append(ev.PrefillDone(
+            t_s=t0, req_id=req.req_id, n_tokens=layout.n_q, prefill_s=prefill_s,
+        ))
+
+        # land the assembled+recomputed state: rows [0, total) ARE the
+        # context+prompt state in sequence order.  The artifact covers whole
+        # kv_blocks (the pool landing copies whole blocks) while its pos
+        # stays the true token count.
+        seg = paged.PackSegment(
+            slot=a.slot.index, kv_start=0, q_start=0, matched=schedule.reused_tokens,
+            n_new=layout.n_q, n_total=layout.total,
+        )
+        n_rows = -(-layout.total // self.ec.kv_block) * self.ec.kv_block
+        art = paged.packed_to_artifact(
+            self.cfg, new_caches, seg, min(n_rows, layout.kv_len)
+        )._replace(pos=np.full((1,), layout.total, np.int32))
+        if self._paged_on:
+            self._land_state_in_pool(a.slot, art)
+        else:
+            paged.insert_slot(self.cfg, self._state, a.slot.index, art)
+
+        self.clock.advance(load_s + prefill_s)
+        self.admission_busy_s += load_s + prefill_s
+        self.fused_busy_s += load_s + prefill_s
+        self._count_fused(schedule, len(sources))
+        a.rec.matched_tokens = schedule.reused_tokens
+        a.rec.load_s = load_s
+        a.rec.prefill_s = prefill_s
+        a.rec.compute_cost += self._c_gpu_s * prefill_s
+        self._finish_admission(a, first_tok, events)
+
+    def _count_fused(self, schedule: fusion.FusedSchedule, n_sources: int) -> None:
+        self.fused_admissions += 1
+        self.fused_reused_tokens += schedule.reused_tokens
+        self.fused_recompute_tokens += schedule.recompute_tokens
+        self.fused_sources += n_sources
+
+    def _fetch_fused_sources(self, a: _Admission, events: List[ev.Event]):
+        """Fetch every fused source entry's matched rows (pinned at plan
+        time) under the retry policy.  On success returns ``(sources,
+        fetched)`` — ``sources[entry_id]`` the artifact, ``fetched`` one
+        (tier, nbytes, delay_s, rows) tuple per source — with the pins
+        released.  On exhaustion of any source, degrades the admission in
+        place (record marked, DegradedToRecompute emitted, the burned time
+        left on ``a.delay``) and returns None: the caller falls back to
+        exact recompute."""
+        req, schedule = a.req, a.plan.fused
+        sources: Dict[str, Any] = {}
+        fetched: List[tuple] = []  # (tier, nbytes, delay, rows) per source
+        wasted_total = 0.0
+        for eid, rows in schedule.rows_by_entry().items():
+            e = self.store.entries[eid]  # pinned at plan time: must exist
+            nbytes = self._entry_fetch_bytes(e, rows)
+            override = nbytes if self.cost_cfg is not self.cfg else None
+
+            def attempt(eid=eid, e=e, rows=rows, override=override):
+                return self.store.fetch(eid, fraction=rows / max(e.n_tokens, 1), nbytes=override)
+
+            out, wasted, attempts = self._retry_fetch(
+                req, tier=e.tier, entry_id=eid, matched=rows, nbytes=nbytes,
+                attempt_fn=attempt, events=events,
+            )
+            wasted_total += wasted
+            if out is None:
+                self._unpin(a)
+                a.rec.degraded = True
+                a.delay = wasted_total
+                events.append(ev.DegradedToRecompute(
+                    t_s=self.clock.now, req_id=req.req_id, tier=e.tier, entry_id=eid,
+                    attempts=attempts, wasted_s=wasted_total, reason="fused_source_failed",
+                ))
+                return None
+            art, delay = out
+            sources[eid] = art
+            fetched.append((e.tier, nbytes, wasted + delay, rows))
+        self._unpin(a)
+        return sources, fetched
+
+    def _unpin(self, a: _Admission) -> None:
+        for eid in a.pins:
+            self.store.unpin(eid)
+        a.pins.clear()
+
+    def _degrade_fused(self, a: _Admission, events: List[ev.Event]) -> None:
+        """A fused source fetch exhausted its retries (record already marked
+        by ``_fetch_fused_sources``, burned time on ``a.delay``): run the
+        request as one exact full recompute (recompute is the ground truth
+        the fusion approximates)."""
+        req, wasted_s = a.req, a.delay
+        prefill_s, logits, temp = self._execute_recompute(req, events)
+        if self._paged_on:
+            self._land_state_in_pool(a.slot, temp)
+        else:
+            paged.insert_slot(self.cfg, self._state, a.slot.index, temp)
+        first_tok = int(logits[0].argmax())
+        self.clock.advance(wasted_s + prefill_s)
+        self.admission_busy_s += wasted_s + prefill_s
+        a.rec.matched_tokens = 0
+        a.rec.load_s = wasted_s
+        a.rec.prefill_s = prefill_s
+        a.rec.compute_cost += self._c_gpu_s * prefill_s
+        self._finish_admission(a, first_tok, events)
+
+    def _execute_recompute(self, req: Request, events: List[ev.Event]):
+        """Full prefill of one request's context and prompt into a fresh
+        batch-1 state through ``ModelApi.prefill``: the exact recompute a
+        degraded fused admission falls back to (fused plans never write
+        back).  Returns (prefill_s, logits, state)."""
+        tokens = list(req.context_tokens) + list(req.prompt_tokens)
+        temp = self.api.init_state(self.cfg, 1, self.ec.max_len, device=self.device)
+        with torch.inference_mode():
+            logits, temp = self.api.prefill(
+                self.params, self.cfg, self._tensor(np.asarray([tokens], np.int32)), temp
+            )
+        prefill_s = self.perf.t_prefill(self.cost_cfg, len(tokens))
+        events.append(ev.PrefillDone(
+            t_s=self.clock.now, req_id=req.req_id, n_tokens=len(tokens), prefill_s=prefill_s,
+        ))
+        return prefill_s, logits, temp
+
     # -- shared-block-pool landings (paged decode) ----------------------- #
     def _pool_update(self, dst: np.ndarray, k_rows: torch.Tensor, v_rows: torch.Tensor) -> None:
         """Land KV rows at pool rows ``dst`` in place: the one scatter every
@@ -647,6 +878,18 @@ class ServingEngine:
         packed = new_caches[0].attn
         self._pool_update(dst, packed.k[:, 0, src], packed.v[:, 0, src])
 
+    def _land_state_in_pool(self, slot: Slot, temp) -> None:
+        """Copy a batch-1 state's (or artifact's) first ``pos`` tokens into
+        newly allocated pool blocks: the single-request landing of fused and
+        degraded admissions (the one-segment analogue of
+        ``_land_packed_in_pool``)."""
+        block = self.ec.kv_block
+        own = self._paged.admit(slot.index, int(temp.pos[0]))
+        dst = paged.block_rows(own, block)
+        n_rows = len(own) * block  # <= max_len (max_len % kv_block == 0)
+        c = temp.caches[0].attn
+        self._pool_update(dst, c.k[:, 0, :n_rows], c.v[:, 0, :n_rows])
+
     def _copy_pool_blocks(self, splits: List[paged.CowSplit]) -> None:
         """Copy-on-write: duplicate shared boundary blocks onto private ones
         before a decode write touches them (one gather/scatter pair)."""
@@ -674,6 +917,49 @@ class ServingEngine:
         )
         return artifact, delay, nbytes
 
+    def _retry_fetch(self, req: Request, *, tier: str, entry_id: str, matched: int,
+                     nbytes: float, attempt_fn, events: List[ev.Event]):
+        """Run one storage fetch (``attempt_fn()``) under the cost-aware
+        retry policy.  Returns (result | None, wasted_s, attempts): the
+        result is whatever ``attempt_fn`` returned on success; None means
+        every attempt failed (or retrying stopped beating recompute) and the
+        caller must degrade.  ``wasted_s`` sums the failed attempts' charged
+        delays and the backoff waits."""
+        policy = self.retry_policy
+        wasted = 0.0
+        attempt = 0
+        while True:
+            attempt += 1
+            try:
+                return attempt_fn(), wasted, attempt
+            except StorageError as exc:
+                wasted += exc.delay_s
+                events.append(ev.FetchFailed(
+                    t_s=self.clock.now, req_id=req.req_id, tier=tier, entry_id=entry_id,
+                    attempt=attempt, reason=exc.reason, wasted_s=exc.delay_s,
+                    wasted_bytes=exc.wasted_bytes,
+                ))
+                backoff = policy.backoff(attempt)
+                retry_cost = policy.retry_cost(
+                    backoff_s=backoff,
+                    est_load_s=self.store.estimate_load_delay(tier, nbytes),
+                    nbytes=nbytes,
+                    gpu_cost_per_s=self._c_gpu_s,
+                    per_gb_fee=self.pricing.tier(tier).per_gb_transfer_fee,
+                )
+                recompute_cost = self._c_gpu_s * self.perf.t_prefill(
+                    self.cost_cfg, max(matched, 1)
+                )
+                if policy.should_retry(exc, attempt, tier=tier, retry_cost=retry_cost,
+                                       recompute_cost=recompute_cost):
+                    wasted += backoff
+                    events.append(ev.FetchRetried(
+                        t_s=self.clock.now, req_id=req.req_id, tier=tier, entry_id=entry_id,
+                        attempt=attempt + 1, backoff_s=backoff,
+                    ))
+                    continue
+                return None, wasted, attempt
+
     def _fetch_kv_resilient(self, a: _Admission, events: List[ev.Event]) -> None:
         """Execute a load/partial plan's fetch under the retry policy.  On
         success fills ``a.artifact/delay/nbytes/matched``; on exhaustion
@@ -683,50 +969,22 @@ class ServingEngine:
         nbytes = plan.fetch_bytes
         if self.cost_cfg is not self.cfg:
             nbytes = self._entry_fetch_bytes(entry, plan.matched_tokens)
-        policy = self.retry_policy
-        wasted = 0.0
-        attempt = 0
-        while True:
-            attempt += 1
-            try:
-                artifact, delay, billed = self._fetch_kv(req, plan, a.lookup)
-                break
-            except StorageError as exc:
-                wasted += exc.delay_s
-                events.append(ev.FetchFailed(
-                    t_s=self.clock.now, req_id=req.req_id, tier=entry.tier,
-                    entry_id=entry.entry_id, attempt=attempt, reason=exc.reason,
-                    wasted_s=exc.delay_s, wasted_bytes=exc.wasted_bytes,
-                ))
-                backoff = policy.backoff(attempt)
-                retry_cost = policy.retry_cost(
-                    backoff_s=backoff,
-                    est_load_s=self.store.estimate_load_delay(entry.tier, nbytes),
-                    nbytes=nbytes,
-                    gpu_cost_per_s=self._c_gpu_s,
-                    per_gb_fee=self.pricing.tier(entry.tier).per_gb_transfer_fee,
-                )
-                recompute_cost = self._c_gpu_s * self.perf.t_prefill(
-                    self.cost_cfg, max(plan.matched_tokens, 1)
-                )
-                if policy.should_retry(exc, attempt, tier=entry.tier,
-                                       retry_cost=retry_cost,
-                                       recompute_cost=recompute_cost):
-                    wasted += backoff
-                    events.append(ev.FetchRetried(
-                        t_s=self.clock.now, req_id=req.req_id, tier=entry.tier,
-                        entry_id=entry.entry_id, attempt=attempt + 1, backoff_s=backoff,
-                    ))
-                    continue
-                a.rec.degraded = True
-                a.artifact, a.nbytes, a.matched = None, 0.0, 0
-                a.delay = wasted
-                events.append(ev.DegradedToRecompute(
-                    t_s=self.clock.now, req_id=req.req_id, tier=entry.tier,
-                    entry_id=entry.entry_id, attempts=attempt, wasted_s=wasted,
-                    reason="fetch_exhausted",
-                ))
-                return
+        out, wasted, attempts = self._retry_fetch(
+            req, tier=entry.tier, entry_id=entry.entry_id, matched=plan.matched_tokens,
+            nbytes=nbytes, attempt_fn=lambda: self._fetch_kv(req, plan, a.lookup),
+            events=events,
+        )
+        if out is None:
+            a.rec.degraded = True
+            a.artifact, a.nbytes, a.matched = None, 0.0, 0
+            a.delay = wasted
+            events.append(ev.DegradedToRecompute(
+                t_s=self.clock.now, req_id=req.req_id, tier=entry.tier,
+                entry_id=entry.entry_id, attempts=attempts, wasted_s=wasted,
+                reason="fetch_exhausted",
+            ))
+            return
+        artifact, delay, billed = out
         a.artifact, a.nbytes = artifact, billed
         a.delay = wasted + delay
         a.matched = plan.matched_tokens
@@ -787,9 +1045,29 @@ class ServingEngine:
             )
             if wait > 0:
                 queue_wait[entry.tier] = wait
+        composite = None
+        fused_bytes: Dict[str, float] = {}
+        if self._fusion_on and frac < 1.0:
+            comp = self.store.lookup_composite(list(req.context_tokens))
+            if comp.matched_tokens > 0:
+                composite = comp
+                for eid, rows in comp.rows_by_entry().items():
+                    src = self.store.entries.get(eid)
+                    if src is None:
+                        continue
+                    fused_bytes[src.tier] = fused_bytes.get(src.tier, 0.0) + (
+                        self._entry_fetch_bytes(src, rows)
+                    )
+                for t, b in fused_bytes.items():
+                    # contended-link visibility for the fused option (and
+                    # batch-mates planned behind it)
+                    ahead = () if pending is None else tuple(pending.get(t, ()))
+                    wait = self.store.estimated_queue_wait(t, b, pending=ahead)
+                    if wait > 0:
+                        queue_wait[t] = max(queue_wait.get(t, 0.0), wait)
         return StoreLookup(
             match=match, entry=entry, fraction=frac, partial_ok=partial_ok,
-            queue_wait_s=queue_wait,
+            queue_wait_s=queue_wait, composite=composite, fused_bytes_by_tier=fused_bytes,
         )
 
     def _entry_fetch_bytes(self, e, matched_tokens: int) -> float:
@@ -831,8 +1109,8 @@ class ServingEngine:
         """Take every admissible request with a free slot in as a pending
         chunk stream: plan it, execute its storage fetch (the delay becomes
         the stream's ready time, so a load overlaps other slots' compute)
-        and admit its pool blocks.  Plans the port does not carry (fused,
-        market) raise in ``_plan_admission``; embeds already in ``submit``."""
+        and admit its pool blocks.  Plans the port does not carry (market)
+        raise in ``_plan_admission``; embeds already in ``submit``."""
         free = [s for s in self.slots if not s.active and s.index not in self._chunks]
         if not free:
             return False
@@ -842,28 +1120,67 @@ class ServingEngine:
         while n < limit and self.queue.peek_next(self.clock.now) is not None:
             req = self.queue.pop_admissible(self.clock.now)
             a = self._plan_admission(req, free[n], events, pending=pending)
-            if a.plan.loads_kv and a.lookup.entry is not None:
-                pending.setdefault(a.lookup.entry.tier, []).append(
-                    self._entry_fetch_bytes(a.lookup.entry, a.plan.matched_tokens)
-                )
+            self._note_pending(a, pending)
             self._start_chunk_stream(a, events)
             n += 1
         return n > 0
 
     def _start_chunk_stream(self, a: _Admission, events: List[ev.Event]) -> None:
         """Turn one planned admission into a pending chunk stream: fetch the
-        stored prefix (load and partial plans), admit the slot's pool blocks
-        for the whole context + prompt, land the reused rows, and queue the
-        remaining tokens for chunked landing."""
+        stored KV (the prefix of load and partial plans, or a fused plan's
+        sources), admit the slot's pool blocks for the whole context +
+        prompt, land the reused rows, and queue the remaining tokens for
+        chunked landing."""
         req, t0 = a.req, self.clock.now
         ctx, prompt = list(req.context_tokens), list(req.prompt_tokens)
         n_ctx, n_total = len(ctx), len(ctx) + len(prompt)
         ps = self._paged
         block = self.ec.kv_block
-        if a.plan.loads_kv and a.lookup.entry is not None:
+        fused_out = None
+        if a.plan.action == "fused":
+            fused_out = self._fetch_fused_sources(a, events)
+        elif a.plan.loads_kv and a.lookup.entry is not None:
             self._fetch_kv_resilient(a, events)
-        ps.admit(a.slot.index, n_total)
-        if a.artifact is not None:
+        own = ps.admit(a.slot.index, n_total)
+        if fused_out is not None:
+            sources, fetched = fused_out
+            schedule = a.plan.fused
+            layout = fusion.fused_layout(
+                schedule, len(prompt), align=self.ec.pack_align,
+                bucket_min=self.ec.pack_bucket_min,
+            )
+            caches = fusion.build_fused_caches(
+                self.cfg, schedule, sources, layout.kv_len, self.device
+            )
+            # land the whole assembled buffer's valid rows before the first
+            # chunk: reuse spans carry stored (delta-RoPE'd) KV, recompute and
+            # prompt rows are zero and get overwritten as their chunks land
+            rows = paged.block_rows(ps.tables[a.slot.index, : len(own)], block)[:n_total]
+            buf = caches[0].attn
+            self._pool_update(rows, buf.k[:, 0, :n_total], buf.v[:, 0, :n_total])
+            del caches, buf
+            arrays = fusion.fused_arrays(schedule, ctx, prompt, layout)
+            tokens = np.asarray(arrays["tokens"][0, : layout.n_q], np.int32)
+            positions = np.asarray(arrays["q_pos"][0, : layout.n_q], np.int32)
+            a.delay = max((d for _, _, d, _ in fetched), default=0.0)
+            a.matched = schedule.reused_tokens
+            for tier, nbytes, delay, rows_n in fetched:
+                events.append(ev.KVLoaded(
+                    t_s=t0, req_id=req.req_id, tier=tier, nbytes=nbytes, load_s=delay,
+                    matched_tokens=rows_n,
+                ))
+            # the stream's tokens land through the chunked launches: the
+            # event names the stream's length and the rows it fills, and no
+            # fused launch shape is compiled for it
+            events.append(ev.FusedAdmitted(
+                t_s=t0, req_id=req.req_id, slot=a.slot.index,
+                reused_tokens=schedule.reused_tokens,
+                recompute_tokens=schedule.recompute_tokens,
+                n_spans=len(schedule.spans), n_sources=len(sources),
+                q_len=layout.n_q, kv_len=n_total, jit_hit=True,
+            ))
+            self._count_fused(schedule, len(sources))
+        elif a.artifact is not None:
             matched = a.matched
             rows = paged.block_rows(ps.tables[a.slot.index, : -(-matched // block)], block)
             stored = a.artifact.caches[0].attn
@@ -885,7 +1202,7 @@ class ServingEngine:
             tokens = np.asarray(ctx + prompt, np.int32)
             positions = np.arange(0, n_total, dtype=np.int32)
 
-        store_after = a.plan.store_after and a.artifact is None
+        store_after = a.plan.store_after and a.artifact is None and fused_out is None
         if store_after:
             key = tuple(ctx)
             if key in self._wb_inflight:

@@ -15,8 +15,9 @@ contexts back before it reports the batch's prefill.)
 
 Under the unified step (``EngineConfig.unified_step``) a request's prefill
 lands over several ``UnifiedStep`` launches between ``KVLoaded`` and
-``PrefillDone``.  The port emits the events of its serving path; the
-reference's fused, cluster and market events come with those features.
+``PrefillDone``.  A fused (CacheBlend-style) admission emits one
+``KVLoaded`` per source entry, then ``FusedAdmitted``, then ``PrefillDone``.
+The reference's cluster and market events come with those features.
 
 ``ClockAdvanced`` appears between requests when the engine is idle and jumps
 simulated time to the next arrival.
@@ -85,6 +86,23 @@ class KVLoaded(Event):
     nbytes: float
     load_s: float  # delay charged to this request (post-hedge/prefetch/overlap)
     matched_tokens: int
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedAdmitted(Event):
+    """One fused selective-recompute admission (CacheBlend-style non-prefix
+    reuse): the request's context was assembled from stored chunk spans
+    (one KVLoaded per source entry precedes this event) and only the
+    recompute spans + prompt ran through the fused prefill launch."""
+
+    slot: int
+    reused_tokens: int  # context tokens served from stored chunk KV
+    recompute_tokens: int  # context tokens recomputed (selected + unmatched)
+    n_spans: int  # execution spans in the schedule
+    n_sources: int  # distinct source entries fetched
+    q_len: int  # bucketed fused launch length (query side)
+    kv_len: int  # bucketed assembled-buffer length
+    jit_hit: bool
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,7 +187,8 @@ class DegradedToRecompute(Event):
 
 
 AnyEvent = Union[
-    RequestAdmitted, PlanChosen, BatchAdmitted, UnifiedStep, KVLoaded, PrefillDone,
+    RequestAdmitted, PlanChosen, BatchAdmitted, UnifiedStep, KVLoaded, FusedAdmitted,
+    PrefillDone,
     StoreWriteBack, TokenEmitted, RequestFinished, ClockAdvanced, TierMigrated,
     FetchFailed, FetchRetried, DegradedToRecompute,
 ]

@@ -10,16 +10,19 @@ analytical model's TTFT/$ estimates for the chosen option.  Planning is pure
 cost-model gating, unconditional reuse, or future CacheBlend/KVShare-style
 schemes — are drop-in and unit-testable against golden plans.
 
-Two planners ship in the port:
+Three planners ship:
 
   * ``CostAwarePlanner``   — the paper's policy: recompute/load/partial by
     analytical cost under the TTFT SLO (``core.policy.decide``), write-back
     iff expected reuses clear break-even (``core.policy.should_store``).
   * ``AlwaysReusePlanner`` — store & reuse unconditionally (correctness
     tests, and the paper's own Fig-2 experiment which always reuses).
-
-The reference's ``BlendPlanner`` (CacheBlend-style fused reuse) comes with
-the fused prefill path, ROADMAP queue A item 2.
+  * ``BlendPlanner``       — CacheBlend-style partial fusion layered over
+    either of the above: when the chunk-content index finds non-prefix
+    matches (``StoreLookup.composite``) that beat the prefix match, plan a
+    ``"fused"`` admission — fetch the matched chunks' KV, selectively
+    recompute an r-fraction — priced by ``PerfModel.t_prefill_fused`` and
+    the ``core.cost_model`` fused-prefill term.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ from repro_torch.core.cost_model import Workload
 from repro_torch.core.perf_model import PerfModel
 from repro_torch.core.pricing import Pricing
 from repro_torch.kvcache.chunks import PrefixMatch
-from repro_torch.kvcache.fusion import CompositeMatch
+from repro_torch.kvcache.fusion import CompositeMatch, select_recompute
 from repro_torch.kvcache.store import StoredEntry
 from repro_torch.serving.request import Request
 
@@ -246,3 +249,94 @@ class AlwaysReusePlanner(_PlannerBase):
         return self._to_plan(
             decision, request, lookup, store_after=self._storable(request, lookup)
         )
+
+
+class BlendPlanner(_PlannerBase):
+    """CacheBlend-style partial-fusion planning layered over a base planner.
+
+    The base planner (``CostAwarePlanner`` by default, ``AlwaysReusePlanner``
+    when ``always=True``) handles the classic prefix-reuse decision.  On top,
+    when the chunk-content index reports non-prefix matches
+    (``StoreLookup.composite``) covering strictly more context than the
+    usable prefix, a *fused* option competes: fetch the matched chunks' KV
+    from their source entries, selectively recompute ``recompute_frac`` of
+    the matched tokens (plus every unmatched token and the prompt), priced by
+    ``PerfModel.t_prefill_fused`` + the ``cost_model`` fused-prefill term.
+
+    * ``always=True``  — fuse whenever a viable composite match exists (the
+      fusion analogue of AlwaysReusePlanner; correctness tests, benchmarks).
+    * ``always=False`` — fused competes on (SLO-feasible) marginal cost with
+      the base plan, exactly how ``core.policy.decide`` weighs its options.
+
+    Fused plans never write back: at r < 1 the assembled KV is approximate
+    (missing cross-chunk attention), and storing it would pollute the store
+    with state that no longer matches its chain hash's exactness contract.
+    """
+
+    def __init__(self, recompute_frac: float = 0.16, always: bool = False):
+        super().__init__()
+        self.recompute_frac = recompute_frac
+        self.always = always
+        self.base: _PlannerBase = (
+            AlwaysReusePlanner() if always else CostAwarePlanner()
+        )
+
+    def configure(self, **kw) -> None:
+        super().configure(**kw)
+        self.base.configure(**kw)
+
+    def _fused_plan(
+        self, request: Request, lookup: StoreLookup, workload: Workload
+    ) -> Optional[ReusePlan]:
+        comp = lookup.composite
+        if comp is None or comp.matched_tokens <= lookup.prefix_tokens:
+            return None  # prefix reuse covers at least as much, exactly
+        schedule = select_recompute(comp, self.recompute_frac)
+        if schedule.recompute_tokens + len(request.prompt_tokens) == 0:
+            return None  # nothing to launch (r=0, full match, no prompt)
+        if not request.prompt_tokens and schedule.spans[-1].kind == "reuse":
+            # the first generated token comes from the sequence's FINAL
+            # position; with no prompt that position must be in the launch's
+            # query set, which a reused tail span would exclude
+            return None
+        d = cost_model.delay_fused(
+            self.cost_cfg, workload, self.perf, self.pricing,
+            bytes_by_tier=lookup.fused_bytes_by_tier,
+            n_recompute_ctx=schedule.recompute_tokens,
+            queue_wait_s=lookup.queue_wait_s,
+        )
+        cost = cost_model.cost_fused_request(
+            self.cost_cfg, workload, self.pricing, self.perf,
+            bytes_by_tier=lookup.fused_bytes_by_tier,
+            n_recompute_ctx=schedule.recompute_tokens,
+        )
+        tier = max(
+            lookup.fused_bytes_by_tier, key=lookup.fused_bytes_by_tier.get,
+            default=None,
+        ) if lookup.fused_bytes_by_tier else None
+        return ReusePlan(
+            action="fused",
+            tier=tier,
+            matched_tokens=schedule.reused_tokens,
+            reused_fraction=schedule.reused_tokens / max(comp.total_tokens, 1),
+            fetch_bytes=sum(lookup.fused_bytes_by_tier.values()),
+            store_after=False,
+            est_ttft_s=d.ttft_s,
+            est_cost=cost,
+            fused=schedule,
+        )
+
+    def plan(self, request: Request, lookup: StoreLookup, workload: Workload) -> ReusePlan:
+        base_plan = self.base.plan(request, lookup, workload)
+        # viability is judged on the composite MATCH (r=1.0 recomputes every
+        # matched token, yet must still ride the fused execute path — the
+        # bit-exactness anchor)
+        fused = self._fused_plan(request, lookup, workload)
+        if fused is None:
+            return base_plan
+        if self.always:
+            return fused if base_plan.action != "load" else base_plan
+        slo = workload.slo_ttft_s
+        if slo is not None and fused.est_ttft_s > slo >= base_plan.est_ttft_s:
+            return base_plan
+        return fused if fused.est_cost < base_plan.est_cost else base_plan

@@ -172,7 +172,6 @@ def test_reuse_tokens_identical_to_recompute(arch):
 
 
 _CHANGED = {
-    "unified_step": True, "step_token_budget": 64, "fusion_enabled": True,
     "compress_tier": "io2", "faults": object(), "hedge": object(),
     "overlap_load": True, "prefetch_lookahead": 1, "migration_interval_s": 1.0,
     "migration_policy": object(),

@@ -8,6 +8,10 @@ no JAX:
     python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
 f32 is held at the CPU tests' atol 2e-5 with TF32 off; bf16 at atol 1e-2.
+Every kernel takes any head_dim up to 256: each is also held against its
+plain version at head_dims 16, 80 and 96, which are not buckets of the
+kernels' shared tiles, and the reduced llama-7b (head_dim 16) is served on
+the card against the same engine on the CPU.
 """
 import os
 import pathlib
@@ -22,6 +26,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import chunked_prefill as cpk  # noqa: E402
 from repro_torch.kernels import decode_attention as dk  # noqa: E402
 from repro_torch.kernels import flash_prefill as fk  # noqa: E402
+from repro_torch.kernels import fused_prefill as fuk  # noqa: E402
 from repro_torch.kernels import packed_prefill as pk  # noqa: E402
 from repro_torch.kernels import paged_decode as pdk  # noqa: E402
 
@@ -130,8 +135,8 @@ def test_wrappers_count_launches_and_refuse_what_they_cannot_run(cuda):
         pk.packed_flash_attention(**{**args, "q": args["q"].half(), "k": args["k"].half(),
                                      "v": args["v"].half()})
     with pytest.raises(ValueError, match="head_dim"):
-        q = torch.zeros(1, 1, 2, 48, device=cuda)
-        k = torch.zeros(1, 8, 2, 48, device=cuda)
+        q = torch.zeros(1, 1, 2, 257, device=cuda)
+        k = torch.zeros(1, 8, 2, 257, device=cuda)
         dk.decode_attention(q, k, k, q_pos=torch.zeros(1, 1, dtype=torch.int32, device=cuda),
                             kv_pos=torch.zeros(1, 8, dtype=torch.int32, device=cuda))
     assert pk.packed_flash_attention.launches == before + 1
@@ -395,3 +400,247 @@ def test_chunked_kernel_traps_on_a_block_outside_the_pool(cuda):
     proc = subprocess.run([sys.executable, "-c", _TRAP], env=env, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 3 and "trapped" in proc.stdout, (proc.stdout, proc.stderr)
+
+
+# --------------------------------------------------------------------------- #
+# fused_flash_attention (selective-recompute prefill over an assembled buffer)
+# --------------------------------------------------------------------------- #
+def _fused(cuda, dt, B, Sq, Skv, total, n_q, H, KV, hd, seed):
+    """Random q/k/v of a fused launch: each sequence's ``n_q`` recompute
+    queries at sorted random positions of ``[0, total)`` (every position
+    when ``n_q == total``), padded to ``Sq`` with -2^30; kv rows at positions
+    ``0..total-1`` and -1 past ``total``."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed)
+    q = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dt)
+    k = torch.randn(B, Skv, KV, hd, generator=g, device=cuda).to(dt)
+    v = torch.randn(B, Skv, KV, hd, generator=g, device=cuda).to(dt)
+    q_pos = torch.full((B, Sq), -(2**30), dtype=torch.int32)
+    for b in range(B):
+        pos = torch.randperm(total, generator=torch.Generator().manual_seed(seed + b))[:n_q]
+        q_pos[b, :n_q] = pos.sort().values.to(torch.int32)
+    idx = torch.arange(Skv, dtype=torch.int32)[None].expand(B, Skv)
+    kv_pos = torch.where(idx < total, idx, -1).to(torch.int32)
+    return q, k, v, q_pos.to(cuda), kv_pos.contiguous().to(cuda)
+
+
+FUSED_CASES = [
+    # (B, Sq, Skv, total, n_q, H, KV, hd, window)
+    (1, 40, 40, 40, 40, 4, 4, 32, None),  # every position: plain causal attention
+    (1, 40, 40, 40, 40, 4, 2, 64, 24),
+    (1, 140, 384, 300, 140, 4, 4, 128, None),  # gappy queries over several tiles
+    (1, 140, 384, 300, 140, 8, 2, 64, None),
+    (1, 140, 384, 300, 140, 4, 2, 256, 96),
+    (2, 160, 256, 200, 100, 8, 1, 128, None),  # padding: the last tile holds none valid
+    # the fused serve's shape: 575 recompute queries in a 1,024 bucket over
+    # 2,080 valid rows of a 4,096-row buffer
+    (1, 1024, 4096, 2080, 575, 32, 32, 128, None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [("float32", F32_ATOL), ("bfloat16", BF16_ATOL)])
+@pytest.mark.parametrize("B,Sq,Skv,total,n_q,H,KV,hd,window", FUSED_CASES)
+def test_fused_kernel_matches_plain_on_card(cuda, dtype, atol, B, Sq, Skv, total, n_q, H, KV,
+                                            hd, window):
+    """The fused kernel holds its plain version; with a query at every
+    position it is plain causal attention; padding queries output zeros."""
+    q, k, v, q_pos, kv_pos = _fused(cuda, getattr(torch, dtype), B, Sq, Skv, total, n_q, H,
+                                    KV, hd, seed=Sq + hd)
+    got = fuk.fused_flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=window)
+    want = fuk.fused_flash_attention_plain(q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=window)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    assert not got[q_pos < 0].any()
+    if n_q == total == Sq:
+        causal = fk.flash_attention_plain(q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=window)
+        assert (got.float() - causal.float()).abs().max().item() <= atol
+
+
+@pytest.mark.gpu
+def test_fused_wrapper_counts_launches_and_refuses_what_it_cannot_run(cuda):
+    q, k, v, q_pos, kv_pos = _fused(cuda, torch.float32, 1, 16, 32, 24, 8, 4, 2, 32, seed=1)
+    before = fuk.fused_flash_attention.launches
+    fuk.fused_flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos)
+    assert fuk.fused_flash_attention.launches == before + 1
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fuk.fused_flash_attention(q.cpu(), k.cpu(), v.cpu(), q_pos=q_pos.cpu(),
+                                  kv_pos=kv_pos.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        fuk.fused_flash_attention(q, k, v, q_pos=q_pos.long(), kv_pos=kv_pos)
+    with pytest.raises(ValueError, match="dtype"):
+        fuk.fused_flash_attention(q.half(), k.half(), v.half(), q_pos=q_pos, kv_pos=kv_pos)
+    with pytest.raises(ValueError, match="head_dim"):
+        wide = torch.zeros(1, 16, 4, 300, device=cuda)
+        kv = torch.zeros(1, 32, 2, 300, device=cuda)
+        fuk.fused_flash_attention(wide, kv, kv, q_pos=q_pos, kv_pos=kv_pos)
+    assert fuk.fused_flash_attention.launches == before + 1
+
+
+# --------------------------------------------------------------------------- #
+# Any head_dim up to 256, on every kernel
+# --------------------------------------------------------------------------- #
+def _any_hd_case(cuda, kernel, hd, dt):
+    """One call of ``kernel`` at head_dim ``hd``: (the kernel's output, its
+    plain version's output, the padding queries' mask or None)."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(hd)
+    if kernel == "packed":
+        args = _packed_inputs([(24, 9), (0, 17), (40, 6)], 4, 2, hd, 40, seed=hd)
+        t = {n: torch.from_numpy(a).to(cuda) for n, a in args.items()}
+        for n in ("q", "k", "v"):
+            t[n] = t[n].to(dt)
+        return (pk.packed_flash_attention(**t), pk.packed_flash_attention_plain(**t),
+                t["q_seg"] < 0)
+    if kernel in ("decode", "flash"):
+        B, Sq, L, H, KV = (3, 1, 300, 8, 2) if kernel == "decode" else (2, 70, 160, 8, 2)
+        q = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dt)
+        k = torch.randn(B, L, KV, hd, generator=g, device=cuda).to(dt)
+        v = torch.randn(B, L, KV, hd, generator=g, device=cuda).to(dt)
+        offs = torch.tensor([[20], [L - Sq], [7]][:B], dtype=torch.int32, device=cuda)
+        q_pos = (offs + torch.arange(Sq, device=cuda, dtype=torch.int32)[None]).contiguous()
+        idx = torch.arange(L, device=cuda, dtype=torch.int32)[None]
+        kw = dict(q_pos=q_pos, kv_pos=torch.where(idx < offs + Sq, idx, -1).to(torch.int32),
+                  window=33)
+        if kernel == "decode":
+            return (dk.decode_attention(q, k, v, **kw), dk.decode_attention_plain(q, k, v, **kw),
+                    None)
+        return fk.flash_attention(q, k, v, **kw), fk.flash_attention_plain(q, k, v, **kw), None
+    if kernel == "paged":
+        q, kp, vp, tables, q_pos = _pool(cuda, dt, [130, 0, 257], 2, 8, hd, 32, 384, seed=hd)
+        kw = dict(block_table=tables, q_pos=q_pos, block=32, window=100)
+        return (pdk.paged_decode_attention(q, kp, vp, **kw),
+                pdk.paged_decode_attention_plain(q, kp, vp, **kw), None)
+    if kernel == "chunked":
+        q, kp, vp, tables, q_pos = _chunked(cuda, dt, [(97, 32), (128, 1), (0, 0), (40, 8)], 2,
+                                            4, hd, 32, 128, 32, seed=hd)
+        kw = dict(block_table=tables, q_pos=q_pos, block=32)
+        return (cpk.chunked_prefill_attention(q, kp, vp, **kw),
+                cpk.chunked_prefill_attention_plain(q, kp, vp, **kw), q_pos < 0)
+    q, k, v, q_pos, kv_pos = _fused(cuda, dt, 2, 160, 256, 200, 100, 8, 2, hd, seed=hd)
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, window=64)
+    return (fuk.fused_flash_attention(q, k, v, **kw),
+            fuk.fused_flash_attention_plain(q, k, v, **kw), q_pos < 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [("float32", F32_ATOL), ("bfloat16", BF16_ATOL)])
+@pytest.mark.parametrize("hd", [16, 80, 96])
+@pytest.mark.parametrize("kernel", ["packed", "decode", "flash", "paged", "chunked", "fused"])
+def test_kernels_take_any_head_dim(cuda, kernel, hd, dtype, atol):
+    """At a head_dim that is not a bucket of the shared tiles each kernel
+    runs on the next bucket's instantiation and holds its plain version;
+    padding queries still output zeros."""
+    got, want, pad = _any_hd_case(cuda, kernel, hd, getattr(torch, dtype))
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.shape[-1] == hd
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    if pad is not None:
+        assert not got[pad].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 80, 96])
+def test_paged_kernel_gives_the_dense_kernels_bits_at_any_head_dim(cuda, hd):
+    block, max_len, lens = 32, 512, [300, 1, 511, 96]
+    q, kp, vp, tables, q_pos = _pool(cuda, torch.bfloat16, lens, 2, 8, hd, block, max_len,
+                                     seed=hd)
+    rows = (tables.long()[:, :, None] * block
+            + torch.arange(block, device=cuda)[None, None]).reshape(len(lens), max_len)
+    idx = torch.arange(max_len, device=cuda, dtype=torch.int32)[None]
+    kv_pos = torch.where(idx <= q_pos, idx, -1).to(torch.int32)
+    dense = dk.decode_attention(q, kp[rows].contiguous(), vp[rows].contiguous(), q_pos=q_pos,
+                                kv_pos=kv_pos)
+    got = pdk.paged_decode_attention(q, kp, vp, block_table=tables, q_pos=q_pos, block=block)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dense)
+
+
+# --------------------------------------------------------------------------- #
+# The reduced llama-7b (head_dim 16) served on the card
+# --------------------------------------------------------------------------- #
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _fused_traffic(vocab, chunk=16):
+    """A canonical-order request that stores four 16-token chunks, then
+    three requests with the chunks reordered (``tests/test_fusion.py``)."""
+    rng = np.random.default_rng(4)
+    pool = [list(map(int, rng.integers(0, vocab, chunk))) for _ in range(4)]
+    perms = [[0, 1, 2, 3], [2, 0, 3, 1], [3, 2, 1, 0], [1, 3, 0, 2]]
+    return [dict(req_id=i, context_tokens=sum((pool[j] for j in p), []),
+                 prompt_tokens=list(map(int, rng.integers(0, vocab, 8))), max_new_tokens=4,
+                 arrival_s=0.0 if i == 0 else 30.0, expected_reuses=4)
+            for i, p in enumerate(perms)]
+
+
+def _serve_recording(cfg, params, device, **ec_kw):
+    """Serve the fused traffic; returns (engine, every prefill-type call's
+    logits rows that some request's token is read from)."""
+    from repro_torch.serving import BlendPlanner, EngineConfig, Request, ServingEngine
+
+    eng = ServingEngine(cfg, params, planner=BlendPlanner(recompute_frac=0.25, always=True),
+                        device=device, engine_cfg=EngineConfig(
+                            max_slots=2, max_len=128, chunk_tokens=16, fusion_enabled=True,
+                            **ec_kw))
+    calls = []
+
+    def record(fn, chunked=False):
+        def run(*args, **kw):
+            logits, caches = fn(*args, **kw)
+            rows = torch.ones(logits.shape[0], dtype=torch.bool)
+            if chunked:  # idle rows carry no token
+                q_pos = kw["q_pos"].cpu()
+                rows = q_pos[torch.arange(len(rows)), kw["last_idx"].cpu().long()] >= 0
+            calls.append(logits.float().cpu()[rows])
+            return logits, caches
+        return run
+
+    api = eng.api
+    eng.api = api._replace(prefill_packed=record(api.prefill_packed),
+                           prefill_fused=record(api.prefill_fused),
+                           prefill_chunked=record(api.prefill_chunked, chunked=True))
+    for r in _fused_traffic(cfg.vocab):
+        eng.submit(Request(**r))
+    eng.run()
+    return eng, calls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["dense", "paged", "unified"])
+def test_reduced_llama_serves_on_card_as_on_cpu(cuda, mode):
+    """The reduced llama-7b (head_dim 16, f32) served on the card through the
+    kernels: fused admissions, packed recompute and decode.  Every prefill
+    call's logits are within 1e-3 of the same engine run on the CPU, and the
+    tokens and actions are the same."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import lm
+
+    cfg = reduced_config(get_config("llama-7b"))
+    assert cfg.resolved_head_dim == 16
+    params = lm.init(cfg, seed=0, device="cpu")
+    ec = {"dense": {}, "paged": dict(paged_decode=True),
+          "unified": dict(paged_decode=True, unified_step=True)}[mode]
+    kernels = {"packed": pk.packed_flash_attention, "fused": fuk.fused_flash_attention,
+               "decode": dk.decode_attention, "paged": pdk.paged_decode_attention,
+               "chunked": cpk.chunked_prefill_attention}
+    before = {n: fn.launches for n, fn in kernels.items()}
+    eng, calls = _serve_recording(cfg, _to(params, cuda), cuda, **ec)
+    torch.cuda.synchronize()
+    launched = {n: fn.launches - before[n] for n, fn in kernels.items()}
+    cpu, cpu_calls = _serve_recording(cfg, params, "cpu", **ec)
+    used = {"dense": ("packed", "fused", "decode"), "paged": ("packed", "fused", "paged"),
+            "unified": ("chunked", "paged")}[mode]
+    assert all(launched[n] > 0 for n in used), launched
+    assert all(launched[n] == 0 for n in kernels if n not in used), launched
+    assert [r.action for r in eng.records].count("fused") == 3
+    assert len(calls) == len(cpu_calls)
+    for got, want in zip(calls, cpu_calls):
+        assert (got - want).abs().max().item() <= 1e-3
+    assert {r.req_id: (r.action, r.tokens) for r in eng.records} == {
+        r.req_id: (r.action, r.tokens) for r in cpu.records}

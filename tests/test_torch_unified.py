@@ -402,12 +402,11 @@ def test_unified_write_back_artifact_matches_the_legacy_paths(llama):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("fusion_enabled", True), ("prefetch_lookahead", 1), ("migration_interval_s", 1.0),
-    ("compress_tier", "io2"),
+    ("prefetch_lookahead", 1), ("migration_interval_s", 1.0), ("compress_tier", "io2"),
 ])
 def test_unified_engine_keeps_unported_branches_raising(llama, field, value):
-    """The unified step carries no fused, prefetch, migration or compressed
-    branch yet: asking for one beside it raises, naming the ROADMAP item."""
+    """The unified step carries no prefetch, migration or compressed branch
+    yet: asking for one beside it raises, naming the ROADMAP item."""
     _, _, cfg, params = llama
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(cfg, params, device="cpu", engine_cfg=EngineConfig(
