@@ -700,18 +700,8 @@ class ServingEngine:
 
         prefill_s = self.perf.t_prefill_fused(self.cost_cfg, layout.total, layout.n_q)
         load_s = max((d for _, _, d, _ in fetched), default=0.0)
-        for tier, nbytes, delay, rows in fetched:
-            events.append(ev.KVLoaded(
-                t_s=t0, req_id=req.req_id, tier=tier, nbytes=nbytes, load_s=delay,
-                matched_tokens=rows,
-            ))
-        events.append(ev.FusedAdmitted(
-            t_s=t0, req_id=req.req_id, slot=a.slot.index,
-            reused_tokens=schedule.reused_tokens,
-            recompute_tokens=schedule.recompute_tokens,
-            n_spans=len(schedule.spans), n_sources=len(sources),
-            q_len=layout.q_len, kv_len=layout.kv_len, jit_hit=jit_hit,
-        ))
+        self._note_fused(a, t0, len(sources), fetched, layout.q_len, layout.kv_len, jit_hit,
+                         events)
         events.append(ev.PrefillDone(
             t_s=t0, req_id=req.req_id, n_tokens=layout.n_q, prefill_s=prefill_s,
         ))
@@ -736,14 +726,29 @@ class ServingEngine:
         self.clock.advance(load_s + prefill_s)
         self.admission_busy_s += load_s + prefill_s
         self.fused_busy_s += load_s + prefill_s
-        self._count_fused(schedule, len(sources))
         a.rec.matched_tokens = schedule.reused_tokens
         a.rec.load_s = load_s
         a.rec.prefill_s = prefill_s
         a.rec.compute_cost += self._c_gpu_s * prefill_s
         self._finish_admission(a, first_tok, events)
 
-    def _count_fused(self, schedule: fusion.FusedSchedule, n_sources: int) -> None:
+    def _note_fused(self, a: _Admission, t0: float, n_sources: int, fetched: List[tuple],
+                    q_len: int, kv_len: int, jit_hit: bool, events: List[ev.Event]) -> None:
+        """Emit a fused admission's KVLoaded per fetched source and its
+        FusedAdmitted, and count it in ``fused_stats``."""
+        req, schedule = a.req, a.plan.fused
+        for tier, nbytes, delay, rows in fetched:
+            events.append(ev.KVLoaded(
+                t_s=t0, req_id=req.req_id, tier=tier, nbytes=nbytes, load_s=delay,
+                matched_tokens=rows,
+            ))
+        events.append(ev.FusedAdmitted(
+            t_s=t0, req_id=req.req_id, slot=a.slot.index,
+            reused_tokens=schedule.reused_tokens,
+            recompute_tokens=schedule.recompute_tokens,
+            n_spans=len(schedule.spans), n_sources=n_sources,
+            q_len=q_len, kv_len=kv_len, jit_hit=jit_hit,
+        ))
         self.fused_admissions += 1
         self.fused_reused_tokens += schedule.reused_tokens
         self.fused_recompute_tokens += schedule.recompute_tokens
@@ -1149,12 +1154,11 @@ class ServingEngine:
                 schedule, len(prompt), align=self.ec.pack_align,
                 bucket_min=self.ec.pack_bucket_min,
             )
-            caches = fusion.build_fused_caches(
-                self.cfg, schedule, sources, layout.kv_len, self.device
-            )
-            # land the whole assembled buffer's valid rows before the first
-            # chunk: reuse spans carry stored (delta-RoPE'd) KV, recompute and
-            # prompt rows are zero and get overwritten as their chunks land
+            # land the assembled valid rows (no bucket padding) before the
+            # first chunk: reuse spans carry stored (delta-RoPE'd) KV,
+            # recompute and prompt rows are zero and get overwritten as
+            # their chunks land
+            caches = fusion.build_fused_caches(self.cfg, schedule, sources, n_total, self.device)
             rows = paged.block_rows(ps.tables[a.slot.index, : len(own)], block)[:n_total]
             buf = caches[0].attn
             self._pool_update(rows, buf.k[:, 0, :n_total], buf.v[:, 0, :n_total])
@@ -1164,22 +1168,10 @@ class ServingEngine:
             positions = np.asarray(arrays["q_pos"][0, : layout.n_q], np.int32)
             a.delay = max((d for _, _, d, _ in fetched), default=0.0)
             a.matched = schedule.reused_tokens
-            for tier, nbytes, delay, rows_n in fetched:
-                events.append(ev.KVLoaded(
-                    t_s=t0, req_id=req.req_id, tier=tier, nbytes=nbytes, load_s=delay,
-                    matched_tokens=rows_n,
-                ))
             # the stream's tokens land through the chunked launches: the
             # event names the stream's length and the rows it fills, and no
             # fused launch shape is compiled for it
-            events.append(ev.FusedAdmitted(
-                t_s=t0, req_id=req.req_id, slot=a.slot.index,
-                reused_tokens=schedule.reused_tokens,
-                recompute_tokens=schedule.recompute_tokens,
-                n_spans=len(schedule.spans), n_sources=len(sources),
-                q_len=layout.n_q, kv_len=n_total, jit_hit=True,
-            ))
-            self._count_fused(schedule, len(sources))
+            self._note_fused(a, t0, len(sources), fetched, layout.n_q, n_total, True, events)
         elif a.artifact is not None:
             matched = a.matched
             rows = paged.block_rows(ps.tables[a.slot.index, : -(-matched // block)], block)
