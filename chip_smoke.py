@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Builds the port's six CUDA kernels from ``src/repro_torch/kernels/csrc``
-with nvcc (one nvcc per source, all started together), then drives five
+Builds the port's eight CUDA kernels from ``src/repro_torch/kernels/csrc``
+with nvcc (one nvcc per source, all started together), then drives seven
 paths of the port, each with every launch counter zeroed just before it and
 read just after it:
 
@@ -54,15 +54,35 @@ read just after it:
    reported (r < 1 approximates, so it is not gated); and at r = 1.0
    ``lm.prefill_fused`` held against ``lm.prefill`` of the same sequence
    within ``FUSED_LOGIT_ATOL``.
+6. compressed (int8) tier phase — the prefix mix again with
+   ``compress_tier="io2"`` (the default write-back tier), under dense decode
+   and under ``paged_decode=True, unified_step=True``: every write-back is
+   quantised on the card (2 ``kv_quant`` launches, K and V) and every fetch
+   dequantised there (2 ``kv_dequant`` launches); each stored entry is int8
+   rows and f32 scales, (hd + 4) / (2 hd) of the uncompressed entry; every
+   request that loaded uncompressed loads here; the attention launch counts
+   equal the uncompressed serve's; the loads' first-token logits lie within
+   ``COMPRESSED_LOGIT_ATOL`` of the uncompressed serve's.  Then, against
+   the dense serve's store: context A's int8 rows and scales equal
+   ``kv_quant_plain`` of the uncompressed serve's stored rows of A, bit for
+   bit, and dequantised to f32 lie within half a scale of them; wave 1's
+   loads rebuilt as one packed launch over the stored int8 rows give the
+   served logits, and the control, the same rebuild with every scale
+   doubled, lands outside ``COMPRESSED_LOGIT_ATOL``.
+7. the serving launcher — ``repro_torch.launch.serve`` with ``--requests 8
+   --contexts 2 --policy always --compress --json`` (reduced compute,
+   full-size economics) on the card: int8 launches and at least four reuse
+   hits.
 
 Then the kernel phase: each kernel is called on the inputs one of its
 launches on those paths received (first layer) and held against its plain
 PyTorch version: in bf16 at atol 1e-2, and cast to f32 (TF32 off) at the
-CPU tests' atol 2e-5.  Times come from CUDA events after warm-up, beside
-the plain version's, one PyTorch library call's
-(``scaled_dot_product_attention`` with an explicit boolean mask, timed here
-only; for the paged kernels on rows gathered beforehand, the gather
-excluded)
+CPU tests' atol 2e-5; ``kv_quant`` and ``kv_dequant`` (on the first leaf
+the compressed serve quantised and the first it dequantised) bit for bit.
+Times come from CUDA events after warm-up, beside the plain version's, one
+PyTorch library call's (``scaled_dot_product_attention`` with an explicit
+boolean mask, timed here only; for the paged kernels on rows gathered
+beforehand, the gather excluded; none computes the int8 kernels' function)
 and the card's bound for the same work.  Last, both decode kernels run at
 granite-34b's heads (48 query heads on one kv head) against their plain
 versions, the paged kernel bit for bit equal to the dense one.
@@ -72,8 +92,10 @@ last is ``{"kernels": [...]}``; the last is the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import pathlib
 import subprocess
@@ -96,9 +118,11 @@ from repro_torch.kernels import chunked_prefill as cpk  # noqa: E402
 from repro_torch.kernels import decode_attention as dk  # noqa: E402
 from repro_torch.kernels import flash_prefill as fk  # noqa: E402
 from repro_torch.kernels import fused_prefill as fuk  # noqa: E402
+from repro_torch.kernels import kv_quant as kq  # noqa: E402
 from repro_torch.kernels import packed_prefill as pk  # noqa: E402
 from repro_torch.kernels import paged_decode as pdk  # noqa: E402
-from repro_torch.kvcache import fusion, paged  # noqa: E402
+from repro_torch.kvcache import compression, fusion, paged  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
@@ -129,6 +153,13 @@ LOGIT_ATOL = 0.25
 # the H100; the control (the same r = 0.16 launch with the stored K left at
 # its source rotation, i.e. delta-RoPE skipped) must move the logits by more.
 FUSED_LOGIT_ATOL = 1e-2
+# The compressed phase's gate: a load from the int8 tier against the same
+# load of the uncompressed bf16 rows.  Each stored value moves by at most
+# half its row's scale (amax / 254), and that error passes through 32
+# layers.  On the H100 the loads read 0.088-0.109 and the control (the same
+# wave-1 loads with every scale doubled) 2.44-2.72; 0.2 sits 1.8x above the
+# reading and 12x below the control.
+COMPRESSED_LOGIT_ATOL = 0.2
 SEED = 0
 DEVICE = "cuda"
 
@@ -141,7 +172,9 @@ COUNTERS = {"packed_flash_attention": pk.packed_flash_attention,
             "flash_attention": fk.flash_attention,
             "paged_decode_attention": pdk.paged_decode_attention,
             "chunked_prefill_attention": cpk.chunked_prefill_attention,
-            "fused_flash_attention": fuk.fused_flash_attention}
+            "fused_flash_attention": fuk.fused_flash_attention,
+            "kv_quant": kq.kv_quant,
+            "kv_dequant": kq.kv_dequant}
 # the fused phase's RAG traffic: documents of DOC_LEN tokens, a 32-token
 # prompt per request, the reference's default chunk_tokens of 16, and
 # CacheBlend's default recompute fraction
@@ -229,6 +262,9 @@ class Recorder:
         self.last_logits = None  # the last model call's logits [rows, V], on the host
         self.step_fused = []  # this step's fused launches' logits [1, V], in order
         self.reused_rows_equal = []  # per fused launch: reused rows untouched (torch.equal)
+        self.quant_input = None  # the first leaf the int8 tier quantised
+        self.dequant_inputs = None  # the first (q, scale, dtype) it dequantised
+        self.loaded = []  # every KVLoaded event of the serve
         self.spent = {}
         self._calls = {"packed": 0, "decode": 0, "chunked": 0, "fused": 0}
         self._patched = [
@@ -242,6 +278,8 @@ class Recorder:
                                           prefill_chunked=self._step_chunked,
                                           prefill_fused=self._step_fused)),
         ]
+        self._quant, self._dequant = ops.kv_quant, ops.kv_dequant
+        self._patched += [(ops, "kv_quant", self._kv_quant), (ops, "kv_dequant", self._kv_dequant)]
         for name in ("fetch", "put"):
             self._patched.append((eng.store, name, self._timed(f"store_{name}",
                                                                getattr(eng.store, name))))
@@ -255,7 +293,7 @@ class Recorder:
             self._patched.append((eng, "_land_state_in_pool", self._timed(
                 "land_in_pool", eng._land_state_in_pool)))
             self._patched.append((eng, "_pool_slot_artifact", self._timed(
-                "pool_to_host", eng._pool_slot_artifact)))
+                "pool_gather", eng._pool_slot_artifact)))
         self._orig = [(obj, name, getattr(obj, name)) for obj, name, _ in self._patched]
         self._orig_api = eng.api
         for obj, name, fn in self._patched:
@@ -274,6 +312,16 @@ class Recorder:
             self.spent[part] = self.spent.get(part, 0.0) + time.perf_counter() - t0
             return out
         return run
+
+    def _kv_quant(self, x):
+        if self.quant_input is None:
+            self.quant_input = x.clone()
+        return self._quant(x)
+
+    def _kv_dequant(self, q, scale, dtype):
+        if self.dequant_inputs is None:
+            self.dequant_inputs = (q.clone(), scale.clone(), dtype)
+        return self._dequant(q, scale, dtype)
 
     def _packed(self, *args, **kw):
         # the first wave's first layer: the largest packed launch of the run
@@ -385,6 +433,7 @@ def serve(cfg, params, *, reuse: bool = True, planner=None, make_traffic=traffic
             wall = time.perf_counter() - t0
             modelled = eng.admission_busy_s + eng.decode_busy_s - busy0
             writebacks += sum(isinstance(e, ev.StoreWriteBack) for e in events)
+            rec.loaded += [e for e in events if isinstance(e, ev.KVLoaded)]
             slot_of.update((e.req_id, e.slot) for e in events
                            if isinstance(e, ev.RequestAdmitted))
             batch = [e for e in events if isinstance(e, ev.BatchAdmitted)]
@@ -675,6 +724,55 @@ def check_wide_group(H=48, KV=1, hd=128, lens=(2050, 1, 2047, 700), block=128,
         assert torch.equal(pool, dense), f"G {H // KV} {dtype}: paged differs from dense"
 
 
+def check_kv_quant(x, launches):
+    """Hold ``kv_quant`` against its plain version on the leaf the int8 tier
+    quantised first, bit for bit (int8 bytes and scales), and time both.
+    The bound counts the leaf read once and the int8 rows and scales
+    written once, and ~5 f32 operations per value (abs, max, divide, round,
+    clamp) at the f32 peak."""
+    q, s = kq.kv_quant(x)
+    pq, ps = kq.kv_quant_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(q, pq), "kv_quant: int8 bytes differ from the plain version's"
+    assert torch.equal(s.view(torch.int32), ps.view(torch.int32)), "kv_quant: scales differ"
+    err = float(max((q.int() - pq.int()).abs().max().item(), (s - ps).abs().max().item()))
+    ms = time_ms(lambda: kq.kv_quant(x), reps=20)
+    plain_ms = time_ms(lambda: kq.kv_quant_plain(x), reps=5)
+    b, by = bound_ms(nbytes(x, q, s), 5.0 * x.numel(), torch.float32)
+    log(f"kernel kv_quant {str(x.dtype)[6:]} x{tuple(x.shape)} ({x.numel() // x.shape[-1]} rows): "
+        f"int8 bytes and scales equal bit for bit, max_err={err:.3e} ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}); no single library call")
+    return dict(name="kv_quant", route="cuda", source="src/repro_torch/kernels/csrc/kv_quant.cu",
+                replaces="src/repro/kernels/kv_quant.py:49", launches=launches,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                library_ms=None)
+
+
+def check_kv_dequant(inputs, launches):
+    """Hold ``kv_dequant`` against its plain version on the first (q, scale)
+    a fetch from the int8 tier dequantised, bit for bit, and time both.  The
+    bound counts q and the scales read once and the output written once,
+    and 2 f32 operations per value (product, rounding)."""
+    q, s, dtype = inputs
+    got = kq.kv_dequant(q, s, dtype)
+    want = kq.kv_dequant_plain(q, s, dtype)
+    torch.cuda.synchronize()
+    bits = torch.int16 if got.element_size() == 2 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits)), "kv_dequant: values differ"
+    err = (got.float() - want.float()).abs().max().item()
+    ms = time_ms(lambda: kq.kv_dequant(q, s, dtype), reps=20)
+    plain_ms = time_ms(lambda: kq.kv_dequant_plain(q, s, dtype), reps=5)
+    b, by = bound_ms(nbytes(q, s, got), 2.0 * q.numel(), torch.float32)
+    log(f"kernel kv_dequant {str(dtype)[6:]} q{tuple(q.shape)}: values equal bit for bit, "
+        f"max_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}); "
+        f"no single library call")
+    return dict(name="kv_dequant", route="cuda",
+                source="src/repro_torch/kernels/csrc/kv_dequant.cu",
+                replaces="src/repro/kernels/kv_quant.py:78", launches=launches,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                library_ms=None)
+
+
 def log_steps(label, steps):
     for kind, wall, load_s, modelled, q_len, kv_len, parts in steps:
         parts = " ".join(f"{k}={1e3 * v:.2f}" for k, v in sorted(parts.items()))
@@ -931,6 +1029,188 @@ def fused_phase(cfg, params):
     return fused_inputs, counts_by["fused dense"]["fused_flash_attention"]
 
 
+def stored_nbytes(eng, contexts):
+    """Each context's stored entry nbytes (full matches only)."""
+    out = {}
+    for ctx in contexts:
+        match, entry = eng.store.lookup(ctx)
+        if entry is not None and match.matched_tokens == len(ctx):
+            out[tuple(ctx)] = entry.nbytes
+    return out
+
+
+def doubled_scales(payload):
+    """A stored int8 artifact with every row's scale doubled (the control)."""
+    return paged.LMState(pos=payload.pos, caches=tuple(
+        paged.BlockCache(paged.KVCache(*(dataclasses.replace(x, scale=x.scale * 2)
+                                         for x in c.attn)))
+        for c in payload.caches))
+
+
+def rebuild_wave(cfg, params, reqs, matched, artifacts):
+    """One packed admission launch of ``reqs`` over the stored ``artifacts``
+    (their first ``matched`` rows), laid out as the engine lays out a wave;
+    returns each request's last-token logits as f32 on the host."""
+    ec = EngineConfig(**SERVE)
+    layout = paged.pack_layout(
+        list(range(len(reqs))), matched, [len(r["prompt_tokens"]) for r in reqs],
+        align=ec.pack_align, bucket_min=ec.pack_bucket_min)
+    arrays = paged.pack_arrays(layout, [r["context_tokens"][m:] + r["prompt_tokens"]
+                                        for r, m in zip(reqs, matched)])
+    caches = paged.build_packed_caches(cfg, layout, artifacts, DEVICE)
+    t = {n: torch.from_numpy(a).to(DEVICE) for n, a in arrays.items()}
+    last = torch.tensor([seg.q_last for seg in layout.segments], device=DEVICE)
+    with torch.inference_mode():
+        logits, _ = lm.prefill_packed(
+            params, cfg, t["tokens"], caches, q_pos=t["q_pos"], q_seg=t["q_seg"],
+            q_rows=t["q_rows"], kv_pos=t["kv_pos"], kv_seg=t["kv_seg"], last_idx=last)
+    return logits.float().cpu()
+
+
+def compressed_phase(cfg, params, ref):
+    """Serve the prefix mix with ``compress_tier="io2"`` under dense decode
+    and under the unified step, each held against the uncompressed serve of
+    the same mode (``ref[mode]``: its actions, launch counts, first-token
+    logits and stored nbytes by context).  Returns the int8 kernels'
+    recorded inputs and their launches in the dense compressed serve."""
+    reqs = traffic(cfg.vocab)
+    contexts = [r["context_tokens"] for r in reqs]
+    hd, width = cfg.resolved_head_dim, getattr(torch, cfg.dtype).itemsize
+    out = {}
+    for mode, ec in (("dense", {}),
+                     ("unified", dict(paged_decode=True, unified_step=True, kv_block=128))):
+        label = f"compressed {mode}"
+        actions, ref_counts, ref_first, ref_nbytes = ref[mode]
+        zero_counts()
+        eng, recs, rec, steps, writebacks = serve(cfg, params, compress_tier="io2", **ec)
+        c = counts()
+        io2_loads = [e for e in rec.loaded if e.tier == "io2"]
+        log(f"{label} serve launches: {c} (write-backs {writebacks}, fetches from io2 "
+            f"{len(io2_loads)})")
+        log_steps(label, steps)
+        cactions = {i: (r.action, r.matched_tokens) for i, r in sorted(recs.items())}
+        log(f"{label} actions (action, matched tokens): {cactions}; uncompressed: {actions}")
+        assert len(recs) == 8 and all(len(r.tokens) == NEW_TOKENS for r in recs.values())
+        for i, (a, _) in actions.items():
+            if a == "load":
+                assert cactions[i][0] == "load", (label, i, cactions[i], actions[i])
+        assert c["kv_quant"] == 2 * writebacks > 0, (c, writebacks)
+        assert c["kv_dequant"] == 2 * len(io2_loads) > 0, (c, len(io2_loads))
+        assert len(io2_loads) == len(rec.loaded), "a load came from another tier"
+        for name in ("packed_flash_attention", "decode_attention", "chunked_prefill_attention"):
+            assert c[name] == ref_counts[name], (label, name, c[name], ref_counts[name])
+        # a cheaper fetch makes a unified stream ready sooner, so fewer steps
+        # are decode-only: the paged count follows the engine's own steps
+        n_decode = eng.decode_stats()["decode_steps"]
+        assert c["paged_decode_attention"] == (cfg.n_layers * n_decode if ec else 0), (c, n_decode)
+        # every entry is int8 rows and f32 scales: hd + 4 bytes a row, plus
+        # the 4-byte pos leaf; (hd + 4) / (2 hd) of the bf16 entry
+        nbytes_c = stored_nbytes(eng, contexts)
+        assert nbytes_c.keys() == ref_nbytes.keys(), "other contexts stored"
+        for e in eng.store.entries.values():
+            assert e.compressed, e
+            payload = eng.store.backends[e.tier].peek(e.entry_id)
+            leaves = [x for cc in payload.caches for x in cc.attn]
+            rows = sum(x.q.size // hd for x in leaves)
+            assert all(x.scale.nbytes == 4 * (x.q.size // hd) for x in leaves)
+            assert e.nbytes == sum(x.q.nbytes for x in leaves) + 4 * rows + 4, e
+        for ctx, nb in nbytes_c.items():
+            assert (nb - 4) * width * hd == (ref_nbytes[ctx] - 4) * (hd + 4), (nb, ref_nbytes[ctx])
+        log(f"{label}: {len(eng.store.entries)} entries, all int8; nbytes "
+            f"{sorted(nbytes_c.values())} against {sorted(ref_nbytes.values())} uncompressed "
+            f"({(hd + 4) / (width * hd):.4f}x)")
+        reused = [i for i, (a, _) in cactions.items() if a in ("load", "partial")]
+        reading = 0.0
+        for i in reused:
+            diff = (rec.first_logits[i] - ref_first[i]).abs().max().item()
+            reading = max(reading, diff)
+            log(f"{label} request {i} ({cactions[i][0]}): first-token logits "
+                f"max|int8 - bf16| = {diff:.4f}")
+        assert reading <= COMPRESSED_LOGIT_ATOL, (label, reading)
+        out[mode] = dict(counts=c, reading=reading)
+        if mode == "dense":
+            out["quant_input"], out["dequant_inputs"] = rec.quant_input, rec.dequant_inputs
+            out["first"] = rec.first_logits
+            out["store"], out["cactions"] = eng.store, cactions  # host-side: int8 payloads
+        del eng, rec
+        release()
+    return out
+
+
+def compressed_checks(cfg, params, out, artifact_a, tokens_a):
+    """Against the dense compressed serve's store: context A's int8 rows and
+    scales equal ``kv_quant_plain`` of the uncompressed serve's stored bf16
+    rows of A on the card, bit for bit; dequantised to f32 they lie within
+    half a scale (+1e-6) of those rows; and the control: wave 1's loads
+    rebuilt as one packed launch over the stored int8 rows with every scale
+    doubled must move the first-token logits outside
+    ``COMPRESSED_LOGIT_ATOL`` (the same rebuild with the true scales is
+    reported beside it)."""
+    store, first, cactions = out.pop("store"), out.pop("first"), out.pop("cactions")
+    match, entry = store.lookup(tokens_a)
+    assert entry is not None and match.matched_tokens == len(tokens_a)
+    payload = store.backends[entry.tier].peek(entry.entry_id)
+    for name, stored, dense in zip(("k", "v"), payload.caches[0].attn, artifact_a.caches[0].attn):
+        x = paged.to_device(dense, getattr(torch, cfg.dtype), DEVICE)
+        pq, ps = kq.kv_quant_plain(x)
+        q, sc = torch.from_numpy(stored.q).to(DEVICE), torch.from_numpy(stored.scale).to(DEVICE)
+        assert torch.equal(q, pq), f"{name}: stored int8 bytes differ from kv_quant_plain"
+        assert torch.equal(sc.view(torch.int32), ps.view(torch.int32)), f"{name}: scales differ"
+        err = (kq.kv_dequant(q, sc, torch.float32) - x.float()).abs()
+        worst = (err - sc / 2).max().item()
+        log(f"compressed: context A's stored {name} ({stored.q.size // stored.q.shape[-1]} rows) "
+            f"equals kv_quant_plain of the bf16 rows bit for bit; dequantised to f32, "
+            f"max |x - x'| - scale/2 = {worst:.3e} (gate 1e-6), max |x - x'| "
+            f"{err.max().item():.4f}")
+        assert worst <= 1e-6, (name, worst)
+        del x, pq, ps, q, sc, err
+    reqs = traffic(cfg.vocab)
+    wave = [r for r in reqs if r["arrival_s"] == 1.0]
+    assert all(cactions[r["req_id"]][0] == "load" for r in wave), cactions
+    payloads = []
+    for r in wave:
+        _, e = store.lookup(r["context_tokens"])
+        payloads.append(store.backends[e.tier].peek(e.entry_id))
+    matched = [cactions[r["req_id"]][1] for r in wave]
+    rows = {}
+    for label, arts in (("true", payloads), ("doubled", [doubled_scales(p) for p in payloads])):
+        dev = [compression.decompress_tree(p, DEVICE) for p in arts]
+        rows[label] = rebuild_wave(cfg, params, wave, matched, dev)
+        del dev
+    for i, r in enumerate(wave):
+        served = first[r["req_id"]]
+        same = (rows["true"][i] - served).abs().max().item()
+        control = (rows["doubled"][i] - out["dense_first"][r["req_id"]]).abs().max().item()
+        log(f"compressed: request {r['req_id']}'s load rebuilt from the int8 store: "
+            f"max|rebuilt - served| = {same:.3e}; control with every scale doubled, "
+            f"max|control - bf16 serve| = {control:.4f} (gate {COMPRESSED_LOGIT_ATOL}, reading "
+            f"{out['dense']['reading']:.4f})")
+        assert same <= COMPRESSED_LOGIT_ATOL < control, (same, control)
+    del store, payloads
+    release()
+
+
+def launcher_phase():
+    """``python -m repro_torch.launch.serve --requests 8 --contexts 2 --policy
+    always --compress --json`` on the card (reduced compute, full-size
+    economics): its write-backs and loads go through the int8 kernels."""
+    zero_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve_cli.main(["--requests", "8", "--contexts", "2", "--policy", "always",
+                        "--compress", "--json"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = counts()
+    out = json.loads(buf.getvalue())
+    log(f"launcher --compress: {wall:.1f} s, reuse_hits {out['reuse_hits']}, store entries "
+        f"{out['store']['entries']}, io2 used_gb {out['store']['tiers']['io2']['used_gb']}, "
+        f"total_cost {out['total_cost']}; launches {c}")
+    assert c["kv_quant"] > 0 and c["kv_dequant"] > 0, c
+    assert out["reuse_hits"] >= 4 and out["n_requests"] == 8, out
+
+
 def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -970,12 +1250,14 @@ def main() -> None:
     assert dense_counts["packed_flash_attention"] > 0, dense_counts
     assert dense_counts["decode_attention"] == cfg.n_layers * n_decode > 0, dense_counts
     assert dense_counts["flash_attention"] == dense_counts["paged_decode_attention"] == 0
+    assert dense_counts["kv_quant"] == dense_counts["kv_dequant"] == 0, dense_counts
     first_logits, step_logits = rec.first_logits, rec.step_logits
     packed_inputs, decode_inputs = rec.packed_inputs, rec.decode_inputs
     reqs = traffic(cfg.vocab)
     load_req = next(reqs[i] for i, (a, m) in actions.items()
                     if a == "load" and m == len(reqs[i]["context_tokens"]))
     artifact = stored_artifact(eng, load_req["context_tokens"])
+    dense_nbytes = stored_nbytes(eng, [r["context_tokens"] for r in traffic(cfg.vocab)])
     summary = eng.summary().as_dict()
     log(f"summary: {json.dumps(summary)}")
     del eng, rec
@@ -1070,6 +1352,8 @@ def main() -> None:
     assert ueng._paged.pool.n_used == 0
     chunked_inputs = urec.chunked_inputs
     assert chunked_inputs is not None, "no launch held a decode, a chunk and an idle row"
+    unified_first = urec.first_logits
+    unified_nbytes = stored_nbytes(ueng, [r["context_tokens"] for r in reqs])
     del ueng, urec, prec
     release()
 
@@ -1081,13 +1365,21 @@ def main() -> None:
     log(f"per-request prefill launches: {prefill_counts}")
     assert prefill_counts["flash_attention"] == cfg.n_layers * (len(reqs) + 2), prefill_counts
     assert sum(prefill_counts.values()) == prefill_counts["flash_attention"], prefill_counts
-    del artifact
     release()
 
     # ---- fused (CacheBlend-style) reuse phase ------------------------------
     fused_inputs, fused_launches = fused_phase(cfg, params)
-    del params
     release()
+
+    # ---- compressed (int8) tier phase -------------------------------------
+    comp = compressed_phase(cfg, params, {
+        "dense": (actions, dense_counts, first_logits, dense_nbytes),
+        "unified": (uactions, unified_counts, unified_first, unified_nbytes)})
+    comp["dense_first"] = first_logits
+    compressed_checks(cfg, params, comp, artifact, load_req["context_tokens"])
+    del params, artifact
+    release()
+    launcher_phase()
 
     # ---- kernel phase -----------------------------------------------------
     kernels = [check_packed(packed_inputs, dense_counts["packed_flash_attention"]),
@@ -1095,7 +1387,9 @@ def main() -> None:
                check_flash(flash_full, prefill_counts["flash_attention"], "full"),
                check_paged(paged_inputs, paged_counts["paged_decode_attention"]),
                check_chunked(chunked_inputs, unified_counts["chunked_prefill_attention"]),
-               check_fused(fused_inputs, fused_launches)]
+               check_fused(fused_inputs, fused_launches),
+               check_kv_quant(comp["quant_input"], comp["dense"]["counts"]["kv_quant"]),
+               check_kv_dequant(comp["dequant_inputs"], comp["dense"]["counts"]["kv_dequant"])]
     check_flash(flash_suffix, prefill_counts["flash_attention"], "suffix")
     check_wide_group()
     print(json.dumps({"kernels": kernels}))

@@ -7,8 +7,9 @@ from a two-term roofline:
   t = max( FLOPs / (devices * peak_flops * mfu),
            bytes  / (devices * hbm_bw   * membw_eff) )
 
-The port's default hardware is one H100 (``h100``); a caller that needs
-another machine passes its own ``HardwareSpec``.
+The port's default hardware is one H100 (``h100``); the paper's own machine
+is ``V100_X4_HF``, and a caller that needs another passes its own
+``HardwareSpec``.
 """
 from __future__ import annotations
 
@@ -49,6 +50,28 @@ def h100(gpus: int = 1) -> HardwareSpec:
         mfu=0.40,
         membw_eff=0.70,
     )
+
+
+# The paper's measured pipeline: Llama-7B under HuggingFace *naive* model
+# parallelism on a p3.8xlarge (4x V100 16 GB, NVIDIA's V100 data sheet: 125
+# TFLOP/s fp16 tensor core, 900 GB/s HBM2, 150 GB/s NVLink) — layers are
+# spread across the 4 GPUs and run sequentially, so throughput ~= one V100 at
+# low utilisation while the whole instance is billed.  mfu=0.18 calibrates
+# T_prefill(10K) to the ~7 s implied by the paper's footnote 2 ($3/h / 3600
+# * T = $0.0058 => T ~= 7 s); the effective per-instance mfu is 0.18/4
+# because only one of the 4 billed GPUs computes at a time.  The launcher's
+# ``--platform paper`` models this machine.
+V100_X4_HF = HardwareSpec(
+    name="V100x4-HF-MP",
+    devices=4,
+    peak_flops=125e12,
+    hbm_bw=900e9,
+    hbm_bytes=16 * GB,
+    link_bw=150e9,
+    hosts=1,
+    mfu=0.18 / 4,  # sequential layer placement: 1-of-4 GPUs active
+    membw_eff=0.45 / 4,
+)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,8 +2,8 @@
 
 The storage tiers are the paper's AWS catalog (EBS io2 at $0.125/GB-month
 with 4 GB/s provisioned throughput [paper §2], plus the beyond-paper tiers).
-The compute price is the port's own target: one NVIDIA H100 SXM
-(``h100_pricing``).
+The compute price is the port's own target, one NVIDIA H100 SXM
+(``h100_pricing``), or the paper's p3.8xlarge (``AWS_PAPER``).
 
 All prices are USD; times are hours unless suffixed ``_s``.
 """
@@ -119,6 +119,14 @@ _ALL_TIERS = {
     "io2": IO2, "gp3": GP3, "s3": S3_STANDARD, "host_dram": HOST_DRAM,
     "local_nvme": LOCAL_NVME, "peer_dram": PEER_DRAM,
 }
+
+# The paper's AWS catalog: a p3.8xlarge (4x V100) at $3 per GPU-hour over the
+# storage tiers above (the launcher's ``--platform paper``).
+AWS_PAPER = Pricing(
+    compute=ComputePrice(name="V100(p3.8xlarge)", cost_per_device_hour=3.0, devices=4),
+    tiers=dict(_ALL_TIERS),
+    default_tier="io2",
+)
 
 
 # --------------------------------------------------------------------------- #

@@ -22,7 +22,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 KERNELS = ("packed_prefill", "decode_attention", "flash_prefill", "paged_decode",
-           "chunked_prefill", "fused_prefill")
+           "chunked_prefill", "fused_prefill", "kv_quant", "kv_dequant")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -30,7 +30,7 @@ NVCC_FLAGS = (
 # dtype codes of the C entry points (csrc/common.cuh)
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     "packed_prefill": (
         "packed_flash_attention_launch",
@@ -74,6 +74,10 @@ _SIGNATURES = {
         # B Sq Skv H KV hd dtype has_window window
         + [_I] * 9 + [_F, _P],  # scale stream
     ),
+    # x q scale | rows | hd dtype | stream
+    "kv_quant": ("kv_quant_launch", [_P] * 3 + [_L] + [_I] * 2 + [_P]),
+    # q scale out | rows | hd dtype | stream
+    "kv_dequant": ("kv_dequant_launch", [_P] * 3 + [_L] + [_I] * 2 + [_P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

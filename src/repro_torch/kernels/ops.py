@@ -1,4 +1,4 @@
-"""Attention entry points of the model, dispatched by the tensors' device.
+"""Kernel entry points of the port, dispatched by the tensors' device.
 
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to the kernel's
 plain version; there is no other switch and no size threshold (unlike the
@@ -6,7 +6,7 @@ JAX package's ``ops.py``, whose reference path also serves ``Sq < 128``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -14,6 +14,7 @@ from repro_torch.kernels import chunked_prefill as cpk
 from repro_torch.kernels import decode_attention as dk
 from repro_torch.kernels import flash_prefill as fk
 from repro_torch.kernels import fused_prefill as fuk
+from repro_torch.kernels import kv_quant as kq
 from repro_torch.kernels import packed_prefill as pk
 from repro_torch.kernels import paged_decode as pdk
 
@@ -87,3 +88,17 @@ def fused_prefill(
     buffer (see ``ref.fused_prefill_ref``)."""
     fn = fuk.fused_flash_attention if q.is_cuda else fuk.fused_flash_attention_plain
     return fn(q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=window)
+
+
+def kv_quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantisation over the last axis: ``(q int8,
+    scale f32 [..., 1])`` (see ``ref.kv_quant_ref``).  Any head_dim >= 1: the
+    reference's ``hd >= 8`` threshold does not carry over."""
+    return (kq.kv_quant if x.is_cuda else kq.kv_quant_plain)(x)
+
+
+def kv_dequant(
+    q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype = torch.bfloat16
+) -> torch.Tensor:
+    """``q * scale`` cast to ``dtype`` (see ``ref.kv_dequant_ref``)."""
+    return (kq.kv_dequant if q.is_cuda else kq.kv_dequant_plain)(q, scale, dtype)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the attention kernels on the port's path.
+"""Plain PyTorch versions of the kernels on the port's path.
 
 These are the semantics contract, the counterparts of the reference's
 ``kernels/ref.py``: every hand-written kernel of this package must agree
@@ -13,7 +13,7 @@ marking an invalid kv row.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -174,3 +174,29 @@ def chunked_prefill_ref(
     v = v_pool[rows]
     kv_pos = torch.arange(nb * block, dtype=torch.int32, device=dev)[None].expand(B, -1)
     return attention_ref(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=True, window=window)
+
+
+# --------------------------------------------------------------------------- #
+# KV-cache int8 compression (storage / transfer tier)
+# --------------------------------------------------------------------------- #
+def kv_quant_ref(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantisation over the last (channel) axis.
+
+    x: [..., hd]  ->  (q int8 [..., hd], scale f32 [..., 1]).  True IEEE
+    divisions (not products with a reciprocal) and ``torch.round``'s
+    half-to-even rounding, as the reference's ``jnp`` version computes them
+    eagerly.  The 127 is a tensor, not a Python scalar: on CUDA, PyTorch
+    divides by a scalar as a product with its reciprocal, one ulp off the
+    division in some rows (XLA's jit rewrites the reference's the same way)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = amax.clamp_min(1e-8) / torch.full_like(amax, 127.0)
+    q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def kv_dequant_ref(
+    q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype = torch.bfloat16
+) -> torch.Tensor:
+    """``q * scale`` in f32, cast to ``dtype``."""
+    return (q.float() * scale.float()).to(dtype)

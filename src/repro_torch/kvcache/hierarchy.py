@@ -511,6 +511,7 @@ class TieredStore:
         spill_on_pressure: bool = False,
         hedge=None,
         faults: Optional[FaultInjector] = None,
+        device=None,  # where int8 entries dequantise (None: the card)
     ):
         if tiers is None:
             assert tier_capacities_gb is not None, (
@@ -543,6 +544,7 @@ class TieredStore:
         self.chunk_index = ChunkIndex(chunk_tokens)
         self.entries: Dict[str, StoredEntry] = {}
         self.compress_tier = compress_tier
+        self.device = device
         self.eviction = eviction
         self.migration = migration
         self.spill_on_pressure = spill_on_pressure
@@ -786,8 +788,10 @@ class TieredStore:
                 # the stored copy itself is bad; no retry can help
                 self.discard(entry_id)
             raise
-        art = compression.decompress_tree(payload) if e.compressed else payload
-        return art, handle.delay_s
+        if e.compressed:
+            # the int8 rows and scales cross to the device and dequantise there
+            payload = compression.decompress_tree(payload, self.device)
+        return payload, handle.delay_s
 
     def estimate_load_delay(self, tier: str, nbytes: float) -> float:
         """Backend-modeled (hedged) read delay for ``nbytes`` from ``tier``,
@@ -824,7 +828,8 @@ class TieredStore:
             p = compression.compress_tree(payload)
             return p, compression.tree_nbytes(p), True
         if e.compressed and to_tier != self.compress_tier:
-            p = compression.decompress_tree(payload)
+            # dequantised on the store's device, kept on the host below
+            p = compression.to_host_tree(compression.decompress_tree(payload, self.device))
             return p, compression.tree_nbytes(p), False
         return payload, e.nbytes, e.compressed
 

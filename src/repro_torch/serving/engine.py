@@ -30,14 +30,19 @@ unmatched tokens and the prompt, runs through one selective-recompute launch
 instead.  A source that cannot be fetched degrades the admission to exact
 recompute.
 
+With ``compress_tier`` the store keeps that tier's entries as int8 rows and
+f32 scales: a write-back into it is quantised where the rows lie (on the
+card, by ``kv_quant``), and a fetch from it dequantises on the engine's
+device (``kv_dequant``) before any admission mode consumes the rows.
+
 This is the port of the JAX engine's main path under the default
-``EngineConfig``, under ``paged_decode=True``, ``unified_step=True`` and
-``fusion_enabled=True``.  Compute runs eagerly in PyTorch (no jit): on CUDA
-tensors the attention goes through the hand-written kernels, on CPU tensors
-through their plain versions.  Times and dollars are modelled
+``EngineConfig``, under ``paged_decode=True``, ``unified_step=True``,
+``fusion_enabled=True`` and ``compress_tier``.  Compute runs eagerly in
+PyTorch (no jit): on CUDA tensors the kernels are the hand-written ones, on
+CPU tensors their plain versions.  Times and dollars are modelled
 (``PerfModel``), as in the reference, so the reference's golden records
-replay on the port.  The paths behind the other non-default options (the
-int8 tier, faults, hedging, prefetch, migration, the market) and the
+replay on the port.  The paths behind the other non-default options
+(faults, hedging, prefetch, migration, the market) and the
 per-request admission path of embeds and non-packable archs raise
 ``NotImplementedError`` naming the ROADMAP item that will carry them.
 """
@@ -134,7 +139,6 @@ class EngineConfig:
 # option -> the ROADMAP item that will carry it (set away from its default,
 # each raises NotImplementedError rather than silently taking another path)
 _NOT_PORTED = {
-    "compress_tier": "queue A item 3 (compressed tier)",
     "faults": "queue A item 6 (faults, cluster and router)",
     "hedge": "queue A item 6 (faults, cluster and router)",
     "overlap_load": "queue A item 6 (faults, cluster and router)",
@@ -253,10 +257,12 @@ class ServingEngine:
             transfer=self.transfer,
             clock=self.clock,
             chunk_tokens=self.ec.chunk_tokens,
+            compress_tier=self.ec.compress_tier,
             eviction=self.ec.eviction,
             backends=self.backends,
             pricing=self.pricing,
             spill_on_pressure=self.ec.spill_on_pressure,
+            device=self.device,
         )
         self.planner: ReusePlanner = planner or CostAwarePlanner()
         self.planner.configure(
@@ -628,7 +634,7 @@ class ServingEngine:
                     art = paged.packed_to_artifact(
                         self.cfg, new_caches, seg, len(a.req.context_tokens)
                     )
-                    self._write_back(a.req, paged.artifact_to_host(art), events)
+                    self._write_back(a.req, art, events)
             events.append(
                 ev.PrefillDone(
                     t_s=t0, req_id=a.req.req_id,
@@ -995,11 +1001,15 @@ class ServingEngine:
         a.matched = plan.matched_tokens
 
     def _write_back(self, req: Request, artifact: Any, events: List[ev.Event]) -> None:
+        """Store a context's device-side artifact.  The int8 tier takes it as
+        it lies, so ``kv_quant`` runs where the rows are and only the int8
+        rows and scales cross to the host; any other tier takes a host copy."""
         ctx = list(req.context_tokens)
         saved = self._c_gpu_s * self.perf.t_prefill(self.cost_cfg, len(ctx))
-        entry_id, _ = self.store.put(
-            ctx, artifact, tier=self._store_tier(), saved_per_use=saved
-        )
+        tier = self._store_tier()
+        if tier != self.ec.compress_tier:
+            artifact = paged.artifact_to_host(artifact)
+        entry_id, _ = self.store.put(ctx, artifact, tier=tier, saved_per_use=saved)
         self._emit_migrations(events)
         if entry_id is not None:
             e = self.store.entries[entry_id]
@@ -1078,7 +1088,10 @@ class ServingEngine:
     def _entry_fetch_bytes(self, e, matched_tokens: int) -> float:
         """Bytes a fetch of ``matched_tokens`` moves, at economics scale."""
         if self.cost_cfg is not self.cfg:
-            return s_storage_bytes(self.cost_cfg, matched_tokens)
+            return s_storage_bytes(
+                self.cost_cfg, matched_tokens,
+                compression=0.5 if self.ec.compress_tier == e.tier else 1.0,
+            )
         return e.nbytes * matched_tokens / max(e.n_tokens, 1)
 
     def _store_tier(self) -> str:
@@ -1335,9 +1348,9 @@ class ServingEngine:
             self._finish_admission(a, int(nxt_tok[a.slot.index]), events)
 
     def _pool_slot_artifact(self, slot: int, n_tokens: int) -> paged.LMState:
-        """A slot's first ``n_tokens`` pool rows as a batch-1 host artifact
-        in the reference's layout (bf16 as its ``uint16`` pattern), the pool
-        side of ``paged.extract_slot``: the unified path's write-backs."""
+        """A slot's first ``n_tokens`` pool rows, gathered on the device, as a
+        batch-1 artifact in the reference's layout: the unified path's
+        write-backs (``_write_back`` copies it to the host or quantises it)."""
         block = self.ec.kv_block
         rows = paged.block_rows(self._paged.tables[slot, : -(-n_tokens // block)], block)
         idx = self._tensor(rows[:n_tokens])
@@ -1345,7 +1358,7 @@ class ServingEngine:
         return paged.LMState(
             pos=np.full((1,), n_tokens, np.int32),
             caches=(paged.BlockCache(paged.KVCache(
-                paged.to_host(pool.k[:, idx])[:, None], paged.to_host(pool.v[:, idx])[:, None],
+                pool.k[:, idx][:, None], pool.v[:, idx][:, None],
             )),),
         )
 

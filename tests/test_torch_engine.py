@@ -130,6 +130,65 @@ def llama():
     return _setup("llama-7b")
 
 
+def _close(got, want, where):
+    """Equal, floats at ``1e-9``, recursing into dicts, sequences and
+    dataclasses (compared field by field, whatever package defines them).
+    Every field of the port's dataclasses must be the reference's; dicts
+    are compared on the keys both report (the reference's stats carry keys
+    of features the port does not, and the port's ``decode_stats`` adds
+    ``decode_steps``)."""
+    if dataclasses.is_dataclass(got) and not isinstance(got, type):
+        assert type(got).__name__ == type(want).__name__, where
+        for f in dataclasses.fields(got):
+            _close(getattr(got, f.name), getattr(want, f.name), f"{where}.{f.name}")
+    elif isinstance(got, dict):
+        common = set(got) & set(want)
+        assert common, where
+        for k in sorted(common):
+            _close(got[k], want[k], f"{where}[{k!r}]")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), where
+        for i, (g, w) in enumerate(zip(got, want)):
+            _close(g, w, f"{where}[{i}]")
+    elif isinstance(want, (float, np.floating)):
+        assert got == pytest.approx(float(want), abs=1e-9), where
+    else:
+        assert got == want, where
+
+
+def _replay_on_both(llama, reqs, planner=None, **ec_kw):
+    """The same requests through the port's and the JAX engine, step by
+    step, with the reference's hardware and prices on both sides: the tokens
+    must be identical, and every record field, summary key, the store's
+    entries (tier, nbytes, compressed) and the typed event stream agree,
+    floats at 1e-9.  Returns the port's engine and events."""
+    jcfg, jparams, cfg, params = llama
+    perf, pricing = _reference_perf_and_pricing()
+    planners = {"always": (AlwaysReusePlanner, jserving.AlwaysReusePlanner),
+                "cost": (CostAwarePlanner, jserving.CostAwarePlanner)}.get(planner)
+    kw = {**ENGINE_KW, **ec_kw}
+    eng = ServingEngine(cfg, params, engine_cfg=EngineConfig(**kw), perf=perf, pricing=pricing,
+                        planner=planners[0]() if planners else None, device="cpu")
+    jeng = jserving.ServingEngine(jcfg, jparams, engine_cfg=jserving.EngineConfig(**kw),
+                                  planner=planners[1]() if planners else None)
+    events, jevents = [], []
+    for e, make, out in ((eng, Request, events), (jeng, jserving.Request, jevents)):
+        for r in reqs:
+            e.submit(make(**r))
+        while not e.idle:
+            out.extend(e.step())
+    recs = sorted(eng.records, key=lambda r: r.req_id)
+    jrecs = sorted(jeng.records, key=lambda r: r.req_id)
+    assert [r.tokens for r in recs] == [r.tokens for r in jrecs]
+    _close(recs, jrecs, "records")
+    _close(eng.summary().as_dict(), jeng.summary().as_dict(), "summary")
+    entries = [sorted((e.entry_id, e.tier, e.nbytes, e.compressed)
+                      for e in x.store.entries.values()) for x in (eng, jeng)]
+    assert entries[0] == entries[1]
+    _close(events, jevents, "events")
+    return eng, events
+
+
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
 def test_golden_scenario_replays_on_port(llama, name):
     jcfg, jparams, cfg, params = llama
@@ -172,7 +231,7 @@ def test_reuse_tokens_identical_to_recompute(arch):
 
 
 _CHANGED = {
-    "compress_tier": "io2", "faults": object(), "hedge": object(),
+    "faults": object(), "hedge": object(),
     "overlap_load": True, "prefetch_lookahead": 1, "migration_interval_s": 1.0,
     "migration_policy": object(),
 }
@@ -186,6 +245,17 @@ def test_unported_options_raise(llama, field):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(cfg, params, device="cpu",
                       engine_cfg=EngineConfig(**{**ENGINE_KW, field: _CHANGED[field]}))
+
+
+@pytest.mark.parametrize("name", ["always", "partial_always"])
+def test_compressed_scenario_replays_jax_engine(llama, name):
+    """A golden scenario with ``compress_tier="io2"``: write-backs are stored
+    as int8 rows and scales, loads dequantise them, and the serve replays the
+    JAX engine's (the golden file holds no compressed run)."""
+    make, kw = SCENARIOS[name]
+    eng, events = _replay_on_both(llama, make(llama[2].vocab), compress_tier="io2", **kw)
+    assert eng.store.entries and all(e.compressed for e in eng.store.entries.values())
+    assert any(type(e).__name__ == "KVLoaded" for e in events)
 
 
 def test_entry_points_need_a_device_without_cuda(llama):

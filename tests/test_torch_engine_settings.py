@@ -6,15 +6,14 @@ take other branches of the same pipeline: one admission per step, a write-
 back floor, no write-back, LRU and cost eviction under tight capacities with
 and without spilling, a larger packing bucket with three slots, and an
 explicit hierarchy over disk, RPC and object backends with and without a
-concurrency limit on each link.  Each runs the same twelve requests through
+concurrency limit on each link, and the int8 tier (priced at full llama-7b
+scale, and fed by spills out of a tight host tier).  Each runs the same twelve requests through
 both engines (reduced llama-7b, weights converted from the reference's, the
 reference's hardware and prices rebuilt for the port): the tokens must be
 identical, and every record field, summary key, ``packed_stats`` and
 ``decode_stats`` entry, the store's entries and the typed event stream must
 agree, floats at 1e-9.
 """
-import dataclasses
-
 import numpy as np
 import pytest
 
@@ -30,10 +29,9 @@ from repro_torch.serving import (  # noqa: E402
     Request,
     ServingEngine,
 )
-from test_torch_engine import _reference_perf_and_pricing, _setup  # noqa: E402
+from test_torch_engine import _close, _reference_perf_and_pricing, _setup  # noqa: E402
 
 torch.set_num_threads(1)
-ATOL = 1e-9
 ENTRY_GB = 65540 / 1e9  # one stored 64-token context of reduced llama-7b
 
 
@@ -85,6 +83,14 @@ SETTINGS = {
         tier_specs="specs", store_tier="host_dram", spill_on_pressure=True)),
     "tiers_disk_rpc_object_one_link": ("always", dict(
         tier_specs="specs_one_link", store_tier="host_dram", spill_on_pressure=True)),
+    # the int8 tier priced at full llama-7b scale: a fetch from it moves half
+    # the full arch's KV bytes
+    "compressed_cost_arch": ("always", dict(compress_tier="io2", cost_arch="llama-7b")),
+    # spills out of a tight host tier enter the int8 tier and are quantised
+    # there, from host payloads; loads then come back from both tiers
+    "compressed_spill_into_int8": ("always", dict(
+        eviction="cost", tier_capacities_gb=TIGHT, spill_on_pressure=True,
+        store_tier="host_dram", compress_tier="io2")),
 }
 
 
@@ -112,6 +118,13 @@ EXERCISES = {
         {e.tier for e in eng.store.entries.values()} >= {"local_nvme", "peer_dram"}),
     "tiers_disk_rpc_object_one_link": lambda eng, events: (
         {e.tier for e in eng.store.entries.values()} >= {"local_nvme", "peer_dram"}),
+    "compressed_cost_arch": lambda eng, events: (
+        all(e.compressed for e in eng.store.entries.values())
+        and any(e.tier == "io2" for e in events if type(e).__name__ == "KVLoaded")),
+    "compressed_spill_into_int8": lambda eng, events: (
+        _n(events, "TierMigrated") > 0
+        and any(e.compressed for e in eng.store.entries.values() if e.tier == "io2")
+        and {e.tier for e in events if type(e).__name__ == "KVLoaded"} == {"host_dram", "io2"}),
 }
 
 
@@ -140,32 +153,6 @@ def llama():
     return _setup("llama-7b")
 
 
-def _close(got, want, where):
-    """Equal, floats at ``ATOL``, recursing into dicts, sequences and
-    dataclasses (compared field by field, whatever package defines them).
-    Every field of the port's dataclasses must be the reference's; dicts
-    are compared on the keys both report (the reference's stats carry keys
-    of features the port does not, and the port's ``decode_stats`` adds
-    ``decode_steps``)."""
-    if dataclasses.is_dataclass(got) and not isinstance(got, type):
-        assert type(got).__name__ == type(want).__name__, where
-        for f in dataclasses.fields(got):
-            _close(getattr(got, f.name), getattr(want, f.name), f"{where}.{f.name}")
-    elif isinstance(got, dict):
-        common = set(got) & set(want)
-        assert common, where
-        for k in sorted(common):
-            _close(got[k], want[k], f"{where}[{k!r}]")
-    elif isinstance(want, (list, tuple)):
-        assert len(got) == len(want), where
-        for i, (g, w) in enumerate(zip(got, want)):
-            _close(g, w, f"{where}[{i}]")
-    elif isinstance(want, (float, np.floating)):
-        assert got == pytest.approx(float(want), abs=ATOL), where
-    else:
-        assert got == want, where
-
-
 @pytest.mark.parametrize("setting", sorted(SETTINGS))
 def test_engine_setting_replays_reference(llama, setting):
     jcfg, jparams, cfg, params = llama
@@ -187,6 +174,7 @@ def test_engine_setting_replays_reference(llama, setting):
     _close(eng.summary().as_dict(), jeng.summary().as_dict(), "summary")
     _close(eng.packed_stats(), jeng.packed_stats(), "packed_stats")
     _close(eng.decode_stats(), jeng.decode_stats(), "decode_stats")
-    entries = sorted((e.tier, e.nbytes) for e in eng.store.entries.values())
-    assert entries == sorted((e.tier, e.nbytes) for e in jeng.store.entries.values())
+    entries = sorted((e.tier, e.nbytes, e.compressed) for e in eng.store.entries.values())
+    assert entries == sorted(
+        (e.tier, e.nbytes, e.compressed) for e in jeng.store.entries.values())
     _close(events, jevents, "events")

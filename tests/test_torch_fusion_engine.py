@@ -199,15 +199,20 @@ def test_engine_fused_r1_matches_recompute_bitwise(llama, paged_decode):
         assert eng._paged.pool.n_used == 0
 
 
-@pytest.mark.parametrize("paged_decode", [False, True])
-def test_engine_fused_partial_counts_and_events_consistent(llama, paged_decode):
-    """r < 1: fused admissions fetch their sources, reuse + recompute
-    partition every context, the counters agree with the event stream, the
-    summary counts fused admissions as reuse hits, and the whole serve
-    replays the JAX engine."""
+@pytest.mark.parametrize("paged_decode,compress_tier", [
+    pytest.param(False, None, id="False"), pytest.param(True, None, id="True"),
+    pytest.param(False, "io2", id="False-int8"), pytest.param(True, "io2", id="True-int8"),
+])
+def test_engine_fused_partial_counts_and_events_consistent(llama, paged_decode, compress_tier):
+    """r < 1: fused admissions fetch their sources (from the int8 tier too,
+    dequantised before delta-RoPE), reuse + recompute partition every
+    context, the counters agree with the event stream, the summary counts
+    fused admissions as reuse hits, and the whole serve replays the JAX
+    engine."""
     _, _, cfg, _ = llama
     reqs = _shuffled_requests(cfg.vocab, seed=4)
-    eng, jeng = _engines(llama, _blend(0.25), fusion_enabled=True, paged_decode=paged_decode)
+    eng, jeng = _engines(llama, _blend(0.25), fusion_enabled=True, paged_decode=paged_decode,
+                         compress_tier=compress_tier)
     events, jevents = _serve(eng, Request, reqs), _serve(jeng, jserving.Request, reqs)
     fused = [e for e in events if isinstance(e, ev.FusedAdmitted)]
     assert len(fused) == 3
@@ -274,11 +279,22 @@ def test_unified_fused_partial_reuses_sources(llama):
     """r < 1 inside the unified step: sources are fetched and pinned, their
     rows land in the pool before the first chunk, reuse + recompute
     partition every context, and the serve replays the reference's."""
+    _unified_fused_partial(llama)
+
+
+def test_unified_fused_partial_reuses_int8_sources(llama):
+    """The same with the sources stored in the int8 tier: each source is
+    dequantised before its rows are delta-RoPE'd into the pool."""
+    eng = _unified_fused_partial(llama, compress_tier="io2")
+    assert all(e.compressed for e in eng.store.entries.values())
+
+
+def _unified_fused_partial(llama, **ec_kw):
     _, _, cfg, _ = llama
     reqs = _shuffled_requests(cfg.vocab, seed=6, perms=([2, 0, 3, 1], [3, 2, 1, 0]),
                               reuses=1)
     eng, jeng = _engines(llama, _blend(0.25), fusion_enabled=True, unified_step=True,
-                         paged_decode=True)
+                         paged_decode=True, **ec_kw)
     events, jevents = _serve(eng, Request, reqs), _serve(jeng, jserving.Request, reqs)
     fused = [e for e in events if isinstance(e, ev.FusedAdmitted)]
     assert len(fused) == 2
@@ -292,6 +308,7 @@ def test_unified_fused_partial_reuses_sources(llama):
     _assert_close(eng.unified_stats(), jeng.unified_stats(), "unified_stats")
     eng._paged.audit()
     assert eng._paged.pool.n_used == 0
+    return eng
 
 
 @pytest.mark.parametrize("mode", ["dense", "paged", "unified"])

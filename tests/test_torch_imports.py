@@ -3,7 +3,9 @@
 ``repro_torch`` and ``chip_smoke.py`` must run on a machine without JAX and
 without the reference package, so they import neither, not even a module
 of ``repro`` that is pure Python.  A subprocess with both blocked imports
-every module of the port and serves two requests on the CPU.
+every module of the port (the int8 tier, the synthetic workload and the
+serving launcher among them), serves two requests on the CPU from the int8
+tier, and runs the launcher with ``--compress``.
 """
 import pathlib
 import re
@@ -48,6 +50,9 @@ def test_port_imports_and_serves_with_jax_and_repro_blocked():
         names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
         for name in names:
             importlib.import_module(name)
+        for name in ("repro_torch.kvcache.compression", "repro_torch.kernels.kv_quant",
+                     "repro_torch.data.synthetic", "repro_torch.launch.serve"):
+            assert name in names, name
         import torch
         torch.set_num_threads(1)
         from repro_torch.configs import get_config, reduced_config
@@ -56,13 +61,17 @@ def test_port_imports_and_serves_with_jax_and_repro_blocked():
         cfg = reduced_config(get_config("llama-7b"))
         params = lm.init(cfg, seed=0, device="cpu")
         eng = ServingEngine(cfg, params, device="cpu", planner=AlwaysReusePlanner(),
-                            engine_cfg=EngineConfig(max_slots=2, max_len=128))
+                            engine_cfg=EngineConfig(max_slots=2, max_len=128,
+                                                    compress_tier="io2"))
         ctx = list(range(40))
         for i in range(2):
             eng.submit(Request(req_id=i, context_tokens=ctx, prompt_tokens=[7, 8, 9],
                                max_new_tokens=3, arrival_s=i * 0.01, expected_reuses=2))
         s = eng.run()
         assert s.n_requests == 2 and s.reuse_hits == 1, s
+        assert all(e.compressed for e in eng.store.entries.values())
+        from repro_torch.launch import serve
+        serve.main(["--requests", "4", "--contexts", "2", "--compress", "--device", "cpu"])
         assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("served", len(names))
@@ -74,3 +83,4 @@ def test_port_imports_and_serves_with_jax_and_repro_blocked():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("served")
+    assert "served 4 requests" in out.stdout

@@ -11,7 +11,8 @@ f32 is held at the CPU tests' atol 2e-5 with TF32 off; bf16 at atol 1e-2.
 Every kernel takes any head_dim up to 256: each is also held against its
 plain version at head_dims 16, 80 and 96, which are not buckets of the
 kernels' shared tiles, and the reduced llama-7b (head_dim 16) is served on
-the card against the same engine on the CPU.
+the card against the same engine on the CPU.  The int8 quantiser and
+dequantiser are held bit for bit, not at a tolerance.
 """
 import os
 import pathlib
@@ -27,6 +28,7 @@ from repro_torch.kernels import chunked_prefill as cpk  # noqa: E402
 from repro_torch.kernels import decode_attention as dk  # noqa: E402
 from repro_torch.kernels import flash_prefill as fk  # noqa: E402
 from repro_torch.kernels import fused_prefill as fuk  # noqa: E402
+from repro_torch.kernels import kv_quant as kq  # noqa: E402
 from repro_torch.kernels import packed_prefill as pk  # noqa: E402
 from repro_torch.kernels import paged_decode as pdk  # noqa: E402
 
@@ -557,6 +559,62 @@ def test_paged_kernel_gives_the_dense_kernels_bits_at_any_head_dim(cuda, hd):
 
 
 # --------------------------------------------------------------------------- #
+# Int8 KV quantisation: bit for bit
+# --------------------------------------------------------------------------- #
+# leading shapes: 8 rows (one block), 111 rows (not a multiple of the 8 rows
+# a block takes), and a stored context's [layers, 1, tokens, kv heads]
+QUANT_LEAD = [(8,), (3, 37), (2, 1, 300, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [16, 80, 96, 128])
+@pytest.mark.parametrize("lead", QUANT_LEAD)
+def test_kv_quant_kernels_give_the_plain_bits(cuda, lead, hd, dtype):
+    """``kv_quant`` gives the plain version's int8 bytes and scales, and
+    ``kv_dequant`` its values, bit for bit (an amax, one IEEE division, a
+    half-to-even rounding, one f32 product and one rounding: no tolerance)."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(hd)
+    x = (torch.randn(*lead, hd, generator=g, device=cuda) * 3).to(getattr(torch, dtype))
+    x[..., :1] = 0  # a zero column, and below a zero row
+    x.view(-1, hd)[0] = 0
+    before = (kq.kv_quant.launches, kq.kv_dequant.launches)
+    q, s = kq.kv_quant(x)
+    pq, ps = kq.kv_quant_plain(x)
+    torch.cuda.synchronize()
+    assert q.dtype == torch.int8 and tuple(s.shape) == tuple(lead) + (1,)
+    assert torch.equal(q, pq) and torch.equal(s.view(torch.int32), ps.view(torch.int32))
+    for out in (torch.float32, torch.bfloat16):
+        got, want = kq.kv_dequant(q, s, out), kq.kv_dequant_plain(q, s, out)
+        torch.cuda.synchronize()
+        assert got.dtype == out
+        assert torch.equal(got.view(torch.int16 if out == torch.bfloat16 else torch.int32),
+                           want.view(torch.int16 if out == torch.bfloat16 else torch.int32))
+    assert (kq.kv_quant.launches, kq.kv_dequant.launches) == (before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.gpu
+def test_kv_quant_wrappers_refuse_what_they_cannot_run(cuda):
+    x = torch.randn(4, 16, device=cuda)
+    q, s = kq.kv_quant(x)
+    with pytest.raises(ValueError, match="contiguous"):
+        kq.kv_quant(torch.randn(16, 4, device=cuda).t())
+    with pytest.raises(ValueError, match="dtype"):
+        kq.kv_quant(x.half())
+    with pytest.raises(ValueError, match="CUDA"):
+        kq.kv_quant(x.cpu())
+    with pytest.raises(ValueError, match="scale"):
+        kq.kv_dequant(q, s[:2])
+    with pytest.raises(ValueError, match="int8"):
+        kq.kv_dequant(q.float(), s)
+    with pytest.raises(ValueError, match="dtype"):
+        kq.kv_dequant(q, s, torch.float16)
+    empty_q, empty_s = kq.kv_quant(torch.empty(0, 16, device=cuda))
+    assert empty_q.shape == (0, 16) and empty_s.shape == (0, 1)
+
+
+# --------------------------------------------------------------------------- #
 # The reduced llama-7b (head_dim 16) served on the card
 # --------------------------------------------------------------------------- #
 def _to(tree, device):
@@ -612,10 +670,12 @@ def _serve_recording(cfg, params, device, **ec_kw):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["dense", "paged", "unified"])
+@pytest.mark.parametrize("mode", ["dense", "paged", "unified", "compressed"])
 def test_reduced_llama_serves_on_card_as_on_cpu(cuda, mode):
     """The reduced llama-7b (head_dim 16, f32) served on the card through the
-    kernels: fused admissions, packed recompute and decode.  Every prefill
+    kernels: fused admissions, packed recompute and decode, and in the
+    ``compressed`` mode (dense decode, ``compress_tier="io2"``) the write-back
+    quantised and every fused source dequantised on the card.  Every prefill
     call's logits are within 1e-3 of the same engine run on the CPU, and the
     tokens and actions are the same."""
     from repro_torch.configs import get_config, reduced_config
@@ -625,17 +685,20 @@ def test_reduced_llama_serves_on_card_as_on_cpu(cuda, mode):
     assert cfg.resolved_head_dim == 16
     params = lm.init(cfg, seed=0, device="cpu")
     ec = {"dense": {}, "paged": dict(paged_decode=True),
-          "unified": dict(paged_decode=True, unified_step=True)}[mode]
+          "unified": dict(paged_decode=True, unified_step=True),
+          "compressed": dict(compress_tier="io2")}[mode]
     kernels = {"packed": pk.packed_flash_attention, "fused": fuk.fused_flash_attention,
                "decode": dk.decode_attention, "paged": pdk.paged_decode_attention,
-               "chunked": cpk.chunked_prefill_attention}
+               "chunked": cpk.chunked_prefill_attention, "kv_quant": kq.kv_quant,
+               "kv_dequant": kq.kv_dequant}
     before = {n: fn.launches for n, fn in kernels.items()}
     eng, calls = _serve_recording(cfg, _to(params, cuda), cuda, **ec)
     torch.cuda.synchronize()
     launched = {n: fn.launches - before[n] for n, fn in kernels.items()}
     cpu, cpu_calls = _serve_recording(cfg, params, "cpu", **ec)
     used = {"dense": ("packed", "fused", "decode"), "paged": ("packed", "fused", "paged"),
-            "unified": ("chunked", "paged")}[mode]
+            "unified": ("chunked", "paged"),
+            "compressed": ("packed", "fused", "decode", "kv_quant", "kv_dequant")}[mode]
     assert all(launched[n] > 0 for n in used), launched
     assert all(launched[n] == 0 for n in kernels if n not in used), launched
     assert [r.action for r in eng.records].count("fused") == 3
@@ -644,3 +707,5 @@ def test_reduced_llama_serves_on_card_as_on_cpu(cuda, mode):
         assert (got - want).abs().max().item() <= 1e-3
     assert {r.req_id: (r.action, r.tokens) for r in eng.records} == {
         r.req_id: (r.action, r.tokens) for r in cpu.records}
+    if mode == "compressed":
+        assert all(e.compressed for e in eng.store.entries.values())

@@ -26,6 +26,7 @@ from test_torch_engine import (  # noqa: E402
     GOLDEN,
     SCENARIOS,
     _reference_perf_and_pricing,
+    _replay_on_both,
     _run_jax,
     _run_port,
     _setup,
@@ -65,6 +66,20 @@ def test_golden_scenario_replays_on_port_paged(llama, name):
         assert got[k] == pytest.approx(v, abs=1e-9), (name, k)
     tokens = {rec.req_id: rec.tokens for rec in eng.records}
     assert tokens == _run_jax(jcfg, jparams, reqs, paged_decode=True, **kw)
+    eng._paged.audit()
+    assert eng._paged.pool.n_used == 0
+
+
+@pytest.mark.parametrize("name", ["always", "partial_always"])
+def test_compressed_scenario_replays_jax_engine_paged(llama, name):
+    """The golden scenario's paged variant with ``compress_tier="io2"``: the
+    dequantised rows land in the block pool, and the serve replays the JAX
+    engine's paged run; the pool drains clean."""
+    make, kw = SCENARIOS[name]
+    eng, events = _replay_on_both(llama, make(llama[2].vocab), compress_tier="io2",
+                                  paged_decode=True, **kw)
+    assert all(e.compressed for e in eng.store.entries.values())
+    assert any(type(e).__name__ == "KVLoaded" for e in events)
     eng._paged.audit()
     assert eng._paged.pool.n_used == 0
 

@@ -258,6 +258,11 @@ MIXES = {
     "victim_burst": ("llama-7b", _victim_and_burst, dict(max_len=512, cost_arch="llama-7b")),
     # the same burst at the served config's own scale
     "victim_burst_reduced": ("llama-7b", _victim_and_burst, dict(max_len=512)),
+    # reuse_burst with the int8 tier: chunked write-backs are quantised and
+    # the fetched rows dequantised before they land in the pool
+    "reuse_burst_compressed": (
+        "llama-7b", lambda v: _burst(v, n=8, ctx_lens=[64, 64], seed=1),
+        dict(compress_tier="io2")),
 }
 RECORD_FIELDS = ("load_s", "prefill_s", "decode_s", "start_s", "finish_s", "compute_cost")
 
@@ -402,11 +407,11 @@ def test_unified_write_back_artifact_matches_the_legacy_paths(llama):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("prefetch_lookahead", 1), ("migration_interval_s", 1.0), ("compress_tier", "io2"),
+    ("prefetch_lookahead", 1), ("migration_interval_s", 1.0),
 ])
 def test_unified_engine_keeps_unported_branches_raising(llama, field, value):
-    """The unified step carries no prefetch, migration or compressed branch
-    yet: asking for one beside it raises, naming the ROADMAP item."""
+    """The unified step carries no prefetch or migration branch yet: asking
+    for one beside it raises, naming the ROADMAP item."""
     _, _, cfg, params = llama
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(cfg, params, device="cpu", engine_cfg=EngineConfig(
