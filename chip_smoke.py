@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Builds the port's eight CUDA kernels from ``src/repro_torch/kernels/csrc``
-with nvcc (one nvcc per source, all started together), then drives seven
+Builds the port's nine CUDA kernels from ``src/repro_torch/kernels/csrc``
+with nvcc (one nvcc per source, all started together), then drives eight
 paths of the port, each with every launch counter zeroed just before it and
 read just after it:
 
@@ -73,16 +73,38 @@ read just after it:
    --contexts 2 --policy always --compress --json`` (reduced compute,
    full-size economics) on the card: int8 launches and at least four reuse
    hits.
+8. SSM serve phase — after the llama engines and weights are freed,
+   full-width, full-depth mamba2-1.3b in bf16 (random weights from a seeded
+   generator) serves the prefix mix behind the same ``ServingEngine``
+   settings, H100 ``PerfModel`` and prices and ``CostAwarePlanner``.  It
+   cannot be packed, so every admission runs through ``ModelApi.prefill``
+   one request per step: wave 0 recomputes A and B in two phases (context,
+   write-back of the ~100 MB state, prompt), waves 1 and 3 load, wave 2
+   loads A and recomputes B's variant (never ``partial``: SSM state is all
+   or nothing).  ``ssd_chunked`` launches 48 times per prefill call and no
+   attention or int8 kernel launches.  Each load's first-token logits lie
+   within ``SSM_LOGIT_ATOL`` of the same request served with reuse off,
+   and the control, the same load with the stored SSD state zeroed (conv
+   tail kept), lands outside it; one load rebuilt by hand from the stored
+   artifact (``insert_slot``, then ``prefill`` of the prompt) repeats the
+   engine's load and is held to its own ``SSM_REBUILD_ATOL``;
+   ``ModelApi.prefill`` of a request's context and prompt in one call
+   agrees with the engine's recompute; and
+   the same traffic with ``paged_decode=True`` keeps the dense decode
+   (``decode_stats()["paged"]`` False) with the dense run's tokens.
 
 Then the kernel phase: each kernel is called on the inputs one of its
 launches on those paths received (first layer) and held against its plain
 PyTorch version: in bf16 at atol 1e-2, and cast to f32 (TF32 off) at the
 CPU tests' atol 2e-5; ``kv_quant`` and ``kv_dequant`` (on the first leaf
-the compressed serve quantised and the first it dequantised) bit for bit.
+the compressed serve quantised and the first it dequantised) bit for bit;
+``ssd_chunked`` on the 2,000-token launch and a 32-token launch after a
+stored state (see ``check_ssd`` for its tolerances).
 Times come from CUDA events after warm-up, beside the plain version's, one
 PyTorch library call's (``scaled_dot_product_attention`` with an explicit
 boolean mask, timed here only; for the paged kernels on rows gathered
-beforehand, the gather excluded; none computes the int8 kernels' function)
+beforehand, the gather excluded; none computes the int8 kernels' or the
+SSD scan's function)
 and the card's bound for the same work.  Last, both decode kernels run at
 granite-34b's heads (48 query heads on one kv head) against their plain
 versions, the paged kernel bit for bit equal to the dense one.
@@ -121,6 +143,8 @@ from repro_torch.kernels import fused_prefill as fuk  # noqa: E402
 from repro_torch.kernels import kv_quant as kq  # noqa: E402
 from repro_torch.kernels import packed_prefill as pk  # noqa: E402
 from repro_torch.kernels import paged_decode as pdk  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssk  # noqa: E402
 from repro_torch.kvcache import compression, fusion, paged  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -160,6 +184,24 @@ FUSED_LOGIT_ATOL = 1e-2
 # wave-1 loads with every scale doubled) 2.44-2.72; 0.2 sits 1.8x above the
 # reading and 12x below the control.
 COMPRESSED_LOGIT_ATOL = 0.2
+# The SSM phase's gate: a load from the stored (conv tail, SSD state)
+# snapshot against the same request recomputed in one prefill call.  The
+# stored state is the bf16 model's own, but the load prefills the prompt in
+# a launch of its own, so the scan's chunks and the bf16 roundings of the
+# activations fall differently over 48 layers.  On the H100 the five loads
+# read 0.127-0.157 and the two-phase recomputes against one call 0.154; the
+# control (a load with the stored SSD state zeroed) 3.905.  0.25 sits 1.6x
+# above the reading and 15x below the control.
+SSM_LOGIT_ATOL = 0.25
+# A load rebuilt from the store (insert the stored snapshot, prefill the
+# prompt) repeats the engine's own load on the same inputs, and a one-call
+# prefill repeats the engine's one-call recompute: the same launches on the
+# same bits, none with atomics.  On the H100 both read 0.  The logits are
+# bf16, so any difference at an O(1) logit is at least 2^-8: this gate asks
+# for the same bits.
+SSM_REBUILD_ATOL = 1e-5
+# The reference's SSD tolerance (tests/test_kernels.py), f32
+SSD_ATOL = 5e-5
 SEED = 0
 DEVICE = "cuda"
 
@@ -174,7 +216,8 @@ COUNTERS = {"packed_flash_attention": pk.packed_flash_attention,
             "chunked_prefill_attention": cpk.chunked_prefill_attention,
             "fused_flash_attention": fuk.fused_flash_attention,
             "kv_quant": kq.kv_quant,
-            "kv_dequant": kq.kv_dequant}
+            "kv_dequant": kq.kv_dequant,
+            "ssd_chunked": ssk.ssd_chunked}
 # the fused phase's RAG traffic: documents of DOC_LEN tokens, a 32-token
 # prompt per request, the reference's default chunk_tokens of 16, and
 # CacheBlend's default recompute fraction
@@ -264,22 +307,26 @@ class Recorder:
         self.reused_rows_equal = []  # per fused launch: reused rows untouched (torch.equal)
         self.quant_input = None  # the first leaf the int8 tier quantised
         self.dequant_inputs = None  # the first (q, scale, dtype) it dequantised
+        self.ssd_inputs = {}  # first layer: the first long launch, the first short one
+        self.prefill_calls = 0  # ModelApi.prefill calls (per-request admissions)
         self.loaded = []  # every KVLoaded event of the serve
         self.spent = {}
-        self._calls = {"packed": 0, "decode": 0, "chunked": 0, "fused": 0}
+        self._calls = {"packed": 0, "decode": 0, "chunked": 0, "fused": 0, "ssd": 0}
         self._patched = [
             (ops, "packed_attention", self._packed),
             (ops, "decode_attention", self._decode),
             (ops, "paged_decode", self._paged),
             (ops, "chunked_prefill", self._chunked),
             (ops, "fused_prefill", self._fused_attn),
-            (eng, "api", eng.api._replace(prefill_packed=self._prefill, decode=self._step,
+            (eng, "api", eng.api._replace(prefill=self._prefill_single,
+                                          prefill_packed=self._prefill, decode=self._step,
                                           decode_paged=self._step_paged,
                                           prefill_chunked=self._step_chunked,
                                           prefill_fused=self._step_fused)),
         ]
-        self._quant, self._dequant = ops.kv_quant, ops.kv_dequant
-        self._patched += [(ops, "kv_quant", self._kv_quant), (ops, "kv_dequant", self._kv_dequant)]
+        self._quant, self._dequant, self._ssd = ops.kv_quant, ops.kv_dequant, ops.ssd_chunked
+        self._patched += [(ops, "kv_quant", self._kv_quant), (ops, "kv_dequant", self._kv_dequant),
+                          (ops, "ssd_chunked", self._ssd_scan)]
         for name in ("fetch", "put"):
             self._patched.append((eng.store, name, self._timed(f"store_{name}",
                                                                getattr(eng.store, name))))
@@ -322,6 +369,23 @@ class Recorder:
         if self.dequant_inputs is None:
             self.dequant_inputs = (q.clone(), scale.clone(), dtype)
         return self._dequant(q, scale, dtype)
+
+    def _ssd_scan(self, *args, **kw):
+        # the first layer of the first context-length launch and of the first
+        # prompt-length one
+        if self._calls["ssd"] % self.n_layers == 0:
+            label = "long" if args[0].shape[1] >= CTX_LEN else "short"
+            if label not in self.ssd_inputs:
+                self.ssd_inputs[label] = keep(args, kw)
+        self._calls["ssd"] += 1
+        return self._ssd(*args, **kw)
+
+    def _prefill_single(self, *args, **kw):
+        logits, state = self._timed("model", self._orig_api.prefill)(*args, **kw)
+        assert torch.isfinite(logits).all(), "non-finite prefill logits"
+        self.prefill_calls += 1
+        self.last_logits = logits.float().cpu()
+        return logits, state
 
     def _packed(self, *args, **kw):
         # the first wave's first layer: the largest packed launch of the run
@@ -408,7 +472,8 @@ class Recorder:
 def serve(cfg, params, *, reuse: bool = True, planner=None, make_traffic=traffic, **ec_kw):
     """Serve the traffic once; returns (engine, records by id, recorder,
     per-step rows (kind, wall_s, modelled load_s, modelled step s, q_len or
-    decode rows, kv_len or chunk tokens, wall s by part), write-back count).
+    decode rows or tokens prefilled, kv_len or chunk tokens or the plan of a
+    per-request admission, wall s by part), write-back count).
     The recorder keeps, per request, the logits each of its tokens was
     taken from (``req_logits``, ``first_logits``) and the wall-clock instant
     of each token (``token_wall``, seconds from the first step)."""
@@ -440,16 +505,22 @@ def serve(cfg, params, *, reuse: bool = True, planner=None, make_traffic=traffic
             mixed = [e for e in events if isinstance(e, ev.UnifiedStep)]
             tokens = [e for e in events if isinstance(e, ev.TokenEmitted)]
             fused = [e for e in events if isinstance(e, ev.FusedAdmitted)]
+            done = [e for e in events if isinstance(e, ev.PrefillDone)]
             # the fused launches of this step, in admission order (under the
             # unified step a fused admission launches none: its tokens land
             # through chunks)
             launched = [e.req_id for e in fused] if rec.step_fused else []
             assert len(launched) == len(rec.step_fused), (launched, len(rec.step_fused))
+            # a per-request admission (an arch that cannot be packed): one
+            # request, its logits from its last ModelApi.prefill call
+            single = done and not batch and not launched and not mixed
             for e in tokens:
                 # a fused launch's logits are its own, a packed batch's in
                 # batch order, a step's by slot
                 if e.index == 0 and e.req_id in launched:
                     lg = rec.step_fused[launched.index(e.req_id)][0]
+                elif e.index == 0 and single:
+                    lg = rec.last_logits[0]
                 elif batch and e.req_id in batch[0].req_ids:
                     lg = rec.last_logits[batch[0].req_ids.index(e.req_id)]
                 else:
@@ -470,6 +541,12 @@ def serve(cfg, params, *, reuse: bool = True, planner=None, make_traffic=traffic
             elif mixed:
                 steps.append(("mixed", wall, 0.0, mixed[0].step_s, mixed[0].n_decode,
                               mixed[0].chunk_tokens, dict(rec.spent)))
+            elif single:
+                load_s = sum(e.load_s for e in events if isinstance(e, ev.KVLoaded))
+                plan = next(e.plan for e in events if isinstance(e, ev.PlanChosen))
+                steps.append(("single", wall, load_s, done[0].prefill_s, done[0].n_tokens,
+                              plan.action + (" + write-back" if plan.store_after else ""),
+                              dict(rec.spent)))
             elif tokens:
                 steps.append(("decode", wall, 0.0, modelled, 0, 0, dict(rec.spent)))
             elif any(isinstance(e, ev.RequestAdmitted) for e in events):
@@ -773,6 +850,85 @@ def check_kv_dequant(inputs, launches):
                 library_ms=None)
 
 
+def check_ssd(inputs, launches):
+    """Hold ``ssd_chunked`` against its plain version on two recorded first-
+    layer launches of the SSM serve (``inputs["long"]``, a 2,000-token
+    context with a fresh state, run here with no initial state: the engine
+    passed zeros; ``inputs["short"]``, a 32-token prompt after a stored
+    state), and time both.
+
+    One rule, the one ``tests/test_torch_kernels_gpu.py`` applies: each f32
+    output (y in the f32 run, with inputs cast and TF32 off, and the state
+    in both runs) lies no further from the f64 scan of the same inputs
+    (``ref.ssd_scan_ref`` in f64) than max(5e-5, the plain version's error
+    against it), 5e-5 being the reference's SSD atol; both readings are
+    printed.  A bf16 y lies within one bf16 ulp (2^-7 of the plain
+    version's magnitude) plus 5e-5 of the plain version's: both round f32
+    sums of the same bf16 inputs.
+
+    The bound counts x, B, C, dt, A and the initial state read once and y
+    and the final state written once, and the operations of the chunked
+    form at the kernel's chunk (64 tokens): per chunk of n tokens the
+    causal half of C·Bᵀ once per group, of the score times X per head, and
+    C·h and the state update per head, at the inputs' peak.  Returns the
+    kernel's entry of the ``{"kernels": [...]}`` line, from the bf16
+    2,000-token run."""
+    entry = None
+    for label in ("long", "short"):
+        (x, dt, A, Bm, Cm), kw = inputs[label]
+        h0, chunk = kw["initial_state"], kw["chunk"]
+        if label == "long":
+            assert h0 is None or not h0.any(), "the context launch started from a stored state"
+            h0 = None
+        Bsz, L, H, P = x.shape
+        G, S = Bm.shape[2], Bm.shape[3]
+        want64 = ref.ssd_scan_ref(x.double(), dt.double(), A.double(), Bm.double(),
+                                  Cm.double(), initial_state=None if h0 is None else h0.double())
+        for dtype in (torch.bfloat16, torch.float32):
+            xx, bb, cc = (t.to(dtype) for t in (x, Bm, Cm))
+            y, hT = ssk.ssd_chunked(xx, dt, A, bb, cc, chunk=chunk, initial_state=h0)
+            yp, hp = ssk.ssd_chunked_plain(xx, dt, A, bb, cc, chunk=chunk, initial_state=h0)
+            torch.cuda.synchronize()
+            err = {"y": (y.float() - yp.float()).abs(), "h": (hT - hp).abs()}
+            notes = []
+            if dtype == torch.bfloat16:
+                ulp = (err["y"] - yp.float().abs() * 2.0**-7).max().item()
+                notes.append(f"y max err {err['y'].max().item():.3e}, over one bf16 ulp by "
+                             f"{max(ulp, 0.0):.3e} (gate {SSD_ATOL})")
+                assert ulp <= SSD_ATOL, (label, ulp)
+            # f32 outputs: y in the f32 run, the state in both
+            f32_out = {"h": (hT, hp, want64[1])}
+            if dtype == torch.float32:
+                f32_out["y"] = (y, yp, want64[0])
+            for name, (got, plain_out, exact) in f32_out.items():
+                k64 = (got.double() - exact).abs().max().item()
+                p64 = (plain_out.double() - exact).abs().max().item()
+                notes.append(f"{name} max err against the f64 scan: kernel {k64:.3e}, plain "
+                             f"{p64:.3e} (gate max({SSD_ATOL}, plain)); kernel - plain "
+                             f"{err[name].max().item():.3e}")
+                assert k64 <= max(SSD_ATOL, p64), (label, dtype, name, k64, p64)
+            ms = time_ms(lambda: ssk.ssd_chunked(xx, dt, A, bb, cc, chunk=chunk,
+                                                 initial_state=h0), reps=20)
+            plain_ms = time_ms(lambda: ssk.ssd_chunked_plain(xx, dt, A, bb, cc, chunk=chunk,
+                                                             initial_state=h0), reps=5)
+            q = min(chunk, 64)
+            ns = [min(q, L - t) for t in range(0, L, q)]
+            tri = sum(n * (n + 1) // 2 for n in ns)
+            flops = 2.0 * Bsz * (G * tri * S + H * tri * P + 2 * H * L * P * S)
+            b, by = bound_ms(nbytes(xx, dt, A, bb, cc, h0, y, hT), flops, dtype)
+            log(f"kernel ssd_chunked {label} {str(dtype)[6:]} x{tuple(x.shape)} G {G} S {S} "
+                f"chunk {chunk} initial state {h0 is not None}: {'; '.join(notes)}; "
+                f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}); no single "
+                f"library call")
+            if label == "long" and dtype == torch.bfloat16:
+                entry = dict(name="ssd_chunked", route="cuda",
+                             source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                             replaces="src/repro/kernels/ssd_scan.py:91", launches=launches,
+                             max_abs_err=err["y"].max().item(), ms=ms, plain_ms=plain_ms,
+                             bound_ms=b, bound_by=by, library_ms=None)
+    return entry
+
+
 def log_steps(label, steps):
     for kind, wall, load_s, modelled, q_len, kv_len, parts in steps:
         parts = " ".join(f"{k}={1e3 * v:.2f}" for k, v in sorted(parts.items()))
@@ -784,6 +940,10 @@ def log_steps(label, steps):
             log(f"{label} step fused q_len={q_len} kv_len={kv_len}: "
                 f"wall_ms={1e3 * wall:.2f} modelled_prefill_ms={1e3 * modelled:.3f} "
                 f"modelled_load_ms={1e3 * load_s:.3f} | wall ms by part: {parts}")
+        elif kind == "single":
+            log(f"{label} step {kv_len} ({q_len} tokens prefilled): wall_ms={1e3 * wall:.2f} "
+                f"modelled_prefill_ms={1e3 * modelled:.3f} modelled_load_ms={1e3 * load_s:.3f} "
+                f"| wall ms by part: {parts}")
         elif kind == "intake":
             log(f"{label} step intake (no launch): wall_ms={1e3 * wall:.2f} | {parts}")
         elif kind == "mixed":
@@ -1211,6 +1371,130 @@ def launcher_phase():
     assert out["reuse_hits"] >= 4 and out["n_requests"] == 8, out
 
 
+def zeroed_ssd(artifact):
+    """A stored SSM artifact with its SSD state zeroed, the conv tail kept
+    (the control of the SSM phase)."""
+    return paged.LMState(pos=artifact.pos, caches=tuple(
+        paged.BlockCache(None, c.mamba._replace(ssd=np.zeros_like(c.mamba.ssd)))
+        for c in artifact.caches))
+
+
+def prompt_after(cfg, params, artifact, prompt):
+    """``ModelApi.prefill`` of ``prompt`` after ``artifact`` inserted into a
+    fresh slot (the load path's shape); the last token's logits on the host."""
+    api = get_model(cfg)
+    state = api.init_state(cfg, 1, SERVE["max_len"], device=DEVICE)
+    paged.insert_slot(cfg, state, 0, artifact)
+    with torch.inference_mode():
+        logits, _ = api.prefill(params, cfg, torch.tensor([prompt], device=DEVICE), state)
+    return logits[0].float().cpu()
+
+
+def ssm_phase():
+    """Serve the prefix mix on full-width mamba2-1.3b (bf16, random weights)
+    with reuse on, with reuse off and with ``paged_decode=True``, and run the
+    per-request prefill and the zeroed-state control.  Returns the SSD
+    kernel's recorded inputs and its launches in the reuse-on serve."""
+    cfg = get_config("mamba2-1.3b")
+    t0 = time.perf_counter()
+    params = lm.init(cfg, seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"mamba2-1.3b bf16: {sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B params "
+        f"drawn in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated on the card")
+    reqs = traffic(cfg.vocab)
+    zero_counts()
+    eng, recs, rec, steps, writebacks = serve(cfg, params)
+    c = counts()
+    n_prefill = rec.prefill_calls
+    log(f"ssm serve launches: {c} (ModelApi.prefill calls {n_prefill}, decode steps "
+        f"{eng.decode_stats()['decode_steps']})")
+    log_steps("ssm", steps)
+    actions = {i: (r.action, r.matched_tokens) for i, r in sorted(recs.items())}
+    log(f"ssm actions (action, matched tokens): {actions}; write-backs {writebacks}")
+    assert [a for a, _ in actions.values()] == [
+        "recompute", "recompute", "load", "load", "load", "recompute", "load", "load"], actions
+    assert all(recs[i].plan.store_after for i in (0, 1)) and writebacks == 2, writebacks
+    assert len(recs) == 8 and all(len(r.tokens) == NEW_TOKENS for r in recs.values())
+    # two calls per recompute that writes back, one per load or plain recompute
+    assert n_prefill == 2 * 2 + 6, n_prefill
+    assert c["ssd_chunked"] == cfg.n_layers * n_prefill, c
+    assert sum(c.values()) == c["ssd_chunked"], c
+    assert eng.batches == 0 and eng.decode_stats()["paged"] is False
+    tokens_a = reqs[0]["context_tokens"]
+    artifact = stored_artifact(eng, tokens_a)
+    log(f"ssm store: {len(eng.store.entries)} entries of "
+        f"{sorted(e.nbytes for e in eng.store.entries.values())} bytes; summary "
+        f"{json.dumps(eng.summary().as_dict())}")
+    first, ssd_inputs, launches = rec.first_logits, rec.ssd_inputs, c["ssd_chunked"]
+    del eng, rec
+    release()
+
+    zero_counts()
+    _, base_recs, base_rec, _, _ = serve(cfg, params, reuse=False)
+    base_counts = counts()
+    assert base_counts["ssd_chunked"] == cfg.n_layers * len(reqs), base_counts
+    loads = [i for i, (a, _) in actions.items() if a == "load"]
+    reading, agree = 0.0, 0
+    for i in loads:
+        diff = (first[i] - base_rec.first_logits[i]).abs().max().item()
+        same = sum(x == y for x, y in zip(recs[i].tokens, base_recs[i].tokens))
+        reading, agree = max(reading, diff), agree + same
+        log(f"ssm request {i} (load): first-token logits max|reuse - recompute| = {diff:.4f}, "
+            f"tokens agreeing {same}/{NEW_TOKENS}")
+    log(f"ssm reuse vs recompute: token agreement {agree}/{NEW_TOKENS * len(loads)}")
+
+    # the per-request entry point: context and prompt in one call, against
+    # the engine's recomputes (two-phase with the write-back; one call
+    # without it); then the control
+    api = get_model(cfg)
+    for i in (0, 1, 5):
+        r = reqs[i]
+        state = api.init_state(cfg, 1, SERVE["max_len"], device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits, state = api.prefill(params, cfg, torch.tensor(
+                [r["context_tokens"] + r["prompt_tokens"]], device=DEVICE), state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        diff = (logits[0].float().cpu() - first[i]).abs().max().item()
+        # the two-phase recompute splits the scan at the context's end, as a
+        # load does; request 5's recompute is the same one call
+        gate = SSM_LOGIT_ATOL if i < 2 else SSM_REBUILD_ATOL
+        log(f"ssm prefill request {i} ({int(state.pos[0])} tokens in one call): wall_ms="
+            f"{1e3 * wall:.2f}, last-token logits max|prefill - engine recompute"
+            f"{' (two-phase)' if i < 2 else ''}| = {diff:.3e} (gate {gate})")
+        assert diff <= gate, (i, diff)
+        del state
+    load_req = reqs[loads[0]]
+    assert load_req["context_tokens"] == tokens_a
+    rebuilt = prompt_after(cfg, params, artifact, load_req["prompt_tokens"])
+    control = prompt_after(cfg, params, zeroed_ssd(artifact), load_req["prompt_tokens"])
+    same = (rebuilt - first[loads[0]]).abs().max().item()
+    ctrl = (control - base_rec.first_logits[loads[0]]).abs().max().item()
+    log(f"ssm request {loads[0]}'s load rebuilt from the store: max|rebuilt - served| = "
+        f"{same:.3e} (gate {SSM_REBUILD_ATOL}); control with the stored SSD state zeroed "
+        f"(conv tail kept): "
+        f"max|control - recompute| = {ctrl:.4f} (gate {SSM_LOGIT_ATOL}, reading {reading:.4f})")
+    assert reading <= SSM_LOGIT_ATOL < ctrl, (reading, ctrl)
+    assert same <= SSM_REBUILD_ATOL, same
+    del base_rec, artifact
+    release()
+
+    zero_counts()
+    peng, precs, _, _, _ = serve(cfg, params, paged_decode=True, kv_block=128)
+    pc = counts()
+    log(f"ssm paged_decode=True serve: decode_stats {json.dumps(peng.decode_stats())}; "
+        f"launches {pc}")
+    assert peng.decode_stats()["paged"] is False and pc == c, (pc, c)
+    assert {i: (r.action, r.tokens) for i, r in precs.items()} == {
+        i: (r.action, r.tokens) for i, r in recs.items()}
+    del peng, params
+    release()
+    return ssd_inputs, launches
+
+
 def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1381,6 +1665,9 @@ def main() -> None:
     release()
     launcher_phase()
 
+    # ---- SSM serve phase --------------------------------------------------
+    ssd_inputs, ssd_launches = ssm_phase()
+
     # ---- kernel phase -----------------------------------------------------
     kernels = [check_packed(packed_inputs, dense_counts["packed_flash_attention"]),
                check_decode(decode_inputs, dense_counts["decode_attention"]),
@@ -1389,7 +1676,8 @@ def main() -> None:
                check_chunked(chunked_inputs, unified_counts["chunked_prefill_attention"]),
                check_fused(fused_inputs, fused_launches),
                check_kv_quant(comp["quant_input"], comp["dense"]["counts"]["kv_quant"]),
-               check_kv_dequant(comp["dequant_inputs"], comp["dense"]["counts"]["kv_dequant"])]
+               check_kv_dequant(comp["dequant_inputs"], comp["dense"]["counts"]["kv_dequant"]),
+               check_ssd(ssd_inputs, ssd_launches)]
     check_flash(flash_suffix, prefill_counts["flash_attention"], "suffix")
     check_wide_group()
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,7 @@
 reference it is checked against).
 
 The port imports ``torch``, ``numpy`` and the standard library only.  Its
-attention kernels are hand-written CUDA for Hopper (``kernels/csrc``), built
+kernels are hand-written CUDA for Hopper (``kernels/csrc``), built
 with ``nvcc`` at first use; on CPU tensors the same entry points run the
 kernels' plain PyTorch versions.
 """

@@ -1,18 +1,19 @@
-"""Config registry of the port: the dense archs its slice serves.
+"""Config registry of the port: the archs its slices serve.
 
 ``llama-7b`` is the paper's own model; ``qwen2-1.5b`` adds QKV bias, GQA and
-tied embeddings.  The other archs of the reference's registry come with
-their model families (ROADMAP queue A items 4 and 9)."""
+tied embeddings; ``mamba2-1.3b`` is the attention-free SSM family.  The
+other archs of the reference's registry come with their model families
+(ROADMAP queue A item 9)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs import llama_7b, qwen2_1_5b
+from repro_torch.configs import llama_7b, mamba2_1_3b, qwen2_1_5b
 from repro_torch.configs.base import ArchConfig
 
 CONFIGS: Dict[str, ArchConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (llama_7b, qwen2_1_5b)
+    m.CONFIG.name: m.CONFIG for m in (llama_7b, qwen2_1_5b, mamba2_1_3b)
 }
 
 
@@ -23,19 +24,19 @@ def get_config(name: str) -> ArchConfig:
 
 
 def reduced_config(cfg: ArchConfig, **overrides) -> ArchConfig:
-    """A small same-family config for CPU tests: keeps GQA ratios and biases
-    while shrinking every dimension (the reference's ``reduced_config``,
-    restricted to the dense family)."""
-    if cfg.family != "dense":
+    """A small same-family config for CPU tests: keeps GQA ratios, biases
+    and the SSD layout while shrinking every dimension (the reference's
+    ``reduced_config``, restricted to the dense and SSM families)."""
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
-            f"{cfg.family} archs are not ported yet (ROADMAP queue A items 4 and 9)"
+            f"{cfg.family} archs are not ported yet (ROADMAP queue A item 9)"
         )
     small = dict(
         n_layers=2,
         d_model=64,
         n_heads=4,
         n_kv_heads=max(1, min(cfg.n_kv_heads, 2)) if cfg.n_kv_heads < cfg.n_heads else 4,
-        d_ff=128,
+        d_ff=0 if cfg.d_ff == 0 else 128,
         vocab=512,
         head_dim=16,
         max_seq_len=256,
@@ -44,6 +45,8 @@ def reduced_config(cfg: ArchConfig, **overrides) -> ArchConfig:
         param_dtype="float32",
         dtype="float32",
     )
+    if cfg.ssm is not None:
+        small["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=16, chunk=16)
     if cfg.sliding_window:
         small["sliding_window"] = 16
     small["name"] = cfg.name + "-smoke"

@@ -22,7 +22,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 KERNELS = ("packed_prefill", "decode_attention", "flash_prefill", "paged_decode",
-           "chunked_prefill", "fused_prefill", "kv_quant", "kv_dequant")
+           "chunked_prefill", "fused_prefill", "kv_quant", "kv_dequant", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -78,6 +78,8 @@ _SIGNATURES = {
     "kv_quant": ("kv_quant_launch", [_P] * 3 + [_L] + [_I] * 2 + [_P]),
     # q scale out | rows | hd dtype | stream
     "kv_dequant": ("kv_dequant_launch", [_P] * 3 + [_L] + [_I] * 2 + [_P]),
+    # x dt A B C h0 (or null) y hT | B L H P G S chunk dtype | stream
+    "ssd_scan": ("ssd_chunked_launch", [_P] * 8 + [_I] * 8 + [_P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -17,6 +17,8 @@ from repro_torch.kernels import fused_prefill as fuk
 from repro_torch.kernels import kv_quant as kq
 from repro_torch.kernels import packed_prefill as pk
 from repro_torch.kernels import paged_decode as pdk
+from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as ssk
 
 
 def flash_attention(
@@ -102,3 +104,23 @@ def kv_dequant(
 ) -> torch.Tensor:
     """``q * scale`` cast to ``dtype`` (see ``ref.kv_dequant_ref``)."""
     return (kq.kv_dequant if q.is_cuda else kq.kv_dequant_plain)(q, scale, dtype)
+
+
+def ssd_chunked(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Tensor, C: torch.Tensor,
+    *, chunk: int = 256, initial_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba2 SSD chunked scan: ``(y [B,L,H,P], final state [B,H,P,S]
+    f32)``, exact against the sequential ``ref.ssd_scan_ref`` (see
+    ``ssd_scan.ssd_chunked_plain``)."""
+    fn = ssk.ssd_chunked if x.is_cuda else ssk.ssd_chunked_plain
+    return fn(x, dt, A, B_, C, chunk=chunk, initial_state=initial_state)
+
+
+def ssd_decode(
+    state: torch.Tensor, x_t: torch.Tensor, dt_t: torch.Tensor, A: torch.Tensor,
+    B_t: torch.Tensor, C_t: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The O(1) single-token SSD update, plain PyTorch on every device (the
+    reference's is plain jnp, not a kernel: ``ref.ssd_decode_ref``)."""
+    return ref.ssd_decode_ref(state, x_t, dt_t, A, B_t, C_t)

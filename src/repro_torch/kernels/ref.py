@@ -177,6 +177,62 @@ def chunked_prefill_ref(
 
 
 # --------------------------------------------------------------------------- #
+# Mamba2 / SSD: sequential state-space scan (exact oracle)
+# --------------------------------------------------------------------------- #
+def ssd_scan_ref(
+    x: torch.Tensor,  # [B, L, H, P]
+    dt: torch.Tensor,  # [B, L, H]   (already softplus'd, > 0)
+    A: torch.Tensor,  # [H]          (negative)
+    B_: torch.Tensor,  # [B, L, G, S]
+    C: torch.Tensor,  # [B, L, G, S]
+    *,
+    initial_state: Optional[torch.Tensor] = None,  # [B, H, P, S]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Selective state-space recurrence
+        h_t = exp(dt_t * A) * h_{t-1} + dt_t * (x_t ⊗ B_t)
+        y_t = h_t · C_t
+    as a plain sequential scan over time, in f32 (in f64 for f64 inputs):
+    the exactness oracle of the chunked SSD scan.  Returns (y [B,L,H,P] in
+    x's dtype, final state [B,H,P,S] in the scan's type)."""
+    Bsz, L, H, P = x.shape
+    G, S = B_.shape[2], B_.shape[3]
+    rep = H // G
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf, dtf, Af = x.to(acc), dt.to(acc), A.to(acc)
+    Bf = B_.to(acc).repeat_interleave(rep, dim=2)  # [B, L, H, S]
+    Cf = C.to(acc).repeat_interleave(rep, dim=2)
+    h = (torch.zeros((Bsz, H, P, S), dtype=acc, device=x.device)
+         if initial_state is None else initial_state.to(acc))
+    ys = []
+    for t in range(L):
+        decay = torch.exp(dtf[:, t] * Af[None, :])[:, :, None, None]  # [B,H,1,1]
+        upd = (dtf[:, t, :, None] * xf[:, t])[..., None] * Bf[:, t, :, None, :]
+        h = h * decay + upd
+        ys.append(torch.einsum("bhps,bhs->bhp", h, Cf[:, t]))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((Bsz, 0, H, P))
+    return y.to(x.dtype), h
+
+
+def ssd_decode_ref(
+    state: torch.Tensor,  # [B, H, P, S]
+    x_t: torch.Tensor,  # [B, H, P]
+    dt_t: torch.Tensor,  # [B, H]
+    A: torch.Tensor,  # [H]
+    B_t: torch.Tensor,  # [B, G, S]
+    C_t: torch.Tensor,  # [B, G, S]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token SSD update (the O(1) decode step)."""
+    rep = x_t.shape[1] // B_t.shape[1]
+    Bf = B_t.float().repeat_interleave(rep, dim=1)  # [B, H, S]
+    Cf = C_t.float().repeat_interleave(rep, dim=1)
+    decay = torch.exp(dt_t.float() * A.float()[None, :])
+    upd = (dt_t.float()[:, :, None] * x_t.float())[..., None] * Bf[:, :, None, :]
+    new_state = state.float() * decay[:, :, None, None] + upd
+    y = torch.einsum("bhps,bhs->bhp", new_state, Cf).to(x_t.dtype)
+    return y, new_state
+
+
+# --------------------------------------------------------------------------- #
 # KV-cache int8 compression (storage / transfer tier)
 # --------------------------------------------------------------------------- #
 def kv_quant_ref(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

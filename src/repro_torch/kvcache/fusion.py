@@ -419,7 +419,8 @@ def build_fused_caches(
 
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.family} archs are not ported yet (ROADMAP queue A items 4 and 9)"
+            f"{cfg.family} archs cannot be fused (SSM) or are not ported yet (ROADMAP "
+            "queue A item 9)"
         )
     dtype = dtype or resolve_dtype(cfg.dtype)
     shape = (cfg.n_layers, 1, kv_len + 1, cfg.n_kv_heads, cfg.resolved_head_dim)

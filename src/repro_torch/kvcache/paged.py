@@ -1,17 +1,26 @@
 """Context state between the device caches and the storage tier.
 
 The device-side cache is slotted-dense: one batch slot per active sequence.
-The stored artifact of a context of L tokens is that slot's K/V rows
-``[0, L)``, as a host ``LMState`` tree of numpy arrays in the reference's
-layout (``[n_layers, 1, L, KV, hd]``).  bf16 rows are kept as their 2-byte
-pattern (``uint16``), so byte accounting matches the reference's; an f32
-artifact is the same tree, byte for byte, as the reference's.
+The stored artifact of a context of L tokens is that slot's slice of the
+context state, as a host ``LMState`` tree of numpy arrays in the reference's
+layout:
+
+  * attention layers: K/V rows ``[0, L)``, ``[n_layers, 1, L, KV, hd]``
+    (O(L) bytes);
+  * Mamba/SSD layers: the conv tail ``[n_layers, 1, d_conv-1, conv_dim]``
+    in the model dtype and the SSD state ``[n_layers, 1, H, P, S]`` in f32
+    (O(1) bytes, all or nothing).
+
+bf16 rows are kept as their 2-byte pattern (``uint16``), so byte accounting
+matches the reference's; an f32 artifact is the same tree, byte for byte,
+as the reference's.
 
 Under paged decode the device state is instead one shared KV block pool
 (``init_pool_caches``): host-side ``PagedSlots`` keep each slot's block
 table, and packed admissions land their block-aligned spans in the pool.
 
-This is the port of the reference's ``kvcache/paged.py`` for dense archs.
+This is the port of the reference's ``kvcache/paged.py`` for dense and SSM
+archs.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.blocks import BlockCache
 from repro_torch.models.common import resolve_device, resolve_dtype
 from repro_torch.models.lm import LMState
+from repro_torch.models.ssm import MambaState
 
 
 # --------------------------------------------------------------------------- #
@@ -52,14 +62,20 @@ def to_device(a: Any, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
+def _map_cache(c: BlockCache, fn) -> BlockCache:
+    """``fn`` over a ``BlockCache``'s arrays, keeping its structure."""
+    if c.attn is not None:
+        return BlockCache(KVCache(fn(c.attn.k), fn(c.attn.v)))
+    return BlockCache(None, MambaState(fn(c.mamba.conv), fn(c.mamba.ssd)))
+
+
 def artifact_to_host(art: LMState) -> LMState:
-    """A device-side artifact (``packed_to_artifact``) as a host tree."""
+    """A device-side artifact (``packed_to_artifact``, ``slot_artifact``) as a
+    host tree."""
     return LMState(
         pos=np.asarray(art.pos.cpu() if isinstance(art.pos, torch.Tensor) else art.pos,
                        np.int32),
-        caches=tuple(
-            BlockCache(KVCache(to_host(c.attn.k), to_host(c.attn.v))) for c in art.caches
-        ),
+        caches=tuple(_map_cache(c, to_host) for c in art.caches),
     )
 
 
@@ -71,18 +87,26 @@ def _pos(artifact: LMState) -> int:
 # --------------------------------------------------------------------------- #
 # Extract / insert: one slot of the batched device state
 # --------------------------------------------------------------------------- #
-def extract_slot(cfg: ArchConfig, state: LMState, slot: int, length: int) -> LMState:
-    """Slot ``slot``'s first ``length`` tokens of context state, on the host."""
+def slot_artifact(state: LMState, slot: int, length: int) -> LMState:
+    """Slot ``slot``'s first ``length`` tokens of context state as an artifact
+    of device views (an SSM layer's whole state: it is O(1) in ``length``)."""
+
+    def rows(t: torch.Tensor) -> torch.Tensor:
+        return t[:, slot : slot + 1, :length]
+
+    def whole(t: torch.Tensor) -> torch.Tensor:
+        return t[:, slot : slot + 1]
+
     return LMState(
         pos=np.full((1,), length, np.int32),
-        caches=tuple(
-            BlockCache(KVCache(
-                to_host(c.attn.k[:, slot : slot + 1, :length]),
-                to_host(c.attn.v[:, slot : slot + 1, :length]),
-            ))
-            for c in state.caches
-        ),
+        caches=tuple(_map_cache(c, rows if c.attn is not None else whole)
+                     for c in state.caches),
     )
+
+
+def extract_slot(cfg: ArchConfig, state: LMState, slot: int, length: int) -> LMState:
+    """Slot ``slot``'s first ``length`` tokens of context state, on the host."""
+    return artifact_to_host(slot_artifact(state, slot, length))
 
 
 def insert_slot(
@@ -90,12 +114,17 @@ def insert_slot(
 ) -> LMState:
     """Write a context (host or device artifact) into batch slot ``slot`` in
     place, with ``pos[slot]`` set to its token count (or ``n_tokens`` for a
-    partial-prefix insert).  Returns ``state``."""
+    partial-prefix insert of attention K/V; SSM state is all or nothing, a
+    whole snapshot at the stored context's length).  Returns ``state``."""
     art_pos = _pos(artifact)
     L = art_pos if n_tokens is None else min(n_tokens, art_pos)
     for c, a in zip(state.caches, artifact.caches):
-        for dst, src in ((c.attn.k, a.attn.k), (c.attn.v, a.attn.v)):
-            dst[:, slot, :L] = to_device(src[:, 0, :L], dst.dtype, dst.device)
+        if c.attn is not None:
+            for dst, src in ((c.attn.k, a.attn.k), (c.attn.v, a.attn.v)):
+                dst[:, slot, :L] = to_device(src[:, 0, :L], dst.dtype, dst.device)
+        else:
+            for dst, src in ((c.mamba.conv, a.mamba.conv), (c.mamba.ssd, a.mamba.ssd)):
+                dst[:, slot] = to_device(src[:, 0], dst.dtype, dst.device)
     state.pos[slot] = L
     return state
 
@@ -203,7 +232,8 @@ def build_packed_caches(
     scratch row the padding tokens' K/V land on."""
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.family} archs are not ported yet (ROADMAP queue A items 4 and 9)"
+            f"{cfg.family} archs have no packed or pooled KV in the port (SSM state "
+            "cannot be packed or paged; other families: ROADMAP queue A item 9)"
         )
     dtype = dtype or resolve_dtype(cfg.dtype)
     shape = (cfg.n_layers, 1, layout.kv_len + 1, cfg.n_kv_heads, cfg.resolved_head_dim)
@@ -475,7 +505,8 @@ def init_pool_caches(
     KV, hd]``, the paged counterpart of ``lm.init_state``'s slotted caches."""
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.family} archs are not ported yet (ROADMAP queue A items 4 and 9)"
+            f"{cfg.family} archs have no packed or pooled KV in the port (SSM state "
+            "cannot be packed or paged; other families: ROADMAP queue A item 9)"
         )
     device = resolve_device(device)
     dtype = dtype or resolve_dtype(cfg.dtype)

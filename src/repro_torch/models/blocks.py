@@ -1,90 +1,152 @@
-"""The dense decoder block: attention mixer + SwiGLU MLP, pre-norm."""
+"""Decoder blocks: (attention | mamba) mixer + optional SwiGLU MLP, pre-norm.
+
+A block is described by a static :class:`BlockKind`, as in the reference's
+``models/blocks.py``; the port carries the dense (``("a", "mlp")``) and SSM
+(``("m", "none")``) kinds.
+"""
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, ssm
 from repro_torch.models.common import Params
 
 
+class BlockKind(NamedTuple):
+    mixer: str  # "a" (attention) | "m" (mamba)
+    ffn: str  # "mlp" | "none"
+
+
+def block_kinds(cfg: ArchConfig) -> Tuple[BlockKind, ...]:
+    """Static per-layer block kinds of one period (length 1 for the uniform
+    families the port carries)."""
+    if cfg.family == "ssm":
+        return (BlockKind("m", "none" if cfg.d_ff == 0 else "mlp"),)
+    if cfg.family == "dense":
+        return (BlockKind("a", "mlp"),)
+    raise NotImplementedError(f"{cfg.family} archs are not ported yet (ROADMAP queue A item 9)")
+
+
 class BlockCache(NamedTuple):
-    """One layer kind's cache.  ``mamba`` is always None in the port: the
-    field keeps stored artifacts in the reference's tree structure, so their
+    """One layer kind's cache; the member of the other mixer is None.  Both
+    fields keep stored artifacts in the reference's tree structure, so their
     byte counts and checksums agree."""
 
     attn: Optional[attention.KVCache]
-    mamba: None = None
+    mamba: Optional[ssm.MambaState] = None
 
 
-def init_block(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
-    return {
-        "norm1": layers.init_norm(cfg, device),
-        "attn": attention.init_attention(gen, cfg, device),
-        "norm2": layers.init_norm(cfg, device),
-        "ffn": layers.init_mlp(gen, cfg, device),
-    }
+def init_block(gen: torch.Generator, cfg: ArchConfig, kind: BlockKind, device) -> Params:
+    p: Params = {"norm1": layers.init_norm(cfg, device)}
+    if kind.mixer == "a":
+        p["attn"] = attention.init_attention(gen, cfg, device)
+    else:
+        p["mamba"] = ssm.init_mamba(gen, cfg, device)
+    if kind.ffn != "none":
+        p["norm2"] = layers.init_norm(cfg, device)
+        p["ffn"] = layers.init_mlp(gen, cfg, device)
+    return p
 
 
-def _apply_ffn(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def init_block_cache(cfg: ArchConfig, kind: BlockKind, n: int, batch: int, max_len: int,
+                     device, dtype: torch.dtype) -> BlockCache:
+    """The caches of ``n`` layers of ``kind``, stacked on a leading axis:
+    K/V ``[n, B, max_len, KV, hd]``, or the mamba state ``conv [n, B, d_conv-1,
+    conv_dim]`` (``dtype``) and ``ssd [n, B, H, P, S]`` (f32)."""
+    if kind.mixer == "a":
+        shape = (n, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return BlockCache(attention.KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                                            torch.zeros(shape, dtype=dtype, device=device)))
+    one = ssm.init_mamba_state(cfg, batch, device, dtype)
+    return BlockCache(None, ssm.MambaState(*(t.expand(n, *t.shape).clone() for t in one)))
+
+
+def _apply_ffn(p: Params, cfg: ArchConfig, kind: BlockKind, x: torch.Tensor) -> torch.Tensor:
+    if kind.ffn == "none":
+        return x
     return x + layers.apply_mlp(p["ffn"], cfg, layers.apply_norm(p["norm2"], cfg, x))
 
 
+def _write_state(dst: ssm.MambaState, src: ssm.MambaState) -> None:
+    """Land a layer's new mamba state in the model state, in place."""
+    dst.conv.copy_(src.conv)
+    dst.ssd.copy_(src.ssd)
+
+
 def prefill(
-    p: Params, cfg: ArchConfig, x: torch.Tensor, cache: attention.KVCache,
+    p: Params, cfg: ArchConfig, kind: BlockKind, x: torch.Tensor, cache: BlockCache,
     offset: torch.Tensor,
 ) -> torch.Tensor:
-    """Full or suffix prefill of one block (``attention.prefill``)."""
+    """Full or suffix prefill of one block: ``attention.prefill`` writes the
+    new K/V rows, or the mamba mixer's new state replaces the layer's, in
+    place."""
     h = layers.apply_norm(p["norm1"], cfg, x)
-    x = x + attention.prefill(p["attn"], cfg, h, cache, offset)
-    return _apply_ffn(p, cfg, x)
+    if kind.mixer == "a":
+        x = x + attention.prefill(p["attn"], cfg, h, cache.attn, offset)
+    else:
+        out, st = ssm.forward(p["mamba"], cfg, h, state=cache.mamba)
+        _write_state(cache.mamba, st)
+        x = x + out
+    return _apply_ffn(p, cfg, kind, x)
 
 
+def decode(
+    p: Params, cfg: ArchConfig, kind: BlockKind, x: torch.Tensor, cache: BlockCache,
+    pos: torch.Tensor,
+) -> torch.Tensor:
+    h = layers.apply_norm(p["norm1"], cfg, x)
+    if kind.mixer == "a":
+        x = x + attention.decode(p["attn"], cfg, h, cache.attn, pos)
+    else:
+        out, st = ssm.decode(p["mamba"], cfg, h, cache.mamba)
+        _write_state(cache.mamba, st)
+        x = x + out
+    return _apply_ffn(p, cfg, kind, x)
+
+
+# --------------------------------------------------------------------------- #
+# Attention-only modes (SSM state mixes along the sequence: it cannot be
+# packed, fused, paged or chunked)
+# --------------------------------------------------------------------------- #
 def prefill_packed(
-    p: Params, cfg: ArchConfig, x: torch.Tensor, cache: attention.KVCache, **layout
+    p: Params, cfg: ArchConfig, kind: BlockKind, x: torch.Tensor, cache: attention.KVCache,
+    **layout,
 ) -> torch.Tensor:
     """Packed ragged prefill of one block (``attention.prefill_packed``)."""
     h = layers.apply_norm(p["norm1"], cfg, x)
     x = x + attention.prefill_packed(p["attn"], cfg, h, cache, **layout)
-    return _apply_ffn(p, cfg, x)
+    return _apply_ffn(p, cfg, kind, x)
 
 
 def prefill_fused(
-    p: Params, cfg: ArchConfig, x: torch.Tensor, cache: attention.KVCache, **layout
+    p: Params, cfg: ArchConfig, kind: BlockKind, x: torch.Tensor, cache: attention.KVCache,
+    **layout,
 ) -> torch.Tensor:
     """Selective-recompute fused prefill of one block (``attention.prefill_fused``)."""
     h = layers.apply_norm(p["norm1"], cfg, x)
     x = x + attention.prefill_fused(p["attn"], cfg, h, cache, **layout)
-    return _apply_ffn(p, cfg, x)
-
-
-def decode(
-    p: Params, cfg: ArchConfig, x: torch.Tensor, cache: attention.KVCache,
-    pos: torch.Tensor,
-) -> torch.Tensor:
-    h = layers.apply_norm(p["norm1"], cfg, x)
-    x = x + attention.decode(p["attn"], cfg, h, cache, pos)
-    return _apply_ffn(p, cfg, x)
+    return _apply_ffn(p, cfg, kind, x)
 
 
 def decode_paged(
-    p: Params, cfg: ArchConfig, x: torch.Tensor, pool: attention.KVCache,
+    p: Params, cfg: ArchConfig, kind: BlockKind, x: torch.Tensor, pool: attention.KVCache,
     block_table: torch.Tensor, pos: torch.Tensor, *, block: int,
 ) -> torch.Tensor:
     """Paged decode of one block (``attention.decode_paged``)."""
     h = layers.apply_norm(p["norm1"], cfg, x)
     x = x + attention.decode_paged(p["attn"], cfg, h, pool, block_table, pos, block=block)
-    return _apply_ffn(p, cfg, x)
+    return _apply_ffn(p, cfg, kind, x)
 
 
 def prefill_chunked(
-    p: Params, cfg: ArchConfig, x: torch.Tensor, pool: attention.KVCache,
+    p: Params, cfg: ArchConfig, kind: BlockKind, x: torch.Tensor, pool: attention.KVCache,
     block_table: torch.Tensor, q_pos: torch.Tensor, *, block: int,
 ) -> torch.Tensor:
     """Chunked prefill of one block over the pool (``attention.prefill_chunked``)."""
     h = layers.apply_norm(p["norm1"], cfg, x)
     x = x + attention.prefill_chunked(p["attn"], cfg, h, pool, block_table, q_pos,
                                       block=block)
-    return _apply_ffn(p, cfg, x)
+    return _apply_ffn(p, cfg, kind, x)

@@ -70,3 +70,9 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 
 def swiglu(x_gate: torch.Tensor, x_up: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.silu(x_gate) * x_up
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it (``logaddexp(x, 0)``:
+    no threshold, unlike ``torch.nn.functional.softplus``)."""
+    return torch.logaddexp(x, torch.zeros_like(x))

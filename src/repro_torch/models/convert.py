@@ -5,7 +5,9 @@ example ``jax.tree_util.tree_map(np.asarray, api.init(key, cfg))``) and
 returns the port's tree.  The reference stacks each layer weight over the
 layers for ``lax.scan`` (``lm.init``, ``common.init_stacked``); the port
 keeps one dict per layer, so this unstacks them.  Layouts inside a layer are
-the same in both packages.
+the same in both packages, and so are dtypes: every leaf takes the
+config's ``param_dtype`` but the SSD's ``A_log``, ``D_skip`` and ``dt_bias``,
+which stay f32 as the reference keeps them.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import Params, resolve_device, resolve_dtype
 from repro_torch.models.registry import get_model
+from repro_torch.models.ssm import F32_LEAVES
 
 
 def _tensor(a: Any, device, dtype) -> torch.Tensor:
@@ -26,26 +29,31 @@ def _tensor(a: Any, device, dtype) -> torch.Tensor:
 
 
 def _map(tree: Dict[str, Any], fn) -> Dict[str, Any]:
-    return {k: _map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+    """``fn(name, leaf)`` over a nested dict's leaves."""
+    return {k: _map(v, fn) if isinstance(v, dict) else fn(k, v) for k, v in tree.items()}
 
 
 def from_jax_params(cfg: ArchConfig, params_np: Dict[str, Any], device=None,
                     dtype=None) -> Params:
     """The port's parameters for ``cfg`` from the reference's numpy tree.
-    ``dtype`` defaults to the config's ``param_dtype``."""
+    ``dtype`` defaults to the config's ``param_dtype``; the SSD's f32 leaves
+    stay f32."""
     get_model(cfg)  # raises for families the port does not carry
     device = resolve_device(device)
     dtype = dtype or resolve_dtype(cfg.param_dtype)
-    stacks = params_np["layers"]
-    if len(stacks) != 1:
-        raise ValueError(f"expected one layer kind, got {len(stacks)}")
-    stacked = stacks[0]
+
+    def leaf(name, a, i=None):
+        a = a if i is None else a[i]
+        return _tensor(a, device, torch.float32 if name in F32_LEAVES else dtype)
+
+    stacks = params_np["layers"]  # one stack per layer kind of a period
+    period = len(stacks)
     per_layer = [
-        _map(stacked, lambda a, i=i: _tensor(a[i], device, dtype))
+        _map(stacks[i % period], lambda k, a, i=i: leaf(k, a, i // period))
         for i in range(cfg.n_layers)
     ]
     return {
-        "embed": _map(params_np["embed"], lambda a: _tensor(a, device, dtype)),
+        "embed": _map(params_np["embed"], leaf),
         "layers": per_layer,
-        "final_norm": _map(params_np["final_norm"], lambda a: _tensor(a, device, dtype)),
+        "final_norm": _map(params_np["final_norm"], leaf),
     }

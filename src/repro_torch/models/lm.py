@@ -1,4 +1,5 @@
-"""Decoder-only dense LM: per-request, packed, fused and chunked prefill, dense and paged decode.
+"""Decoder-only LM over block kinds (dense attention or Mamba2): per-request,
+packed, fused and chunked prefill, dense and paged decode.
 
 API:
   init(cfg, seed=0, device=None) -> params
@@ -19,8 +20,12 @@ technique) and are not recomputed.
 
 Layer weights are one dict per layer (the JAX package stacks them over
 periods for ``lax.scan``; ``models.convert`` unstacks them).  Caches keep the
-reference's stacked layout ``[n_layers, B, L, KV, hd]``, so a stored context
-is the same array tree in both packages.
+reference's stacked layout, one ``BlockCache`` per period position stacked
+over periods: ``[n_layers, B, L, KV, hd]`` K/V for attention, the mamba
+state ``conv [n_layers, B, d_conv-1, conv_dim]`` and ``ssd [n_layers, B, H,
+P, S]`` (f32) for SSM, so a stored context is the same array tree in both
+packages.  Packed, fused, paged and chunked calls need attention-only
+stacks (SSM state mixes along the sequence).
 """
 from __future__ import annotations
 
@@ -32,20 +37,45 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks, layers
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import Params, resolve_device, resolve_dtype
+from repro_torch.models.ssm import MambaState
 
 
 class LMState(NamedTuple):
     """Decode context state: cached token counts and the slotted caches."""
 
     pos: torch.Tensor  # [B] int32 — tokens already in the caches
-    caches: Tuple[blocks.BlockCache, ...]  # one entry (dense: one layer kind)
+    caches: Tuple[blocks.BlockCache, ...]  # one per period position, stacked over periods
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.family} archs are not ported yet (ROADMAP queue A items 4 and 9)"
-        )
+def _layout(cfg: ArchConfig):
+    kinds = blocks.block_kinds(cfg)
+    return kinds, cfg.n_layers // len(kinds)
+
+
+def _attention_only(cfg: ArchConfig, what: str):
+    """The reference's assert of the packed, fused, paged and chunked calls."""
+    kinds, _ = _layout(cfg)
+    if any(k.mixer != "a" for k in kinds):
+        raise ValueError(f"{what} requires attention-only stacks ({cfg.name})")
+    return kinds
+
+
+def _layers(params: Params, kinds):
+    """(layer params, kind, period position, period index) of every layer."""
+    for i, lp in enumerate(params["layers"]):
+        j = i % len(kinds)
+        yield lp, kinds[j], j, i // len(kinds)
+
+
+def _layer(cache: KVCache, i: int) -> KVCache:
+    return KVCache(cache.k[i], cache.v[i])
+
+
+def _block_cache(c: blocks.BlockCache, i: int) -> blocks.BlockCache:
+    """Layer ``i``'s views of a stacked ``BlockCache``."""
+    if c.attn is not None:
+        return blocks.BlockCache(_layer(c.attn, i))
+    return blocks.BlockCache(None, MambaState(c.mamba.conv[i], c.mamba.ssd[i]))
 
 
 # --------------------------------------------------------------------------- #
@@ -54,33 +84,28 @@ def _check_dense(cfg: ArchConfig) -> None:
 def init(cfg: ArchConfig, seed: int = 0, device=None) -> Params:
     """Random weights drawn from a ``torch.Generator`` seeded with ``seed``,
     on ``device`` (the card unless the caller asks for the CPU)."""
-    _check_dense(cfg)
+    kinds, _ = _layout(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return {
         "embed": layers.init_embedding(gen, cfg, device),
-        "layers": [blocks.init_block(gen, cfg, device) for _ in range(cfg.n_layers)],
+        "layers": [blocks.init_block(gen, cfg, kinds[i % len(kinds)], device)
+                   for i in range(cfg.n_layers)],
         "final_norm": layers.init_norm(cfg, device),
     }
 
 
 def init_state(cfg: ArchConfig, batch: int, max_len: int, device=None,
                dtype=None) -> LMState:
-    _check_dense(cfg)
+    kinds, n_periods = _layout(cfg)
     device = resolve_device(device)
     dtype = dtype or resolve_dtype(cfg.dtype)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    cache = KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                    torch.zeros(shape, dtype=dtype, device=device))
     return LMState(
         pos=torch.zeros(batch, dtype=torch.int32, device=device),
-        caches=(blocks.BlockCache(cache),),
+        caches=tuple(blocks.init_block_cache(cfg, k, n_periods, batch, max_len, device, dtype)
+                     for k in kinds),
     )
-
-
-def _layer(cache: KVCache, i: int) -> KVCache:
-    return KVCache(cache.k[i], cache.v[i])
 
 
 # --------------------------------------------------------------------------- #
@@ -92,12 +117,11 @@ def prefill(
     """Prefill ``tokens`` [B, S] after the ``state.pos`` tokens already in
     the caches (written in place); returns the last token's logits [B, V]
     and the state with ``pos + S``."""
-    _check_dense(cfg)
+    kinds, _ = _layout(cfg)
     x = layers.embed_tokens(params["embed"], cfg, tokens)
     S = x.shape[1]
-    cache = state.caches[0].attn
-    for i, lp in enumerate(params["layers"]):
-        x = blocks.prefill(lp, cfg, x, _layer(cache, i), state.pos)
+    for lp, kind, j, i in _layers(params, kinds):
+        x = blocks.prefill(lp, cfg, kind, x, _block_cache(state.caches[j], i), state.pos)
     x = layers.apply_norm(params["final_norm"], cfg, x[:, -1:])
     logits = layers.lm_logits(params["embed"], cfg, x)[:, 0]
     return logits, LMState(pos=state.pos + S, caches=state.caches)
@@ -122,13 +146,12 @@ def prefill_packed(
     """Suffix-prefill of several requests as ONE packed sequence.  Returns
     the logits ``[n, V]`` at ``last_idx`` and the packed caches, with every
     new token's K/V written in."""
-    _check_dense(cfg)
+    kinds = _attention_only(cfg, "packed prefill")
     x = layers.embed_tokens(params["embed"], cfg, tokens)
-    cache = caches[0].attn
-    for i, lp in enumerate(params["layers"]):
+    for lp, kind, j, i in _layers(params, kinds):
         x = blocks.prefill_packed(
-            lp, cfg, x, _layer(cache, i), q_pos=q_pos, q_seg=q_seg, q_rows=q_rows,
-            kv_pos=kv_pos, kv_seg=kv_seg,
+            lp, cfg, kind, x, _layer(caches[j].attn, i), q_pos=q_pos, q_seg=q_seg,
+            q_rows=q_rows, kv_pos=kv_pos, kv_seg=kv_seg,
         )
     x = x[0, last_idx.long()]
     x = layers.apply_norm(params["final_norm"], cfg, x)
@@ -160,12 +183,11 @@ def prefill_fused(
     recompute token's K/V written in place: rows ``[0, total)`` are then the
     full context+prompt state.  At ``recompute_frac=1.0`` the token set is
     the whole sequence and the result is ``prefill``'s."""
-    _check_dense(cfg)
+    kinds = _attention_only(cfg, "fused prefill")
     x = layers.embed_tokens(params["embed"], cfg, tokens)
-    cache = caches[0].attn
-    for i, lp in enumerate(params["layers"]):
-        x = blocks.prefill_fused(lp, cfg, x, _layer(cache, i), q_pos=q_pos, q_rows=q_rows,
-                                 kv_pos=kv_pos)
+    for lp, kind, j, i in _layers(params, kinds):
+        x = blocks.prefill_fused(lp, cfg, kind, x, _layer(caches[j].attn, i), q_pos=q_pos,
+                                 q_rows=q_rows, kv_pos=kv_pos)
     x = x[0, last_idx.long()]
     x = layers.apply_norm(params["final_norm"], cfg, x)
     return layers.lm_logits(params["embed"], cfg, x), caches
@@ -178,11 +200,10 @@ def decode(
     params: Params, cfg: ArchConfig, tokens: torch.Tensor, state: LMState
 ) -> Tuple[torch.Tensor, LMState]:
     """One token for every slot; the caches are updated in place."""
-    _check_dense(cfg)
+    kinds, _ = _layout(cfg)
     x = layers.embed_tokens(params["embed"], cfg, tokens)
-    cache = state.caches[0].attn
-    for i, lp in enumerate(params["layers"]):
-        x = blocks.decode(lp, cfg, x, _layer(cache, i), state.pos)
+    for lp, kind, j, i in _layers(params, kinds):
+        x = blocks.decode(lp, cfg, kind, x, _block_cache(state.caches[j], i), state.pos)
     x = layers.apply_norm(params["final_norm"], cfg, x)
     logits = layers.lm_logits(params["embed"], cfg, x)[:, 0]
     return logits, LMState(pos=state.pos + 1, caches=state.caches)
@@ -206,11 +227,11 @@ def decode_paged(
     the pool is updated in place.  Positions and tables are the caller's
     (the serving engine's ``PagedSlots``), so only the pool flows through:
     returns (logits [B, V], caches)."""
-    _check_dense(cfg)
+    kinds = _attention_only(cfg, "paged decode")
     x = layers.embed_tokens(params["embed"], cfg, tokens)
-    pool = caches[0].attn
-    for i, lp in enumerate(params["layers"]):
-        x = blocks.decode_paged(lp, cfg, x, _layer(pool, i), block_table, pos, block=block)
+    for lp, kind, j, i in _layers(params, kinds):
+        x = blocks.decode_paged(lp, cfg, kind, x, _layer(caches[j].attn, i), block_table, pos,
+                                block=block)
     x = layers.apply_norm(params["final_norm"], cfg, x)
     logits = layers.lm_logits(params["embed"], cfg, x)[:, 0]
     return logits, caches
@@ -237,12 +258,11 @@ def prefill_chunked(
     table names (in place), then attends causally at its absolute position.
     Returns the logits ``[B, V]`` at ``last_idx`` (meaningful for rows that
     finish a prefill or carry a decode token) and the caches."""
-    _check_dense(cfg)
+    kinds = _attention_only(cfg, "chunked prefill")
     x = layers.embed_tokens(params["embed"], cfg, tokens)
-    pool = caches[0].attn
-    for i, lp in enumerate(params["layers"]):
-        x = blocks.prefill_chunked(lp, cfg, x, _layer(pool, i), block_table, q_pos,
-                                   block=block)
+    for lp, kind, j, i in _layers(params, kinds):
+        x = blocks.prefill_chunked(lp, cfg, kind, x, _layer(caches[j].attn, i), block_table,
+                                   q_pos, block=block)
     x = x[torch.arange(x.shape[0], device=x.device), last_idx.long()][:, None]
     x = layers.apply_norm(params["final_norm"], cfg, x)
     logits = layers.lm_logits(params["embed"], cfg, x)[:, 0]

@@ -13,7 +13,9 @@ from repro_torch.models import lm
 
 
 class ModelApi(NamedTuple):
-    """The dense family's functions on the serving path (see ``models.lm``)."""
+    """The model's functions on the serving path (see ``models.lm``).  The
+    packed, paged, chunked and fused calls raise for an SSM stack, as the
+    reference's assert."""
 
     init: Callable[..., Any]
     init_state: Callable[..., Any]
@@ -25,16 +27,17 @@ class ModelApi(NamedTuple):
     prefill_fused: Callable[..., Any]
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or cfg.norm_type != "rmsnorm" or cfg.mlp_type != "swiglu":
+def _check_ported(cfg: ArchConfig) -> None:
+    if (cfg.family not in ("dense", "ssm") or cfg.norm_type != "rmsnorm"
+            or cfg.mlp_type != "swiglu"):
         raise NotImplementedError(
-            f"{cfg.name}: only dense RMSNorm/SwiGLU archs are ported yet "
-            "(ROADMAP queue A items 4 and 9)"
+            f"{cfg.name}: only dense and SSM RMSNorm/SwiGLU archs are ported yet "
+            "(ROADMAP queue A item 9)"
         )
 
 
 def get_model(cfg: ArchConfig) -> ModelApi:
-    _check_dense(cfg)
+    _check_ported(cfg)
     return ModelApi(
         init=lm.init, init_state=lm.init_state, prefill=lm.prefill,
         prefill_packed=lm.prefill_packed, decode=lm.decode, decode_paged=lm.decode_paged,
@@ -46,16 +49,25 @@ def get_model(cfg: ArchConfig) -> ModelApi:
 def count_params(cfg: ArchConfig) -> int:
     """Exact parameter count of the implemented model (padded embedding
     table, biases and norms included)."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     embed = cfg.padded_vocab * D * (1 if cfg.tie_embeddings else 2)
-    attn = D * H * hd + 2 * D * KV * hd + H * hd * D
-    if cfg.qkv_bias:
-        attn += H * hd + 2 * KV * hd
-    layer = 2 * D + attn + 3 * D * cfg.d_ff  # two norms, attention, SwiGLU
-    return embed + cfg.n_layers * layer + D  # + final norm
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        d_in, n_h = s.d_inner(D), s.n_ssm_heads(D)
+        conv_dim = d_in + 2 * s.n_groups * s.d_state
+        mixer = (D * (d_in + conv_dim + n_h)  # in_proj (z | xBC | dt)
+                 + (s.d_conv + 1) * conv_dim  # conv weight and bias
+                 + 3 * n_h  # A_log, D_skip, dt_bias
+                 + d_in + d_in * D)  # the gated norm, out_proj
+    else:
+        mixer = D * H * hd + 2 * D * KV * hd + H * hd * D
+        if cfg.qkv_bias:
+            mixer += H * hd + 2 * KV * hd
+    ffn = D + 3 * D * cfg.d_ff if cfg.d_ff else 0  # norm2 and SwiGLU
+    return embed + cfg.n_layers * (D + mixer + ffn) + D  # norm1 per layer, final norm
 
 
 def count_active_params(cfg: ArchConfig) -> int:
-    """Active parameters per token: every parameter, for a dense arch."""
+    """Active parameters per token: every parameter (no MoE arch is ported)."""
     return count_params(cfg)

@@ -35,6 +35,14 @@ f32 scales: a write-back into it is quantised where the rows lie (on the
 card, by ``kv_quant``), and a fetch from it dequantises on the engine's
 device (``kv_dequant``) before any admission mode consumes the rows.
 
+Archs that cannot be packed (the SSM family: its state mixes along the
+sequence) are admitted one request per step through ``ModelApi.prefill``
+(``_admit_single``): a load inserts the stored state snapshot and prefills
+the prompt after it; a recompute that writes back prefills the context
+alone, stores the state, then prefills the prompt on the same state.  For
+them ``paged_decode``, ``unified_step`` and ``fusion_enabled`` stay off, as
+in the reference, and decode is the dense slotted step.
+
 This is the port of the JAX engine's main path under the default
 ``EngineConfig``, under ``paged_decode=True``, ``unified_step=True``,
 ``fusion_enabled=True`` and ``compress_tier``.  Compute runs eagerly in
@@ -42,9 +50,8 @@ PyTorch (no jit): on CUDA tensors the kernels are the hand-written ones, on
 CPU tensors their plain versions.  Times and dollars are modelled
 (``PerfModel``), as in the reference, so the reference's golden records
 replay on the port.  The paths behind the other non-default options
-(faults, hedging, prefetch, migration, the market) and the
-per-request admission path of embeds and non-packable archs raise
-``NotImplementedError`` naming the ROADMAP item that will carry them.
+(faults, hedging, prefetch, migration, the market) and embedding contexts
+raise ``NotImplementedError`` naming the ROADMAP item that will carry them.
 """
 from __future__ import annotations
 
@@ -227,11 +234,11 @@ class ServingEngine:
         self.pricing = pricing or h100_pricing(1)
         self.perf = perf or PerfModel(h100(1))
         self.api = registry.get_model(cfg)
-        if not paged.packable_arch(cfg, self.ec.max_len):
-            raise NotImplementedError(
-                f"{cfg.name} cannot be packed at max_len={self.ec.max_len}: the "
-                "per-request admission path is ROADMAP queue A items 4 and 9 (other families)"
-            )
+        # packed admission, paged decode, the unified step and fusion need
+        # per-position attention state: other archs admit one request per
+        # step (``_admit_single``) and keep dense decode, with those options
+        # quietly off, as in the reference
+        self._packable = paged.packable_arch(cfg, self.ec.max_len)
         if self.ec.cost_arch is not None:
             from repro_torch.configs import get_config
 
@@ -278,7 +285,7 @@ class ServingEngine:
         # Paged batched decode over the shared KV block pool: packed spans
         # land block-aligned in the pool, and the pool IS the device KV
         # state (no dense slotted cache beside it).
-        self._paged_on = self.ec.paged_decode
+        self._paged_on = self.ec.paged_decode and self._packable
         self._paged: Optional[paged.PagedSlots] = None
         self._state = None
         if self._paged_on:
@@ -317,9 +324,8 @@ class ServingEngine:
         self.unified_chunk_tokens = 0  # prefill tokens landed through chunks
         self.unified_busy_s = 0.0  # modelled time in mixed launches
         # Fused non-prefix reuse (CacheBlend-style): chunk-composite lookups
-        # and the selective-recompute launch (packable archs only, which the
-        # constructor already requires)
-        self._fusion_on = self.ec.fusion_enabled and self.ec.reuse_enabled
+        # and the selective-recompute launch (packable archs only)
+        self._fusion_on = self.ec.fusion_enabled and self.ec.reuse_enabled and self._packable
         self.fused_jit = JitBucketStats()
         self.fused_admissions = 0
         self.fused_reused_tokens = 0
@@ -344,8 +350,7 @@ class ServingEngine:
     def submit(self, req: Request) -> None:
         if req.embeds is not None:
             raise NotImplementedError(
-                "embedding contexts take the per-request admission path: "
-                "ROADMAP queue A items 4 and 9 (other families)"
+                "embedding contexts (VLM) are not ported yet: ROADMAP queue A item 9"
             )
         self.queue.push(req)
 
@@ -450,10 +455,16 @@ class ServingEngine:
         """Admit every admissible request with a free slot (up to
         ``admit_batch``): plan each individually, then execute all their
         suffix-prefills as ONE packed ragged launch, and each fused plan as
-        its own selective-recompute launch."""
+        its own selective-recompute launch.  An arch that cannot be packed
+        takes the per-request path instead, one request per step."""
         free = [s for s in self.slots if not s.active]
         if not free:
             return False
+        if not self._packable:
+            if self.queue.peek_next(self.clock.now) is None:
+                return False
+            return self._admit_single(self.queue.pop_admissible(self.clock.now), free[0],
+                                      events)
         limit = min(len(free), self.ec.admit_batch or self.ec.max_slots)
         reqs: List[Request] = []
         while len(reqs) < limit and self.queue.peek_next(self.clock.now) is not None:
@@ -560,6 +571,62 @@ class ServingEngine:
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def _prefill(self, tokens: List[int], state):
+        """``ModelApi.prefill`` of one request's ``tokens`` after the state's
+        cached positions (written in place); returns (logits, state)."""
+        with torch.inference_mode():
+            return self.api.prefill(
+                self.params, self.cfg, self._tensor(np.asarray([tokens], np.int32)), state
+            )
+
+    # -- per-request execution (archs that cannot be packed) ------------- #
+    def _admit_single(self, req: Request, slot: Slot, events: List[ev.Event]) -> bool:
+        """Plan, fetch and prefill one request through ``ModelApi.prefill``
+        into a batch-1 state, then install it in ``slot``."""
+        a = self._plan_admission(req, slot, events)
+        if a.plan.loads_kv and a.lookup.entry is not None:
+            self._fetch_kv_resilient(a, events)
+        if a.artifact is not None:
+            load_s, prefill_s, logits, temp = self._execute_load(req, a, events)
+            matched = a.matched
+        else:
+            # plain recompute, or a degraded fetch falling back to exact
+            # recompute mid-admission: the burned fetch time rides on load_s
+            # (a.delay is 0.0 on the plain path)
+            load_s, matched = a.delay, 0
+            prefill_s, logits, temp = self._execute_recompute(
+                req, events, store_after=a.plan.store_after)
+        paged.insert_slot(self.cfg, self._state, slot.index, temp)
+        first_tok = int(logits[0].argmax())
+        self.clock.advance(load_s + prefill_s)
+        self.admission_busy_s += load_s + prefill_s
+        a.rec.matched_tokens = matched
+        a.rec.load_s = load_s
+        a.rec.prefill_s = prefill_s
+        a.rec.compute_cost += self._c_gpu_s * prefill_s
+        self._finish_admission(a, first_tok, events)
+        return True
+
+    def _execute_load(self, req: Request, a: _Admission, events: List[ev.Event]):
+        """Insert the fetched stored context state into a fresh batch-1 state
+        and prefill only the unmatched tail and the prompt after it (for SSM
+        state, all or nothing, the tail is empty).  Returns (load_s,
+        prefill_s, logits, state)."""
+        matched = a.matched
+        temp = self.api.init_state(self.cfg, 1, self.ec.max_len, device=self.device)
+        paged.insert_slot(self.cfg, temp, 0, a.artifact, n_tokens=matched)
+        tokens = list(req.context_tokens)[matched:] + list(req.prompt_tokens)
+        logits, temp = self._prefill(tokens, temp)
+        prefill_s = self.perf.t_prefill(self.cost_cfg, len(tokens))
+        events.append(ev.KVLoaded(
+            t_s=self.clock.now, req_id=req.req_id, tier=a.lookup.entry.tier,
+            nbytes=a.nbytes, load_s=a.delay, matched_tokens=matched,
+        ))
+        events.append(ev.PrefillDone(
+            t_s=self.clock.now, req_id=req.req_id, n_tokens=len(tokens), prefill_s=prefill_s,
+        ))
+        return a.delay, prefill_s, logits, temp
 
     def _execute_packed(self, admissions: List[_Admission], events: List[ev.Event]) -> None:
         """Execute an admission batch as one packed ragged suffix-prefill:
@@ -826,20 +893,27 @@ class ServingEngine:
         a.rec.compute_cost += self._c_gpu_s * prefill_s
         self._finish_admission(a, first_tok, events)
 
-    def _execute_recompute(self, req: Request, events: List[ev.Event]):
+    def _execute_recompute(self, req: Request, events: List[ev.Event],
+                           store_after: bool = False):
         """Full prefill of one request's context and prompt into a fresh
-        batch-1 state through ``ModelApi.prefill``: the exact recompute a
-        degraded fused admission falls back to (fused plans never write
-        back).  Returns (prefill_s, logits, state)."""
-        tokens = list(req.context_tokens) + list(req.prompt_tokens)
+        batch-1 state through ``ModelApi.prefill``: the recompute of the
+        per-request path, and the exact recompute a degraded fused admission
+        falls back to (fused plans never write back).  With ``store_after``
+        it runs in two phases, so the stored snapshot holds no prompt token
+        (SSM state mixes them in): the context alone, its write-back, then
+        the prompt on the same state.  Returns (prefill_s, logits, state)."""
+        ctx, prompt = list(req.context_tokens), list(req.prompt_tokens)
         temp = self.api.init_state(self.cfg, 1, self.ec.max_len, device=self.device)
-        with torch.inference_mode():
-            logits, temp = self.api.prefill(
-                self.params, self.cfg, self._tensor(np.asarray([tokens], np.int32)), temp
-            )
-        prefill_s = self.perf.t_prefill(self.cost_cfg, len(tokens))
+        if store_after:
+            _, temp = self._prefill(ctx, temp)
+            self._write_back(req, paged.slot_artifact(temp, 0, len(ctx)), events)
+            logits, temp = self._prefill(prompt, temp)
+        else:
+            logits, temp = self._prefill(ctx + prompt, temp)
+        prefill_s = self.perf.t_prefill(self.cost_cfg, len(ctx) + len(prompt))
         events.append(ev.PrefillDone(
-            t_s=self.clock.now, req_id=req.req_id, n_tokens=len(tokens), prefill_s=prefill_s,
+            t_s=self.clock.now, req_id=req.req_id, n_tokens=len(ctx) + len(prompt),
+            prefill_s=prefill_s,
         ))
         return prefill_s, logits, temp
 

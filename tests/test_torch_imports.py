@@ -5,7 +5,8 @@ without the reference package, so they import neither, not even a module
 of ``repro`` that is pure Python.  A subprocess with both blocked imports
 every module of the port (the int8 tier, the synthetic workload and the
 serving launcher among them), serves two requests on the CPU from the int8
-tier, and runs the launcher with ``--compress``.
+tier, and runs the launcher with ``--compress``; another serves the reduced
+mamba2-1.3b and runs the launcher with ``--arch mamba2-1.3b``.
 """
 import pathlib
 import re
@@ -38,6 +39,45 @@ def test_no_library_attention_in_port():
     pattern = re.compile(r"scaled_dot_product_attention|torch\.compile|cudnn|flash_attn|xformers")
     hits = [str(p) for p in _port_sources() if pattern.search(p.read_text())]
     assert not hits, hits
+
+
+def test_port_serves_mamba2_with_jax_and_repro_blocked():
+    """The SSM family too: reduced mamba2-1.3b served on the CPU through the
+    per-request path (a write-back and a load of its state), and the
+    launcher's ``--arch mamba2-1.3b``, with JAX and the reference blocked."""
+    script = textwrap.dedent(
+        """
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import torch
+        torch.set_num_threads(1)
+        from repro_torch.configs import get_config, reduced_config
+        from repro_torch.models import lm
+        from repro_torch.serving import AlwaysReusePlanner, EngineConfig, Request, ServingEngine
+        cfg = reduced_config(get_config("mamba2-1.3b"))
+        params = lm.init(cfg, seed=0, device="cpu")
+        eng = ServingEngine(cfg, params, device="cpu", planner=AlwaysReusePlanner(),
+                            engine_cfg=EngineConfig(max_slots=2, max_len=128))
+        ctx = list(range(48))  # whole 16-token chunks: SSM state is all or nothing
+        for i in range(2):
+            eng.submit(Request(req_id=i, context_tokens=ctx, prompt_tokens=[7, 8, 9],
+                               max_new_tokens=3, arrival_s=i * 0.01, expected_reuses=2))
+        s = eng.run()
+        assert s.n_requests == 2 and s.reuse_hits == 1 and eng.batches == 0, s
+        from repro_torch.launch import serve
+        serve.main(["--arch", "mamba2-1.3b", "--requests", "4", "--contexts", "2",
+                    "--device", "cpu"])
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "served 4 requests" in out.stdout and "mamba2-1.3b-smoke" in out.stdout
 
 
 def test_port_imports_and_serves_with_jax_and_repro_blocked():

@@ -12,7 +12,14 @@ Every kernel takes any head_dim up to 256: each is also held against its
 plain version at head_dims 16, 80 and 96, which are not buckets of the
 kernels' shared tiles, and the reduced llama-7b (head_dim 16) is served on
 the card against the same engine on the CPU.  The int8 quantiser and
-dequantiser are held bit for bit, not at a tolerance.
+dequantiser are held bit for bit, not at a tolerance.  The SSD scan has
+one rule, the one ``chip_smoke.py`` applies: each f32 output (y in the f32
+runs, the final state in every run) is at most max(5e-5, the plain
+version's error) away from the f64 sequential scan of the same inputs, 5e-5
+being the reference's SSD atol; a bf16 y lies within one bf16 ulp (2^-7 of
+the plain version's magnitude) plus 5e-5 of the plain version's, since
+both round f32 sums of the same inputs to bf16.  The reduced mamba2-1.3b
+is served on the card against the same engine on the CPU.
 """
 import os
 import pathlib
@@ -31,6 +38,8 @@ from repro_torch.kernels import fused_prefill as fuk  # noqa: E402
 from repro_torch.kernels import kv_quant as kq  # noqa: E402
 from repro_torch.kernels import packed_prefill as pk  # noqa: E402
 from repro_torch.kernels import paged_decode as pdk  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssk  # noqa: E402
 
 F32_ATOL = 2e-5
 BF16_ATOL = 1e-2
@@ -709,3 +718,148 @@ def test_reduced_llama_serves_on_card_as_on_cpu(cuda, mode):
         r.req_id: (r.action, r.tokens) for r in cpu.records}
     if mode == "compressed":
         assert all(e.compressed for e in eng.store.entries.values())
+
+
+# --------------------------------------------------------------------------- #
+# The Mamba2 SSD chunked scan
+# --------------------------------------------------------------------------- #
+SSD_ATOL = 5e-5
+SSD_CASES = [
+    # (B, L, H, P, G, S, chunk, with initial_state)
+    (1, 1, 4, 16, 1, 16, 16, False),
+    (2, 7, 4, 8, 2, 16, 16, True),
+    (2, 40, 4, 8, 2, 16, 16, True),
+    (1, 64, 8, 16, 1, 32, 32, False),
+    (2, 24, 4, 8, 4, 8, 8, True),
+    (1, 33, 6, 5, 3, 7, 16, True),
+    (1, 40, 8, 256, 4, 256, 256, True),
+    (1, 300, 4, 96, 2, 200, 64, False),
+    (1, 2000, 64, 64, 1, 128, 256, False),
+    (1, 2000, 8, 64, 2, 128, 256, True),
+]
+
+
+def _ssd_inputs(cuda, dt, B, L, H, P, G, S, with_h0, seed):
+    """The reference kernel test's inputs (``tests/test_kernels.py``): x, B, C
+    standard normal, dt = |N| / 10, A = -|N| - 0.1, h0 = N / 10."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dtype=dt):
+        return torch.from_numpy(a.astype(np.float32)).to(device=cuda, dtype=dtype)
+
+    x = t(rng.standard_normal((B, L, H, P)))
+    dts = t(np.abs(rng.standard_normal((B, L, H))) * 0.1, torch.float32)
+    A = t(-np.abs(rng.standard_normal(H)) - 0.1, torch.float32)
+    Bm, Cm = t(rng.standard_normal((B, L, G, S))), t(rng.standard_normal((B, L, G, S)))
+    h0 = t(rng.standard_normal((B, H, P, S)) * 0.1, torch.float32) if with_h0 else None
+    return x, dts, A, Bm, Cm, h0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,H,P,G,S,chunk,with_h0", SSD_CASES)
+def test_ssd_kernel_matches_plain_on_card(cuda, dtype, B, L, H, P, G, S, chunk, with_h0):
+    dt = getattr(torch, dtype)
+    x, dts, A, Bm, Cm, h0 = _ssd_inputs(cuda, dt, B, L, H, P, G, S, with_h0, seed=L + P)
+    y, hT = ssk.ssd_chunked(x, dts, A, Bm, Cm, chunk=chunk, initial_state=h0)
+    y_ref, hT_ref = ssk.ssd_chunked_plain(x, dts, A, Bm, Cm, chunk=chunk, initial_state=h0)
+    torch.cuda.synchronize()
+    assert y.dtype == dt and hT.dtype == torch.float32 and hT.shape == (B, H, P, S)
+    exact = ref.ssd_scan_ref(*(t.double() for t in (x, dts, A, Bm, Cm)),
+                             initial_state=None if h0 is None else h0.double())
+    f32 = [(hT, hT_ref, exact[1])]
+    err = (y.float() - y_ref.float()).abs()
+    if dt == torch.float32:
+        f32.append((y, y_ref, exact[0]))
+    else:
+        assert (err <= y_ref.float().abs() * 2.0**-7 + SSD_ATOL).all(), err.max().item()
+    for got, plain, want in f32:
+        # the one rule: no further from the f64 scan than max(5e-5, the
+        # plain version's error against it)
+        k64 = (got.double() - want).abs().max().item()
+        p64 = (plain.double() - want).abs().max().item()
+        assert k64 <= max(SSD_ATOL, p64), (k64, p64)
+
+
+@pytest.mark.gpu
+def test_ssd_wrapper_counts_launches_and_refuses_what_it_cannot_run(cuda):
+    x, dts, A, Bm, Cm, h0 = _ssd_inputs(cuda, torch.float32, 1, 20, 4, 8, 2, 16, True, seed=5)
+    before = ssk.ssd_chunked.launches
+    ssk.ssd_chunked(x, dts, A, Bm, Cm, chunk=16, initial_state=h0)
+    assert ssk.ssd_chunked.launches == before + 1
+    with pytest.raises(ValueError, match="contiguous"):
+        ssk.ssd_chunked(x.transpose(2, 3).contiguous().transpose(2, 3), dts, A, Bm, Cm)
+    with pytest.raises(ValueError, match="multiple of G"):
+        ssk.ssd_chunked(x[:, :, :3].contiguous(), dts[:, :, :3].contiguous(), A[:3], Bm, Cm)
+    wide = torch.zeros(1, 20, 4, 264, device=cuda)
+    with pytest.raises(ValueError, match="<= 256"):
+        ssk.ssd_chunked(wide, dts, A, Bm, Cm)
+    deep = torch.zeros(1, 20, 2, 264, device=cuda)
+    with pytest.raises(ValueError, match="<= 256"):
+        ssk.ssd_chunked(x, dts, A, deep, deep)
+    with pytest.raises(ValueError, match="float32"):
+        ssk.ssd_chunked(x, dts.double(), A, Bm, Cm)
+    with pytest.raises(ValueError, match="must be"):
+        ssk.ssd_chunked(x, dts, A, Bm.bfloat16(), Cm.bfloat16())
+    with pytest.raises(ValueError, match="CUDA"):
+        ssk.ssd_chunked(x.cpu(), dts.cpu(), A.cpu(), Bm.cpu(), Cm.cpu())
+    assert ssk.ssd_chunked.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged_decode", [False, True])
+def test_reduced_mamba_serves_on_card_as_on_cpu(cuda, paged_decode):
+    """The reduced mamba2-1.3b (f32) served on the card and on the CPU with
+    ``AlwaysReusePlanner``: every prefill call's logits within 1e-3, the same
+    actions and tokens; ``ssd_chunked`` launches once per layer per
+    ``ModelApi.prefill`` call (two per recompute that writes back), no
+    attention or int8 kernel launches, and ``paged_decode=True`` keeps the
+    dense decode (``decode_stats()["paged"]`` False)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import lm
+    from repro_torch.serving import AlwaysReusePlanner, EngineConfig, Request, ServingEngine
+
+    cfg = reduced_config(get_config("mamba2-1.3b"))
+    params = lm.init(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    ctxs = [list(map(int, rng.integers(0, cfg.vocab, 64))) for _ in range(2)]
+    reqs = [dict(req_id=i, context_tokens=ctxs[i % 2],
+                 prompt_tokens=list(map(int, rng.integers(0, cfg.vocab, 8))),
+                 max_new_tokens=4, arrival_s=i * 0.01, expected_reuses=3) for i in range(6)]
+    others = [pk.packed_flash_attention, dk.decode_attention, fk.flash_attention,
+              pdk.paged_decode_attention, cpk.chunked_prefill_attention,
+              fuk.fused_flash_attention, kq.kv_quant, kq.kv_dequant]
+
+    def serve(device):
+        eng = ServingEngine(cfg, _to(params, device), device=device,
+                            planner=AlwaysReusePlanner(), engine_cfg=EngineConfig(
+                                max_slots=2, max_len=128, chunk_tokens=16,
+                                paged_decode=paged_decode))
+        calls = []
+        prefill = eng.api.prefill
+
+        def record(*args, **kw):
+            logits, state = prefill(*args, **kw)
+            calls.append(logits.float().cpu())
+            return logits, state
+
+        eng.api = eng.api._replace(prefill=record)
+        for r in reqs:
+            eng.submit(Request(**r))
+        eng.run()
+        return eng, calls
+
+    before = ssk.ssd_chunked.launches
+    other_before = [fn.launches for fn in others]
+    eng, calls = serve(cuda)
+    torch.cuda.synchronize()
+    assert ssk.ssd_chunked.launches - before == cfg.n_layers * len(calls)
+    assert [fn.launches for fn in others] == other_before
+    cpu, cpu_calls = serve("cpu")
+    assert eng.decode_stats()["paged"] is False and eng.batches == 0
+    assert len(calls) == len(cpu_calls) == 8  # 2 recomputes in two phases, 4 loads
+    for got, want in zip(calls, cpu_calls):
+        assert (got - want).abs().max().item() <= 1e-3
+    assert {r.req_id: (r.action, r.tokens) for r in eng.records} == {
+        r.req_id: (r.action, r.tokens) for r in cpu.records}
+    assert [r.action for r in sorted(eng.records, key=lambda r: r.req_id)].count("load") == 4

@@ -52,6 +52,22 @@ def test_launcher_prints_the_reference_summary(capsys, monkeypatch, argv):
         assert got["reuse_hits"] >= 4 and got["store.entries"] == 2
 
 
+@pytest.mark.parametrize("policy", ["always", "cost"])
+def test_launcher_serves_mamba2_as_the_reference(capsys, monkeypatch, policy):
+    """``--arch mamba2-1.3b``: the SSM family rides the per-request
+    admission path on both sides (reduced compute, full-size economics of
+    the ~100 MB state artifacts); the same summary and store statistics."""
+    argv = ["--arch", "mamba2-1.3b", "--requests", "8", "--contexts", "2", "--policy",
+            policy, "--json"]
+    got = dict(_flat(json.loads(_port(capsys, argv))))
+    want = dict(_flat(json.loads(_reference(capsys, monkeypatch, argv))))
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert got[k] == pytest.approx(v, abs=1e-9), k
+    if policy == "always":
+        assert got["reuse_hits"] >= 4 and got["store.entries"] == 2
+
+
 def test_launcher_text_output_matches_reference(capsys, monkeypatch):
     argv = ["--requests", "6", "--contexts", "2", "--compress"]
     assert _port(capsys, argv) == _reference(capsys, monkeypatch, argv)
