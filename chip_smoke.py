@@ -99,7 +99,14 @@ PyTorch version: in bf16 at atol 1e-2, and cast to f32 (TF32 off) at the
 CPU tests' atol 2e-5; ``kv_quant`` and ``kv_dequant`` (on the first leaf
 the compressed serve quantised and the first it dequantised) bit for bit;
 ``ssd_chunked`` on the 2,000-token launch and a 32-token launch after a
-stored state (see ``check_ssd`` for its tolerances).
+stored state (see ``check_ssd`` for its tolerances).  The four prefill
+attention kernels run bf16 on the tensor-core tile of
+``csrc/flash_mma.cuh`` and f32 on the CUDA-core tile of
+``csrc/flash_tile.cuh``: for each, two launches on the recorded inputs must
+give the same bits (bf16 and f32), and the split S of the kv tiles, the
+tile's and the combine's device time per launch (``torch.profiler``), the
+compiler's registers and spills from the build log and the f32 time beside
+the bf16 one are logged.
 Times come from CUDA events after warm-up, beside the plain version's, one
 PyTorch library call's (``scaled_dot_product_attention`` with an explicit
 boolean mask, timed here only; for the paged kernels on rows gathered
@@ -120,6 +127,7 @@ import gc
 import io
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -583,6 +591,25 @@ def time_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, kernels: dict, reps: int = 10) -> dict:
+    """Device time per call of each kernel whose name contains one of
+    ``kernels``' values (``torch.profiler``, CUDA activity only), by its key;
+    empty when the profiler saw no device time."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        for key, part in kernels.items():
+            if t and part in e.key:
+                out[key] = out.get(key, 0.0) + t / reps / 1e3
+    return out
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -595,14 +622,15 @@ def bound_ms(bytes_: float, flops: float, dtype) -> tuple:
 
 def check_kernel(name, source, replaces, launches, inputs, kernel, plain, *, mask4,
                  index, kv_rows, pairs, note, label="", reps=10, plain_reps=3,
-                 q_rows=None, sdpa_kv=lambda t: t, sdpa_note=""):
+                 q_rows=None, sdpa_kv=lambda t: t, sdpa_note="", times=None):
     """Hold one kernel against its plain version on the inputs one of its
     launches received, in bf16 at ``BF16_ATOL`` and cast to f32 at
     ``F32_ATOL``, and time it, its plain version and SDPA with the explicit
     boolean mask ``mask4`` (on ``sdpa_kv`` of the K/V operands).  The bound
     counts the bytes of q (only its ``q_rows`` valid query rows where given),
     the output, the ``index`` tensors and ``kv_rows`` K/V rows, and 4·hd·H
-    operations per kept (query, kv row) pair.  Returns
+    operations per kept (query, kv row) pair.  Each dtype's kernel time goes
+    to ``times[dtype]`` when ``times`` is given.  Returns
     the kernel's entry of the ``{"kernels": [...]}`` line, from the bf16 run."""
     (q, k, v), kw = inputs
     H, hd, KV = q.shape[2], q.shape[3], k.shape[-2]
@@ -624,6 +652,8 @@ def check_kernel(name, source, replaces, launches, inputs, kernel, plain, *, mas
         q_bytes = nbytes(qq) if q_rows is None else q_rows * H * hd * qq.element_size()
         b, by = bound_ms(q_bytes + nbytes(got, *index) + kv_bytes, 4.0 * hd * H * pairs, dtype)
         rows[dtype] = dict(err=err, ms=ms, plain=plain_ms, lib=lib, bound=b, by=by)
+        if times is not None:
+            times[dtype] = ms
         log(f"kernel {name}{' ' + label if label else ''} {str(dtype)[6:]} "
             f"q{tuple(q.shape)} {note}: max_err={err:.3e} ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} sdpa_ms={lib:.4f}{sdpa_note} bound_ms={b:.4f} ({by})")
@@ -641,13 +671,17 @@ def check_packed(inputs, launches):
     mask = (kp[None] >= 0) & (qs[:, None] == ks[None]) & (kp[None] <= qp[:, None])
     pairs = int(mask.sum())
     # the packed kernel reads every K/V row of the buffer
-    return check_kernel(
+    times = {}
+    entry = check_kernel(
         "packed_flash_attention", "packed_prefill.cu",
         "src/repro/kernels/packed_prefill.py:99", launches, inputs,
         pk.packed_flash_attention, pk.packed_flash_attention_plain,
         mask4=mask[None, None], index=[kw[n] for n in ("q_pos", "kv_pos", "q_seg", "kv_seg")],
         kv_rows=k.shape[0] * k.shape[1], pairs=pairs,
-        note=f"kv{tuple(k.shape)} kept_pairs/head={pairs}")
+        note=f"kv{tuple(k.shape)} kept_pairs/head={pairs}", times=times)
+    mma_tile_notes("packed_flash_attention", "packed_prefill", inputs,
+                   pk.packed_flash_attention, pk.split_count(q.to(torch.bfloat16), k), times)
+    return entry
 
 
 def check_decode(inputs, launches):
@@ -673,11 +707,16 @@ def check_flash(inputs, launches, label):
         mask = mask & kw["kv_valid"][:, None, :]
     pairs = int(mask.sum())  # [B, Sq, Skv]; per head
     rows = int(mask.any(dim=1).sum())  # kv rows some query keeps
-    return check_kernel(
+    times = {}
+    entry = check_kernel(
         "flash_attention", "flash_prefill.cu", "src/repro/kernels/flash_prefill.py:91",
         launches, inputs, fk.flash_attention, fk.flash_attention_plain,
         mask4=mask[:, None], index=[kw["q_pos"], kw["kv_pos"]], kv_rows=rows, pairs=pairs,
-        note=f"cache{tuple(k.shape)} kept_pairs/head={pairs} kept_rows={rows}", label=label)
+        note=f"cache{tuple(k.shape)} kept_pairs/head={pairs} kept_rows={rows}", label=label,
+        times=times)
+    mma_tile_notes(f"flash_attention {label}", "flash_prefill", inputs, fk.flash_attention,
+                   fk.split_count(q.to(torch.bfloat16), k), times)
+    return entry
 
 
 def check_paged(inputs, launches):
@@ -701,6 +740,42 @@ def check_paged(inputs, launches):
         reps=20, plain_reps=5, sdpa_kv=lambda t: t[rows], sdpa_note=" (gather excluded)")
 
 
+def mma_tile_notes(name, lib, inputs, kernel, splits, times):
+    """The bf16 launches of the four prefill attention kernels run on the
+    tensor-core tile (``csrc/flash_mma.cuh``), which splits the kv tiles
+    into S parts across blocks and combines the parts in split order: two
+    launches on the recorded inputs must give the same bits, in bf16 and in
+    f32.  Logs S, the registers and spills of the library's kernels from the
+    compiler's report (``-Xptxas -v`` in the build log), and the f32 time
+    (the CUDA-core tile) beside the bf16 one."""
+    (q, k, v), kw = inputs
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = [t.to(dtype) for t in (q, k, v)]
+        first, second = kernel(*qkv, **kw), kernel(*qkv, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), f"{name} {dtype}: two launches differ"
+    device = device_ms(lambda: kernel(*qkv, **kw),  # bf16
+                       {"tile": "attn_kernel", "combine": "combine_kernel"})
+    regs = []
+    for e in build.ptxas_report(lib):
+        m = re.search(r"(attn_kernel|tile_kernel|combine_kernel)(?:I(f|N6__half|13__nv_bfloat16)?"
+                      r"(?:Li(\d+)E)?(?:Li(\d+)E)?(?:Lb([01])E)?)?", e["function"])
+        if m is None:
+            continue
+        kind, elem, hd, _, full = m.groups()
+        tile = {"attn_kernel": "mma bf16", "tile_kernel": "cuda-core f32",
+                "combine_kernel": "combine"}[kind]
+        shape = f" hd{hd}{' full' if full == '1' else ''}" if hd else ""
+        regs.append(f"{tile}{shape}: {e.get('registers')} regs, spill "
+                    f"{e.get('spill_stores')}/{e.get('spill_loads')} B")
+    on_device = ", ".join(f"{k} {v:.4f}" for k, v in device.items()) if device else \
+        "not measured"
+    log(f"{name}: bf16 tile splits the kv tiles into S={splits} parts; two launches equal "
+        f"bit for bit (bf16 and f32); bf16 ms={times[torch.bfloat16]:.4f} (device ms per "
+        f"launch: {on_device}) f32 ms={times[torch.float32]:.4f}; ptxas: "
+        f"{'; '.join(regs) or 'no build log'}")
+
+
 def check_chunked(inputs, launches):
     (q, k_pool, _), kw = inputs
     B = q.shape[0]
@@ -719,7 +794,8 @@ def check_chunked(inputs, launches):
     # the kernel reads no padding query's row of q, so the bound counts only
     # the valid query rows; SDPA runs on the rows gathered beforehand (the
     # gather is not timed)
-    return check_kernel(
+    times = {}
+    entry = check_kernel(
         "chunked_prefill_attention", "chunked_prefill.cu",
         "src/repro/kernels/chunked_prefill.py:104", launches, inputs,
         cpk.chunked_prefill_attention, cpk.chunked_prefill_attention_plain,
@@ -727,7 +803,12 @@ def check_chunked(inputs, launches):
         q_rows=sum(n_valid),
         note=f"pool{tuple(k_pool.shape)} table{tuple(table.shape)} valid queries/row "
              f"{n_valid} kept_pairs/head={pairs} kept_rows={kept}",
-        reps=20, plain_reps=5, sdpa_kv=lambda t: t[rows], sdpa_note=" (gather excluded)")
+        reps=20, plain_reps=5, sdpa_kv=lambda t: t[rows], sdpa_note=" (gather excluded)",
+        times=times)
+    mma_tile_notes("chunked_prefill_attention", "chunked_prefill", inputs,
+                   cpk.chunked_prefill_attention,
+                   cpk.split_count(q.to(torch.bfloat16), table, block), times)
+    return entry
 
 
 def check_fused(inputs, launches):
@@ -742,13 +823,17 @@ def check_fused(inputs, launches):
     # the kernel reads no padding query's q row and skips every kv tile past
     # the valid rows, so the bound counts the n_q valid queries and the
     # total valid K/V rows, not the q_len and kv_len buckets
-    return check_kernel(
+    times = {}
+    entry = check_kernel(
         "fused_flash_attention", "fused_prefill.cu", "src/repro/kernels/fused_prefill.py:105",
         launches, inputs, fuk.fused_flash_attention, fuk.fused_flash_attention_plain,
         mask4=mask[:, None], index=[kw["q_pos"], kw["kv_pos"]], kv_rows=total, pairs=pairs,
         q_rows=n_q,
         note=f"buffer{tuple(k.shape)} valid queries {n_q} of {q.shape[1]}, valid rows "
-             f"{total} of {k.shape[1]}, kept_pairs/head={pairs}")
+             f"{total} of {k.shape[1]}, kept_pairs/head={pairs}", times=times)
+    mma_tile_notes("fused_flash_attention", "fused_prefill", inputs, fuk.fused_flash_attention,
+                   fuk.split_count(q.to(torch.bfloat16), k), times)
+    return entry
 
 
 def check_wide_group(H=48, KV=1, hd=128, lens=(2050, 1, 2047, 700), block=128,

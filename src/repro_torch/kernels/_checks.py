@@ -1,5 +1,6 @@
-"""Argument checks shared by the CUDA kernel wrappers: the kernels take only
-contiguous, 16-byte-aligned CUDA tensors of the types they were built for."""
+"""Argument checks shared by the CUDA kernel wrappers (the kernels take only
+contiguous, 16-byte-aligned CUDA tensors of the types they were built for),
+and the split scratch of the attention kernels that split their kv tiles."""
 from __future__ import annotations
 
 import torch
@@ -30,3 +31,19 @@ def cuda_operands(kernel: str, device: torch.device, **tensors: torch.Tensor) ->
 def int32(kernel: str, **tensors: torch.Tensor) -> None:
     for name, t in tensors.items():
         require(t.dtype == torch.int32, kernel, f"{name} must be int32, got {t.dtype}")
+
+
+def split_scratch(splits: int, out: torch.Tensor):
+    """The f32 scratch of a launch that splits its kv tiles into ``splits``
+    parts across blocks, as one buffer and the addresses of its two
+    parts: the partial (m, l) pairs ``[splits, *out.shape[:-1], 2]`` and,
+    16-byte aligned after them, the partial accumulators ``[splits,
+    *out.shape]``.  ``(None, 0, 0)`` when ``splits`` is 1.  The caller keeps
+    the buffer until the launch is enqueued; the caching allocator then
+    reuses its memory only in stream order."""
+    if splits <= 1:
+        return None, 0, 0
+    rows = splits * out.numel() // out.shape[-1]
+    acc_at = -(-2 * rows // 4) * 4  # floats before the accumulators
+    buf = torch.empty(acc_at + splits * out.numel(), dtype=torch.float32, device=out.device)
+    return buf, buf.data_ptr() + 4 * acc_at, buf.data_ptr()

@@ -12,13 +12,15 @@ The libraries go to ``build/kernels/`` at the repository root (listed in
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 KERNELS = ("packed_prefill", "decode_attention", "flash_prefill", "paged_decode",
@@ -34,8 +36,8 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 _SIGNATURES = {
     "packed_prefill": (
         "packed_flash_attention_launch",
-        # q k v q_pos kv_pos q_seg kv_seg out
-        [_P] * 8
+        # q k v q_pos kv_pos q_seg kv_seg out part_acc part_ml
+        [_P] * 10
         # B Sq Skv H KV hd dtype causal has_window window
         + [_I] * 10 + [_F, _P],  # scale stream
     ),
@@ -48,8 +50,8 @@ _SIGNATURES = {
     ),
     "flash_prefill": (
         "flash_attention_launch",
-        # q k v q_pos kv_pos kv_valid out
-        [_P] * 7
+        # q k v q_pos kv_pos kv_valid out part_acc part_ml
+        [_P] * 9
         # B Sq Skv H KV hd dtype causal has_window window
         + [_I] * 10 + [_F, _P],  # scale stream
     ),
@@ -62,15 +64,15 @@ _SIGNATURES = {
     ),
     "chunked_prefill": (
         "chunked_prefill_attention_launch",
-        # q k_pool v_pool block_table q_pos out
-        [_P] * 6
+        # q k_pool v_pool block_table q_pos out part_acc part_ml
+        [_P] * 8
         # B C nb n_blocks block H KV hd dtype has_window window
         + [_I] * 11 + [_F, _P],  # scale stream
     ),
     "fused_prefill": (
         "fused_flash_attention_launch",
-        # q k v q_pos kv_pos out
-        [_P] * 6
+        # q k v q_pos kv_pos out part_acc part_ml
+        [_P] * 8
         # B Sq Skv H KV hd dtype has_window window
         + [_I] * 9 + [_F, _P],  # scale stream
     ),
@@ -80,6 +82,15 @@ _SIGNATURES = {
     "kv_dequant": ("kv_dequant_launch", [_P] * 3 + [_L] + [_I] * 2 + [_P]),
     # x dt A B C h0 (or null) y hT | B L H P G S chunk dtype | stream
     "ssd_scan": ("ssd_chunked_launch", [_P] * 8 + [_I] * 8 + [_P]),
+}
+
+# the other C function of an attention library: the number of parts S the
+# launch splits the kv tiles into, from which the wrapper sizes the scratch
+_QUERIES = {
+    "packed_prefill": ("packed_flash_attention_splits", [_I] * 3),  # Skv hd dtype
+    "flash_prefill": ("flash_attention_splits", [_I] * 3),  # Skv hd dtype
+    "chunked_prefill": ("chunked_prefill_attention_splits", [_I] * 4),  # nb block hd dtype
+    "fused_prefill": ("fused_flash_attention_splits", [_I] * 3),  # Skv hd dtype
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -154,10 +165,11 @@ def library(name: str) -> ctypes.CDLL:
         if not path.exists():
             build_all([name])
         lib = ctypes.CDLL(str(path))
-        fn_name, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for entry in (_SIGNATURES[name], _QUERIES.get(name)):
+            if entry is not None:
+                fn = getattr(lib, entry[0])
+                fn.argtypes = entry[1]
+                fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
 
@@ -165,6 +177,39 @@ def library(name: str) -> ctypes.CDLL:
 def launcher(name: str):
     """The C entry point of kernel ``name``, with its argument types set."""
     return getattr(library(name), _SIGNATURES[name][0])
+
+
+@functools.lru_cache(maxsize=1024)
+def splits(name: str, *args: int) -> int:
+    """S, the number of parts the launch of kernel ``name`` with these
+    shapes splits its kv tiles into (``_QUERIES``; the launcher's choice)."""
+    return int(getattr(library(name), _QUERIES[name][0])(*args))
+
+
+def ptxas_report(name: str) -> List[Dict[str, object]]:
+    """What ``-Xptxas -v`` reported for each kernel of library ``name`` when
+    it was built: ``function`` (the mangled name), ``registers`` per thread,
+    ``spill_stores`` and ``spill_loads`` in bytes.  Empty when the library
+    was built by another process and left no log."""
+    log = library_path(name).with_suffix(".log")
+    if not log.exists():
+        return []
+    entries: List[Dict[str, object]] = []
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entries.append({"function": m.group(1)})
+            continue
+        if not entries:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            entries[-1]["spill_stores"] = int(m.group(1))
+            entries[-1]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entries[-1]["registers"] = int(m.group(1))
+    return entries
 
 
 def check(status: int, kernel: str) -> None:

@@ -10,8 +10,9 @@ rows (one valid query at the live length), prefill-chunk rows (up to ``C``
 new tokens whose K/V the caller has already landed in the pool) and idle
 rows (all padding, ``q_pos`` -2^30, output zeros).  Validity is positional
 (row ``r`` of table entry ``j`` is position ``j*block + r``).  The kernel is
-``csrc/chunked_prefill.cu`` over the tile kernel of ``csrc/flash_tile.cuh``
-(its header says what bounds it and how its design answers that);
+``csrc/chunked_prefill.cu``: bf16 on the tensor-core tile of
+``csrc/flash_mma.cuh``, f32 on the CUDA-core tile of ``csrc/flash_tile.cuh``
+(their headers say what bounds each and how its design answers that);
 ``chunked_prefill_attention_plain`` is the same function in plain PyTorch.
 """
 from __future__ import annotations
@@ -21,7 +22,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels._checks import MAX_HEAD_DIM, cuda_operands, dtype_code, int32, require
+from repro_torch.kernels._checks import (
+    MAX_HEAD_DIM, cuda_operands, dtype_code, int32, require, split_scratch,
+)
 
 NAME = "chunked_prefill_attention"
 
@@ -36,6 +39,13 @@ def chunked_prefill_attention_plain(
         q, k_pool, v_pool, block_table=block_table, q_pos=q_pos, block=block,
         window=window,
     )
+
+
+def split_count(q: torch.Tensor, block_table: torch.Tensor, block: int) -> int:
+    """S, the number of parts the kernel splits the kv tiles of these shapes
+    into (chosen by the C launcher from the kv length; 1 in f32)."""
+    return build.splits("chunked_prefill", block_table.shape[1], block, q.shape[-1],
+                        dtype_code(NAME, q))
 
 
 def chunked_prefill_attention(
@@ -75,12 +85,15 @@ def chunked_prefill_attention(
         return out
     nb = block_table.shape[1]
     launch = build.launcher("chunked_prefill")
+    # scratch holds the split partials until the launch is enqueued
+    scratch, part_acc, part_ml = split_scratch(split_count(q, block_table, block), out)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_table.data_ptr(),
-            q_pos.data_ptr(), out.data_ptr(), B, C, nb, N_rows // block, block, H, KV, hd,
-            code, int(window is not None), int(window or 0), float(hd) ** -0.5, stream,
+            q_pos.data_ptr(), out.data_ptr(), part_acc, part_ml, B, C, nb,
+            N_rows // block, block, H, KV, hd, code, int(window is not None), int(window or 0),
+            float(hd) ** -0.5, stream,
         )
     build.check(status, NAME)
     chunked_prefill_attention.launches += 1

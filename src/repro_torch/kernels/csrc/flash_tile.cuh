@@ -1,8 +1,12 @@
-// The tiled flash-attention kernel shared by `flash_attention`
+// The tiled flash-attention kernel on the CUDA cores, shared by the f32
+// launches of the four prefill attention kernels: `flash_attention`
 // (flash_prefill.cu), `packed_flash_attention` (packed_prefill.cu),
 // `chunked_prefill_attention` (chunked_prefill.cu) and
-// `fused_flash_attention` (fused_prefill.cu).  The four differ only in where
-// kv row j comes from and which queries are padding (the SRC template
+// `fused_flash_attention` (fused_prefill.cu).  Their bf16 launches run on
+// the tensor-core tile of flash_mma.cuh; f32 stays here because the tests
+// hold the algorithm to the plain versions in f32 at atol 2e-5, which
+// neither TF32 nor bf16 tensor-core operands meet.  The four differ only in
+// where kv row j comes from and which queries are padding (the SRC template
 // argument):
 //
 //   ROWS_DENSE      row j of the sequence's own k/v, at position kv_pos[j];
@@ -17,10 +21,15 @@
 // (causal) and, with a window, kv_pos[j] > q_pos[i] - window.  Queries that
 // every key masks output zeros.
 //
-// What bounds both kernels on the H100: operations.  At the serving path's
-// shapes (thousands of queries, 32 heads, hd 128) the QK^T and PV products
-// over the tiles the mask leaves take longer at the card's peak rate than
-// reading q, k, v once and writing the output at its memory rate.
+// What bounds these launches on the H100: operations for the flash and
+// packed launches (thousands of queries, 32 heads, hd 128: the QK^T and PV
+// products over the tiles the mask leaves take longer at the card's f32
+// rate than reading q, k, v once and writing the output at its memory
+// rate); bytes and latency for the chunked and fused ones (a few hundred
+// valid queries).  This tile runs them at 10-60x their f32 bound: f32
+// products from shared memory, a round trip to device memory on every kv
+// tile, one block walking its whole kv range in series.  flash_mma.cuh is
+// the redesign for bf16 (tensor cores, cp.async tiles, a split kv range).
 //
 // What this design does about it: it skips every kv tile that cannot meet
 // the query tile — no valid row, disjoint segment-id ranges (SEG), a
@@ -31,8 +40,7 @@
 // max_len cache whose rows past offset+S are invalid skips that tail whole.
 // Inside a tile, the products run on the CUDA cores in f32 from f32 copies
 // in shared memory (register-tiled 4x2 for QK^T and 4x(hd/16) for PV) with
-// an online softmax (m, l, acc) in f32.  Tensor-core (wgmma) tiles, TMA
-// loads and warp specialisation are later work.
+// an online softmax (m, l, acc) in f32.
 //
 // The paged and fused sources treat a query at q_pos < 0 as padding: it
 // sets none of the tile's position bounds (so a -2^30 neither widens the
@@ -399,21 +407,19 @@ int launch(const Args& a, int hd) {
   return int(cudaGetLastError());
 }
 
-// Check the shapes, pick the instantiation for (dtype, head_dim bucket) and
-// launch.  Returns the CUDA status: cudaErrorInvalidValue for a head_dim
-// outside [1, 256], an unsupported dtype or head grouping.
-template <int SRC>
-int dispatch(int dtype, int hd, const Args& a) {
+// Check the shapes, pick the instantiation for the element type T and the
+// head_dim bucket, and launch.  Returns the CUDA status:
+// cudaErrorInvalidValue for a head_dim outside [1, 256] or an unsupported
+// head grouping.
+template <typename T, int SRC>
+int dispatch_as(int hd, const Args& a) {
   if (a.KV <= 0 || a.H % a.KV != 0 || a.Sq <= 0 || a.Skv <= 0 || a.B <= 0)
     return int(cudaErrorInvalidValue);
-  if (dtype != DTYPE_F32 && dtype != DTYPE_BF16) return int(cudaErrorInvalidValue);
   if (hd < 1 || hd > 256) return int(cudaErrorInvalidValue);
-  const bool f32 = dtype == DTYPE_F32;
-  if (hd <= 32) return f32 ? launch<float, 32, SRC>(a, hd) : launch<__nv_bfloat16, 32, SRC>(a, hd);
-  if (hd <= 64) return f32 ? launch<float, 64, SRC>(a, hd) : launch<__nv_bfloat16, 64, SRC>(a, hd);
-  if (hd <= 128)
-    return f32 ? launch<float, 128, SRC>(a, hd) : launch<__nv_bfloat16, 128, SRC>(a, hd);
-  return f32 ? launch<float, 256, SRC>(a, hd) : launch<__nv_bfloat16, 256, SRC>(a, hd);
+  if (hd <= 32) return launch<T, 32, SRC>(a, hd);
+  if (hd <= 64) return launch<T, 64, SRC>(a, hd);
+  if (hd <= 128) return launch<T, 128, SRC>(a, hd);
+  return launch<T, 256, SRC>(a, hd);
 }
 
 }  // namespace

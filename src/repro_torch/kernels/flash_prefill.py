@@ -6,8 +6,9 @@ The port's counterpart of the Pallas kernel ``flash_attention``
 (suffix-)prefill ``lm.prefill``: queries at absolute positions ``q_pos``
 attend kv rows at ``kv_pos`` causally (or not, for cross-attention), within
 an optional window, with ``kv_pos < 0`` or a false ``kv_valid`` marking an
-invalid row.  The kernel is ``csrc/flash_prefill.cu`` over the tile kernel
-of ``csrc/flash_tile.cuh`` (its header says what bounds it and how its
+invalid row.  The kernel is ``csrc/flash_prefill.cu``: bf16 on the
+tensor-core tile of ``csrc/flash_mma.cuh``, f32 on the CUDA-core tile of
+``csrc/flash_tile.cuh`` (their headers say what bounds each and how its
 design answers that); ``flash_attention_plain`` is the same function in
 plain PyTorch.
 """
@@ -18,7 +19,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels._checks import MAX_HEAD_DIM, cuda_operands, dtype_code, int32, require
+from repro_torch.kernels._checks import (
+    MAX_HEAD_DIM, cuda_operands, dtype_code, int32, require, split_scratch,
+)
 
 NAME = "flash_attention"
 
@@ -33,6 +36,12 @@ def flash_attention_plain(
         q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=causal, window=window,
         kv_valid=kv_valid,
     )
+
+
+def split_count(q: torch.Tensor, k: torch.Tensor) -> int:
+    """S, the number of parts the kernel splits the kv tiles of these shapes
+    into (chosen by the C launcher from the kv length; 1 in f32)."""
+    return build.splits("flash_prefill", k.shape[1], q.shape[-1], dtype_code(NAME, q))
 
 
 def flash_attention(
@@ -70,12 +79,14 @@ def flash_attention(
     if q.numel() == 0 or Skv == 0:
         return out.zero_()
     launch = build.launcher("flash_prefill")
+    # scratch holds the split partials until the launch is enqueued
+    scratch, part_acc, part_ml = split_scratch(split_count(q, k), out)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
-            None if kv_valid is None else kv_valid.data_ptr(), out.data_ptr(),
-            B, Sq, Skv, H, KV, hd, code, int(causal), int(window is not None),
+            None if kv_valid is None else kv_valid.data_ptr(), out.data_ptr(), part_acc,
+            part_ml, B, Sq, Skv, H, KV, hd, code, int(causal), int(window is not None),
             int(window or 0), float(hd) ** -0.5, stream,
         )
     build.check(status, NAME)

@@ -7,8 +7,9 @@ fused reuse admission: the tokens chosen for recompute (a gappy, ascending
 subset of positions ``q_pos``, -2^30 for padding) attend causally over one
 assembled KV buffer whose row ``j`` sits at position ``kv_pos[j]`` (-1 for an
 invalid row), within an optional window.  The kernel is
-``csrc/fused_prefill.cu`` over the tile kernel of ``csrc/flash_tile.cuh``
-(its header says what bounds it and how its design answers that);
+``csrc/fused_prefill.cu``: bf16 on the tensor-core tile of
+``csrc/flash_mma.cuh``, f32 on the CUDA-core tile of ``csrc/flash_tile.cuh``
+(their headers say what bounds each and how its design answers that);
 ``fused_flash_attention_plain`` is the same function in plain PyTorch.
 """
 from __future__ import annotations
@@ -18,7 +19,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels._checks import MAX_HEAD_DIM, cuda_operands, dtype_code, int32, require
+from repro_torch.kernels._checks import (
+    MAX_HEAD_DIM, cuda_operands, dtype_code, int32, require, split_scratch,
+)
 
 NAME = "fused_flash_attention"
 
@@ -29,6 +32,12 @@ def fused_flash_attention_plain(
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch (``ref.fused_prefill_ref``)."""
     return ref.fused_prefill_ref(q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=window)
+
+
+def split_count(q: torch.Tensor, k: torch.Tensor) -> int:
+    """S, the number of parts the kernel splits the kv tiles of these shapes
+    into (chosen by the C launcher from the kv length; 1 in f32)."""
+    return build.splits("fused_prefill", k.shape[1], q.shape[-1], dtype_code(NAME, q))
 
 
 def fused_flash_attention(
@@ -60,12 +69,14 @@ def fused_flash_attention(
     if q.numel() == 0 or Skv == 0:
         return out.zero_()
     launch = build.launcher("fused_prefill")
+    # scratch holds the split partials until the launch is enqueued
+    scratch, part_acc, part_ml = split_scratch(split_count(q, k), out)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
-            out.data_ptr(), B, Sq, Skv, H, KV, hd, code, int(window is not None),
-            int(window or 0), float(hd) ** -0.5, stream,
+            out.data_ptr(), part_acc, part_ml, B, Sq, Skv, H, KV, hd,
+            code, int(window is not None), int(window or 0), float(hd) ** -0.5, stream,
         )
     build.check(status, NAME)
     fused_flash_attention.launches += 1

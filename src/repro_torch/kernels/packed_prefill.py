@@ -5,9 +5,10 @@ The port's counterpart of the Pallas kernel ``packed_flash_attention``
 (``src/repro/kernels/packed_prefill.py``).  Batched admission concatenates
 several requests' token runs into one sequence; each query attends only kv
 rows of its own segment, causally at segment-local positions.  The kernel
-is ``csrc/packed_prefill.cu`` (its header says what bounds it and how its
-design answers that); ``packed_flash_attention_plain`` is the same function
-in plain PyTorch.
+is ``csrc/packed_prefill.cu``: bf16 on the tensor-core tile of
+``csrc/flash_mma.cuh``, f32 on the CUDA-core tile of ``csrc/flash_tile.cuh``
+(their headers say what bounds each and how its design answers that);
+``packed_flash_attention_plain`` is the same function in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels._checks import MAX_HEAD_DIM, cuda_operands, dtype_code, int32, require
+from repro_torch.kernels._checks import (
+    MAX_HEAD_DIM, cuda_operands, dtype_code, int32, require, split_scratch,
+)
 
 NAME = "packed_flash_attention"
 
@@ -31,6 +34,12 @@ def packed_flash_attention_plain(
         q, k, v, q_pos=q_pos, kv_pos=kv_pos, q_seg=q_seg, kv_seg=kv_seg,
         causal=causal, window=window,
     )
+
+
+def split_count(q: torch.Tensor, k: torch.Tensor) -> int:
+    """S, the number of parts the kernel splits the kv tiles of these shapes
+    into (chosen by the C launcher from the kv length; 1 in f32)."""
+    return build.splits("packed_prefill", k.shape[1], q.shape[-1], dtype_code(NAME, q))
 
 
 def packed_flash_attention(
@@ -65,12 +74,14 @@ def packed_flash_attention(
     if q.numel() == 0:
         return out
     launch = build.launcher("packed_prefill")
+    # scratch holds the split partials until the launch is enqueued
+    scratch, part_acc, part_ml = split_scratch(split_count(q, k), out)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-            kv_pos.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(), out.data_ptr(),
-            B, Sq, Skv, H, KV, hd, code, int(causal), int(window is not None),
+            kv_pos.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(), out.data_ptr(), part_acc,
+            part_ml, B, Sq, Skv, H, KV, hd, code, int(causal), int(window is not None),
             int(window or 0), float(hd) ** -0.5, stream,
         )
     build.check(status, NAME)

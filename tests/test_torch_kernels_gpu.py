@@ -413,6 +413,54 @@ def test_chunked_kernel_traps_on_a_block_outside_the_pool(cuda):
     assert proc.returncode == 3 and "trapped" in proc.stdout, (proc.stdout, proc.stderr)
 
 
+_TRAP_BF16 = _TRAP.replace("device=dev)\nq", "device=dev, dtype=torch.bfloat16)\nq").replace(
+    "q = torch.zeros(1, 4, 2, 32, device=dev)", "q = torch.zeros(1, 4, 2, 32, device=dev).bfloat16()")
+
+
+@pytest.mark.gpu
+def test_chunked_bf16_kernel_traps_on_a_block_outside_the_pool(cuda):
+    """The tensor-core tile (bf16) traps on the same table entry as the
+    CUDA-core one."""
+    assert _TRAP_BF16.count("bfloat16") == 2
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=f"{src}{os.pathsep}{os.environ.get('PYTHONPATH', '')}")
+    proc = subprocess.run([sys.executable, "-c", _TRAP_BF16], env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 3 and "trapped" in proc.stdout, (proc.stdout, proc.stderr)
+
+
+# The bf16 launches run on the tensor-core tile of csrc/flash_mma.cuh, which
+# splits the kv tiles into S parts (at most 8) by the kv length alone.
+MAX_SPLITS = 8
+MMA_CHUNKED_CASES = [
+    # (rows (n_landed, n_chunk), H, KV, hd, block, max_len, C, window)
+    # a long context (4,096 table rows in a pool of 8,320): S is its largest
+    ([(4000, 64), (3500, 1)], 8, 2, 128, 128, 4096, 64, None),
+    # blocks of 16 and of 48 rows: a 64-row kv tile straddles pool blocks
+    ([(150, 40), (97, 1), (0, 0)], 8, 2, 64, 16, 256, 64, None),
+    ([(200, 70), (130, 1)], 8, 4, 128, 48, 288, 128, 90),
+    # every valid query of a tile in the first warp's 16 rows
+    ([(77, 12), (33, 1)], 4, 2, 64, 32, 128, 64, None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [("float32", F32_ATOL), ("bfloat16", BF16_ATOL)])
+@pytest.mark.parametrize("rows,H,KV,hd,block,max_len,C,window", MMA_CHUNKED_CASES)
+def test_chunked_kernel_matches_plain_across_blocks_warps_and_splits(
+        cuda, dtype, atol, rows, H, KV, hd, block, max_len, C, window):
+    q, kp, vp, tables, q_pos = _chunked(cuda, getattr(torch, dtype), rows, KV, H, hd, block,
+                                        max_len, C, seed=len(rows) * hd + C + block)
+    kw = dict(block_table=tables, q_pos=q_pos, block=block, window=window)
+    got = cpk.chunked_prefill_attention(q, kp, vp, **kw)
+    want = cpk.chunked_prefill_attention_plain(q, kp, vp, **kw)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    assert not got[q_pos < 0].any()
+    if dtype == "bfloat16" and rows[0][0] == 4000:
+        assert cpk.split_count(q, tables, block) == MAX_SPLITS
+
+
 # --------------------------------------------------------------------------- #
 # fused_flash_attention (selective-recompute prefill over an assembled buffer)
 # --------------------------------------------------------------------------- #
@@ -488,6 +536,161 @@ def test_fused_wrapper_counts_launches_and_refuses_what_it_cannot_run(cuda):
     assert fuk.fused_flash_attention.launches == before + 1
 
 
+MMA_FUSED_CASES = [
+    # (B, Sq, Skv, total, n_q, H, KV, hd, window)
+    (1, 200, 512, 480, 150, 8, 4, 128, None),  # padding from query 150: mid-tile, mid-warp
+    (2, 96, 320, 300, 70, 4, 1, 64, 50),  # padding from query 70, MQA and a window
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [("float32", F32_ATOL), ("bfloat16", BF16_ATOL)])
+@pytest.mark.parametrize("B,Sq,Skv,total,n_q,H,KV,hd,window", MMA_FUSED_CASES)
+def test_fused_kernel_matches_plain_with_padding_from_mid_tile(cuda, dtype, atol, B, Sq, Skv,
+                                                               total, n_q, H, KV, hd, window):
+    q, k, v, q_pos, kv_pos = _fused(cuda, getattr(torch, dtype), B, Sq, Skv, total, n_q, H,
+                                    KV, hd, seed=Sq + hd + 1)
+    got = fuk.fused_flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=window)
+    want = fuk.fused_flash_attention_plain(q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=window)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    assert not got[q_pos < 0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [("float32", F32_ATOL), ("bfloat16", BF16_ATOL)])
+def test_fused_kernel_matches_plain_with_valid_queries_in_one_warp(cuda, dtype, atol):
+    """The 16 valid queries of a 64-query tile sit in the third warp's rows
+    (32-47), padding all around them: the other warps skip their products."""
+    q, k, v, q_pos, kv_pos = _fused(cuda, getattr(torch, dtype), 1, 64, 256, 200, 16, 4, 2,
+                                    128, seed=7)
+    pos = q_pos[0, :16].clone()
+    q_pos[0] = -(2**30)
+    q_pos[0, 32:48] = pos
+    got = fuk.fused_flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos)
+    want = fuk.fused_flash_attention_plain(q, k, v, q_pos=q_pos, kv_pos=kv_pos)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    assert not got[q_pos < 0].any() and got[0, 32:48].any()
+
+
+def _recorded(cuda, kernel, dt):
+    """One launch's inputs at the serve shapes ``chip_smoke.py`` records: the
+    unified step's chunked launch (a decode row over 2,050 rows, a 128-token
+    chunk ending at 640, two idle rows; llama-7b's 32 heads, hd 128), a
+    fused admission (575 recompute queries in a 1,024 bucket over 2,080
+    valid rows of a 4,096-row buffer), a packed batch (two 2,032-token
+    segments in 4,096 rows) and a per-request prefill (2,032 queries into a
+    4,096-row cache).  Returns (call, split count, q_pos)."""
+    if kernel == "chunked":
+        q, kp, vp, tables, q_pos = _chunked(cuda, dt, [(2050, 1), (640, 128), (0, 0), (0, 0)],
+                                            32, 32, 128, 128, 4096, 128, seed=11)
+        return (lambda: cpk.chunked_prefill_attention(q, kp, vp, block_table=tables,
+                                                      q_pos=q_pos, block=128),
+                lambda: cpk.split_count(q, tables, 128), q_pos)
+    if kernel == "packed":
+        args = _packed_inputs([(0, 2032), (0, 2032)], 32, 32, 128, 4096, seed=11)
+        t = {n: torch.from_numpy(a).to(cuda) for n, a in args.items()}
+        for n in ("q", "k", "v"):
+            t[n] = t[n].to(dt)
+        return (lambda: pk.packed_flash_attention(**t),
+                lambda: pk.split_count(t["q"], t["k"]), t["q_pos"])
+    if kernel == "flash":
+        g = torch.Generator(device=cuda)
+        g.manual_seed(11)
+        q = torch.randn(1, 2032, 32, 128, generator=g, device=cuda).to(dt)
+        k = torch.randn(1, 4096, 32, 128, generator=g, device=cuda).to(dt)
+        v = torch.randn(1, 4096, 32, 128, generator=g, device=cuda).to(dt)
+        q_pos = torch.arange(2032, device=cuda, dtype=torch.int32)[None]
+        idx = torch.arange(4096, device=cuda, dtype=torch.int32)[None]
+        kv_pos = torch.where(idx < 2032, idx, -1).to(torch.int32)
+        return (lambda: fk.flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos),
+                lambda: fk.split_count(q, k), q_pos)
+    q, k, v, q_pos, kv_pos = _fused(cuda, dt, 1, 1024, 4096, 2080, 575, 32, 32, 128, seed=11)
+    return (lambda: fuk.fused_flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos),
+            lambda: fuk.split_count(q, k), q_pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["chunked", "fused", "packed", "flash"])
+def test_kernels_give_the_same_bits_on_every_launch(cuda, kernel, dtype):
+    """No atomics enter a sum: two launches on the same inputs agree bit for
+    bit, the split's combine included."""
+    call, _, _ = _recorded(cuda, kernel, getattr(torch, dtype))
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,window", [(128, None), (128, 200), (64, None), (256, 150)])
+def test_bf16_prefill_kernels_give_one_sequence_the_same_bits(cuda, hd, window):
+    """The bf16 tile splits the kv tiles at fixed tiles and computes each
+    query from its own row only, so one sequence's prefill gives the same
+    bits through the per-request (flash), packed, chunked (the unified step's
+    128-token chunks through a scattered block table) and fused kernels: a
+    serve's logits do not depend on which of them it ran."""
+    L, M, H, KV, block, C = 600, 1024, 4, 2, 128, 128
+    dt = torch.bfloat16
+    g = torch.Generator(device=cuda)
+    g.manual_seed(hd)
+    q = torch.randn(1, L, H, hd, generator=g, device=cuda).to(dt)
+    k = torch.zeros(1, M, KV, hd, device=cuda, dtype=dt)
+    v = torch.zeros(1, M, KV, hd, device=cuda, dtype=dt)
+    k[:, :L] = torch.randn(1, L, KV, hd, generator=g, device=cuda).to(dt)
+    v[:, :L] = torch.randn(1, L, KV, hd, generator=g, device=cuda).to(dt)
+    pos = torch.arange(L, device=cuda, dtype=torch.int32)[None]
+    idx = torch.arange(M, device=cuda, dtype=torch.int32)[None]
+    kv_pos = torch.where(idx < L, idx, -1).to(torch.int32)
+    flash = fk.flash_attention(q, k, v, q_pos=pos, kv_pos=kv_pos, window=window)
+    packed = pk.packed_flash_attention(
+        q, k, v, q_pos=pos, kv_pos=kv_pos, q_seg=torch.zeros_like(pos),
+        kv_seg=torch.where(idx < L, 0, -1).to(torch.int32), window=window)
+    fused = fuk.fused_flash_attention(q, k, v, q_pos=pos, kv_pos=kv_pos, window=window)
+    # the pool: the sequence's blocks scattered, one batch row per 128-token chunk
+    nb = M // block
+    order = torch.randperm(2 * nb, generator=torch.Generator().manual_seed(hd)) + 1
+    table = order[:nb].to(torch.int32)
+    rows = (table.long()[:, None] * block + torch.arange(block)[None]).reshape(-1).to(cuda)
+    k_pool = torch.zeros((2 * nb + 1) * block, KV, hd, device=cuda, dtype=dt)
+    v_pool = torch.zeros_like(k_pool)
+    k_pool[rows], v_pool[rows] = k[0], v[0]
+    n_chunks = -(-L // C)
+    q_chunks = torch.zeros(n_chunks, C, H, hd, device=cuda, dtype=dt)
+    q_pos = torch.full((n_chunks, C), -(2**30), dtype=torch.int32, device=cuda)
+    for c in range(n_chunks):
+        n = min(C, L - c * C)
+        q_chunks[c, :n] = q[0, c * C:c * C + n]
+        q_pos[c, :n] = pos[0, c * C:c * C + n]
+    chunked = cpk.chunked_prefill_attention(
+        q_chunks, k_pool, v_pool, block_table=table[None].expand(n_chunks, nb).contiguous().to(
+            cuda), q_pos=q_pos, block=block, window=window)
+    chunked = chunked.reshape(1, n_chunks * C, H, hd)[:, :L]
+    torch.cuda.synchronize()
+    splits = {fk.split_count(q, k), pk.split_count(q, k), fuk.split_count(q, k),
+              cpk.split_count(q_chunks, table[None], block)}
+    assert len(splits) == 1 and splits.pop() > 1
+    want = fk.flash_attention_plain(q, k, v, q_pos=pos, kv_pos=kv_pos, window=window)
+    assert (flash.float() - want.float()).abs().max().item() <= BF16_ATOL
+    assert torch.equal(packed, flash) and torch.equal(fused, flash)
+    assert torch.equal(chunked, flash)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["chunked", "fused"])
+def test_split_bf16_launch_writes_exact_zeros_for_padding(cuda, kernel):
+    """With S > 1 the combine writes the padding queries' rows of a chunked
+    or fused launch: exact zeros, over a buffer that held other values
+    before."""
+    call, splits, q_pos = _recorded(cuda, kernel, torch.bfloat16)
+    assert splits() > 1
+    call()  # leave non-zero values in the memory the next output may reuse
+    got = call()
+    torch.cuda.synchronize()
+    assert not got[q_pos < 0].any() and got[q_pos >= 0].any()
+
+
 # --------------------------------------------------------------------------- #
 # Any head_dim up to 256, on every kernel
 # --------------------------------------------------------------------------- #
@@ -542,6 +745,21 @@ def test_kernels_take_any_head_dim(cuda, kernel, hd, dtype, atol):
     """At a head_dim that is not a bucket of the shared tiles each kernel
     runs on the next bucket's instantiation and holds its plain version;
     padding queries still output zeros."""
+    got, want, pad = _any_hd_case(cuda, kernel, hd, getattr(torch, dtype))
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.shape[-1] == hd
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    if pad is not None:
+        assert not got[pad].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [("float32", F32_ATOL), ("bfloat16", BF16_ATOL)])
+@pytest.mark.parametrize("hd", [1, 20, 100, 250])
+@pytest.mark.parametrize("kernel", ["packed", "flash", "chunked", "fused"])
+def test_prefill_kernels_take_head_dims_off_the_16_byte_rows(cuda, kernel, hd, dtype, atol):
+    """A head_dim that is not a multiple of 8 makes rows that are not 16-byte
+    aligned: the tensor-core tile (bf16) copies them element by element."""
     got, want, pad = _any_hd_case(cuda, kernel, hd, getattr(torch, dtype))
     torch.cuda.synchronize()
     assert got.shape == want.shape and got.shape[-1] == hd
