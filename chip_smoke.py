@@ -688,11 +688,16 @@ def check_decode(inputs, launches):
     (q, k, _), kw = inputs
     mask = (kw["kv_pos"].long() >= 0) & (kw["kv_pos"].long() <= kw["q_pos"].long())
     kept = int(mask.sum())  # [B, L] rows each sequence's query keeps
-    return check_kernel(
+    times = {}
+    entry = check_kernel(
         "decode_attention", "decode_attention.cu", "src/repro/kernels/decode_attention.py:83",
         launches, inputs, dk.decode_attention, dk.decode_attention_plain,
         mask4=mask[:, None, None, :], index=[kw["q_pos"], kw["kv_pos"]], kv_rows=kept,
-        pairs=kept, note=f"cache{tuple(k.shape)} kept_rows={kept}", reps=20, plain_reps=5)
+        pairs=kept, note=f"cache{tuple(k.shape)} kept_rows={kept}", reps=20, plain_reps=5,
+        times=times)
+    decode_notes("decode_attention", "decode_attention", "decode_kernel",
+                 lambda q, k, v: dk.decode_attention(q, k, v, **kw), inputs[0], times)
+    return entry
 
 
 def check_flash(inputs, launches, label):
@@ -732,12 +737,67 @@ def check_paged(inputs, launches):
         mask = mask & (idx > kw["q_pos"] - kw["window"])
     kept = int(mask.sum())
     # SDPA runs on the rows gathered beforehand (the gather is not timed)
-    return check_kernel(
+    times = {}
+    entry = check_kernel(
         "paged_decode_attention", "paged_decode.cu", "src/repro/kernels/paged_decode.py:101",
         launches, inputs, pdk.paged_decode_attention, pdk.paged_decode_attention_plain,
         mask4=mask[:, None, None, :], index=[table, kw["q_pos"]], kv_rows=kept, pairs=kept,
         note=f"pool{tuple(k_pool.shape)} table{tuple(table.shape)} kept_rows={kept}",
-        reps=20, plain_reps=5, sdpa_kv=lambda t: t[rows], sdpa_note=" (gather excluded)")
+        reps=20, plain_reps=5, sdpa_kv=lambda t: t[rows], sdpa_note=" (gather excluded)",
+        times=times)
+    decode_notes("paged_decode_attention", "paged_decode", "paged_decode_kernel",
+                 lambda q, k, v: pdk.paged_decode_attention(q, k, v, **kw), inputs[0], times)
+    return entry
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Host time per call of ``fn``: the enqueue alone, after warm-up and
+    with the device idle, so no call waits on the queue."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * t / reps
+
+
+def ptxas_notes(lib) -> str:
+    """Registers and spill bytes of each kernel of library ``lib`` from the
+    compiler's report (``-Xptxas -v`` in the build log)."""
+    notes = []
+    for e in build.ptxas_report(lib):
+        m = re.search(r"(\w+_kernel)I(f|13__nv_bfloat16)((?:Li\d+E)*)(?:Lb([01])E)?",
+                      e["function"])
+        if m is None:
+            continue
+        kind, elem, ints, full = m.groups()
+        args = ",".join(re.findall(r"Li(\d+)E", ints))
+        notes.append(f"{kind}<{'f32' if elem == 'f' else 'bf16'},{args}"
+                     f"{',full' if full == '1' else ''}>: {e.get('registers')} regs, "
+                     f"spill {e.get('spill_stores')}/{e.get('spill_loads')} B")
+    return "; ".join(notes) or "no build log"
+
+
+def decode_notes(name, lib, kernel_name, call, qkv, times):
+    """Two launches of a decode kernel on the recorded inputs must give the
+    same bits, in bf16 and in f32.  Logs the bf16 wall time per call beside
+    its host enqueue time and the device time of the kernel and of its
+    combine (``torch.profiler``), and the compiler's registers and spills."""
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [t.to(dtype) for t in qkv]
+        first, second = call(*args), call(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), f"{name} {dtype}: two launches differ"
+    device = device_ms(lambda: call(*args), {"kernel": kernel_name, "combine": "combine_kernel"},
+                       reps=20)
+    on_device = ", ".join(f"{k} {v:.4f}" for k, v in device.items()) if device else \
+        "not measured"
+    log(f"{name}: two launches equal bit for bit (bf16 and f32); bf16 wall ms="
+        f"{times[torch.bfloat16]:.4f}, host enqueue ms={host_ms(lambda: call(*args)):.4f}, "
+        f"device ms per call: {on_device}; f32 wall ms={times[torch.float32]:.4f}; "
+        f"ptxas: {ptxas_notes(lib)}")
 
 
 def mma_tile_notes(name, lib, inputs, kernel, splits, times):
@@ -873,17 +933,24 @@ def check_wide_group(H=48, KV=1, hd=128, lens=(2050, 1, 2047, 700), block=128,
         paged_err = (pool.float() - pdk.paged_decode_attention_plain(
             q, kp, vp, **kw).float()).abs().max().item()
         torch.cuda.synchronize()
-        dense_ms = time_ms(lambda: dk.decode_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos),
-                           reps=20)
-        paged_ms = time_ms(lambda: pdk.paged_decode_attention(q, kp, vp, **kw), reps=20)
+        dense_fn = lambda: dk.decode_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos)  # noqa: E731
+        paged_fn = lambda: pdk.paged_decode_attention(q, kp, vp, **kw)  # noqa: E731
+        dense_ms, paged_ms = time_ms(dense_fn, reps=20), time_ms(paged_fn, reps=20)
+        keys = {"kernel": "decode_kernel", "combine": "combine_kernel"}
+        dense_dev, paged_dev = (device_ms(fn, keys, reps=20) for fn in (dense_fn, paged_fn))
         b, by = bound_ms(2 * nbytes(q) + 2 * sum(lens) * KV * hd * q.element_size(),
                          4.0 * hd * H * sum(lens), dtype)
+        dev = {label: ", ".join(f"{n} {t:.4f}" for n, t in d.items()) or "not measured"
+               for label, d in (("dense", dense_dev), ("paged", paged_dev))}
+        again = torch.equal(dense, dense_fn()) and torch.equal(pool, paged_fn())
         log(f"decode at H {H}, KV {KV} (G {H // KV}) {str(dtype)[6:]} q{tuple(q.shape)} "
-            f"lens {list(lens)}: dense max_err={dense_err:.3e} ms={dense_ms:.4f}, paged "
-            f"max_err={paged_err:.3e} ms={paged_ms:.4f}, bound_ms={b:.4f} ({by}); paged == "
-            f"dense bit for bit: {torch.equal(pool, dense)}")
+            f"lens {list(lens)}: dense max_err={dense_err:.3e} ms={dense_ms:.4f} (device "
+            f"{dev['dense']}), paged max_err={paged_err:.3e} ms={paged_ms:.4f} (device "
+            f"{dev['paged']}), bound_ms={b:.4f} ({by}); paged == dense bit for bit: "
+            f"{torch.equal(pool, dense)}; two launches equal: {again}")
         assert dense_err <= atol and paged_err <= atol, (dtype, dense_err, paged_err)
         assert torch.equal(pool, dense), f"G {H // KV} {dtype}: paged differs from dense"
+        assert again, f"G {H // KV} {dtype}: two launches differ"
 
 
 def check_kv_quant(x, launches):
