@@ -106,7 +106,11 @@ attention kernels run bf16 on the tensor-core tile of
 give the same bits (bf16 and f32), and the split S of the kv tiles, the
 tile's and the combine's device time per launch (``torch.profiler``), the
 compiler's registers and spills from the build log and the f32 time beside
-the bf16 one are logged.
+the bf16 one are logged.  Both decode kernels split each sequence's rows into
+fixed parts of 256 positions (``csrc/decode_block.cuh``): two launches on
+the recorded inputs must give the same bits (bf16 and f32), and the part
+count, the kernel's and the combine's device time, the host enqueue time
+and the compiler's registers and spills are logged.
 Times come from CUDA events after warm-up, beside the plain version's, one
 PyTorch library call's (``scaled_dot_product_attention`` with an explicit
 boolean mask, timed here only; for the paged kernels on rows gathered
@@ -114,7 +118,8 @@ beforehand, the gather excluded; none computes the int8 kernels' or the
 SSD scan's function)
 and the card's bound for the same work.  Last, both decode kernels run at
 granite-34b's heads (48 query heads on one kv head) against their plain
-versions, the paged kernel bit for bit equal to the dense one.
+versions, the paged kernel bit for bit equal to the dense one, two launches
+equal, each kernel's device time logged.
 
 Any failed check raises, so the script exits non-zero.  The line before the
 last is ``{"kernels": [...]}``; the last is the ``{"ok": true, ...}`` line.
@@ -696,7 +701,8 @@ def check_decode(inputs, launches):
         pairs=kept, note=f"cache{tuple(k.shape)} kept_rows={kept}", reps=20, plain_reps=5,
         times=times)
     decode_notes("decode_attention", "decode_attention", "decode_kernel",
-                 lambda q, k, v: dk.decode_attention(q, k, v, **kw), inputs[0], times)
+                 lambda q, k, v: dk.decode_attention(q, k, v, **kw), inputs[0], times,
+                 dk.part_count(k.shape[1]))
     return entry
 
 
@@ -746,7 +752,8 @@ def check_paged(inputs, launches):
         reps=20, plain_reps=5, sdpa_kv=lambda t: t[rows], sdpa_note=" (gather excluded)",
         times=times)
     decode_notes("paged_decode_attention", "paged_decode", "paged_decode_kernel",
-                 lambda q, k, v: pdk.paged_decode_attention(q, k, v, **kw), inputs[0], times)
+                 lambda q, k, v: pdk.paged_decode_attention(q, k, v, **kw), inputs[0], times,
+                 pdk.part_count(table.shape[1], block))
     return entry
 
 
@@ -763,28 +770,31 @@ def host_ms(fn, reps: int = 20) -> float:
     return 1e3 * t / reps
 
 
-def ptxas_notes(lib) -> str:
-    """Registers and spill bytes of each kernel of library ``lib`` from the
-    compiler's report (``-Xptxas -v`` in the build log)."""
+def ptxas_notes(lib, kernels) -> str:
+    """Registers and spill bytes of each kernel of library ``lib`` whose name
+    matches ``kernels`` (a regex alternation), from the compiler's report
+    (``-Xptxas -v`` in the build log), with its template arguments."""
     notes = []
     for e in build.ptxas_report(lib):
-        m = re.search(r"(\w+_kernel)I(f|13__nv_bfloat16)((?:Li\d+E)*)(?:Lb([01])E)?",
-                      e["function"])
+        m = re.search(rf"({kernels})I(f|13__nv_bfloat16)?((?:L[ib]\d+E)*)", e["function"])
         if m is None:
             continue
-        kind, elem, ints, full = m.groups()
-        args = ",".join(re.findall(r"Li(\d+)E", ints))
-        notes.append(f"{kind}<{'f32' if elem == 'f' else 'bf16'},{args}"
-                     f"{',full' if full == '1' else ''}>: {e.get('registers')} regs, "
+        kind, elem, ints = m.groups()
+        args = [{"f": "f32", "13__nv_bfloat16": "bf16"}[elem]] if elem else []
+        args += [{"Lb0": "false", "Lb1": "true"}.get(a[:-1], a[2:-1])
+                 for a in re.findall(r"L[ib]\d+E", ints)]
+        notes.append(f"{kind}<{','.join(args)}>: {e.get('registers')} regs, "
                      f"spill {e.get('spill_stores')}/{e.get('spill_loads')} B")
     return "; ".join(notes) or "no build log"
 
 
-def decode_notes(name, lib, kernel_name, call, qkv, times):
+def decode_notes(name, lib, kernel_name, call, qkv, times, parts):
     """Two launches of a decode kernel on the recorded inputs must give the
-    same bits, in bf16 and in f32.  Logs the bf16 wall time per call beside
-    its host enqueue time and the device time of the kernel and of its
-    combine (``torch.profiler``), and the compiler's registers and spills."""
+    same bits, in bf16 and in f32.  Logs the part size P and the launch's
+    part count, the bf16 wall time per call beside its host enqueue time and
+    the device time of the kernel and of its combine (``torch.profiler``),
+    and the compiler's registers and spills (template arguments: dtype,
+    head_dim bucket, heads a block)."""
     for dtype in (torch.float32, torch.bfloat16):
         args = [t.to(dtype) for t in qkv]
         first, second = call(*args), call(*args)
@@ -794,10 +804,11 @@ def decode_notes(name, lib, kernel_name, call, qkv, times):
                        reps=20)
     on_device = ", ".join(f"{k} {v:.4f}" for k, v in device.items()) if device else \
         "not measured"
-    log(f"{name}: two launches equal bit for bit (bf16 and f32); bf16 wall ms="
+    log(f"{name}: P={dk.PART} positions a part, {parts} parts; two launches equal bit for "
+        f"bit (bf16 and f32); bf16 wall ms="
         f"{times[torch.bfloat16]:.4f}, host enqueue ms={host_ms(lambda: call(*args)):.4f}, "
         f"device ms per call: {on_device}; f32 wall ms={times[torch.float32]:.4f}; "
-        f"ptxas: {ptxas_notes(lib)}")
+        f"ptxas: {ptxas_notes(lib, 'paged_decode_kernel|decode_combine_kernel|decode_kernel')}")
 
 
 def mma_tile_notes(name, lib, inputs, kernel, splits, times):
@@ -816,24 +827,13 @@ def mma_tile_notes(name, lib, inputs, kernel, splits, times):
         assert torch.equal(first, second), f"{name} {dtype}: two launches differ"
     device = device_ms(lambda: kernel(*qkv, **kw),  # bf16
                        {"tile": "attn_kernel", "combine": "combine_kernel"})
-    regs = []
-    for e in build.ptxas_report(lib):
-        m = re.search(r"(attn_kernel|tile_kernel|combine_kernel)(?:I(f|N6__half|13__nv_bfloat16)?"
-                      r"(?:Li(\d+)E)?(?:Li(\d+)E)?(?:Lb([01])E)?)?", e["function"])
-        if m is None:
-            continue
-        kind, elem, hd, _, full = m.groups()
-        tile = {"attn_kernel": "mma bf16", "tile_kernel": "cuda-core f32",
-                "combine_kernel": "combine"}[kind]
-        shape = f" hd{hd}{' full' if full == '1' else ''}" if hd else ""
-        regs.append(f"{tile}{shape}: {e.get('registers')} regs, spill "
-                    f"{e.get('spill_stores')}/{e.get('spill_loads')} B")
     on_device = ", ".join(f"{k} {v:.4f}" for k, v in device.items()) if device else \
         "not measured"
     log(f"{name}: bf16 tile splits the kv tiles into S={splits} parts; two launches equal "
         f"bit for bit (bf16 and f32); bf16 ms={times[torch.bfloat16]:.4f} (device ms per "
-        f"launch: {on_device}) f32 ms={times[torch.float32]:.4f}; ptxas: "
-        f"{'; '.join(regs) or 'no build log'}")
+        f"launch: {on_device}) f32 ms={times[torch.float32]:.4f}; ptxas (attn_kernel: the "
+        f"mma bf16 tile <hd, source, full>; tile_kernel: the cuda-core f32 tile): "
+        f"{ptxas_notes(lib, 'attn_kernel|tile_kernel|combine_kernel')}")
 
 
 def check_chunked(inputs, launches):
@@ -944,10 +944,11 @@ def check_wide_group(H=48, KV=1, hd=128, lens=(2050, 1, 2047, 700), block=128,
                for label, d in (("dense", dense_dev), ("paged", paged_dev))}
         again = torch.equal(dense, dense_fn()) and torch.equal(pool, paged_fn())
         log(f"decode at H {H}, KV {KV} (G {H // KV}) {str(dtype)[6:]} q{tuple(q.shape)} "
-            f"lens {list(lens)}: dense max_err={dense_err:.3e} ms={dense_ms:.4f} (device "
-            f"{dev['dense']}), paged max_err={paged_err:.3e} ms={paged_ms:.4f} (device "
-            f"{dev['paged']}), bound_ms={b:.4f} ({by}); paged == dense bit for bit: "
-            f"{torch.equal(pool, dense)}; two launches equal: {again}")
+            f"lens {list(lens)}, {pdk.part_count(nb, block)} parts: dense max_err="
+            f"{dense_err:.3e} ms={dense_ms:.4f} (device {dev['dense']}), paged max_err="
+            f"{paged_err:.3e} ms={paged_ms:.4f} (device {dev['paged']}), bound_ms={b:.4f} "
+            f"({by}); paged == dense bit for bit: {torch.equal(pool, dense)}; two launches "
+            f"equal: {again}")
         assert dense_err <= atol and paged_err <= atol, (dtype, dense_err, paged_err)
         assert torch.equal(pool, dense), f"G {H // KV} {dtype}: paged differs from dense"
         assert again, f"G {H // KV} {dtype}: two launches differ"

@@ -3,6 +3,8 @@ contiguous, 16-byte-aligned CUDA tensors of the types they were built for),
 and the split scratch of the attention kernels that split their kv tiles."""
 from __future__ import annotations
 
+from typing import Callable, Union
+
 import torch
 
 from repro_torch.kernels.build import DTYPE_CODES
@@ -10,27 +12,32 @@ from repro_torch.kernels.build import DTYPE_CODES
 MAX_HEAD_DIM = 256  # every kernel takes any head_dim in [1, MAX_HEAD_DIM]
 
 
-def require(cond: bool, kernel: str, what: str) -> None:
+def require(cond: bool, kernel: str, what: Union[str, Callable[[], str]]) -> None:
+    """Raise ``ValueError`` unless ``cond``; ``what`` (or what it returns,
+    formatted only on failure) says why."""
     if not cond:
-        raise ValueError(f"{kernel}: {what}")
+        raise ValueError(f"{kernel}: {what() if callable(what) else what}")
+
+
+_DTYPES = {getattr(torch, name): code for name, code in DTYPE_CODES.items()}
 
 
 def dtype_code(kernel: str, t: torch.Tensor) -> int:
-    name = str(t.dtype).removeprefix("torch.")
-    require(name in DTYPE_CODES, kernel, f"dtype {t.dtype} not supported (float32, bfloat16)")
-    return DTYPE_CODES[name]
+    code = _DTYPES.get(t.dtype)
+    require(code is not None, kernel, lambda: f"dtype {t.dtype} not supported (float32, bfloat16)")
+    return code
 
 
 def cuda_operands(kernel: str, device: torch.device, **tensors: torch.Tensor) -> None:
     for name, t in tensors.items():
-        require(t.device == device, kernel, f"{name} is on {t.device}, expected {device}")
-        require(t.is_contiguous(), kernel, f"{name} must be contiguous")
-        require(t.data_ptr() % 16 == 0, kernel, f"{name} must be 16-byte aligned")
+        require(t.device == device, kernel, lambda: f"{name} is on {t.device}, expected {device}")
+        require(t.is_contiguous(), kernel, lambda: f"{name} must be contiguous")
+        require(t.data_ptr() % 16 == 0, kernel, lambda: f"{name} must be 16-byte aligned")
 
 
 def int32(kernel: str, **tensors: torch.Tensor) -> None:
     for name, t in tensors.items():
-        require(t.dtype == torch.int32, kernel, f"{name} must be int32, got {t.dtype}")
+        require(t.dtype == torch.int32, kernel, lambda: f"{name} must be int32, got {t.dtype}")
 
 
 def split_scratch(splits: int, out: torch.Tensor):

@@ -43,10 +43,10 @@ _SIGNATURES = {
     ),
     "decode_attention": (
         "decode_attention_launch",
-        # q k v q_pos kv_pos kv_valid out
-        [_P] * 7
-        # B L H KV hd dtype has_window window
-        + [_I] * 8 + [_F, _P],  # scale stream
+        # q k v q_pos kv_pos kv_valid out part_acc part_ml
+        [_P] * 9
+        # B L H KV hd dtype has_window window parts
+        + [_I] * 9 + [_F, _P],  # scale stream
     ),
     "flash_prefill": (
         "flash_attention_launch",
@@ -57,10 +57,10 @@ _SIGNATURES = {
     ),
     "paged_decode": (
         "paged_decode_attention_launch",
-        # q k_pool v_pool block_table q_pos out
-        [_P] * 6
-        # B nb n_blocks block H KV hd dtype has_window window
-        + [_I] * 10 + [_F, _P],  # scale stream
+        # q k_pool v_pool block_table q_pos out part_acc part_ml
+        [_P] * 8
+        # B nb n_blocks block H KV hd dtype has_window window parts
+        + [_I] * 11 + [_F, _P],  # scale stream
     ),
     "chunked_prefill": (
         "chunked_prefill_attention_launch",

@@ -8,8 +8,11 @@ sequence's rows named block by block by its ``block_table`` row.  Validity
 is positional (row ``r`` of table entry ``j`` is position ``j*block + r``),
 so table padding pointing at the dump block 0 masks itself.  The kernel is
 ``csrc/paged_decode.cu`` over the decode body of ``csrc/decode_block.cuh``
-(its header says what bounds it and how its design answers that);
-``paged_decode_attention_plain`` is the same function in plain PyTorch.
+(its header says what bounds it and how its design answers that): it
+splits the positions ``[0, nb * block)`` into the dense decode kernel's
+parts over the same positions, so over the same rows both give the same
+bits.  ``paged_decode_attention_plain`` is the same function in plain
+PyTorch.
 """
 from __future__ import annotations
 
@@ -18,9 +21,18 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels._checks import MAX_HEAD_DIM, cuda_operands, dtype_code, int32, require
+from repro_torch.kernels import decode_attention as dk
+from repro_torch.kernels._checks import (
+    MAX_HEAD_DIM, cuda_operands, dtype_code, int32, require, split_scratch,
+)
 
 NAME = "paged_decode_attention"
+
+
+def part_count(nb: int, block: int) -> int:
+    """The parts the kernel splits a table of ``nb`` entries of ``block``
+    rows into: the dense kernel's over the same ``nb * block`` positions."""
+    return dk.part_count(nb * block)
 
 
 def paged_decode_attention_plain(
@@ -52,16 +64,16 @@ def paged_decode_attention(
     require(q.dim() == 4 and q.shape[1] == 1, NAME, "decode takes one query token per sequence")
     B, _, H, hd = q.shape
     require(k_pool.dim() == 3 and k_pool.shape[2] == hd, NAME,
-            f"k_pool shape {tuple(k_pool.shape)}")
+            lambda: f"k_pool shape {tuple(k_pool.shape)}")
     N_rows, KV = k_pool.shape[0], k_pool.shape[1]
     require(v_pool.shape == k_pool.shape, NAME, "v_pool must have k_pool's shape")
     require(block > 0 and N_rows % block == 0 and N_rows > 0, NAME,
-            f"pool rows {N_rows} not a positive multiple of block {block}")
-    require(KV > 0 and H % KV == 0, NAME, f"H={H} not a multiple of KV={KV}")
-    require(1 <= hd <= MAX_HEAD_DIM, NAME, f"head_dim {hd} not in [1, {MAX_HEAD_DIM}]")
+            lambda: f"pool rows {N_rows} not a positive multiple of block {block}")
+    require(KV > 0 and H % KV == 0, NAME, lambda: f"H={H} not a multiple of KV={KV}")
+    require(1 <= hd <= MAX_HEAD_DIM, NAME, lambda: f"head_dim {hd} not in [1, {MAX_HEAD_DIM}]")
     require(k_pool.dtype == q.dtype and v_pool.dtype == q.dtype, NAME, "q, k, v dtypes differ")
     require(block_table.dim() == 2 and block_table.shape[0] == B and block_table.shape[1] > 0,
-            NAME, f"block_table shape {tuple(block_table.shape)}")
+            NAME, lambda: f"block_table shape {tuple(block_table.shape)}")
     require(q_pos.shape == (B, 1), NAME, "q_pos shape")
     int32(NAME, block_table=block_table, q_pos=q_pos)
     code = dtype_code(NAME, q)
@@ -72,12 +84,16 @@ def paged_decode_attention(
         return out
     nb = block_table.shape[1]
     launch = build.launcher("paged_decode")
+    parts = part_count(nb, block)
+    # scratch holds the parts' partials until the launch is enqueued
+    scratch, part_acc, part_ml = split_scratch(parts, out)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_table.data_ptr(),
-            q_pos.data_ptr(), out.data_ptr(), B, nb, N_rows // block, block, H, KV, hd,
-            code, int(window is not None), int(window or 0), float(hd) ** -0.5, stream,
+            q_pos.data_ptr(), out.data_ptr(), part_acc, part_ml, B, nb, N_rows // block,
+            block, H, KV, hd, code, int(window is not None), int(window or 0), parts,
+            float(hd) ** -0.5, stream,
         )
     build.check(status, NAME)
     paged_decode_attention.launches += 1

@@ -284,6 +284,26 @@ def test_kernel_wrappers_never_fall_back(wrapper):
     assert _launch_counts() == before
 
 
+@pytest.mark.parametrize("nb,block", [(1, 1), (1, 16), (16, 16), (17, 16), (2, 128),
+                                      (3, 128), (32, 128), (10, 96), (257, 1)])
+def test_decode_part_count_depends_on_the_length_alone(nb, block):
+    """Both decode kernels split a sequence's positions at the multiples of
+    PART: over the same positions the dense and paged part counts agree,
+    and they are ceil(length / PART)."""
+    L = nb * block
+    parts = dk.part_count(L)
+    assert pdk.part_count(nb, block) == parts
+    assert (parts - 1) * dk.PART < L <= parts * dk.PART
+    assert pdk.part_count(L, 1) == pdk.part_count(1, L) == parts
+
+
+def test_decode_part_is_the_kernels_constant():
+    """The wrappers size the partials' scratch from ``PART``; the CUDA body
+    splits at its own PART, and the launchers refuse a count off it."""
+    src = (build.CSRC / "decode_block.cuh").read_text()
+    assert f"constexpr int PART = {dk.PART};" in src
+
+
 def test_library_name_tracks_sources():
     """Each kernel builds into its own library whose name carries a hash of
     its sources and flags, under the gitignored build directory."""

@@ -11,7 +11,10 @@ f32 is held at the CPU tests' atol 2e-5 with TF32 off; bf16 at atol 1e-2.
 Every kernel takes any head_dim up to 256: each is also held against its
 plain version at head_dims 16, 80 and 96, which are not buckets of the
 kernels' shared tiles, and the reduced llama-7b (head_dim 16) is served on
-the card against the same engine on the CPU.  The int8 quantiser and
+the card against the same engine on the CPU.  The two decode kernels split
+each sequence's positions into fixed parts of ``PART`` and combine them in
+part order: they are held across part boundaries, the paged kernel against
+the dense one bit for bit, and a second launch against the first.  The int8 quantiser and
 dequantiser are held bit for bit, not at a tolerance.  The SSD scan has
 one rule, the one ``chip_smoke.py`` applies: each f32 output (y in the f32
 runs, the final state in every run) is at most max(5e-5, the plain
@@ -236,24 +239,111 @@ def test_paged_kernel_matches_plain_on_card(cuda, dtype, atol, lens, H, KV, hd, 
     assert torch.equal(got[freed], want[freed])  # a freed slot reads the dump row only
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("window", [None, 70])
-def test_paged_kernel_gives_the_dense_kernels_bits(cuda, window):
-    """Over the same rows the paged and dense decode kernels split the work
-    alike, so the paged kernel gives the dense kernel's output bit for bit."""
-    block, max_len, lens = 32, 512, [300, 1, 511, 96]
-    q, kp, vp, tables, q_pos = _pool(cuda, torch.bfloat16, lens, 4, 8, 128, block, max_len,
-                                     seed=7)
+def _dense_of(cuda, kp, vp, tables, q_pos, block):
+    """The slotted cache holding the pool's rows of each table, row j at
+    position j (rows past a sequence's query at -1), as the engine's dense
+    cache holds them."""
+    B, nb = tables.shape
     rows = (tables.long()[:, :, None] * block
-            + torch.arange(block, device=cuda)[None, None]).reshape(len(lens), max_len)
-    idx = torch.arange(max_len, device=cuda, dtype=torch.int32)[None]
+            + torch.arange(block, device=cuda)[None, None]).reshape(B, nb * block)
+    idx = torch.arange(nb * block, device=cuda, dtype=torch.int32)[None]
     kv_pos = torch.where(idx <= q_pos, idx, -1).to(torch.int32)
-    dense = dk.decode_attention(q, kp[rows].contiguous(), vp[rows].contiguous(), q_pos=q_pos,
-                                kv_pos=kv_pos, window=window)
+    return kp[rows].contiguous(), vp[rows].contiguous(), kv_pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("block,max_len,lens", [
+    (32, 512, [300, 1, 511, 96]),
+    (16, 1024, [257, 0, 1023, 512]),  # kept ranges across four parts, a freed slot
+    (128, 1024, [900, 256, 129, 768]),
+])
+@pytest.mark.parametrize("window", [None, 70])
+def test_paged_kernel_gives_the_dense_kernels_bits(cuda, window, block, max_len, lens, dtype):
+    """Over the same rows the paged and dense decode kernels split the
+    positions into the same parts and run the same code in each, so the
+    paged kernel gives the dense kernel's output bit for bit."""
+    q, kp, vp, tables, q_pos = _pool(cuda, getattr(torch, dtype), lens, 4, 8, 128, block,
+                                     max_len, seed=7)
+    k, v, kv_pos = _dense_of(cuda, kp, vp, tables, q_pos, block)
+    assert dk.part_count(max_len) == pdk.part_count(max_len // block, block)
+    dense = dk.decode_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=window)
     got = pdk.paged_decode_attention(q, kp, vp, block_table=tables, q_pos=q_pos, block=block,
                                      window=window)
     torch.cuda.synchronize()
     assert torch.equal(got, dense)
+
+
+# --------------------------------------------------------------------------- #
+# The decode kernels' split over fixed parts of PART positions
+# --------------------------------------------------------------------------- #
+P = dk.PART
+SPLIT_CASES = [
+    # (live lengths (0 = freed slot), H, KV, hd, block, max_len, window)
+    ([P - 1, P, P + 1, 0], 8, 2, 128, 16, 3 * P, None),  # kept ranges of P-1, P, P+1 rows
+    ([600, 1000], 6, 1, 128, 128, 1024, 300),  # windows that start mid-part, G 6
+    ([700, 130, 1], 48, 1, 128, 96, 960, None),  # G 48; blocks of 96 straddle parts; L % P
+    ([513, 40], 4, 4, 64, 16, 592, 100),  # G 1; L = 592 is no multiple of P
+    ([300, 520], 8, 2, 256, 32, 544, None),  # hd 256
+    ([P + 5, 3 * P + 10], 4, 4, 128, 128, 4 * P, 2 * P),  # a window wider than a part
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [("float32", F32_ATOL), ("bfloat16", BF16_ATOL)])
+@pytest.mark.parametrize("lens,H,KV,hd,block,max_len,window", SPLIT_CASES)
+def test_decode_kernels_split_at_fixed_parts(cuda, dtype, atol, lens, H, KV, hd, block,
+                                             max_len, window):
+    """Across part boundaries both decode kernels hold their plain versions,
+    the paged kernel gives the dense kernel's bits over the same rows, and a
+    second launch gives the first one's bits."""
+    q, kp, vp, tables, q_pos = _pool(cuda, getattr(torch, dtype), lens, KV, H, hd, block,
+                                     max_len, seed=sum(lens) + hd)
+    k, v, kv_pos = _dense_of(cuda, kp, vp, tables, q_pos, block)
+    pkw = dict(block_table=tables, q_pos=q_pos, block=block, window=window)
+    dkw = dict(q_pos=q_pos, kv_pos=kv_pos, window=window)
+    paged = pdk.paged_decode_attention(q, kp, vp, **pkw)
+    dense = dk.decode_attention(q, k, v, **dkw)
+    paged_plain = pdk.paged_decode_attention_plain(q, kp, vp, **pkw)
+    dense_plain = dk.decode_attention_plain(q, k, v, **dkw)
+    again = (pdk.paged_decode_attention(q, kp, vp, **pkw), dk.decode_attention(q, k, v, **dkw))
+    torch.cuda.synchronize()
+    assert (paged.float() - paged_plain.float()).abs().max().item() <= atol
+    assert (dense.float() - dense_plain.float()).abs().max().item() <= atol
+    assert torch.equal(paged, dense)
+    assert torch.equal(again[0], paged) and torch.equal(again[1], dense)
+    freed = [b for b, L in enumerate(lens) if L == 0]
+    assert torch.equal(paged[freed], paged_plain[freed])  # the dump block's row 0 alone
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [("float32", F32_ATOL), ("bfloat16", BF16_ATOL)])
+def test_decode_kernel_parts_with_no_kept_row(cuda, dtype, atol):
+    """A dense slot whose kv_pos is all -1 outputs zeros, and kv_valid holes
+    that cover a whole part (and a part past the query) leave neutral
+    partials that the combine skips."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(23)
+    dt = getattr(torch, dtype)
+    B, L, H, KV, hd = 3, 3 * P + 100, 8, 2, 128
+    q = torch.randn(B, 1, H, hd, generator=g, device=cuda).to(dt)
+    k = torch.randn(B, L, KV, hd, generator=g, device=cuda).to(dt)
+    v = torch.randn(B, L, KV, hd, generator=g, device=cuda).to(dt)
+    q_pos = torch.tensor([[L - 1], [5], [2 * P + 7]], dtype=torch.int32, device=cuda)
+    idx = torch.arange(L, device=cuda, dtype=torch.int32)[None]
+    kv_pos = torch.where(idx <= q_pos, idx, -1).to(torch.int32)
+    kv_pos[1] = -1  # an idle slot: no row written
+    kv_valid = torch.rand(B, L, generator=g, device=cuda) > 0.3
+    kv_valid[0, P:2 * P] = False  # a whole part of holes
+    kv_valid[2, :P] = False
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, kv_valid=kv_valid)
+    got = dk.decode_attention(q, k, v, **kw)
+    want = dk.decode_attention_plain(q, k, v, **kw)
+    again = dk.decode_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert dk.part_count(L) == 4
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    assert not got[1].any() and torch.equal(got, again)
 
 
 @pytest.mark.gpu
@@ -769,20 +859,23 @@ def test_prefill_kernels_take_head_dims_off_the_16_byte_rows(cuda, kernel, hd, d
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [16, 80, 96])
-def test_paged_kernel_gives_the_dense_kernels_bits_at_any_head_dim(cuda, hd):
-    block, max_len, lens = 32, 512, [300, 1, 511, 96]
-    q, kp, vp, tables, q_pos = _pool(cuda, torch.bfloat16, lens, 2, 8, hd, block, max_len,
-                                     seed=hd)
-    rows = (tables.long()[:, :, None] * block
-            + torch.arange(block, device=cuda)[None, None]).reshape(len(lens), max_len)
-    idx = torch.arange(max_len, device=cuda, dtype=torch.int32)[None]
-    kv_pos = torch.where(idx <= q_pos, idx, -1).to(torch.int32)
-    dense = dk.decode_attention(q, kp[rows].contiguous(), vp[rows].contiguous(), q_pos=q_pos,
-                                kv_pos=kv_pos)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("hd", [16, 80, 96, 1, 20, 100])
+def test_paged_kernel_gives_the_dense_kernels_bits_at_any_head_dim(cuda, hd, dtype):
+    """Also for rows that are not 16-byte multiples (hd 1, 20, 100 in bf16),
+    which both kernels copy element by element, across three parts."""
+    block, max_len, lens = 32, 768, [300, 1, 767, 96]
+    q, kp, vp, tables, q_pos = _pool(cuda, getattr(torch, dtype), lens, 2, 8, hd, block,
+                                     max_len, seed=hd)
+    k, v, kv_pos = _dense_of(cuda, kp, vp, tables, q_pos, block)
+    dense = dk.decode_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos)
     got = pdk.paged_decode_attention(q, kp, vp, block_table=tables, q_pos=q_pos, block=block)
+    want = pdk.paged_decode_attention_plain(q, kp, vp, block_table=tables, q_pos=q_pos,
+                                            block=block)
     torch.cuda.synchronize()
     assert torch.equal(got, dense)
+    atol = F32_ATOL if dtype == "float32" else BF16_ATOL
+    assert (got.float() - want.float()).abs().max().item() <= atol
 
 
 # --------------------------------------------------------------------------- #
