@@ -104,13 +104,12 @@ attention kernels run bf16 on the tensor-core tile of
 ``csrc/flash_mma.cuh`` and f32 on the CUDA-core tile of
 ``csrc/flash_tile.cuh``: for each, two launches on the recorded inputs must
 give the same bits (bf16 and f32), and the split S of the kv tiles, the
-tile's and the combine's device time per launch (``torch.profiler``), the
 compiler's registers and spills from the build log and the f32 time beside
 the bf16 one are logged.  Both decode kernels split each sequence's rows into
 fixed parts of 256 positions (``csrc/decode_block.cuh``): two launches on
 the recorded inputs must give the same bits (bf16 and f32), and the part
-count, the kernel's and the combine's device time, the host enqueue time
-and the compiler's registers and spills are logged.
+count, the host enqueue time and the compiler's registers and spills are
+logged.
 Times come from CUDA events after warm-up, beside the plain version's, one
 PyTorch library call's (``scaled_dot_product_attention`` with an explicit
 boolean mask, timed here only; for the paged kernels on rows gathered
@@ -119,7 +118,9 @@ SSD scan's function)
 and the card's bound for the same work.  Last, both decode kernels run at
 granite-34b's heads (48 query heads on one kv head) against their plain
 versions, the paged kernel bit for bit equal to the dense one, two launches
-equal, each kernel's device time logged.
+equal.  Then the device time per call of the tile and combine of each
+prefill kernel and of each decode kernel (``torch.profiler``), profiled after
+every wall and host timing, and the decode wrappers' host enqueue once more.
 
 Any failed check raises, so the script exits non-zero.  The line before the
 last is ``{"kernels": [...]}``; the last is the ``{"ok": true, ...}`` line.
@@ -128,6 +129,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import io
 import json
@@ -615,6 +617,28 @@ def device_ms(fn, kernels: dict, reps: int = 10) -> dict:
     return out
 
 
+# (label, fn, kernels, reps, host): profiled by ``log_device_times``
+DEVICE_RUNS = []
+
+
+def device_ms_later(label, fn, kernels: dict, reps: int = 10, host: bool = False) -> None:
+    """Queue ``fn`` for ``device_ms`` under ``label``; ``host`` also times
+    its host enqueue once more after the profiler sessions."""
+    DEVICE_RUNS.append((label, fn, kernels, reps, host))
+
+
+def log_device_times() -> None:
+    """Device time per call of each queued ``fn``'s kernels, profiled after
+    every wall and host timing of the script, so that none of those is
+    taken after a ``torch.profiler`` session, which may leave the host's
+    launches dearer."""
+    for label, fn, kernels, reps, host in DEVICE_RUNS:
+        d = device_ms(fn, kernels, reps)
+        on_device = ", ".join(f"{k} {v:.4f}" for k, v in d.items()) or "not measured"
+        after = f"; host enqueue ms after profiling={host_ms(fn):.4f}" if host else ""
+        log(f"{label}: device ms per call: {on_device}{after}")
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -791,23 +815,22 @@ def ptxas_notes(lib, kernels) -> str:
 def decode_notes(name, lib, kernel_name, call, qkv, times, parts):
     """Two launches of a decode kernel on the recorded inputs must give the
     same bits, in bf16 and in f32.  Logs the part size P and the launch's
-    part count, the bf16 wall time per call beside its host enqueue time and
-    the device time of the kernel and of its combine (``torch.profiler``),
-    and the compiler's registers and spills (template arguments: dtype,
-    head_dim bucket, heads a block)."""
+    part count, the bf16 wall time per call beside its host enqueue time
+    (both before any profiler session), and the compiler's registers and
+    spills (template arguments: dtype, head_dim bucket, heads a block); the
+    device time of the kernel and of its combine is logged last
+    (``log_device_times``)."""
     for dtype in (torch.float32, torch.bfloat16):
         args = [t.to(dtype) for t in qkv]
         first, second = call(*args), call(*args)
         torch.cuda.synchronize()
         assert torch.equal(first, second), f"{name} {dtype}: two launches differ"
-    device = device_ms(lambda: call(*args), {"kernel": kernel_name, "combine": "combine_kernel"},
-                       reps=20)
-    on_device = ", ".join(f"{k} {v:.4f}" for k, v in device.items()) if device else \
-        "not measured"
+    bf16 = functools.partial(call, *args)
+    device_ms_later(f"{name} bf16", bf16, {"kernel": kernel_name, "combine": "combine_kernel"},
+                    reps=20, host=True)
     log(f"{name}: P={dk.PART} positions a part, {parts} parts; two launches equal bit for "
-        f"bit (bf16 and f32); bf16 wall ms="
-        f"{times[torch.bfloat16]:.4f}, host enqueue ms={host_ms(lambda: call(*args)):.4f}, "
-        f"device ms per call: {on_device}; f32 wall ms={times[torch.float32]:.4f}; "
+        f"bit (bf16 and f32); bf16 wall ms={times[torch.bfloat16]:.4f}, host enqueue ms="
+        f"{host_ms(bf16):.4f}; f32 wall ms={times[torch.float32]:.4f}; "
         f"ptxas: {ptxas_notes(lib, 'paged_decode_kernel|decode_combine_kernel|decode_kernel')}")
 
 
@@ -825,13 +848,11 @@ def mma_tile_notes(name, lib, inputs, kernel, splits, times):
         first, second = kernel(*qkv, **kw), kernel(*qkv, **kw)
         torch.cuda.synchronize()
         assert torch.equal(first, second), f"{name} {dtype}: two launches differ"
-    device = device_ms(lambda: kernel(*qkv, **kw),  # bf16
-                       {"tile": "attn_kernel", "combine": "combine_kernel"})
-    on_device = ", ".join(f"{k} {v:.4f}" for k, v in device.items()) if device else \
-        "not measured"
+    device_ms_later(f"{name} bf16", functools.partial(kernel, *qkv, **kw),
+                    {"tile": "attn_kernel", "combine": "combine_kernel"})
     log(f"{name}: bf16 tile splits the kv tiles into S={splits} parts; two launches equal "
-        f"bit for bit (bf16 and f32); bf16 ms={times[torch.bfloat16]:.4f} (device ms per "
-        f"launch: {on_device}) f32 ms={times[torch.float32]:.4f}; ptxas (attn_kernel: the "
+        f"bit for bit (bf16 and f32); bf16 ms={times[torch.bfloat16]:.4f} "
+        f"f32 ms={times[torch.float32]:.4f}; ptxas (attn_kernel: the "
         f"mma bf16 tile <hd, source, full>; tile_kernel: the cuda-core f32 tile): "
         f"{ptxas_notes(lib, 'attn_kernel|tile_kernel|combine_kernel')}")
 
@@ -933,22 +954,21 @@ def check_wide_group(H=48, KV=1, hd=128, lens=(2050, 1, 2047, 700), block=128,
         paged_err = (pool.float() - pdk.paged_decode_attention_plain(
             q, kp, vp, **kw).float()).abs().max().item()
         torch.cuda.synchronize()
-        dense_fn = lambda: dk.decode_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos)  # noqa: E731
-        paged_fn = lambda: pdk.paged_decode_attention(q, kp, vp, **kw)  # noqa: E731
+        dense_fn = functools.partial(dk.decode_attention, q, k, v, q_pos=q_pos, kv_pos=kv_pos)
+        paged_fn = functools.partial(pdk.paged_decode_attention, q, kp, vp, **kw)
         dense_ms, paged_ms = time_ms(dense_fn, reps=20), time_ms(paged_fn, reps=20)
+        label = f"decode at G {H // KV} {str(dtype)[6:]}"
         keys = {"kernel": "decode_kernel", "combine": "combine_kernel"}
-        dense_dev, paged_dev = (device_ms(fn, keys, reps=20) for fn in (dense_fn, paged_fn))
+        device_ms_later(f"{label} dense", dense_fn, keys, reps=20)
+        device_ms_later(f"{label} paged", paged_fn, keys, reps=20)
         b, by = bound_ms(2 * nbytes(q) + 2 * sum(lens) * KV * hd * q.element_size(),
                          4.0 * hd * H * sum(lens), dtype)
-        dev = {label: ", ".join(f"{n} {t:.4f}" for n, t in d.items()) or "not measured"
-               for label, d in (("dense", dense_dev), ("paged", paged_dev))}
         again = torch.equal(dense, dense_fn()) and torch.equal(pool, paged_fn())
         log(f"decode at H {H}, KV {KV} (G {H // KV}) {str(dtype)[6:]} q{tuple(q.shape)} "
             f"lens {list(lens)}, {pdk.part_count(nb, block)} parts: dense max_err="
-            f"{dense_err:.3e} ms={dense_ms:.4f} (device {dev['dense']}), paged max_err="
-            f"{paged_err:.3e} ms={paged_ms:.4f} (device {dev['paged']}), bound_ms={b:.4f} "
-            f"({by}); paged == dense bit for bit: {torch.equal(pool, dense)}; two launches "
-            f"equal: {again}")
+            f"{dense_err:.3e} ms={dense_ms:.4f}, paged max_err={paged_err:.3e} "
+            f"ms={paged_ms:.4f}, bound_ms={b:.4f} ({by}); paged == dense bit for bit: "
+            f"{torch.equal(pool, dense)}; two launches equal: {again}")
         assert dense_err <= atol and paged_err <= atol, (dtype, dense_err, paged_err)
         assert torch.equal(pool, dense), f"G {H // KV} {dtype}: paged differs from dense"
         assert again, f"G {H // KV} {dtype}: two launches differ"
@@ -1833,6 +1853,7 @@ def main() -> None:
                check_ssd(ssd_inputs, ssd_launches)]
     check_flash(flash_suffix, prefill_counts["flash_attention"], "suffix")
     check_wide_group()
+    log_device_times()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

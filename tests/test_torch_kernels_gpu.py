@@ -859,12 +859,15 @@ def test_prefill_kernels_take_head_dims_off_the_16_byte_rows(cuda, kernel, hd, d
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("max_len,lens", [(512, [300, 1, 511, 96]), (768, [300, 1, 767, 96])],
+                         ids=["two_parts", "three_parts"])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("hd", [16, 80, 96, 1, 20, 100])
-def test_paged_kernel_gives_the_dense_kernels_bits_at_any_head_dim(cuda, hd, dtype):
+def test_paged_kernel_gives_the_dense_kernels_bits_at_any_head_dim(cuda, hd, dtype, max_len,
+                                                                   lens):
     """Also for rows that are not 16-byte multiples (hd 1, 20, 100 in bf16),
-    which both kernels copy element by element, across three parts."""
-    block, max_len, lens = 32, 768, [300, 1, 767, 96]
+    which both kernels copy element by element, over two and three parts."""
+    block = 32
     q, kp, vp, tables, q_pos = _pool(cuda, getattr(torch, dtype), lens, 2, 8, hd, block,
                                      max_len, seed=hd)
     k, v, kv_pos = _dense_of(cuda, kp, vp, tables, q_pos, block)
