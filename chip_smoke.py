@@ -99,7 +99,9 @@ PyTorch version: in bf16 at atol 1e-2, and cast to f32 (TF32 off) at the
 CPU tests' atol 2e-5; ``kv_quant`` and ``kv_dequant`` (on the first leaf
 the compressed serve quantised and the first it dequantised) bit for bit;
 ``ssd_chunked`` on the 2,000-token launch and a 32-token launch after a
-stored state (see ``check_ssd`` for its tolerances).  The four prefill
+stored state (see ``check_ssd`` for its tolerances; two bf16 launches must
+give the same bits, and the host enqueue and the compiler's registers and
+spills of its kernels are logged).  The four prefill
 attention kernels run bf16 on the tensor-core tile of
 ``csrc/flash_mma.cuh`` and f32 on the CUDA-core tile of
 ``csrc/flash_tile.cuh``: for each, two launches on the recorded inputs must
@@ -119,8 +121,9 @@ and the card's bound for the same work.  Last, both decode kernels run at
 granite-34b's heads (48 query heads on one kv head) against their plain
 versions, the paged kernel bit for bit equal to the dense one, two launches
 equal.  Then the device time per call of the tile and combine of each
-prefill kernel and of each decode kernel (``torch.profiler``), profiled after
-every wall and host timing, and the decode wrappers' host enqueue once more.
+prefill kernel, of each decode kernel and of the three bf16 ``ssd_chunked``
+kernels (``torch.profiler``), profiled after every wall and host timing,
+and the decode and SSD wrappers' host enqueue once more.
 
 Any failed check raises, so the script exits non-zero.  The line before the
 last is ``{"kernels": [...]}``; the last is the ``{"ok": true, ...}`` line.
@@ -800,13 +803,14 @@ def ptxas_notes(lib, kernels) -> str:
     (``-Xptxas -v`` in the build log), with its template arguments."""
     notes = []
     for e in build.ptxas_report(lib):
-        m = re.search(rf"({kernels})I(f|13__nv_bfloat16)?((?:L[ib]\d+E)*)", e["function"])
+        m = re.search(rf"({kernels})(?:I(f|13__nv_bfloat16)?((?:L[ib]\d+E)*))?",
+                      e["function"])
         if m is None:
             continue
         kind, elem, ints = m.groups()
         args = [{"f": "f32", "13__nv_bfloat16": "bf16"}[elem]] if elem else []
         args += [{"Lb0": "false", "Lb1": "true"}.get(a[:-1], a[2:-1])
-                 for a in re.findall(r"L[ib]\d+E", ints)]
+                 for a in re.findall(r"L[ib]\d+E", ints or "")]
         notes.append(f"{kind}<{','.join(args)}>: {e.get('registers')} regs, "
                      f"spill {e.get('spill_stores')}/{e.get('spill_loads')} B")
     return "; ".join(notes) or "no build log"
@@ -1023,6 +1027,11 @@ def check_kv_dequant(inputs, launches):
                 library_ms=None)
 
 
+# the bf16 ``ssd_chunked`` kernels, by phase (csrc/ssd_scan.cu)
+SSD_KERNELS = {"chunk states": "chunk_state_kernel", "state pass": "state_pass_kernel",
+               "chunk outputs": "chunk_output_kernel"}
+
+
 def check_ssd(inputs, launches):
     """Hold ``ssd_chunked`` against its plain version on two recorded first-
     layer launches of the SSM serve (``inputs["long"]``, a 2,000-token
@@ -1040,10 +1049,15 @@ def check_ssd(inputs, launches):
     sums of the same bf16 inputs.
 
     The bound counts x, B, C, dt, A and the initial state read once and y
-    and the final state written once, and the operations of the chunked
-    form at the kernel's chunk (64 tokens): per chunk of n tokens the
-    causal half of C·Bᵀ once per group, of the score times X per head, and
-    C·h and the state update per head, at the inputs' peak.  Returns the
+    and the final state written once (the kernel's scratch is not the
+    function's), and the operations of the chunked form at the caller's
+    chunk (the reference's 256), whatever chunk the kernel runs: per chunk
+    of n tokens the causal half of C·Bᵀ once per group, of the score times
+    X per head, and C·h and the state update per head, at the inputs' peak.
+    Two bf16 launches must give the same bits.  Logs the bf16 launch's
+    host enqueue and the compiler's registers and spills of the kernels,
+    and queues the device time of each bf16 kernel (the chunk states, the
+    state pass, the chunk outputs) for ``log_device_times``.  Returns the
     kernel's entry of the ``{"kernels": [...]}`` line, from the bf16
     2,000-token run."""
     entry = None
@@ -1084,11 +1098,21 @@ def check_ssd(inputs, launches):
                                                  initial_state=h0), reps=20)
             plain_ms = time_ms(lambda: ssk.ssd_chunked_plain(xx, dt, A, bb, cc, chunk=chunk,
                                                              initial_state=h0), reps=5)
-            q = min(chunk, 64)
-            ns = [min(q, L - t) for t in range(0, L, q)]
+            ns = [min(chunk, L - t) for t in range(0, L, chunk)]
             tri = sum(n * (n + 1) // 2 for n in ns)
             flops = 2.0 * Bsz * (G * tri * S + H * tri * P + 2 * H * L * P * S)
             b, by = bound_ms(nbytes(xx, dt, A, bb, cc, h0, y, hT), flops, dtype)
+            if dtype == torch.bfloat16:
+                call = functools.partial(ssk.ssd_chunked, xx, dt, A, bb, cc, chunk=chunk,
+                                         initial_state=h0)
+                again = call()
+                torch.cuda.synchronize()
+                assert torch.equal(again[0], y) and torch.equal(again[1], hT), (
+                    f"ssd_chunked {label}: two bf16 launches differ")
+                notes.append(f"two launches equal bit for bit; kernel chunk {ssk.CHUNK}, "
+                             f"{ssk.chunk_count(L)} chunks; host enqueue ms={host_ms(call):.4f}")
+                device_ms_later(f"ssd_chunked {label} bf16", call, SSD_KERNELS, reps=20,
+                                host=True)
             log(f"kernel ssd_chunked {label} {str(dtype)[6:]} x{tuple(x.shape)} G {G} S {S} "
                 f"chunk {chunk} initial state {h0 is not None}: {'; '.join(notes)}; "
                 f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}); no single "
@@ -1099,6 +1123,9 @@ def check_ssd(inputs, launches):
                              replaces="src/repro/kernels/ssd_scan.py:91", launches=launches,
                              max_abs_err=err["y"].max().item(), ms=ms, plain_ms=plain_ms,
                              bound_ms=b, bound_by=by, library_ms=None)
+    log(f"ssd_chunked ptxas (bf16: chunk_state_kernel, state_pass_kernel, "
+        f"chunk_output_kernel; f32: ssd_kernel): "
+        f"{ptxas_notes('ssd_scan', '|'.join(SSD_KERNELS.values()) + '|ssd_kernel')}")
     return entry
 
 

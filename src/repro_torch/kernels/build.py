@@ -80,8 +80,9 @@ _SIGNATURES = {
     "kv_quant": ("kv_quant_launch", [_P] * 3 + [_L] + [_I] * 2 + [_P]),
     # q scale out | rows | hd dtype | stream
     "kv_dequant": ("kv_dequant_launch", [_P] * 3 + [_L] + [_I] * 2 + [_P]),
-    # x dt A B C h0 (or null) y hT | B L H P G S chunk dtype | stream
-    "ssd_scan": ("ssd_chunked_launch", [_P] * 8 + [_I] * 8 + [_P]),
+    # x dt A B C h0 (or null) y hT scratch (bf16; or null) | scratch floats
+    # | B L H P G S chunk n_chunks dtype | stream
+    "ssd_scan": ("ssd_chunked_launch", [_P] * 9 + [_L] + [_I] * 9 + [_P]),
 }
 
 # the other C function of an attention library: the number of parts S the

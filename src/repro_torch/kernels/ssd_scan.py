@@ -5,9 +5,12 @@ The port's counterpart of the Pallas kernel ``ssd_chunked``
 the selective scan in its state-space-dual chunked form, returning ``y
 [B, L, H, P]`` and the final state ``[B, H, P, S]`` (f32).  The kernel is
 ``csrc/ssd_scan.cu`` (its header says what bounds it and how its design
-answers that); ``ssd_chunked_plain`` is the same function in plain PyTorch,
-an op-by-op transcription of the JAX package's ``ops.ssd_chunked_jnp``,
-which is what the JAX engine runs on the CPU.
+answers that): in bf16 three launches over chunks of ``CHUNK`` tokens (the
+chunks' states on the tensor cores, a state pass in chunk order, the
+chunks' outputs on the tensor cores) through a scratch of
+``scratch_floats`` floats.  ``ssd_chunked_plain`` is the same function in
+plain PyTorch, an op-by-op transcription of the JAX package's
+``ops.ssd_chunked_jnp``, which is what the JAX engine runs on the CPU.
 """
 from __future__ import annotations
 
@@ -19,6 +22,22 @@ from repro_torch.kernels import build
 from repro_torch.kernels._checks import dtype_code, require
 
 NAME = "ssd_chunked"
+# tokens of the bf16 kernels' chunk (csrc/ssd_scan.cu's SSD_CHUNK, which the
+# launcher checks against the chunk count it is given)
+CHUNK = 128
+
+
+def chunk_count(L: int, chunk: int = CHUNK) -> int:
+    """The chunks the bf16 kernels split ``L`` tokens into, from token 0."""
+    return max(1, -(-L // chunk))
+
+
+def scratch_floats(Bsz: int, L: int, H: int, P: int, S: int, chunk: int = CHUNK) -> int:
+    """The f32 scratch of a bf16 launch: for every (batch, head) each
+    chunk's state ``[P, S16]`` (replaced in place by the state before the
+    chunk) and its decay; ``S16`` is S rounded up to 16."""
+    s16 = -(-S // 16) * 16
+    return Bsz * H * chunk_count(L, chunk) * (P * s16 + 1)
 
 
 def supported(x, dt, A, B_, C, *, chunk: int = 256) -> bool:
@@ -110,45 +129,61 @@ def ssd_chunked(
     """``ssd_chunked_plain``'s function through the CUDA kernel: x, B, C in
     f32 or bf16 (one type), dt, A and ``initial_state`` in f32, all
     contiguous on one card; any ``H % G == 0``, ``P <= 256``, ``S <= 256``,
-    ``L >= 1``.  The kernel's own chunk is ``min(chunk, 64)`` (exact for any
-    length).  Launches the kernel; raises on anything it does not take
-    (there is no fallback)."""
+    ``L >= 1``.  bf16 runs in chunks of ``CHUNK`` tokens, f32 in chunks of
+    ``min(chunk, 64)``: the chunked form is exact for any chunk length.
+    Launches the kernel; raises on anything it does not take (there is no
+    fallback)."""
+    return _launch(build.launcher("ssd_scan"), CHUNK, x, dt, A, B_, C, chunk, initial_state)
+
+
+def _launch(launch, kernel_chunk, x, dt, A, B_, C, chunk, initial_state):
+    """Check the operands, allocate the outputs and the bf16 scratch for a
+    kernel built with chunk ``kernel_chunk``, and call its C entry point
+    ``launch`` (``ssd_chunked``'s library, or another build of it)."""
     require(x.is_cuda, NAME, "x must be a CUDA tensor")
     require(x.dim() == 4 and dt.dim() == 3 and A.dim() == 1 and B_.dim() == 4, NAME,
-            f"shapes x{tuple(x.shape)} dt{tuple(dt.shape)} A{tuple(A.shape)} "
+            lambda: f"shapes x{tuple(x.shape)} dt{tuple(dt.shape)} A{tuple(A.shape)} "
             f"B{tuple(B_.shape)}")
     Bsz, L, H, P = x.shape
     G, S = B_.shape[2], B_.shape[3]
     require(L >= 1, NAME, "needs at least one token")
-    require(H % G == 0, NAME, f"H={H} is not a multiple of G={G}")
-    require(P <= 256 and S <= 256, NAME, f"P={P} and S={S} must be <= 256")
-    require(chunk >= 1, NAME, f"chunk={chunk} must be >= 1")
+    require(H % G == 0, NAME, lambda: f"H={H} is not a multiple of G={G}")
+    require(P <= 256 and S <= 256, NAME, lambda: f"P={P} and S={S} must be <= 256")
+    require(chunk >= 1, NAME, lambda: f"chunk={chunk} must be >= 1")
     require(tuple(dt.shape) == (Bsz, L, H) and tuple(A.shape) == (H,), NAME,
-            f"dt{tuple(dt.shape)} and A{tuple(A.shape)} do not match x{tuple(x.shape)}")
+            lambda: f"dt{tuple(dt.shape)} and A{tuple(A.shape)} do not match x{tuple(x.shape)}")
     require(tuple(B_.shape) == (Bsz, L, G, S) and C.shape == B_.shape, NAME,
-            f"B{tuple(B_.shape)} and C{tuple(C.shape)} do not match x{tuple(x.shape)}")
+            lambda: f"B{tuple(B_.shape)} and C{tuple(C.shape)} do not match x{tuple(x.shape)}")
     code = dtype_code(NAME, x)
     require(B_.dtype == x.dtype and C.dtype == x.dtype, NAME,
-            f"B and C must be {x.dtype}, got {B_.dtype} and {C.dtype}")
+            lambda: f"B and C must be {x.dtype}, got {B_.dtype} and {C.dtype}")
     require(dt.dtype == torch.float32 and A.dtype == torch.float32, NAME,
-            f"dt and A must be float32, got {dt.dtype} and {A.dtype}")
+            lambda: f"dt and A must be float32, got {dt.dtype} and {A.dtype}")
     ins = {"x": x, "dt": dt, "A": A, "B": B_, "C": C}
     if initial_state is not None:
         require(tuple(initial_state.shape) == (Bsz, H, P, S), NAME,
-                f"initial_state{tuple(initial_state.shape)} is not {(Bsz, H, P, S)}")
+                lambda: f"initial_state{tuple(initial_state.shape)} is not {(Bsz, H, P, S)}")
         require(initial_state.dtype == torch.float32, NAME, "initial_state must be float32")
         ins["initial_state"] = initial_state
     for name, t in ins.items():
-        require(t.device == x.device, NAME, f"{name} is on {t.device}, expected {x.device}")
-        require(t.is_contiguous(), NAME, f"{name} must be contiguous")
+        require(t.device == x.device, NAME, lambda: f"{name} is on {t.device}, expected {x.device}")
+        require(t.is_contiguous(), NAME, lambda: f"{name} must be contiguous")
     y = torch.empty_like(x)
     hT = torch.empty((Bsz, H, P, S), dtype=torch.float32, device=x.device)
-    launch = build.launcher("ssd_scan")
+    scratch, floats, n_chunks = None, 0, 0
+    if x.dtype == torch.bfloat16:
+        # held until the launch is enqueued; the caching allocator then
+        # reuses its memory only in stream order
+        n_chunks = chunk_count(L, kernel_chunk)
+        floats = scratch_floats(Bsz, L, H, P, S, kernel_chunk)
+        scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
     h0 = initial_state.data_ptr() if initial_state is not None else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         status = launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(), C.data_ptr(),
-                        h0, y.data_ptr(), hT.data_ptr(), Bsz, L, H, P, G, S, chunk, code, stream)
+                        h0, y.data_ptr(), hT.data_ptr(),
+                        None if scratch is None else scratch.data_ptr(), floats, Bsz, L, H, P,
+                        G, S, chunk, n_chunks, code, stream)
     build.check(status, NAME)
     ssd_chunked.launches += 1
     return y, hT

@@ -24,6 +24,7 @@ from repro_torch.kernels import decode_attention as dk  # noqa: E402
 from repro_torch.kernels import flash_prefill as fk  # noqa: E402
 from repro_torch.kernels import packed_prefill as pk  # noqa: E402
 from repro_torch.kernels import paged_decode as pdk  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssk  # noqa: E402
 
 torch.set_num_threads(1)
 ATOL = 2e-5
@@ -302,6 +303,29 @@ def test_decode_part_is_the_kernels_constant():
     splits at its own PART, and the launchers refuse a count off it."""
     src = (build.CSRC / "decode_block.cuh").read_text()
     assert f"constexpr int PART = {dk.PART};" in src
+
+
+@pytest.mark.parametrize("L", [1, 255, 256, 257, 513, 2000, 4096])
+@pytest.mark.parametrize("B,H,P,S", [(1, 64, 64, 128), (2, 6, 5, 7)])
+def test_ssd_scratch_depends_on_the_shapes_alone(L, B, H, P, S):
+    """The bf16 SSD kernels split L tokens into chunks of CHUNK from token
+    0, and the wrapper's scratch holds each chunk's f32 state [P, S rounded
+    up to 16] and its decay for every (batch, head): both follow from the
+    shapes alone, never from the data or the caller's chunk."""
+    n = ssk.chunk_count(L)
+    assert (n - 1) * ssk.CHUNK < L <= n * ssk.CHUNK
+    s16 = -(-S // 16) * 16
+    assert s16 % 16 == 0 and S <= s16 < S + 16
+    assert ssk.scratch_floats(B, L, H, P, S) == B * H * n * (P * s16 + 1)
+    assert ssk.chunk_count(L, 64) == -(-L // 64)
+    assert ssk.scratch_floats(B, L, H, P, S, 64) == B * H * ssk.chunk_count(L, 64) * (P * s16 + 1)
+
+
+def test_ssd_chunk_is_the_kernels_constant():
+    """The wrapper sizes the scratch from CHUNK; the kernels split at their
+    own SSD_CHUNK, and the launcher refuses a chunk count off it."""
+    src = (build.CSRC / "ssd_scan.cu").read_text()
+    assert f"#define SSD_CHUNK {ssk.CHUNK}\n" in src
 
 
 def test_library_name_tracks_sources():

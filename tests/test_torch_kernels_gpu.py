@@ -1050,6 +1050,16 @@ SSD_CASES = [
     (1, 300, 4, 96, 2, 200, 64, False),
     (1, 2000, 64, 64, 1, 128, 256, False),
     (1, 2000, 8, 64, 2, 128, 256, True),
+    # the bf16 kernels' chunk edges (Q - 1, Q, Q + 1, 2Q + 1), from a zero
+    # state and from a stored one
+    *[(1, L, 4, 64, 1, 128, 256, with_h0)
+      for L in (ssk.CHUNK - 1, ssk.CHUNK, ssk.CHUNK + 1, 2 * ssk.CHUNK + 1)
+      for with_h0 in (False, True)],
+    # one token after a stored state (a decode-sized suffix)
+    (1, 1, 8, 64, 1, 128, 256, True),
+    # several heads per group share C·Bᵀ; odd widths past a 64-column P tile
+    (2, 300, 12, 80, 3, 48, 256, True),
+    (1, 130, 6, 40, 2, 24, 64, False),
 ]
 
 
@@ -1093,6 +1103,34 @@ def test_ssd_kernel_matches_plain_on_card(cuda, dtype, B, L, H, P, G, S, chunk, 
         k64 = (got.double() - want).abs().max().item()
         p64 = (plain.double() - want).abs().max().item()
         assert k64 <= max(SSD_ATOL, p64), (k64, p64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_two_launches_give_the_same_bits(cuda, dtype):
+    """At the mamba2-1.3b serve's shape (a 2,000-token launch after a
+    stored state): the chunks are fixed from token 0 and no sum takes
+    atomics, so a rebuilt load sees the bits of the first."""
+    x, dts, A, Bm, Cm, h0 = _ssd_inputs(cuda, getattr(torch, dtype), 1, 2000, 64, 64, 1, 128,
+                                        True, seed=11)
+    first = ssk.ssd_chunked(x, dts, A, Bm, Cm, chunk=256, initial_state=h0)
+    second = ssk.ssd_chunked(x, dts, A, Bm, Cm, chunk=256, initial_state=h0)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.gpu
+def test_ssd_bf16_final_state_is_held_to_the_f64_scan(cuda):
+    """The bf16 launch's final state at the serve's shape, from a stored
+    state, lies within 5e-5 of the f64 scan of the same inputs (the
+    products' f32 operands enter the tensor cores in three bf16 parts)."""
+    x, dts, A, Bm, Cm, h0 = _ssd_inputs(cuda, torch.bfloat16, 1, 2000, 64, 64, 1, 128, True,
+                                        seed=12)
+    _, hT = ssk.ssd_chunked(x, dts, A, Bm, Cm, chunk=256, initial_state=h0)
+    exact = ref.ssd_scan_ref(*(t.double() for t in (x, dts, A, Bm, Cm)),
+                             initial_state=h0.double())
+    torch.cuda.synchronize()
+    assert (hT.double() - exact[1]).abs().max().item() <= SSD_ATOL
 
 
 @pytest.mark.gpu
