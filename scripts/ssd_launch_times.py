@@ -1,97 +1,66 @@
-"""Time one checkout's ``ssd_chunked`` at the mamba2-1.3b serve's shapes.
+"""Time this checkout's ``ssd_chunked`` at the mamba2-1.3b serve's shapes.
 
-Imports ``repro_torch`` from ``--src`` (default: this checkout's ``src/``),
-builds its ``ssd_scan`` library into that checkout's build directory, and
-for the bf16 2,000-token launch from a zero state and the 32-token launch
-after a stored state (B 1, H 64, P 64, S 128, G 1, chunk 256; inputs drawn
-from a seed as ``tests/test_torch_kernels_gpu.py`` draws them) prints the
-wall time per launch (CUDA events over back-to-back launches), the host
-enqueue per launch (host clock with the card idle), and then the device
-time per launch of every kernel the launch ran (``torch.profiler``, after
-all wall and host timings).  Run it once per checkout inside one call to
-compare two trees on one card:
+For the bf16 2,000-token launch from a zero state and the 32-token launch
+after a stored state (B 1, H 64, P 64, S 128, G 1, chunk 256; inputs from
+``tests/test_torch_kernels_gpu.py``'s seeded helper) prints the wall time
+per launch, the host enqueue per launch and then the device time per launch
+of every kernel the launch ran, profiled after all wall and host timings,
+with ``chip_smoke.py``'s timing helpers; and the compiler's registers and
+spills of the library's kernels.  Run it from the root of a checkout:
 
-    python3 scripts/ssd_launch_times.py [--src DIR] [--reps 20]
+    python3 scripts/ssd_launch_times.py [--reps 20]
+
+To compare two trees on one card, copy the script into the other tree's
+``scripts/`` and run both in one call.
 """
 from __future__ import annotations
 
 import argparse
 import pathlib
-import re
 import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
+
+import torch  # noqa: E402
+
+import chip_smoke as smoke  # noqa: E402  (exits without a card)
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssk  # noqa: E402
+from test_torch_kernels_gpu import _ssd_inputs  # noqa: E402
+
+KERNELS = {k: k for k in ("chunk_state_kernel", "state_pass_kernel", "chunk_output_kernel",
+                          "ssd_kernel")}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--src", default=str(pathlib.Path(__file__).resolve().parents[1] / "src"))
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
-    sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
-    from repro_torch.kernels import build
-    from repro_torch.kernels import ssd_scan as ssk
-
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     t0 = time.perf_counter()
     build.build_all(["ssd_scan"])
     print(f"{smi}; {ssk.__file__}; built in {time.perf_counter() - t0:.1f} s", flush=True)
-
-    def inputs(L, with_h0, seed, H=64, P=64, G=1, S=128):
-        rng = np.random.default_rng(seed)
-
-        def t(a, dtype=torch.bfloat16):
-            return torch.from_numpy(a.astype(np.float32)).to(device="cuda", dtype=dtype)
-
-        x = t(rng.standard_normal((1, L, H, P)))
-        dt = t(np.abs(rng.standard_normal((1, L, H))) * 0.1, torch.float32)
-        A = t(-np.abs(rng.standard_normal(H)) - 0.1, torch.float32)
-        Bm, Cm = t(rng.standard_normal((1, L, G, S))), t(rng.standard_normal((1, L, G, S)))
-        h0 = t(rng.standard_normal((1, H, P, S)) * 0.1, torch.float32) if with_h0 else None
-        return x, dt, A, Bm, Cm, h0
-
     calls = {}
     for label, L, with_h0, seed in (("long", 2000, False, 1), ("short", 32, True, 2)):
-        x, dt, A, Bm, Cm, h0 = inputs(L, with_h0, seed)
+        x, dt, A, Bm, Cm, h0 = _ssd_inputs("cuda", torch.bfloat16, 1, L, 64, 64, 1, 128,
+                                           with_h0, seed)
         calls[label] = (lambda x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, h0=h0:
                         ssk.ssd_chunked(x, dt, A, Bm, Cm, chunk=256, initial_state=h0))
     for label, fn in calls.items():
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(args.reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        wall = start.elapsed_time(end) / args.reps
-        t0 = time.perf_counter()
-        for _ in range(args.reps):
-            fn()
-        host = 1e3 * (time.perf_counter() - t0) / args.reps
-        torch.cuda.synchronize()
+        wall = smoke.time_ms(fn, args.reps)
+        host = smoke.host_ms(fn, args.reps)
         print(f"ssd_chunked {label} bf16: wall ms per launch {wall:.4f}; host enqueue ms "
               f"{host:.4f}", flush=True)
     for label, fn in calls.items():
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(args.reps):
-                fn()
-            torch.cuda.synchronize()
-        parts = []
-        for e in prof.key_averages():
-            t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-            name = re.search(r"\w*kernel\w*", e.key)
-            if t and name:
-                parts.append((name.group(0), t / args.reps / 1e3))
-        total = sum(v for _, v in parts)
+        parts = smoke.device_ms(fn, KERNELS, args.reps)
         print(f"ssd_chunked {label} bf16: device ms per launch "
-              f"{', '.join(f'{k} {v:.4f}' for k, v in parts) or 'not measured'}; sum {total:.4f}",
-              flush=True)
+              f"{', '.join(f'{k} {v:.4f}' for k, v in parts.items()) or 'not measured'}; "
+              f"sum {sum(parts.values()):.4f}", flush=True)
+    print(f"ssd_scan ptxas: {smoke.ptxas_notes('ssd_scan', '|'.join(KERNELS))}", flush=True)
 
 
 if __name__ == "__main__":

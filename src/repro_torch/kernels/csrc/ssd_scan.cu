@@ -47,10 +47,10 @@
 //     One stage (~45 KB at S 128) and ~116 registers: four blocks an SM,
 //     which overlap one block's tile loads with another's products.
 //
-// CHUNK trades the scratch's four passes (chunks x H x P x S16 x 4 bytes
-// each) against the quadratic work and the tile loads of step 3, which grow
-// with it; scripts/ssd_chunk_probe.py times 64, 128 and 256 (PERF.md has the
-// choice and its numbers).
+// CHUNK (128) trades the scratch's four passes (chunks x H x P x S16 x 4
+// bytes each) against the quadratic work and the tile loads of step 3, which
+// grow with it; PERF.md has the card's times of 64, 128 and 256 behind the
+// choice.
 //
 // Why three parts: the products' f32 operands (X ⊙ w, M, h_in) go into the
 // tensor cores as three bf16 parts, hi = bf16(v), mid = bf16(v - hi) and lo
@@ -80,13 +80,6 @@
 #include <cstdint>
 
 #include "common.cuh"
-
-// The bf16 kernels' chunk in tokens: the wrapper's CHUNK, which the launcher
-// checks.  scripts/ssd_chunk_probe.py builds the other choices with
-// -DSSD_CHUNK to time them against it.
-#ifndef SSD_CHUNK
-#define SSD_CHUNK 128
-#endif
 
 namespace repro_torch {
 namespace ssd {
@@ -334,8 +327,9 @@ int launch_f32(const float* x, const float* dt, const float* A, const float* Bm,
 
 using bf16 = __nv_bfloat16;
 
-constexpr int CHUNK = SSD_CHUNK;
-static_assert(CHUNK == 64 || CHUNK == 128 || CHUNK == 256, "CHUNK is 64, 128 or 256");
+// tokens of a chunk: the wrapper's CHUNK, which the launcher checks through
+// the chunk count and the scratch size it is given
+constexpr int CHUNK = 128;
 constexpr int ROWS = 64;  // tokens of a tile (16 a warp in chunk_output_kernel)
 constexpr int PW = 64;    // columns of P a block owns
 constexpr int SW = 128;   // columns of S a chunk_state_kernel block owns
@@ -806,9 +800,9 @@ int launch_bf16(const Args& a, int Bsz, cudaStream_t stream) {
 
 // h0 may be null (a zero initial state).  chunk is the reference's chunk
 // length: the f32 body's chunk is min(chunk, 64).  bf16 runs in chunks of
-// SSD_CHUNK tokens whatever `chunk` is, and needs the wrapper's scratch of
+// ssd::CHUNK tokens whatever `chunk` is, and needs the wrapper's scratch of
 // scratch_floats floats, B x H x n_chunks x (P S16 + 1) with n_chunks =
-// ceil(L / SSD_CHUNK); a launch whose counts differ is refused.
+// ceil(L / ssd::CHUNK); a launch whose counts differ is refused.
 extern "C" int ssd_chunked_launch(const void* x, const void* dt, const void* A, const void* Bm,
                                   const void* Cm, const void* h0, void* y, void* hT,
                                   void* scratch, long long scratch_floats, int Bsz, int L, int H,

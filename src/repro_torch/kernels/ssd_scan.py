@@ -22,22 +22,22 @@ from repro_torch.kernels import build
 from repro_torch.kernels._checks import dtype_code, require
 
 NAME = "ssd_chunked"
-# tokens of the bf16 kernels' chunk (csrc/ssd_scan.cu's SSD_CHUNK, which the
+# tokens of the bf16 kernels' chunk (csrc/ssd_scan.cu's ssd::CHUNK, which the
 # launcher checks against the chunk count it is given)
 CHUNK = 128
 
 
-def chunk_count(L: int, chunk: int = CHUNK) -> int:
+def chunk_count(L: int) -> int:
     """The chunks the bf16 kernels split ``L`` tokens into, from token 0."""
-    return max(1, -(-L // chunk))
+    return max(1, -(-L // CHUNK))
 
 
-def scratch_floats(Bsz: int, L: int, H: int, P: int, S: int, chunk: int = CHUNK) -> int:
+def scratch_floats(Bsz: int, L: int, H: int, P: int, S: int) -> int:
     """The f32 scratch of a bf16 launch: for every (batch, head) each
     chunk's state ``[P, S16]`` (replaced in place by the state before the
     chunk) and its decay; ``S16`` is S rounded up to 16."""
     s16 = -(-S // 16) * 16
-    return Bsz * H * chunk_count(L, chunk) * (P * s16 + 1)
+    return Bsz * H * chunk_count(L) * (P * s16 + 1)
 
 
 def supported(x, dt, A, B_, C, *, chunk: int = 256) -> bool:
@@ -133,13 +133,6 @@ def ssd_chunked(
     ``min(chunk, 64)``: the chunked form is exact for any chunk length.
     Launches the kernel; raises on anything it does not take (there is no
     fallback)."""
-    return _launch(build.launcher("ssd_scan"), CHUNK, x, dt, A, B_, C, chunk, initial_state)
-
-
-def _launch(launch, kernel_chunk, x, dt, A, B_, C, chunk, initial_state):
-    """Check the operands, allocate the outputs and the bf16 scratch for a
-    kernel built with chunk ``kernel_chunk``, and call its C entry point
-    ``launch`` (``ssd_chunked``'s library, or another build of it)."""
     require(x.is_cuda, NAME, "x must be a CUDA tensor")
     require(x.dim() == 4 and dt.dim() == 3 and A.dim() == 1 and B_.dim() == 4, NAME,
             lambda: f"shapes x{tuple(x.shape)} dt{tuple(dt.shape)} A{tuple(A.shape)} "
@@ -174,9 +167,10 @@ def _launch(launch, kernel_chunk, x, dt, A, B_, C, chunk, initial_state):
     if x.dtype == torch.bfloat16:
         # held until the launch is enqueued; the caching allocator then
         # reuses its memory only in stream order
-        n_chunks = chunk_count(L, kernel_chunk)
-        floats = scratch_floats(Bsz, L, H, P, S, kernel_chunk)
+        n_chunks = chunk_count(L)
+        floats = scratch_floats(Bsz, L, H, P, S)
         scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
+    launch = build.launcher("ssd_scan")
     h0 = initial_state.data_ptr() if initial_state is not None else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

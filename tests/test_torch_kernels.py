@@ -317,15 +317,13 @@ def test_ssd_scratch_depends_on_the_shapes_alone(L, B, H, P, S):
     s16 = -(-S // 16) * 16
     assert s16 % 16 == 0 and S <= s16 < S + 16
     assert ssk.scratch_floats(B, L, H, P, S) == B * H * n * (P * s16 + 1)
-    assert ssk.chunk_count(L, 64) == -(-L // 64)
-    assert ssk.scratch_floats(B, L, H, P, S, 64) == B * H * ssk.chunk_count(L, 64) * (P * s16 + 1)
 
 
 def test_ssd_chunk_is_the_kernels_constant():
     """The wrapper sizes the scratch from CHUNK; the kernels split at their
-    own SSD_CHUNK, and the launcher refuses a chunk count off it."""
+    own ssd::CHUNK, and the launcher refuses a chunk count off it."""
     src = (build.CSRC / "ssd_scan.cu").read_text()
-    assert f"#define SSD_CHUNK {ssk.CHUNK}\n" in src
+    assert f"constexpr int CHUNK = {ssk.CHUNK};" in src
 
 
 def test_library_name_tracks_sources():
