@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's nine CUDA kernels from ``src/repro_torch/kernels/csrc``
-with nvcc (one nvcc per source, all started together), then drives eight
+with nvcc (one nvcc per source, all started together), then drives nine
 paths of the port, each with every launch counter zeroed just before it and
 read just after it:
 
@@ -69,11 +69,37 @@ read just after it:
    loads rebuilt as one packed launch over the stored int8 rows give the
    served logits, and the control, the same rebuild with every scale
    doubled, lands outside ``COMPRESSED_LOGIT_ATOL``.
-7. the serving launcher — ``repro_torch.launch.serve`` with ``--requests 8
+7. fault and latency-hiding phase — the prefix mix again on the full
+   llama, under faults, then under the latency-hiding options.  A faulted
+   serve with dense decode (``FaultInjector(seed=7,
+   fail_rate=0.4, corrupt_rate=0.2)``, ``RetryPolicy(max_attempts=2,
+   cost_aware=False)``, a brownout of the write-back tier over the last
+   wave): some fetch attempts fail; the drained stream's ``FetchFailed`` and
+   ``DegradedToRecompute`` events count what ``fault_stats()`` counts; every
+   degraded request is recorded as a recompute; the last wave plans
+   recomputes and attempts no fetch; every request's first-token logits lie
+   within ``LOGIT_ATOL`` of the fault-free dense serve's.  A latency-hiding
+   serve (``overlap_load=True``, ``hedge=HedgePolicy(threshold_s=0.1)``,
+   ``prefetch_lookahead=4``, ``migration_interval_s=0.5``): the dense
+   serve's tokens where both loaded from the same batch, each
+   ``KVLoaded.load_s`` equal to ``max(0, delay - prefill_s)`` of its
+   admission, at least one admission whose store read the hedge cut and
+   whose ``KVLoaded`` delay before the overlap lies below the unhedged
+   read, at least one ``TierMigrated``, and a modelled mean TTFT below
+   the dense serve's.  The same options once more under
+   ``paged_decode=True, unified_step=True`` (the chunked kernel; the
+   unified intake charges the whole fetch, as in the reference), held to
+   the unified serve the same way; and once more with dense decode and
+   ``admit_batch=1``, where each wave's second request waits a step, so its
+   fetch is prefetched and its trie walk carried to its admission.  Each
+   serve's step wall times on the
+   card are logged beside the modelled ones.  Then one Fig. 2(a) row from
+   the port's simulator (host code), printed, not gated.
+8. the serving launcher — ``repro_torch.launch.serve`` with ``--requests 8
    --contexts 2 --policy always --compress --json`` (reduced compute,
    full-size economics) on the card: int8 launches and at least four reuse
-   hits.
-8. SSM serve phase — after the llama engines and weights are freed,
+   hits; then with ``--overlap --hedge``.
+9. SSM serve phase — after the llama engines and weights are freed,
    full-width, full-depth mamba2-1.3b in bf16 (random weights from a seeded
    generator) serves the prefix mix behind the same ``ServingEngine``
    settings, H100 ``PerfModel`` and prices and ``CostAwarePlanner``.  It
@@ -153,6 +179,9 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import simulator  # noqa: E402
+from repro_torch.core.perf_model import V100_X4_HF, PerfModel  # noqa: E402
+from repro_torch.core.pricing import AWS_PAPER  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import chunked_prefill as cpk  # noqa: E402
 from repro_torch.kernels import decode_attention as dk  # noqa: E402
@@ -164,6 +193,7 @@ from repro_torch.kernels import paged_decode as pdk  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssk  # noqa: E402
 from repro_torch.kvcache import compression, fusion, paged  # noqa: E402
+from repro_torch.kvcache.faults import FaultInjector, RetryPolicy  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
@@ -175,6 +205,7 @@ from repro_torch.serving import (  # noqa: E402
     ServingEngine,
 )
 from repro_torch.serving import events as ev  # noqa: E402
+from repro_torch.serving.scheduler import HedgePolicy  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its operations over the peak
@@ -222,6 +253,14 @@ SSM_REBUILD_ATOL = 1e-5
 SSD_ATOL = 5e-5
 SEED = 0
 DEVICE = "cuda"
+# the fault and latency-hiding phase's options (the reference's fault test's
+# injector and retry policy; a migration pass every half modelled second,
+# so passes fall inside the one-second gaps between waves)
+FAULTS = dict(seed=7, fail_rate=0.4, corrupt_rate=0.2)
+MIGRATION_INTERVAL_S = 0.5
+# hedged reads: a threshold below this phase's modelled io2 reads (about a
+# quarter second each; the default 0.5 s would leave every read as it is)
+HEDGE_THRESHOLD_S = 0.1
 
 SERVE = dict(max_slots=4, max_len=4096)
 CTX_LEN, PROMPT_LEN, NEW_TOKENS = 2000, 32, 16
@@ -327,7 +366,7 @@ class Recorder:
         self.dequant_inputs = None  # the first (q, scale, dtype) it dequantised
         self.ssd_inputs = {}  # first layer: the first long launch, the first short one
         self.prefill_calls = 0  # ModelApi.prefill calls (per-request admissions)
-        self.loaded = []  # every KVLoaded event of the serve
+        self.events = []  # every event of the serve, in order
         self.spent = {}
         self._calls = {"packed": 0, "decode": 0, "chunked": 0, "fused": 0, "ssd": 0}
         self._patched = [
@@ -487,18 +526,27 @@ class Recorder:
         return logits, state
 
 
-def serve(cfg, params, *, reuse: bool = True, planner=None, make_traffic=traffic, **ec_kw):
+def of_type(events, cls, req_ids=None):
+    """The events of type ``cls`` (of the requests ``req_ids``), in order."""
+    return [e for e in events if isinstance(e, cls) and (req_ids is None or e.req_id in req_ids)]
+
+
+def serve(cfg, params, *, reuse: bool = True, planner=None, make_traffic=traffic,
+          setup=None, **ec_kw):
     """Serve the traffic once; returns (engine, records by id, recorder,
     per-step rows (kind, wall_s, modelled load_s, modelled step s, q_len or
     decode rows or tokens prefilled, kv_len or chunk tokens or the plan of a
     per-request admission, wall s by part), write-back count).
     The recorder keeps, per request, the logits each of its tokens was
     taken from (``req_logits``, ``first_logits``) and the wall-clock instant
-    of each token (``token_wall``, seconds from the first step)."""
+    of each token (``token_wall``, seconds from the first step).  ``setup``,
+    if given, is called with the engine before the traffic is submitted."""
     eng = ServingEngine(
         cfg, params, engine_cfg=EngineConfig(reuse_enabled=reuse, **SERVE, **ec_kw),
         planner=planner or CostAwarePlanner(), device=DEVICE,
     )
+    if setup is not None:
+        setup(eng)
     for r in make_traffic(cfg.vocab):
         eng.submit(Request(**r))
     rec = Recorder(eng, cfg.n_layers)
@@ -516,7 +564,7 @@ def serve(cfg, params, *, reuse: bool = True, planner=None, make_traffic=traffic
             wall = time.perf_counter() - t0
             modelled = eng.admission_busy_s + eng.decode_busy_s - busy0
             writebacks += sum(isinstance(e, ev.StoreWriteBack) for e in events)
-            rec.loaded += [e for e in events if isinstance(e, ev.KVLoaded)]
+            rec.events += events
             slot_of.update((e.req_id, e.slot) for e in events
                            if isinstance(e, ev.RequestAdmitted))
             batch = [e for e in events if isinstance(e, ev.BatchAdmitted)]
@@ -570,6 +618,11 @@ def serve(cfg, params, *, reuse: bool = True, planner=None, make_traffic=traffic
             elif any(isinstance(e, ev.RequestAdmitted) for e in events):
                 # a unified intake with no chunk ready yet: plan, fetch, land
                 steps.append(("intake", wall, 0.0, 0.0, 0, 0, dict(rec.spent)))
+            elif any(isinstance(e, ev.TierMigrated) for e in events):
+                # an idle clock jump that ran migration passes on its way
+                steps.append(("migrate", wall, 0.0, 0.0,
+                              sum(isinstance(e, ev.TierMigrated) for e in events), 0,
+                              dict(rec.spent)))
             rec.spent.clear()
     finally:
         rec.close()
@@ -1146,6 +1199,9 @@ def log_steps(label, steps):
                 f"| wall ms by part: {parts}")
         elif kind == "intake":
             log(f"{label} step intake (no launch): wall_ms={1e3 * wall:.2f} | {parts}")
+        elif kind == "migrate":
+            log(f"{label} step idle clock jump with {q_len} migrations: "
+                f"wall_ms={1e3 * wall:.2f} | {parts}")
         elif kind == "mixed":
             log(f"{label} step mixed decode_rows={q_len} chunk_tokens={kv_len}: "
                 f"wall_ms={1e3 * wall:.2f} t_step_unified_ms={1e3 * modelled:.3f} | {parts}")
@@ -1444,7 +1500,8 @@ def compressed_phase(cfg, params, ref):
         zero_counts()
         eng, recs, rec, steps, writebacks = serve(cfg, params, compress_tier="io2", **ec)
         c = counts()
-        io2_loads = [e for e in rec.loaded if e.tier == "io2"]
+        loaded = of_type(rec.events, ev.KVLoaded)
+        io2_loads = [e for e in loaded if e.tier == "io2"]
         log(f"{label} serve launches: {c} (write-backs {writebacks}, fetches from io2 "
             f"{len(io2_loads)})")
         log_steps(label, steps)
@@ -1456,7 +1513,7 @@ def compressed_phase(cfg, params, ref):
                 assert cactions[i][0] == "load", (label, i, cactions[i], actions[i])
         assert c["kv_quant"] == 2 * writebacks > 0, (c, writebacks)
         assert c["kv_dequant"] == 2 * len(io2_loads) > 0, (c, len(io2_loads))
-        assert len(io2_loads) == len(rec.loaded), "a load came from another tier"
+        assert len(io2_loads) == len(loaded), "a load came from another tier"
         for name in ("packed_flash_attention", "decode_attention", "chunked_prefill_attention"):
             assert c[name] == ref_counts[name], (label, name, c[name], ref_counts[name])
         # a cheaper fetch makes a unified stream ready sooner, so fewer steps
@@ -1550,6 +1607,175 @@ def compressed_checks(cfg, params, out, artifact_a, tokens_a):
     release()
 
 
+def faulted_serve(cfg, params, ref_first, card):
+    """The prefix mix under seeded fault injection, with the write-back tier
+    browned out from the last wave's arrival on."""
+    reqs = traffic(cfg.vocab)
+    t_last = max(r["arrival_s"] for r in reqs)
+    last = {r["req_id"] for r in reqs if r["arrival_s"] == t_last}
+    inj = FaultInjector(**FAULTS)
+    inj.add_brownout("io2", t_last, float("inf"))  # io2: the default write-back tier
+    zero_counts()
+    eng, recs, rec, steps, _ = serve(
+        cfg, params, faults=inj, retry_policy=RetryPolicy(max_attempts=2, cost_aware=False))
+    c = counts()
+    fs, events = eng.fault_stats(), rec.events
+    actions = {i: (r.action, r.matched_tokens, r.degraded) for i, r in sorted(recs.items())}
+    log(f"faulted serve launches: {c}")
+    log(f"faulted serve actions (action, matched tokens, degraded): {actions}")
+    log(f"faulted serve fault_stats: {json.dumps(fs)}")
+    log(f"faulted serve steps, card wall beside modelled ({card}):")
+    log_steps("faulted", steps)
+    assert len(recs) == 8 and all(len(r.tokens) == NEW_TOKENS for r in recs.values())
+    assert c["packed_flash_attention"] > 0 and c["decode_attention"] > 0, c
+    assert fs["fetch_failures"] > 0, fs
+    assert len(of_type(events, ev.FetchFailed)) == fs["fetch_failures"], fs
+    degraded = of_type(events, ev.DegradedToRecompute)
+    assert len(degraded) == fs["degraded_requests"], fs
+    assert {e.req_id for e in degraded} == {i for i, r in recs.items() if r.degraded}
+    assert all(r.action == "recompute" for r in recs.values() if r.degraded), actions
+    # the last wave plans around the browned-out tier: no fetch is attempted
+    plans = {e.req_id: e.plan.action for e in of_type(events, ev.PlanChosen, last)}
+    assert set(plans.values()) == {"recompute"}, plans
+    assert all(recs[i].action == "recompute" for i in last), actions
+    for cls in (ev.FetchFailed, ev.FetchRetried, ev.KVLoaded):
+        assert not of_type(events, cls, last), cls.__name__
+    assert fs["injector"]["brownout_rejections"] > 0, fs
+    reading = 0.0
+    for i in sorted(recs):
+        diff = (rec.first_logits[i] - ref_first[i]).abs().max().item()
+        reading = max(reading, diff)
+        log(f"faulted request {i} ({recs[i].action}{', degraded' if recs[i].degraded else ''}): "
+            f"first-token logits max|faulted - fault-free| = {diff:.4f}")
+    assert reading <= LOGIT_ATOL, reading
+    del eng, rec
+    release()
+
+
+def hiding_serve(cfg, params, label, ref, card, **ec_kw):
+    """The prefix mix under overlapped, hedged loads, lookahead prefetch and
+    clock-driven migrations, held to ``ref`` = (records, each request's
+    per-token logits, each request's packed launch (req_ids, q_len, kv_len),
+    summary) of the serve without those options in the same decode mode."""
+    ref_recs, ref_req_logits, ref_batches, ref_summary = ref
+    ref_first = {i: lg[0] for i, lg in ref_req_logits.items()}
+    delays = {}  # req_id -> the fetch delay of its admission, before any overlap
+    asked = []  # (delay, hedged delay) of every read the hedge policy was asked about
+    reads = {}  # req_id -> the (delay, hedged delay) of its admission's store reads
+
+    class TracedHedge(HedgePolicy):
+        def effective_delay(self, delay_s):
+            out = super().effective_delay(delay_s)
+            asked.append((delay_s, out))
+            return out
+
+    def setup(eng):
+        fetch = eng._fetch_kv_resilient
+
+        def recorded(a, events):
+            n = len(asked)
+            fetch(a, events)
+            delays[a.req.req_id] = a.delay
+            reads[a.req.req_id] = asked[n:]
+        eng._fetch_kv_resilient = recorded
+
+    zero_counts()
+    eng, recs, rec, steps, _ = serve(
+        cfg, params, setup=setup, overlap_load=True, hedge=TracedHedge(threshold_s=HEDGE_THRESHOLD_S),
+        prefetch_lookahead=4,
+        migration_interval_s=MIGRATION_INTERVAL_S, **ec_kw)
+    c = counts()
+    events = rec.events
+    summary = eng.summary().as_dict()
+    actions = {i: (r.action, r.matched_tokens) for i, r in sorted(recs.items())}
+    migrated = of_type(events, ev.TierMigrated)
+    log(f"{label} serve launches: {c}")
+    log(f"{label} actions (action, matched tokens): {actions}")
+    log(f"{label}: {len(migrated)} migrations "
+        f"{[(m.entry_id, m.from_tier, m.to_tier, m.reason, round(m.t_s, 3)) for m in migrated]}; "
+        f"lookup walks {eng.lookup_walks}, carried {eng.lookup_reuses}")
+    log(f"{label} steps, card wall beside modelled ({card}):")
+    log_steps(label, steps)
+    assert len(recs) == 8 and all(len(r.tokens) == NEW_TOKENS for r in recs.values())
+    if eng._unified_on:
+        assert c["chunked_prefill_attention"] > 0 and c["packed_flash_attention"] == 0, c
+    else:
+        assert c["packed_flash_attention"] > 0 and c["decode_attention"] > 0, c
+    # where both serves loaded: the same tokens if the admission was the same
+    # packed launch (the same bits); otherwise (a unified stream's chunks
+    # fall into other steps) the first-token logits within LOGIT_ATOL, and
+    # where the tokens first part, a near-tie in the serve without options
+    batch_of = {i: (b.req_ids, b.q_len, b.kv_len)
+                for b in of_type(events, ev.BatchAdmitted) for i in b.req_ids}
+    both = [i for i, r in recs.items() if r.action == ref_recs[i].action == "load"]
+    same = [i for i in both if i in batch_of and batch_of[i] == ref_batches.get(i)]
+    assert both, (actions, ref_recs)
+    if not eng._unified_on and eng.ec.admit_batch is None:
+        assert same, (batch_of, ref_batches)
+    if eng.ec.admit_batch == 1:
+        # a wave's second request waits a step in the queue: its fetch is
+        # prefetched and its trie walk carried to its admission
+        assert eng.lookup_reuses > 0, (eng.lookup_walks, eng.lookup_reuses)
+    for i in both:
+        diff = (rec.first_logits[i] - ref_first[i]).abs().max().item()
+        assert diff <= LOGIT_ATOL, (label, i, diff)
+        if i in same:
+            assert recs[i].tokens == ref_recs[i].tokens, (label, i)
+            continue
+        part = next((n for n, (x, y) in enumerate(zip(recs[i].tokens, ref_recs[i].tokens))
+                     if x != y), None)
+        if part is not None:
+            assert top2_gap(ref_req_logits[i][part]) < LOGIT_ATOL, (label, i, part)
+    # each KVLoaded carries the delay charged after the overlap
+    done = {e.req_id: e.prefill_s for e in of_type(events, ev.PrefillDone)}
+    loaded = of_type(events, ev.KVLoaded)
+    assert loaded, actions
+    for e in loaded:
+        want = delays[e.req_id] if eng._unified_on else max(0.0, delays[e.req_id] - done[e.req_id])
+        assert abs(e.load_s - want) <= 1e-12, (label, e.req_id, e.load_s, want)
+    # hedged reads: some admission's store read was cut, and the delay its
+    # KVLoaded was charged before the overlap lies below the unhedged read
+    cut = {i: (sum(x for x, _ in r), sum(y for _, y in r))
+           for i, r in reads.items() if any(y < x for x, y in r)}
+    shown = {i: (round(x, 4), round(y, 4), round(delays[i], 4)) for i, (x, y) in cut.items()}
+    log(f"{label}: hedge threshold {HEDGE_THRESHOLD_S} s; reads (modelled s, unhedged, hedged) "
+        f"{[(round(x, 4), round(y, 4)) for x, y in asked]}; admissions cut (unhedged, hedged, "
+        f"charged before the overlap) {shown}")
+    assert cut, (label, asked)
+    assert any(delays[e.req_id] < cut[e.req_id][0] for e in loaded if e.req_id in cut), \
+        (label, cut, delays)
+    assert migrated, label
+    assert all(e.pins == 0 for e in eng.store.entries.values()), "a prefetch pin was kept"
+    reading = max((rec.first_logits[i] - ref_first[i]).abs().max().item() for i in recs)
+    log(f"{label}: {len(both)} requests loaded in both serves, {len(same)} of them in the same "
+        f"packed launch (tokens equal); "
+        f"first-token logits max|with - without| over all requests {reading:.4f}; "
+        f"modelled mean TTFT {summary['mean_ttft_s']:.6f} s against "
+        f"{ref_summary['mean_ttft_s']:.6f} s, total cost ${summary['total_cost']:.6f} "
+        f"against ${ref_summary['total_cost']:.6f}")
+    assert summary["mean_ttft_s"] < ref_summary["mean_ttft_s"], (summary, ref_summary)
+    del eng, rec
+    release()
+
+
+def fault_phase(cfg, params, dense, unified, card):
+    """The faulted serve and the latency-hiding serves (dense; dense admitting
+    one request a step, so a wave's second request is prefetched while the
+    first is admitted; unified), against the serves without those options;
+    then one Fig. 2(a) row from the port's simulator.  ``card`` is the
+    card's name and power limit, as nvidia-smi gives them."""
+    faulted_serve(cfg, params, {i: lg[0] for i, lg in dense[1].items()}, card)
+    hiding_serve(cfg, params, "latency-hiding dense", dense, card)
+    hiding_serve(cfg, params, "latency-hiding dense one-a-step", dense, card, admit_batch=1)
+    hiding_serve(cfg, params, "latency-hiding unified", unified, card, paged_decode=True,
+                 unified_step=True, kv_block=128)
+    trace = simulator.make_trace(n_contexts=40, reuses_per_context=5, L_context=10_000,
+                                 L_prompt=32, L_output=32, arrival_rate_per_s=0.02, seed=0)
+    row = simulator.compare_pipelines(get_config("llama-7b"), trace, PerfModel(V100_X4_HF),
+                                      AWS_PAPER)
+    log(f"simulator (host, Fig. 2(a) at L=10000, 40 contexts): {json.dumps(row)}")
+
+
 def launcher_phase():
     """``python -m repro_torch.launch.serve --requests 8 --contexts 2 --policy
     always --compress --json`` on the card (reduced compute, full-size
@@ -1569,6 +1795,15 @@ def launcher_phase():
         f"total_cost {out['total_cost']}; launches {c}")
     assert c["kv_quant"] > 0 and c["kv_dequant"] > 0, c
     assert out["reuse_hits"] >= 4 and out["n_requests"] == 8, out
+    zero_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_cli.main(["--requests", "8", "--contexts", "2", "--overlap", "--hedge", "--json"])
+    c = counts()
+    out = json.loads(buf.getvalue())
+    log(f"launcher --overlap --hedge: reuse_hits {out['reuse_hits']}, mean_ttft_s "
+        f"{out['mean_ttft_s']}, total_cost {out['total_cost']}; launches {c}")
+    assert c["packed_flash_attention"] > 0 and out["n_requests"] == 8, (c, out)
 
 
 def zeroed_ssd(artifact):
@@ -1744,6 +1979,9 @@ def main() -> None:
     dense_nbytes = stored_nbytes(eng, [r["context_tokens"] for r in traffic(cfg.vocab)])
     summary = eng.summary().as_dict()
     log(f"summary: {json.dumps(summary)}")
+    dense_batches = {i: (e.req_ids, e.q_len, e.kv_len)
+                     for e in rec.events if isinstance(e, ev.BatchAdmitted) for i in e.req_ids}
+    dense_logits = rec.req_logits
     del eng, rec
     release()
 
@@ -1838,6 +2076,8 @@ def main() -> None:
     assert chunked_inputs is not None, "no launch held a decode, a chunk and an idle row"
     unified_first = urec.first_logits
     unified_nbytes = stored_nbytes(ueng, [r["context_tokens"] for r in reqs])
+    unified_summary = ueng.summary().as_dict()
+    unified_logits = urec.req_logits
     del ueng, urec, prec
     release()
 
@@ -1861,6 +2101,11 @@ def main() -> None:
         "unified": (uactions, unified_counts, unified_first, unified_nbytes)})
     comp["dense_first"] = first_logits
     compressed_checks(cfg, params, comp, artifact, load_req["context_tokens"])
+    release()
+
+    # ---- fault and latency-hiding phase -------------------------------------
+    fault_phase(cfg, params, (recs, dense_logits, dense_batches, summary),
+                (urecs, unified_logits, {}, unified_summary), smi)
     del params, artifact
     release()
     launcher_phase()

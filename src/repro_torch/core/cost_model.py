@@ -22,8 +22,9 @@ Beyond-paper extensions (kept separate, clearly flagged):
   * the fused (CacheBlend-style) non-prefix reuse term (``delay_fused``,
     ``cost_fused_request``).
 
-The reference's routed-request terms come with the cluster (ROADMAP queue A
-item 6).
+The reference's routed-request terms (``cost_routed_request``,
+``delay_routed``) come with the cluster and router, the part of ROADMAP
+queue A item 6 still to port.
 """
 from __future__ import annotations
 

@@ -8,8 +8,9 @@ from a two-term roofline:
            bytes  / (devices * hbm_bw   * membw_eff) )
 
 The port's default hardware is one H100 (``h100``); the paper's own machine
-is ``V100_X4_HF``, and a caller that needs another passes its own
-``HardwareSpec``.
+is ``V100_X4_HF`` (the launcher's ``--platform paper``), with ``V100_X4``
+and ``V100_X1_PAPER`` beside it for the simulator's comparisons, and a
+caller that needs another passes its own ``HardwareSpec``.
 """
 from __future__ import annotations
 
@@ -51,6 +52,35 @@ def h100(gpus: int = 1) -> HardwareSpec:
         membw_eff=0.70,
     )
 
+
+# A p3.8xlarge's 4x V100 16 GB at this model's default efficiencies (NVIDIA's
+# V100 data sheet: 125 TFLOP/s fp16 tensor core, 900 GB/s HBM2, 150 GB/s
+# NVLink).
+V100_X4 = HardwareSpec(
+    name="V100x4",
+    devices=4,
+    peak_flops=125e12,  # fp16 tensor core peak
+    hbm_bw=900e9,
+    hbm_bytes=16 * GB,
+    link_bw=150e9,  # NVLink
+    hosts=1,
+    mfu=0.40,
+    membw_eff=0.70,
+)
+
+# One V100 of the paper's pipeline, calibrated like ``V100_X4_HF`` below
+# (mfu 0.18 puts T_prefill(10K) at the ~7 s of the paper's footnote 2).
+V100_X1_PAPER = HardwareSpec(
+    name="V100x1-HF",
+    devices=1,
+    peak_flops=125e12,
+    hbm_bw=900e9,
+    hbm_bytes=16 * GB,
+    link_bw=150e9,
+    hosts=1,
+    mfu=0.18,
+    membw_eff=0.45,
+)
 
 # The paper's measured pipeline: Llama-7B under HuggingFace *naive* model
 # parallelism on a p3.8xlarge (4x V100 16 GB, NVIDIA's V100 data sheet: 125

@@ -6,8 +6,9 @@ economics via the arch's ``cost_arch``).  Weights are random, drawn from a
 seeded generator (``lm.init(cfg, seed=0)``).  ``--platform paper`` (the
 default) models the paper's 4x V100 at AWS prices, ``--platform h100`` one
 H100 at the port's prices; ``--device cpu`` runs it on the CPU through the
-kernels' plain versions.  ``--overlap`` and ``--hedge`` raise
-``NotImplementedError`` until their ROADMAP item lands.
+kernels' plain versions.  ``--overlap`` charges only the part of each load
+that the prefill does not hide, ``--hedge`` hedges reads from the remote
+tiers (``HedgePolicy()``), as in the reference.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-7b \\
         --requests 32 --contexts 8 --policy cost --compress
@@ -29,7 +30,6 @@ from repro_torch.serving import (
     EngineConfig,
     ServingEngine,
 )
-from repro_torch.serving.engine import _check_ported
 from repro_torch.serving.scheduler import HedgePolicy
 
 
@@ -65,7 +65,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         hedge=HedgePolicy() if args.hedge else None,
         cost_arch=args.arch if args.reduced else None,
     )
-    _check_ported(ec)  # before the weights are drawn
     params = registry.get_model(cfg).init(cfg, seed=0, device=args.device)
 
     if args.platform == "h100":

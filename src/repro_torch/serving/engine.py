@@ -43,15 +43,23 @@ alone, stores the state, then prefills the prompt on the same state.  For
 them ``paged_decode``, ``unified_step`` and ``fusion_enabled`` stay off, as
 in the reference, and decode is the dense slotted step.
 
-This is the port of the JAX engine's main path under the default
-``EngineConfig``, under ``paged_decode=True``, ``unified_step=True``,
-``fusion_enabled=True`` and ``compress_tier``.  Compute runs eagerly in
-PyTorch (no jit): on CUDA tensors the kernels are the hand-written ones, on
-CPU tensors their plain versions.  Times and dollars are modelled
-(``PerfModel``), as in the reference, so the reference's golden records
-replay on the port.  The paths behind the other non-default options
-(faults, hedging, prefetch, migration, the market) and embedding contexts
-raise ``NotImplementedError`` naming the ROADMAP item that will carry them.
+Failure handling and latency hiding: with ``faults`` every storage backend
+consults a seeded ``FaultInjector`` (transient failures, in-flight
+corruption, brownouts); a failed fetch retries under ``retry_policy`` and,
+once retrying stops paying, the admission degrades to exact recompute.  A
+lookup plans around browned-out tiers.  ``hedge`` hedges reads from remote
+tiers, ``overlap_load`` charges only the part of a fetch the prefill does
+not hide, ``prefetch_lookahead`` starts the fetches of queued requests
+(their entries pinned until admission) and ``migration_interval_s`` runs the
+break-even migration pass on the clock, idle gaps included.
+
+This is the port of the JAX engine under every ``EngineConfig`` option.
+Compute runs eagerly in PyTorch (no jit): on CUDA tensors the kernels are
+the hand-written ones, on CPU tensors their plain versions.  Times and
+dollars are modelled (``PerfModel``), as in the reference, so the
+reference's golden records replay on the port.  Market plans and embedding
+contexts raise ``NotImplementedError`` naming the ROADMAP item that will
+carry them.
 """
 from __future__ import annotations
 
@@ -67,7 +75,7 @@ from repro_torch.core.perf_model import PerfModel, h100
 from repro_torch.core.pricing import Pricing, h100_pricing
 from repro_torch.kvcache import fusion, paged
 from repro_torch.kvcache.backend import StorageBackend
-from repro_torch.kvcache.faults import RetryPolicy, StorageError
+from repro_torch.kvcache.faults import FaultInjector, RetryPolicy, StorageError
 from repro_torch.kvcache.hierarchy import (
     BreakEvenMigrator,
     TieredStore,
@@ -92,8 +100,7 @@ from repro_torch.serving.scheduler import AdmissionQueue, HedgePolicy
 
 @dataclasses.dataclass
 class EngineConfig:
-    """The reference's engine options; see ``_NOT_PORTED`` for the ones the
-    port does not carry yet."""
+    """The reference's engine options."""
 
     max_slots: int = 4
     max_len: int = 512
@@ -107,19 +114,27 @@ class EngineConfig:
     tier_specs: Optional[List[TierSpec]] = None
     # Tier write-backs land in (default: the last/cheapest tier).
     store_tier: Optional[str] = None
+    # >0 runs the clock-driven break-even migration pass at this cadence;
+    # migrations surface as TierMigrated events.
     migration_interval_s: float = 0.0
     migration_policy: Optional[BreakEvenMigrator] = None
     # Under capacity pressure, demote the least valuable entry one tier down
     # instead of deleting it outright.
     spill_on_pressure: bool = False
     compress_tier: Optional[str] = None
+    # charge only the part of a fetch that the admission's prefill does not
+    # hide (the load streams while the model computes)
     overlap_load: bool = False
+    # hedged reads from the tiers whose backends can hedge (remote ones)
     hedge: Optional[HedgePolicy] = None
     eviction: str = "cost"
     store_write_back: bool = True
     # Economics-at-scale: model times/costs as if serving this FULL arch while
     # the actual compute uses a reduced config.  None = the served config.
     cost_arch: Optional[str] = None
+    # Lookahead prefetch: on admission, start fetching the stored contexts
+    # of up to this many queued requests that have arrived, so only the
+    # unfinished remainder of their fetch shows up in their TTFT.
     prefetch_lookahead: int = 0
     # Max requests admitted per step as one packed ragged prefill (None =
     # every admissible request with a free slot).
@@ -135,33 +150,15 @@ class EngineConfig:
     fusion_enabled: bool = False
     unified_step: bool = False
     step_token_budget: int = 160
-    faults: Optional[Any] = None
+    # Seeded fault injection: every storage backend consults it for
+    # transient failures, brownouts and corruption.  None = no injection
+    # (the put/get checksums are verified either way).
+    faults: Optional[FaultInjector] = None
     # Cost-aware retry applied when a planned fetch fails.  None =
     # RetryPolicy() defaults.
     retry_policy: Optional[RetryPolicy] = None
     # Contexts shorter than this many tokens are never written back.
     min_cache_tokens: int = 0
-
-
-# option -> the ROADMAP item that will carry it (set away from its default,
-# each raises NotImplementedError rather than silently taking another path)
-_NOT_PORTED = {
-    "faults": "queue A item 6 (faults, cluster and router)",
-    "hedge": "queue A item 6 (faults, cluster and router)",
-    "overlap_load": "queue A item 6 (faults, cluster and router)",
-    "prefetch_lookahead": "queue A item 6 (faults, cluster and router)",
-    "migration_interval_s": "queue A item 6 (faults, cluster and router)",
-    "migration_policy": "queue A item 6 (faults, cluster and router)",
-}
-
-
-def _check_ported(ec: EngineConfig) -> None:
-    default = EngineConfig()
-    for field, item in _NOT_PORTED.items():
-        if getattr(ec, field) != getattr(default, field):
-            raise NotImplementedError(
-                f"EngineConfig.{field} is not ported yet: ROADMAP {item}"
-            )
 
 
 @dataclasses.dataclass
@@ -175,8 +172,8 @@ class _Admission:
     plan: ReusePlan
     lookup: StoreLookup
     artifact: Any = None  # fetched stored state (None = recompute)
-    delay: float = 0.0  # storage fetch delay
-    load_s: float = 0.0  # delay charged to this request
+    delay: float = 0.0  # raw storage fetch delay
+    load_s: float = 0.0  # delay charged to this request (post-overlap)
     nbytes: float = 0.0
     matched: int = 0
     new_tokens: List[int] = dataclasses.field(default_factory=list)
@@ -229,7 +226,6 @@ class ServingEngine:
         self.cfg = cfg
         self.params = params
         self.ec = engine_cfg or EngineConfig()
-        _check_ported(self.ec)
         self.device = resolve_device(device)
         self.pricing = pricing or h100_pricing(1)
         self.perf = perf or PerfModel(h100(1))
@@ -256,9 +252,13 @@ class ServingEngine:
         else:
             specs = [TierSpec(n, gb) for n, gb in self.ec.tier_capacities_gb.items()]
         self.backends = backends or build_backends(
-            specs, transfer=self.transfer, clock=self.clock
+            specs, transfer=self.transfer, clock=self.clock, hedge=self.ec.hedge,
+            faults=self.ec.faults,
         )
         self.retry_policy = self.ec.retry_policy or RetryPolicy()
+        migration = self.ec.migration_policy
+        if migration is None and self.ec.migration_interval_s > 0:
+            migration = BreakEvenMigrator(compute_cost_per_s=self._c_gpu_s)
         self.store = TieredStore(
             tiers=specs,
             transfer=self.transfer,
@@ -268,6 +268,7 @@ class ServingEngine:
             eviction=self.ec.eviction,
             backends=self.backends,
             pricing=self.pricing,
+            migration=migration,
             spill_on_pressure=self.ec.spill_on_pressure,
             device=self.device,
         )
@@ -282,6 +283,15 @@ class ServingEngine:
         self.queue = AdmissionQueue()
         self.slots = [Slot(i) for i in range(self.ec.max_slots)]
         self.records: List[RequestRecord] = []
+        # req_id -> clock time its context prefetch completes
+        self._prefetch_ready: Dict[int, float] = {}
+        # req_id -> entry pinned on its behalf (prefetch/eviction race guard)
+        self._prefetch_pins: Dict[int, str] = {}
+        # req_id -> (PrefixMatch, entry_id, trie_version): the prefetch pass's
+        # trie walk, carried forward to admission so the same context is not
+        # walked twice; invalidated by any trie mutation (version bump)
+        self._prefetch_lookup: Dict[int, tuple] = {}
+        self._next_migration_s = self.ec.migration_interval_s
         # Paged batched decode over the shared KV block pool: packed spans
         # land block-aligned in the pool, and the pool IS the device KV
         # state (no dense slotted cache beside it).
@@ -339,10 +349,17 @@ class ServingEngine:
         self.packed_q_tokens = 0  # useful tokens through the packed kernel
         self.packed_q_len = 0  # padded (bucketed) tokens launched
         self.lookup_walks = 0  # real trie walks
+        self.lookup_reuses = 0  # admissions served from the prefetch walk
         self.admission_busy_s = 0.0  # modeled time spent in load+prefill
         self.decode_busy_s = 0.0  # modeled time spent in decode steps
         self.decode_tokens = 0  # tokens emitted by decode steps
         self.decode_steps = 0  # batched decode launches
+        # failure handling (fault injection, retry, degrade)
+        self.fetch_failures = 0  # failed fetch attempts (every attempt)
+        self.fetch_retries = 0  # attempts the retry policy re-issued
+        self.degraded_requests = 0  # admissions that fell back to recompute
+        self.fetch_wasted_s = 0.0  # time burned by failed attempts + backoff
+        self.fetch_wasted_bytes = 0.0  # transfer bytes charged but unusable
 
     # ------------------------------------------------------------------ #
     # Public API: submit / step / drain / run
@@ -368,10 +385,13 @@ class ServingEngine:
         admit every admissible request with a free slot as one packed batch
         (one ragged suffix-prefill launch per layer), else run one batched
         decode step, else jump the clock to the next arrival.  Under the
-        unified step, one mixed launch instead (``_step_unified``)."""
+        unified step, one mixed launch instead (``_step_unified``).  A due
+        migration pass (``migration_interval_s``) runs at the top of the step
+        and surfaces as TierMigrated events."""
         if self._unified_on:
             return self._step_unified()
         events: List[ev.Event] = []
+        self._run_migrations(events)
         if self._admit_batch(events):
             return events
         if any(s.active for s in self.slots):
@@ -383,7 +403,17 @@ class ServingEngine:
         return events
 
     def _advance_clock(self, to_s: float, events: List[ev.Event]) -> None:
-        """Jump the idle clock to ``to_s``."""
+        """Jump the idle clock to ``to_s``, stepping through every migration
+        pass whose scheduled time falls inside the gap: each missed pass runs
+        at its own due time, so an idle gap accrues storage dollars and
+        demotes cold entries on schedule instead of in one late pass."""
+        if self.ec.migration_interval_s > 0 and self.store.migration is not None:
+            while self._next_migration_s <= to_s:
+                at = self._next_migration_s
+                self.clock.at_least(at)
+                self.store.run_migrations()
+                self._next_migration_s = at + self.ec.migration_interval_s
+                self._emit_migrations(events)
         self.clock.at_least(to_s)
         events.append(ev.ClockAdvanced(t_s=self.clock.now, req_id=-1, to_s=to_s))
 
@@ -405,9 +435,22 @@ class ServingEngine:
             transfer_cost=self.transfer.transfer_fees(),
         )
 
+    def _run_migrations(self, events: List[ev.Event]) -> None:
+        """The clock-driven migration pass, when one is due."""
+        if (
+            self.ec.migration_interval_s <= 0
+            or self.store.migration is None
+            or self.clock.now < self._next_migration_s
+        ):
+            return
+        self.store.run_migrations()
+        self._next_migration_s = self.clock.now + self.ec.migration_interval_s
+        self._emit_migrations(events)
+
     def packed_stats(self) -> Dict[str, Any]:
         """Packed-admission counters: launch-shape bucket hits and misses,
-        packing occupancy, trie walks and modeled admission busy time."""
+        packing occupancy, trie walks (and the walks the prefetch pass saved)
+        and modeled admission busy time."""
         return {
             "jit": self.jit_stats.as_dict(),
             "batches": self.batches,
@@ -415,6 +458,7 @@ class ServingEngine:
             "packed_q_len": self.packed_q_len,
             "occupancy": self.packed_q_tokens / max(self.packed_q_len, 1),
             "lookup_walks": self.lookup_walks,
+            "lookup_reuses": self.lookup_reuses,
             "admission_busy_s": self.admission_busy_s,
         }
 
@@ -447,6 +491,24 @@ class ServingEngine:
             "busy_s": self.fused_busy_s,
             "jit": self.fused_jit.as_dict(),
         }
+
+    def fault_stats(self) -> Dict[str, Any]:
+        """Failure-handling counters: failed and retried fetch attempts,
+        requests degraded to recompute, burned fetch time and bytes, the
+        store's rolled-back puts and discarded entries, and the injector's
+        own tally when one is wired."""
+        out = {
+            "fetch_failures": self.fetch_failures,
+            "fetch_retries": self.fetch_retries,
+            "degraded_requests": self.degraded_requests,
+            "fetch_wasted_s": self.fetch_wasted_s,
+            "fetch_wasted_bytes": self.fetch_wasted_bytes,
+            "failed_puts": self.store.failed_puts,
+            "discards": self.store.discards,
+        }
+        if self.ec.faults is not None:
+            out["injector"] = self.ec.faults.stats()
+        return out
 
     # ------------------------------------------------------------------ #
     # Admission: pop -> plan (per request) -> execute (one packed batch)
@@ -487,6 +549,7 @@ class ServingEngine:
         for a in admissions:
             if a.plan.action == "fused":
                 self._execute_fused(a, events)
+        self._issue_prefetches()
         return True
 
     def _note_pending(self, a: _Admission, pending: Dict[str, List[float]]) -> None:
@@ -542,6 +605,7 @@ class ServingEngine:
         )
         plan = self.planner.plan(req, lookup, workload)
         if plan.action not in ("recompute", "load", "partial", "fused") or plan.market is not None:
+            self._release_prefetch(req.req_id)
             raise NotImplementedError(
                 f"plan action {plan.action!r} is not ported yet (ROADMAP queue A item 8)"
             )
@@ -597,6 +661,7 @@ class ServingEngine:
             load_s, matched = a.delay, 0
             prefill_s, logits, temp = self._execute_recompute(
                 req, events, store_after=a.plan.store_after)
+        self._release_prefetch(req.req_id)
         paged.insert_slot(self.cfg, self._state, slot.index, temp)
         first_tok = int(logits[0].argmax())
         self.clock.advance(load_s + prefill_s)
@@ -606,6 +671,7 @@ class ServingEngine:
         a.rec.prefill_s = prefill_s
         a.rec.compute_cost += self._c_gpu_s * prefill_s
         self._finish_admission(a, first_tok, events)
+        self._issue_prefetches()
         return True
 
     def _execute_load(self, req: Request, a: _Admission, events: List[ev.Event]):
@@ -619,14 +685,20 @@ class ServingEngine:
         tokens = list(req.context_tokens)[matched:] + list(req.prompt_tokens)
         logits, temp = self._prefill(tokens, temp)
         prefill_s = self.perf.t_prefill(self.cost_cfg, len(tokens))
+        load_s = self._overlapped(a.delay, prefill_s)
         events.append(ev.KVLoaded(
             t_s=self.clock.now, req_id=req.req_id, tier=a.lookup.entry.tier,
-            nbytes=a.nbytes, load_s=a.delay, matched_tokens=matched,
+            nbytes=a.nbytes, load_s=load_s, matched_tokens=matched,
         ))
         events.append(ev.PrefillDone(
             t_s=self.clock.now, req_id=req.req_id, n_tokens=len(tokens), prefill_s=prefill_s,
         ))
-        return a.delay, prefill_s, logits, temp
+        return load_s, prefill_s, logits, temp
+
+    def _overlapped(self, delay: float, prefill_s: float) -> float:
+        """The part of a fetch's delay charged to the request: all of it, or
+        under ``overlap_load`` only what the prefill does not hide."""
+        return max(0.0, delay - prefill_s) if self.ec.overlap_load else delay
 
     def _execute_packed(self, admissions: List[_Admission], events: List[ev.Event]) -> None:
         """Execute an admission batch as one packed ragged suffix-prefill:
@@ -638,6 +710,7 @@ class ServingEngine:
         for a in admissions:
             if a.plan.loads_kv and a.lookup.entry is not None:
                 self._fetch_kv_resilient(a, events)
+            self._release_prefetch(a.req.req_id)
             ctx = list(a.req.context_tokens)
             a.new_tokens = ctx[a.matched:] + list(a.req.prompt_tokens)
 
@@ -684,7 +757,9 @@ class ServingEngine:
         # several batch-mates recomputing the same context store it once)
         for a, seg in zip(admissions, layout.segments):
             if a.artifact is not None:
-                a.load_s = a.delay
+                a.load_s = self._overlapped(a.delay, prefill_s)
+                # KVLoaded carries this request's own fetch remainder; the
+                # batch-barrier wait it experiences lands on the record below
                 events.append(
                     ev.KVLoaded(
                         t_s=t0, req_id=a.req.req_id, tier=a.lookup.entry.tier,
@@ -772,8 +847,11 @@ class ServingEngine:
         first_tok = int(logits[0].argmax())
 
         prefill_s = self.perf.t_prefill_fused(self.cost_cfg, layout.total, layout.n_q)
-        load_s = max((d for _, _, d, _ in fetched), default=0.0)
-        self._note_fused(a, t0, len(sources), fetched, layout.q_len, layout.kv_len, jit_hit,
+        load_s = self._overlapped(max((d for _, _, d, _ in fetched), default=0.0), prefill_s)
+        # like the prefix load, each KVLoaded carries the delay charged after
+        # the overlap, not the raw link time
+        charged = [(t, nb, self._overlapped(d, prefill_s), rows) for t, nb, d, rows in fetched]
+        self._note_fused(a, t0, len(sources), charged, layout.q_len, layout.kv_len, jit_hit,
                          events)
         events.append(ev.PrefillDone(
             t_s=t0, req_id=req.req_id, n_tokens=layout.n_q, prefill_s=prefill_s,
@@ -831,11 +909,11 @@ class ServingEngine:
         """Fetch every fused source entry's matched rows (pinned at plan
         time) under the retry policy.  On success returns ``(sources,
         fetched)`` — ``sources[entry_id]`` the artifact, ``fetched`` one
-        (tier, nbytes, delay_s, rows) tuple per source — with the pins
-        released.  On exhaustion of any source, degrades the admission in
-        place (record marked, DegradedToRecompute emitted, the burned time
-        left on ``a.delay``) and returns None: the caller falls back to
-        exact recompute."""
+        (tier, nbytes, delay_s, rows) tuple per source — with the pins and
+        the prefetch released.  On exhaustion of any source, degrades the
+        admission in place (record marked, DegradedToRecompute emitted, the
+        burned time left on ``a.delay``) and returns None: the caller falls
+        back to exact recompute."""
         req, schedule = a.req, a.plan.fused
         sources: Dict[str, Any] = {}
         fetched: List[tuple] = []  # (tier, nbytes, delay, rows) per source
@@ -855,6 +933,8 @@ class ServingEngine:
             wasted_total += wasted
             if out is None:
                 self._unpin(a)
+                self._release_prefetch(req.req_id)
+                self.degraded_requests += 1
                 a.rec.degraded = True
                 a.delay = wasted_total
                 events.append(ev.DegradedToRecompute(
@@ -866,6 +946,7 @@ class ServingEngine:
             sources[eid] = art
             fetched.append((e.tier, nbytes, wasted + delay, rows))
         self._unpin(a)
+        self._release_prefetch(req.req_id)
         return sources, fetched
 
     def _unpin(self, a: _Admission) -> None:
@@ -987,7 +1068,8 @@ class ServingEngine:
     # -- storage fetch with cost-aware retry ----------------------------- #
     def _fetch_kv(self, req: Request, plan: ReusePlan, lookup: StoreLookup):
         """Charge + execute the storage fetch of a load/partial plan; returns
-        (artifact, delay_s, billed_nbytes)."""
+        (artifact, delay_s, billed_nbytes).  A lookahead prefetch already in
+        flight shrinks the delay to its unfinished remainder."""
         entry = lookup.entry
         matched = plan.matched_tokens
         nbytes = plan.fetch_bytes
@@ -1000,6 +1082,11 @@ class ServingEngine:
         artifact, delay = self.store.fetch(
             entry.entry_id, fraction=matched / entry.n_tokens, nbytes=override
         )
+        ready = self._prefetch_ready.pop(req.req_id, None)
+        if ready is not None:
+            # the fetch was issued while earlier requests were served: only
+            # the unfinished remainder delays this request
+            delay = max(0.0, min(delay, ready - self.clock.now))
         return artifact, delay, nbytes
 
     def _retry_fetch(self, req: Request, *, tier: str, entry_id: str, matched: int,
@@ -1019,6 +1106,9 @@ class ServingEngine:
                 return attempt_fn(), wasted, attempt
             except StorageError as exc:
                 wasted += exc.delay_s
+                self.fetch_failures += 1
+                self.fetch_wasted_s += exc.delay_s
+                self.fetch_wasted_bytes += exc.wasted_bytes
                 events.append(ev.FetchFailed(
                     t_s=self.clock.now, req_id=req.req_id, tier=tier, entry_id=entry_id,
                     attempt=attempt, reason=exc.reason, wasted_s=exc.delay_s,
@@ -1038,6 +1128,8 @@ class ServingEngine:
                 if policy.should_retry(exc, attempt, tier=tier, retry_cost=retry_cost,
                                        recompute_cost=recompute_cost):
                     wasted += backoff
+                    self.fetch_wasted_s += backoff
+                    self.fetch_retries += 1
                     events.append(ev.FetchRetried(
                         t_s=self.clock.now, req_id=req.req_id, tier=tier, entry_id=entry_id,
                         attempt=attempt + 1, backoff_s=backoff,
@@ -1060,6 +1152,7 @@ class ServingEngine:
             events=events,
         )
         if out is None:
+            self.degraded_requests += 1
             a.rec.degraded = True
             a.artifact, a.nbytes, a.matched = None, 0.0, 0
             a.delay = wasted
@@ -1111,12 +1204,24 @@ class ServingEngine:
         """Consult the store about the request's context; quantify how much of
         it the architecture can consume.  ``pending`` — per-tier fetch bytes
         already planned by earlier batch-mates this admission instant,
-        folded into the predicted queue wait."""
+        folded into the predicted queue wait.  A lookup already walked by the
+        prefetch pass is carried forward as long as the store's trie has not
+        mutated since, and tiers inside a brownout are marked unavailable."""
         if not self.ec.reuse_enabled:
             return StoreLookup.miss()
-        match, entry = self.store.lookup(list(req.context_tokens))
-        self.lookup_walks += 1
+        cached = self._prefetch_lookup.pop(req.req_id, None)
+        if cached is not None and cached[2] == self.store.trie_version:
+            match = cached[0]
+            entry = self.store.entries.get(cached[1]) if cached[1] else None
+            self.lookup_reuses += 1
+        else:
+            match, entry = self.store.lookup(list(req.context_tokens))
+            self.lookup_walks += 1
         partial_ok = paged.partial_reuse_allowed(self.cfg)
+        unavailable = frozenset(
+            t for t in self.store.tier_order
+            if self.ec.faults is not None and self.ec.faults.browned_out(t, self.clock.now)
+        )
         frac = 0.0
         n_ctx = len(req.context_tokens)
         if entry is not None and match.matched_tokens > 0:
@@ -1138,7 +1243,12 @@ class ServingEngine:
         fused_bytes: Dict[str, float] = {}
         if self._fusion_on and frac < 1.0:
             comp = self.store.lookup_composite(list(req.context_tokens))
-            if comp.matched_tokens > 0:
+            if comp.matched_tokens > 0 and not any(
+                (e := self.store.entries.get(eid)) is not None and e.tier in unavailable
+                for eid in comp.rows_by_entry()
+            ):
+                # a composite touching a browned-out tier is unplannable: one
+                # dead source spoils the whole assembly
                 composite = comp
                 for eid, rows in comp.rows_by_entry().items():
                     src = self.store.entries.get(eid)
@@ -1157,6 +1267,7 @@ class ServingEngine:
         return StoreLookup(
             match=match, entry=entry, fraction=frac, partial_ok=partial_ok,
             queue_wait_s=queue_wait, composite=composite, fused_bytes_by_tier=fused_bytes,
+            unavailable_tiers=unavailable,
         )
 
     def _entry_fetch_bytes(self, e, matched_tokens: int) -> float:
@@ -1167,6 +1278,47 @@ class ServingEngine:
                 compression=0.5 if self.ec.compress_tier == e.tier else 1.0,
             )
         return e.nbytes * matched_tokens / max(e.n_tokens, 1)
+
+    def _issue_prefetches(self) -> None:
+        """Lookahead: start the storage fetches of queued requests whose
+        contexts are stored (each fetch streams while the engine computes)."""
+        if self.ec.prefetch_lookahead <= 0 or not self.ec.reuse_enabled:
+            return
+        for nxt in self.queue.peek_arrived(self.clock.now, self.ec.prefetch_lookahead):
+            if nxt.req_id in self._prefetch_ready:
+                continue
+            cached = self._prefetch_lookup.get(nxt.req_id)
+            if cached is not None and cached[2] == self.store.trie_version:
+                # an earlier pass walked this context and the trie has not
+                # mutated since: necessarily a miss (hits sit in
+                # _prefetch_ready), so there is nothing new to fetch
+                continue
+            m, e = self.store.lookup(list(nxt.context_tokens))
+            self.lookup_walks += 1
+            # carry this walk forward to admission (hits and misses): the
+            # admission's lookup reuses it unless the trie mutated since
+            self._prefetch_lookup[nxt.req_id] = (
+                m, e.entry_id if e is not None else None, self.store.trie_version
+            )
+            if e is None or m.matched_tokens == 0:
+                continue
+            nbytes = self._entry_fetch_bytes(e, m.matched_tokens)
+            delay = self.store.estimate_load_delay(e.tier, nbytes)
+            self._prefetch_ready[nxt.req_id] = self.clock.now + delay
+            # pinned until admission consumes or abandons the prefetch:
+            # another request's write-back pressure and demotion must not
+            # invalidate a fetch in flight (the prefetch/eviction race)
+            self.store.pin(e.entry_id)
+            self._prefetch_pins[nxt.req_id] = e.entry_id
+
+    def _release_prefetch(self, req_id: int) -> None:
+        """Admission consumed (or abandoned) this request's prefetch: drop
+        the ready-time record and the carried walk, release the pin."""
+        self._prefetch_ready.pop(req_id, None)
+        self._prefetch_lookup.pop(req_id, None)
+        entry_id = self._prefetch_pins.pop(req_id, None)
+        if entry_id is not None:
+            self.store.unpin(entry_id)
 
     def _store_tier(self) -> str:
         if self.ec.store_tier is not None:
@@ -1184,6 +1336,7 @@ class ServingEngine:
         suffix-prefill lands kv_block tokens at a time while the slots that
         are decoding keep stepping in the same launches."""
         events: List[ev.Event] = []
+        self._run_migrations(events)
         admitted = self._unified_intake(events)
         if self._unified_launch(events) or admitted:
             return events
@@ -1215,6 +1368,8 @@ class ServingEngine:
             self._note_pending(a, pending)
             self._start_chunk_stream(a, events)
             n += 1
+        if n:
+            self._issue_prefetches()
         return n > 0
 
     def _start_chunk_stream(self, a: _Admission, events: List[ev.Event]) -> None:
@@ -1230,9 +1385,11 @@ class ServingEngine:
         block = self.ec.kv_block
         fused_out = None
         if a.plan.action == "fused":
-            fused_out = self._fetch_fused_sources(a, events)
-        elif a.plan.loads_kv and a.lookup.entry is not None:
-            self._fetch_kv_resilient(a, events)
+            fused_out = self._fetch_fused_sources(a, events)  # releases the prefetch
+        else:
+            if a.plan.loads_kv and a.lookup.entry is not None:
+                self._fetch_kv_resilient(a, events)
+            self._release_prefetch(req.req_id)
         own = ps.admit(a.slot.index, n_total)
         if fused_out is not None:
             sources, fetched = fused_out

@@ -7,7 +7,10 @@ the reference's.  The port defaults to H100 hardware and prices, so the test
 builds a ``HardwareSpec`` and a ``Pricing`` equal to the reference's
 defaults from the reference objects' fields; actions, matched tokens and
 every modelled time and dollar must then equal the golden file at 1e-9, and
-the generated tokens must be identical to the JAX engine's.
+the generated tokens must be identical to the JAX engine's.  Each option
+the engine once refused (faults, hedging, ``overlap_load``,
+``prefetch_lookahead``, the migration pass and its policy) serves the
+``always`` mix on both engines with the same records, events and summary.
 """
 import dataclasses
 import json
@@ -24,11 +27,15 @@ from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import reduced_config as jreduced  # noqa: E402
 from repro.core.perf_model import tpu_v5e  # noqa: E402
 from repro.core.pricing import tpu_v5e_pod  # noqa: E402
+from repro.kvcache import faults as jfaults  # noqa: E402
+from repro.kvcache import hierarchy as jhierarchy  # noqa: E402
 from repro.models import registry as jregistry  # noqa: E402
 from repro import serving as jserving  # noqa: E402
+from repro.serving import scheduler as jscheduler  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.core.perf_model import HardwareSpec, PerfModel  # noqa: E402
 from repro_torch.core.pricing import ComputePrice, Pricing, StorageTier  # noqa: E402
+from repro_torch.kvcache import faults, hierarchy  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.convert import from_jax_params  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
@@ -38,7 +45,7 @@ from repro_torch.serving import (  # noqa: E402
     Request,
     ServingEngine,
 )
-from repro_torch.serving.engine import _NOT_PORTED  # noqa: E402
+from repro_torch.serving import scheduler  # noqa: E402
 
 torch.set_num_threads(1)
 GOLDEN = pathlib.Path(__file__).parent / "data" / "serving_golden_seed.json"
@@ -156,27 +163,45 @@ def _close(got, want, where):
         assert got == want, where
 
 
-def _replay_on_both(llama, reqs, planner=None, **ec_kw):
+def _serve_both(llama, reqs, planner=None, jax_kw=None, perf=None, pricing=None,
+                **ec_kw):
     """The same requests through the port's and the JAX engine, step by
-    step, with the reference's hardware and prices on both sides: the tokens
-    must be identical, and every record field, summary key, the store's
-    entries (tier, nbytes, compressed) and the typed event stream agree,
-    floats at 1e-9.  Returns the port's engine and events."""
+    step: the reference's hardware and prices on both sides, unless
+    ``perf`` and ``pricing`` are given as (port's, reference's) pairs.
+    ``jax_kw`` overrides ``ec_kw`` on the JAX side (an option object, such
+    as a fault injector, is each package's own).  Returns (engine, events,
+    JAX engine, JAX events)."""
     jcfg, jparams, cfg, params = llama
-    perf, pricing = _reference_perf_and_pricing()
+    if perf is None:
+        perf, pricing = _reference_perf_and_pricing()
+        jperf = jpricing = None
+    else:
+        (perf, jperf), (pricing, jpricing) = perf, pricing
     planners = {"always": (AlwaysReusePlanner, jserving.AlwaysReusePlanner),
                 "cost": (CostAwarePlanner, jserving.CostAwarePlanner)}.get(planner)
     kw = {**ENGINE_KW, **ec_kw}
     eng = ServingEngine(cfg, params, engine_cfg=EngineConfig(**kw), perf=perf, pricing=pricing,
                         planner=planners[0]() if planners else None, device="cpu")
-    jeng = jserving.ServingEngine(jcfg, jparams, engine_cfg=jserving.EngineConfig(**kw),
-                                  planner=planners[1]() if planners else None)
+    jeng = jserving.ServingEngine(
+        jcfg, jparams, engine_cfg=jserving.EngineConfig(**{**kw, **(jax_kw or {})}),
+        planner=planners[1]() if planners else None, perf=jperf, pricing=jpricing)
     events, jevents = [], []
     for e, make, out in ((eng, Request, events), (jeng, jserving.Request, jevents)):
         for r in reqs:
             e.submit(make(**r))
         while not e.idle:
             out.extend(e.step())
+    return eng, events, jeng, jevents
+
+
+def _replay_on_both(llama, reqs, planner=None, jax_kw=None, perf=None, pricing=None,
+                    **ec_kw):
+    """``_serve_both``, then the checks: the tokens must be identical, and
+    every record field, summary key, the store's entries (tier, nbytes,
+    compressed) and the typed event stream agree, floats at 1e-9.  Returns
+    the port's engine and events."""
+    eng, events, jeng, jevents = _serve_both(llama, reqs, planner, jax_kw, perf, pricing,
+                                             **ec_kw)
     recs = sorted(eng.records, key=lambda r: r.req_id)
     jrecs = sorted(jeng.records, key=lambda r: r.req_id)
     assert [r.tokens for r in recs] == [r.tokens for r in jrecs]
@@ -230,21 +255,50 @@ def test_reuse_tokens_identical_to_recompute(arch):
     assert eng_yes.decode_stats()["decode_steps"] >= 3
 
 
-_CHANGED = {
-    "faults": object(), "hedge": object(),
-    "overlap_load": True, "prefetch_lookahead": 1, "migration_interval_s": 1.0,
-    "migration_policy": object(),
-}
+def _option_kw(field):
+    """Engine kwargs that run ``field`` away from its default, built once
+    from each package (an injector, a hedge or a migration policy is each
+    package's own object): (port kwargs, reference kwargs).  The contexts
+    are priced at full llama-7b scale where the option needs fetches long
+    enough to matter."""
+    out = []
+    for f, h, sch in ((faults, hierarchy, scheduler), (jfaults, jhierarchy, jscheduler)):
+        tiers = dict(tier_specs=[h.TierSpec("host_dram", 1.0), h.TierSpec("local_nvme", 1.0),
+                                 h.TierSpec("s3", 1.0)], store_tier="host_dram")
+        out.append({
+            "faults": dict(faults=f.FaultInjector(seed=7, fail_rate=0.4, corrupt_rate=0.2),
+                           retry_policy=f.RetryPolicy(max_attempts=2, cost_aware=False)),
+            "hedge": dict(hedge=sch.HedgePolicy(threshold_s=1e-3), cost_arch="llama-7b"),
+            "overlap_load": dict(overlap_load=True, cost_arch="llama-7b"),
+            "prefetch_lookahead": dict(prefetch_lookahead=4, max_slots=1,
+                                       cost_arch="llama-7b"),
+            "migration_interval_s": dict(migration_interval_s=0.004, **tiers),
+            "migration_policy": dict(migration_policy=h.BreakEvenMigrator(min_residency_s=0.0),
+                                     migration_interval_s=0.004, **tiers),
+        }[field])
+    return out
 
 
-@pytest.mark.parametrize("field", sorted(_NOT_PORTED))
-def test_unported_options_raise(llama, field):
-    """An option whose path the port does not carry raises, naming the
-    ROADMAP item, instead of silently serving another path."""
-    _, _, cfg, params = llama
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(cfg, params, device="cpu",
-                      engine_cfg=EngineConfig(**{**ENGINE_KW, field: _CHANGED[field]}))
+PORTED_OPTIONS = ["faults", "hedge", "migration_interval_s", "migration_policy",
+                  "overlap_load", "prefetch_lookahead"]
+
+
+@pytest.mark.parametrize("field", PORTED_OPTIONS)
+def test_ported_options_replay_jax_engine(llama, field):
+    """Each option the engine once refused runs on the port and replays the
+    JAX engine's serve of the ``always`` mix: tokens, records, summary,
+    store entries and events at 1e-9.  The same serve without the option
+    differs, so the option took effect."""
+    port_kw, jax_kw = _option_kw(field)
+    reqs = _requests(llama[2].vocab)
+    eng, events = _replay_on_both(llama, reqs, "always", jax_kw=jax_kw, **port_kw)
+    plain_kw = {k: v for k, v in port_kw.items() if k in ("cost_arch", "max_slots",
+                                                           "tier_specs", "store_tier")}
+    plain, plain_events = _serve_both(llama, reqs, "always", **plain_kw)[:2]
+    assert [r.tokens for r in sorted(eng.records, key=lambda r: r.req_id)] == \
+        [r.tokens for r in sorted(plain.records, key=lambda r: r.req_id)]
+    assert [(type(e).__name__, e.t_s) for e in events] != \
+        [(type(e).__name__, e.t_s) for e in plain_events]
 
 
 @pytest.mark.parametrize("name", ["always", "partial_always"])

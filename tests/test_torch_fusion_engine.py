@@ -336,3 +336,32 @@ def test_failed_fused_source_degrades_to_recompute(llama, mode):
         r.req_id: r.tokens for r in base.records}
     _assert_replays(eng, events, jeng, jevents)
     assert len([e for e in jevents if isinstance(e, jev.DegradedToRecompute)]) == 3
+
+
+@pytest.mark.parametrize("mode", ["dense", "paged", "unified"])
+def test_fused_serve_with_overlap_and_prefetch_replays(llama, mode):
+    """``overlap_load`` and ``prefetch_lookahead`` beside fused admissions:
+    each fused source's KVLoaded carries the delay charged after the
+    overlap (the unified intake charges the whole fetch, as the reference),
+    the carried prefetch walks are released on every fused exit, and the
+    serve replays the reference's."""
+    _, _, cfg, _ = llama
+    reqs = _shuffled_requests(cfg.vocab, seed=4)
+    ec = {"dense": {}, "paged": dict(paged_decode=True),
+          "unified": dict(paged_decode=True, unified_step=True)}[mode]
+    eng, jeng = _engines(llama, _blend(0.25), fusion_enabled=True, overlap_load=True,
+                         prefetch_lookahead=2, cost_arch="llama-7b", **ec)
+    events, jevents = _serve(eng, Request, reqs), _serve(jeng, jserving.Request, reqs)
+    assert len([e for e in events if isinstance(e, ev.FusedAdmitted)]) == 3
+    _assert_replays(eng, events, jeng, jevents)
+    plain, _ = _engines(llama, _blend(0.25), fusion_enabled=True, cost_arch="llama-7b", **ec)
+    plain_events = _serve(plain, Request, reqs)
+    loads = [e.load_s for e in events if isinstance(e, ev.KVLoaded)]
+    plain_loads = [e.load_s for e in plain_events if isinstance(e, ev.KVLoaded)]
+    assert len(loads) == len(plain_loads) > 0
+    if mode == "unified":
+        assert loads == plain_loads
+    else:
+        assert all(x <= y for x, y in zip(loads, plain_loads))
+        assert any(x < y for x, y in zip(loads, plain_loads))
+    assert not eng._prefetch_pins and not eng._prefetch_lookup

@@ -6,7 +6,10 @@ of ``repro`` that is pure Python.  A subprocess with both blocked imports
 every module of the port (the int8 tier, the synthetic workload and the
 serving launcher among them), serves two requests on the CPU from the int8
 tier, and runs the launcher with ``--compress``; another serves the reduced
-mamba2-1.3b and runs the launcher with ``--arch mamba2-1.3b``.
+mamba2-1.3b and runs the launcher with ``--arch mamba2-1.3b``; a third runs
+the simulator and its benchmark files, serves under fault injection, hedged
+and overlapped loads, lookahead prefetch and migrations, and runs the
+launcher with ``--overlap --hedge``.
 """
 import pathlib
 import re
@@ -28,7 +31,9 @@ def _port_sources():
 
 def test_no_jax_or_reference_imports():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.M)
-    files = [p for p in _port_sources() if p.suffix == ".py"] + [ROOT / "chip_smoke.py"]
+    files = ([p for p in _port_sources() if p.suffix == ".py"] + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "benchmarks").glob("torch_*.py")))
+    assert any(p.name == "simulator.py" for p in files)
     hits = [f"{p}: {m.group(0).strip()}" for p in files for m in pattern.finditer(p.read_text())]
     assert not hits, hits
 
@@ -123,4 +128,52 @@ def test_port_imports_and_serves_with_jax_and_repro_blocked():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("served")
+    assert "served 4 requests" in out.stdout
+
+
+def test_port_runs_simulator_faults_and_latency_options_with_jax_and_repro_blocked():
+    script = textwrap.dedent(
+        """
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import torch
+        torch.set_num_threads(1)
+        from benchmarks import torch_ablation, torch_fig2a, torch_fig2b
+        from repro_torch.core import simulator
+        assert torch_fig2a.run() and torch_fig2b.run()
+        from repro_torch.configs import get_config, reduced_config
+        from repro_torch.kvcache.faults import FaultInjector, RetryPolicy
+        from repro_torch.kvcache.hierarchy import TierSpec
+        from repro_torch.models import lm
+        from repro_torch.serving import AlwaysReusePlanner, EngineConfig, Request, ServingEngine
+        from repro_torch.serving.scheduler import HedgePolicy
+        cfg = reduced_config(get_config("llama-7b"))
+        params = lm.init(cfg, seed=0, device="cpu")
+        eng = ServingEngine(cfg, params, device="cpu", planner=AlwaysReusePlanner(),
+                            engine_cfg=EngineConfig(
+                                max_slots=1, max_len=128, overlap_load=True,
+                                hedge=HedgePolicy(), prefetch_lookahead=2,
+                                faults=FaultInjector(seed=7, fail_rate=0.4),
+                                retry_policy=RetryPolicy(max_attempts=2, cost_aware=False),
+                                tier_specs=[TierSpec("host_dram", 1.0), TierSpec("s3", 1.0)],
+                                store_tier="host_dram", migration_interval_s=0.01))
+        for i in range(4):
+            eng.submit(Request(req_id=i, context_tokens=list(range(40)),
+                               prompt_tokens=[7, 8, 9], max_new_tokens=2,
+                               arrival_s=i * 0.02, expected_reuses=4))
+        s = eng.run()
+        assert s.n_requests == 4 and "injector" in eng.fault_stats(), s
+        from repro_torch.launch import serve
+        serve.main(["--requests", "4", "--contexts", "2", "--overlap", "--hedge",
+                    "--device", "cpu"])
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, capture_output=True, text=True,
+        env={"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin"}, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
     assert "served 4 requests" in out.stdout

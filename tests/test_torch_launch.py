@@ -74,9 +74,17 @@ def test_launcher_text_output_matches_reference(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", ["--overlap", "--hedge"])
-def test_unported_flags_raise_naming_the_roadmap_item(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 6"):
-        serve.main(ARGV + [flag, "--device", "cpu"])
+def test_overlap_and_hedge_flags_print_the_reference_output(capsys, monkeypatch, flag):
+    """``--overlap`` and ``--hedge`` serve on the port: the text output is
+    the reference's, and the ``--json`` summary and store statistics equal
+    its own at 1e-9."""
+    argv = ["--requests", "6", "--contexts", "2", flag]
+    assert _port(capsys, argv) == _reference(capsys, monkeypatch, argv)
+    got = dict(_flat(json.loads(_port(capsys, ARGV + [flag]))))
+    want = dict(_flat(json.loads(_reference(capsys, monkeypatch, ARGV + [flag]))))
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert got[k] == pytest.approx(v, abs=1e-9), k
 
 
 def test_h100_platform_serves_and_tpu_is_not_offered(capsys):

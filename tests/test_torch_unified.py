@@ -409,13 +409,32 @@ def test_unified_write_back_artifact_matches_the_legacy_paths(llama):
 @pytest.mark.parametrize("field,value", [
     ("prefetch_lookahead", 1), ("migration_interval_s", 1.0),
 ])
-def test_unified_engine_keeps_unported_branches_raising(llama, field, value):
-    """The unified step carries no prefetch or migration branch yet: asking
-    for one beside it raises, naming the ROADMAP item."""
-    _, _, cfg, params = llama
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(cfg, params, device="cpu", engine_cfg=EngineConfig(
-            max_slots=2, max_len=128, paged_decode=True, unified_step=True, **{field: value}))
+def test_unified_engine_runs_prefetch_and_migrations(llama, field, value):
+    """The unified step carries the prefetch and migration branches: its
+    intake issues the lookahead fetches (and consumes the carried walks),
+    and the migration pass runs at the top of each step and through idle
+    gaps.  The serve replays the JAX engine's at 1e-9, tokens exact."""
+    from repro.kvcache.hierarchy import TierSpec as JTierSpec
+    from repro_torch.kvcache.hierarchy import TierSpec
+    from test_torch_engine import _replay_on_both, _requests
+
+    reqs = _requests(llama[2].vocab)
+    if field == "prefetch_lookahead":
+        kw, jax_kw = dict(max_slots=1, cost_arch="llama-7b"), {}
+    else:
+        # arrivals half a modelled second apart: passes fall due mid-serve
+        reqs = [dict(r, arrival_s=0.5 * r["req_id"]) for r in reqs]
+        kw = dict(tier_specs=[TierSpec("host_dram", 1.0), TierSpec("s3", 1.0)],
+                  store_tier="host_dram")
+        jax_kw = dict(tier_specs=[JTierSpec("host_dram", 1.0), JTierSpec("s3", 1.0)])
+    eng, events = _replay_on_both(llama, reqs, "always", jax_kw=jax_kw, paged_decode=True,
+                                  unified_step=True, **{field: value}, **kw)
+    assert eng.unified_stats()["steps"] > 0
+    if field == "prefetch_lookahead":
+        assert eng.lookup_reuses > 0
+    else:
+        assert any(isinstance(e, ev.TierMigrated) for e in events)
+    assert all(e.pins == 0 for e in eng.store.entries.values())
 
 
 def test_unified_engine_refuses_embeds(llama):
