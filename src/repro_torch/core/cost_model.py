@@ -20,11 +20,11 @@ Beyond-paper extensions (kept separate, clearly flagged):
   * prefetch overlap in the delay model,
   * O(1) SSM/hybrid stored state (``ArchConfig.fixed_state_bytes``),
   * the fused (CacheBlend-style) non-prefix reuse term (``delay_fused``,
-    ``cost_fused_request``).
-
-The reference's routed-request terms (``cost_routed_request``,
-``delay_routed``) come with the cluster and router, the part of ROADMAP
-queue A item 6 still to port.
+    ``cost_fused_request``),
+  * the cluster's routed-request terms (``delay_routed``,
+    ``cost_routed_request``): a replica's queue wait, the fetch of its
+    matched bytes and the suffix prefill, which the ``AffinityRouter``
+    (``serving/router.py``) prices each replica by.
 """
 from __future__ import annotations
 
@@ -267,10 +267,72 @@ def cost_fused_request(
     return cost
 
 
-
 # --------------------------------------------------------------------------- #
 # Cluster routing terms: expected TTFT + $ of sending a request to a replica
 # --------------------------------------------------------------------------- #
+def delay_routed(
+    cfg: ArchConfig,
+    w: Workload,
+    perf: PerfModel,
+    pricing: Pricing,
+    *,
+    matched_tokens: int,
+    tier: Optional[str] = None,
+    queue_s: float = 0.0,
+    compression: float = 1.0,
+) -> DelayBreakdown:
+    """Expected per-request delay if a router sends this request to a replica
+    believed to hold ``matched_tokens`` of its context in ``tier``: the
+    replica's current queue/backlog delay, the fetch of the matched bytes,
+    and a suffix prefill of the remaining context + prompt.  With
+    ``matched_tokens == 0`` (or no tier) this is the full-recompute delay
+    behind the same queue — the router's miss branch."""
+    matched = min(max(matched_tokens, 0), w.L_context)
+    load = 0.0
+    if matched > 0 and tier is not None:
+        nbytes = s_storage_bytes(cfg, w.L_context, compression=compression)
+        load = perf.kv_load_time(
+            nbytes * matched / max(w.L_context, 1), pricing.tier(tier)
+        )
+    prefill = perf.t_prefill(cfg, (w.L_context - matched) + w.L_prompt)
+    return DelayBreakdown(
+        load_s=queue_s + load,
+        prefill_s=prefill,
+        decode_s=perf.t_decode(
+            cfg, w.L_output, w.L_context + w.L_prompt, batch=w.decode_batch
+        ),
+    )
+
+
+def cost_routed_request(
+    cfg: ArchConfig,
+    w: Workload,
+    pricing: Pricing,
+    perf: PerfModel,
+    *,
+    matched_tokens: int,
+    tier: Optional[str] = None,
+    queue_s: float = 0.0,
+    compression: float = 1.0,
+) -> float:
+    """Marginal $ of routing one request to a replica with ``matched_tokens``
+    of overlap: GPU time for the suffix prefill + decode PLUS the GPU-idle $
+    of the load/queue delay (a routed request occupies its replica while it
+    waits) plus per-GB fees on the fetched bytes.  Summing this with the
+    delay's TTFT is the AffinityRouter's argmin objective — route to the
+    cheapest expected (TTFT + $), not just the largest overlap."""
+    d = delay_routed(
+        cfg, w, perf, pricing, matched_tokens=matched_tokens, tier=tier,
+        queue_s=queue_s, compression=compression,
+    )
+    c_gpu = pricing.compute.cost_per_hour / 3600.0
+    cost = c_gpu * (d.load_s + d.prefill_s + d.decode_s)
+    matched = min(max(matched_tokens, 0), w.L_context)
+    if matched > 0 and tier is not None:
+        nbytes = s_storage_bytes(cfg, w.L_context, compression=compression)
+        loaded = nbytes * matched / max(w.L_context, 1)
+        cost += pricing.tier(tier).per_gb_transfer_fee * loaded / GB
+    return cost
 
 
 # --------------------------------------------------------------------------- #

@@ -305,6 +305,158 @@ class ConcurrencyLimitedBackend:
         return f"ConcurrencyLimited({self.inner!r}, limit={self.limit})"
 
 
+class SharedBackendCore:
+    """Content-addressed payload pool behind a tier SHARED by several stores
+    (the cluster's cold tier: every replica's s3 backend is a view onto one
+    of these).  Ownership is refcounted per content id: each namespaced key
+    (one replica's entry) holds one reference, and the payload bytes die only
+    when the last reference drops — so one replica evicting (or crashing out
+    of the cluster) can never orphan an entry another replica still holds.
+
+    Identical content written by two replicas is stored ONCE: the second
+    write is a dedup hit (no bytes move, no fee).  Capacity/GB-hour
+    accounting stays per-store (each owner is billed for its logical bytes);
+    the cluster-level dedup saving is surfaced via ``stats()`` rather than
+    silently altering any store's bill."""
+
+    def __init__(self):
+        # content id -> (payload, nbytes); one copy per distinct content
+        self._contents: Dict[str, Tuple[Any, float]] = {}
+        self._refs: Dict[str, int] = {}
+        # namespaced key (one store's entry) -> content id it references
+        self._keys: Dict[str, str] = {}
+        self.dedup_hits = 0
+
+    def write(self, key: str, cid: str, payload: Any, nbytes: float) -> bool:
+        """Bind ``key`` to content ``cid``.  Returns True when the bytes were
+        already resident (dedup: the caller's upload is a no-op)."""
+        old = self._keys.get(key)
+        if old is not None:
+            self._release(old)
+        dedup = cid in self._contents
+        if dedup:
+            self.dedup_hits += 1
+        else:
+            self._contents[cid] = (payload, nbytes)
+        self._keys[key] = cid
+        self._refs[cid] = self._refs.get(cid, 0) + 1
+        return dedup
+
+    def read(self, key: str) -> Tuple[Any, float]:
+        return self._contents[self._keys[key]]
+
+    def has(self, key: str) -> bool:
+        return key in self._keys
+
+    def drop(self, key: str) -> bool:
+        cid = self._keys.pop(key, None)
+        if cid is None:
+            return False
+        self._release(cid)
+        return True
+
+    def _release(self, cid: str) -> None:
+        n = self._refs.get(cid, 0) - 1
+        if n <= 0:
+            self._refs.pop(cid, None)
+            self._contents.pop(cid, None)
+        else:
+            self._refs[cid] = n
+
+    def drop_namespace(self, prefix: str) -> int:
+        """Release every key under ``prefix`` (a replica leaving the
+        cluster); shared payloads survive while other replicas hold them."""
+        victims = [k for k in self._keys if k.startswith(prefix)]
+        for k in victims:
+            self.drop(k)
+        return len(victims)
+
+    def stats(self) -> Dict[str, float]:
+        resident = sum(nb for _, nb in self._contents.values())
+        logical = sum(self._contents[c][1] for c in self._keys.values())
+        return {
+            "n_contents": len(self._contents),
+            "n_keys": len(self._keys),
+            "resident_bytes": resident,
+            "logical_bytes": logical,
+            "dedup_saved_bytes": logical - resident,
+            "dedup_hits": self.dedup_hits,
+        }
+
+
+class SharedTierBackend(ObjectStoreBackend):
+    """One store's view onto a :class:`SharedBackendCore`: keys are
+    namespaced per owner (``r0:ctx3``), transfer delays/fees bill through the
+    OWNER's TransferModel/clock, and writes whose content already sits in the
+    core complete instantly with a ``dedup`` handle (the bytes never move).
+    ``TieredStore`` passes each entry's token-content id via ``put``'s
+    ``content=`` kwarg when the backend advertises ``content_addressed``."""
+
+    content_addressed = True
+
+    def __init__(self, name: str = "s3", *, core: SharedBackendCore,
+                 namespace: str = "", **kw):
+        super().__init__(name, **kw)
+        self.core = core
+        self.namespace = namespace
+
+    def _key(self, key: str) -> str:
+        return f"{self.namespace}:{key}" if self.namespace else key
+
+    def put(self, key, payload, nbytes, *, charge: bool = True,
+            content: Optional[str] = None):
+        if nbytes < 0:
+            raise ValueError(
+                f"nbytes must be >= 0, got {nbytes!r} "
+                f"(tier {self.name!r}, key {key!r})"
+            )
+        self._check_brownout(key)
+        # same stamp-before-write contract as _MemoryBackend.put (this
+        # override bypasses it); identical content hashes identically, so
+        # dedup'd writes agree on the stamp
+        self._checksums[key] = payload_checksum(payload)
+        cid = content if content is not None else self._key(key)
+        if self.core.write(self._key(key), cid, payload, nbytes):
+            # identical bytes already resident service-wide: free write
+            return TransferHandle(
+                key=key, tier=self.name, kind="store", nbytes=0.0,
+                delay_s=0.0, issued_at_s=self.clock.now, dedup=True,
+            )
+        delay = 0.0
+        if self.transfer is not None and charge:
+            delay = self.transfer.store_delay(nbytes, self.name) + self.link_overhead_s
+        return TransferHandle(
+            key=key, tier=self.name, kind="store", nbytes=nbytes,
+            delay_s=delay, issued_at_s=self.clock.now,
+        )
+
+    # -- storage primitives route through the shared core ---------------- #
+    def _write(self, key: str, payload: Any, nbytes: float) -> None:
+        self.core.write(self._key(key), self._key(key), payload, nbytes)
+
+    def _read(self, key: str) -> Tuple[Any, float]:
+        try:
+            return self.core.read(self._key(key))
+        except KeyError:
+            raise KeyNotFound(
+                f"{type(self).__name__} tier {self.name!r} has no payload "
+                f"under key {key!r}",
+                tier=self.name, key=key, reason="not_found",
+            ) from None
+
+    def _drop(self, key: str) -> bool:
+        return self.core.drop(self._key(key))
+
+    def _has(self, key: str) -> bool:
+        return self.core.has(self._key(key))
+
+    def release_namespace(self) -> int:
+        """Drop every key this view owns (the owning replica leaves)."""
+        return self.core.drop_namespace(
+            f"{self.namespace}:" if self.namespace else ""
+        )
+
+
 _BACKEND_KINDS = {
     "host": HostMemoryBackend,
     "disk": DiskSpillBackend,
@@ -1109,7 +1261,13 @@ class TieredStore:
     # ------------------------------------------------------------------ #
     def stats(self) -> Dict[str, Any]:
         self._accrue()
+        shared = {
+            n: b.core.stats()
+            for n, b in self.backends.items()
+            if isinstance(getattr(b, "core", None), SharedBackendCore)
+        }
         return {
+            **({"shared": shared} if shared else {}),
             "entries": len(self.entries),
             "evictions": self.evictions,
             "rejected_puts": self.rejected_puts,

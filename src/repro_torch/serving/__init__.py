@@ -1,4 +1,5 @@
 """Step-driven serving engine with stored-KV-cache reuse (plan/execute API)."""
+from repro_torch.serving.cluster import ClusterConfig, ServingCluster  # noqa: F401
 from repro_torch.serving.engine import EngineConfig, ServingEngine  # noqa: F401
 from repro_torch.serving.planner import (  # noqa: F401
     AlwaysReusePlanner,
@@ -9,3 +10,11 @@ from repro_torch.serving.planner import (  # noqa: F401
     StoreLookup,
 )
 from repro_torch.serving.request import Request  # noqa: F401
+from repro_torch.serving.router import (  # noqa: F401
+    AffinityRouter,
+    BloomDigest,
+    ConsistentHashRing,
+    ReplicaView,
+    RoundRobinRouter,
+    RouteDecision,
+)

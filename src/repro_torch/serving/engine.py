@@ -53,6 +53,9 @@ not hide, ``prefetch_lookahead`` starts the fetches of queued requests
 (their entries pinned until admission) and ``migration_interval_s`` runs the
 break-even migration pass on the clock, idle gaps included.
 
+``load()`` and ``free_capacity()`` are what a cluster's router reads of a
+replica (``serving/cluster.py``).
+
 This is the port of the JAX engine under every ``EngineConfig`` option.
 Compute runs eagerly in PyTorch (no jit): on CUDA tensors the kernels are
 the hand-written ones, on CPU tensors their plain versions.  Times and
@@ -379,6 +382,19 @@ class ServingEngine:
             and not any(s.active for s in self.slots)
             and not self._chunks
         )
+
+    def load(self) -> int:
+        """Requests this replica currently owes work to (queued + in a slot,
+        including slots mid-chunked-prefill) — the router's load signal."""
+        return (
+            len(self.queue)
+            + sum(1 for s in self.slots if s.active)
+            + len(self._chunks)
+        )
+
+    def free_capacity(self) -> int:
+        """Slots not yet spoken for by queued or active requests (floor 0)."""
+        return max(0, self.ec.max_slots - self.load())
 
     def step(self) -> List[ev.Event]:
         """Advance the engine by one scheduling step and return its events:

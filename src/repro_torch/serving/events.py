@@ -17,7 +17,9 @@ Under the unified step (``EngineConfig.unified_step``) a request's prefill
 lands over several ``UnifiedStep`` launches between ``KVLoaded`` and
 ``PrefillDone``.  A fused (CacheBlend-style) admission emits one
 ``KVLoaded`` per source entry, then ``FusedAdmitted``, then ``PrefillDone``.
-The reference's cluster and market events come with those features.
+A cluster (``serving/cluster.py``) adds ``RequestRouted`` before the landing
+replica's ``RequestAdmitted``, and the cluster-level ``ReplicaRebalanced``
+and ``ReplicaCrashed``.  The reference's market events come with the market.
 
 ``ClockAdvanced`` appears between requests when the engine is idle and jumps
 simulated time to the next arrival.
@@ -147,6 +149,34 @@ class TierMigrated(Event):
 
 
 @dataclasses.dataclass(frozen=True)
+class RequestRouted(Event):
+    """A cluster router chose a replica for this request (emitted by
+    ``ServingCluster`` before the replica's own RequestAdmitted).
+    ``matched_tokens`` is the DIGEST-predicted overlap at routing time — a
+    stale/false-positive prediction shows up here larger than the landing
+    replica's realized KVLoaded, which is exactly the staleness cost."""
+
+    replica: int
+    matched_tokens: int  # digest-predicted overlap (not the realized one)
+    score: float  # marginal routing cost of the chosen replica ($)
+    ring_owner: int  # consistent-hash baseline placement (-1: oblivious)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplicaRebalanced(Event):
+    """Cluster rebalancing copied a hot entry toward its traffic: the target
+    replica now holds its own hot-tier copy (replicated residency — the
+    donor keeps serving until then, so there is no unreachable window).
+    req_id is -1: an economics pass, not a request."""
+
+    content_key: str
+    from_replica: int
+    to_replica: int
+    nbytes: float
+    hits: int  # routed hits at the target that justified the copy
+
+
+@dataclasses.dataclass(frozen=True)
 class FetchFailed(Event):
     """One planned KV fetch attempt failed (transient drop, brownout,
     corruption, or a vanished key).  ``wasted_s``/``wasted_bytes`` are what
@@ -186,11 +216,25 @@ class DegradedToRecompute(Event):
     reason: str
 
 
+@dataclasses.dataclass(frozen=True)
+class ReplicaCrashed(Event):
+    """A replica died mid-run (req_id is -1: a cluster-level act).  Its
+    in-flight and queued requests were harvested and resubmitted to the
+    surviving replicas through the router; its shared-tier namespace was
+    released and its digest invalidated."""
+
+    replica: int
+    inflight: int  # active-slot requests resubmitted
+    queued: int  # admission-queue requests resubmitted
+    released_keys: int  # shared-tier keys released by the crash
+
+
 AnyEvent = Union[
     RequestAdmitted, PlanChosen, BatchAdmitted, UnifiedStep, KVLoaded, FusedAdmitted,
     PrefillDone,
     StoreWriteBack, TokenEmitted, RequestFinished, ClockAdvanced, TierMigrated,
-    FetchFailed, FetchRetried, DegradedToRecompute,
+    RequestRouted, ReplicaRebalanced, FetchFailed, FetchRetried, DegradedToRecompute,
+    ReplicaCrashed,
 ]
 
 

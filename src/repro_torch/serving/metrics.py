@@ -1,5 +1,6 @@
 """Serving metrics: delay distributions + the paper's cost breakdown,
-summarized over the engine's records (``summarize``)."""
+summarized over the engine's records (``summarize``), and a cluster's
+aggregate over its replicas' summaries (``ClusterSummary``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -61,3 +62,59 @@ def summarize(
     )
 
 
+@dataclasses.dataclass
+class ClusterSummary:
+    """Aggregate view over N replicas' serving summaries.  Latency stats are
+    request-weighted means of the per-replica stats; costs add; the horizon
+    is the latest replica's (replicas run on private clocks)."""
+
+    replicas: List[ServingSummary]
+    tokens_generated: int = 0
+
+    @property
+    def n_requests(self) -> int:
+        return sum(s.n_requests for s in self.replicas)
+
+    @property
+    def reuse_hits(self) -> int:
+        return sum(s.reuse_hits for s in self.replicas)
+
+    @property
+    def hit_rate(self) -> float:
+        return self.reuse_hits / max(self.n_requests, 1)
+
+    @property
+    def total_cost(self) -> float:
+        return sum(s.total_cost for s in self.replicas)
+
+    @property
+    def horizon_s(self) -> float:
+        return max((s.horizon_s for s in self.replicas), default=0.0)
+
+    @property
+    def tokens_per_s(self) -> float:
+        return self.tokens_generated / max(self.horizon_s, 1e-9)
+
+    @property
+    def mean_ttft_s(self) -> float:
+        # idle replicas (0 requests) report NaN stats; they carry no weight
+        # here and must not poison the cluster mean
+        n = max(self.n_requests, 1)
+        return sum(
+            s.mean_ttft_s * s.n_requests for s in self.replicas
+            if s.n_requests > 0
+        ) / n
+
+    def as_dict(self) -> Dict[str, float]:
+        return {
+            "n_replicas": len(self.replicas),
+            "n_requests": self.n_requests,
+            "reuse_hits": self.reuse_hits,
+            "hit_rate": self.hit_rate,
+            "mean_ttft_s": self.mean_ttft_s,
+            "tokens_generated": self.tokens_generated,
+            "tokens_per_s": self.tokens_per_s,
+            "horizon_s": self.horizon_s,
+            "total_cost": self.total_cost,
+            "per_replica": [s.as_dict() for s in self.replicas],
+        }

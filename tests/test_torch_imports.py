@@ -9,7 +9,8 @@ tier, and runs the launcher with ``--compress``; another serves the reduced
 mamba2-1.3b and runs the launcher with ``--arch mamba2-1.3b``; a third runs
 the simulator and its benchmark files, serves under fault injection, hedged
 and overlapped loads, lookahead prefetch and migrations, and runs the
-launcher with ``--overlap --hedge``.
+launcher with ``--overlap --hedge``; a fourth serves a two-replica
+cluster behind the affinity router over one shared, deduplicating s3 tier.
 """
 import pathlib
 import re
@@ -177,3 +178,52 @@ def test_port_runs_simulator_faults_and_latency_options_with_jax_and_repro_block
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert "served 4 requests" in out.stdout
+
+
+def test_port_serves_a_cluster_with_jax_and_repro_blocked():
+    """Two replicas of the reduced llama-7b behind the affinity router over
+    one shared s3 tier, on the CPU, with JAX and the reference blocked: every
+    request routed once, reuse hits, and a second replica's write-back of a
+    context the first stored deduplicated in the shared core."""
+    script = textwrap.dedent(
+        """
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import torch
+        torch.set_num_threads(1)
+        from repro_torch.configs import get_config, reduced_config
+        from repro_torch.kvcache.hierarchy import TierSpec
+        from repro_torch.models import lm
+        from repro_torch.serving import (AffinityRouter, AlwaysReusePlanner, BloomDigest,
+                                         ClusterConfig, EngineConfig, Request,
+                                         RoundRobinRouter, ServingCluster)
+        from repro_torch.serving import events as ev
+        cfg = reduced_config(get_config("llama-7b"))
+        params = lm.init(cfg, seed=0, device="cpu")
+        ec = EngineConfig(max_slots=2, max_len=128,
+                          tier_specs=[TierSpec("host_dram", 1.0), TierSpec("s3", 1.0)])
+        for router in (AffinityRouter(), RoundRobinRouter()):
+            cl = ServingCluster(cfg, params, device="cpu", engine_cfg=ec, router=router,
+                                cluster_cfg=ClusterConfig(n_replicas=2, gossip_interval_s=0.01),
+                                planner_factory=AlwaysReusePlanner)
+            for i in range(9):
+                ctx = list(range(100 * (i % 3), 100 * (i % 3) + 40))
+                cl.submit(Request(req_id=i, context_tokens=ctx, prompt_tokens=[7, 8, 9],
+                                  max_new_tokens=2, arrival_s=i * 0.02, expected_reuses=3))
+            s = cl.run()
+            routed = [e for _, e in cl.events if isinstance(e, ev.RequestRouted)]
+            assert s.n_requests == 9 and len(routed) == 9 and s.reuse_hits > 0, s.as_dict()
+            print(type(router).__name__, s.reuse_hits, cl.core.stats()["dedup_hits"])
+        assert cl.core.stats()["dedup_hits"] > 0, cl.core.stats()
+        assert isinstance(cl._digests[0], BloomDigest)
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "RoundRobinRouter" in out.stdout

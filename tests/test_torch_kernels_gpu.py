@@ -1215,3 +1215,106 @@ def test_reduced_mamba_serves_on_card_as_on_cpu(cuda, paged_decode):
     assert {r.req_id: (r.action, r.tokens) for r in eng.records} == {
         r.req_id: (r.action, r.tokens) for r in cpu.records}
     assert [r.action for r in sorted(eng.records, key=lambda r: r.req_id)].count("load") == 4
+
+
+def _int8_rebalance_cluster(device):
+    """A two-replica round-robin cluster of the reduced llama-7b on
+    ``device``, rebalancing on and write-back off, whose replica 0 holds
+    three 64-token contexts in an int8 ``local_nvme`` tier; 16 requests
+    over them, so that one context's traffic concentrates on replica 1.
+    Returns (cluster, kv_dequant launches inside each rebalance tick)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.perf_model import V100_X4_HF, PerfModel
+    from repro_torch.core.pricing import AWS_PAPER
+    from repro_torch.kvcache.hierarchy import TierSpec
+    from repro_torch.models import lm
+    from repro_torch.serving import (AlwaysReusePlanner, ClusterConfig, EngineConfig, Request,
+                                     RoundRobinRouter, ServingCluster, ServingEngine)
+
+    cfg = reduced_config(get_config("llama-7b"))
+    params = _to(lm.init(cfg, seed=0, device="cpu"), device)
+    hw = dict(pricing=AWS_PAPER, perf=PerfModel(V100_X4_HF))
+    specs = [TierSpec("host_dram", 1.0), TierSpec("local_nvme", 1.0), TierSpec("s3", 1.0)]
+    rng = np.random.default_rng(1)
+    ctxs = [list(map(int, rng.integers(0, cfg.vocab, 64))) for _ in range(3)]
+    seeds = []
+    for ctx in ctxs:
+        eng = ServingEngine(cfg, params, device=device, planner=AlwaysReusePlanner(), **hw,
+                            engine_cfg=EngineConfig(max_slots=2, max_len=128, chunk_tokens=16,
+                                                    tier_specs=specs, store_tier="host_dram"))
+        eng.submit(Request(req_id=0, context_tokens=ctx, prompt_tokens=[1, 2, 3],
+                           max_new_tokens=1, expected_reuses=4))
+        eng.run()
+        (eid, entry), = eng.store.entries.items()
+        seeds.append((eng.store.backends[entry.tier].peek(eid), entry.saved_per_use))
+    cl = ServingCluster(
+        cfg, params, device=device, router=RoundRobinRouter(),
+        planner_factory=AlwaysReusePlanner, **hw,
+        cluster_cfg=ClusterConfig(n_replicas=2, gossip_interval_s=0.05,
+                                  rebalance_interval_s=0.05, rebalance_min_hits=2),
+        engine_cfg=EngineConfig(max_slots=2, max_len=128, chunk_tokens=16, tier_specs=specs,
+                                store_tier="host_dram", cost_arch="llama-7b",
+                                store_write_back=False, compress_tier="local_nvme"))
+    for ctx, (art, saved) in zip(ctxs, seeds):
+        assert cl.replicas[0].store.put(ctx, art, tier="local_nvme", saved_per_use=saved)[0]
+    ticks = []
+    rebalance = cl._rebalance
+
+    def counted(now, out):
+        before = kq.kv_dequant.launches
+        rebalance(now, out)
+        ticks.append(kq.kv_dequant.launches - before)
+
+    cl._rebalance = counted
+    for i in range(16):
+        cl.submit(Request(req_id=i, context_tokens=ctxs[i % 3],
+                          prompt_tokens=list(map(int, rng.integers(0, cfg.vocab, 8))),
+                          max_new_tokens=4, arrival_s=i * 0.2, expected_reuses=5))
+    cl.run()
+    return cl, ticks
+
+
+@pytest.mark.gpu
+def test_cluster_rebalance_of_an_int8_entry_dequantises_on_card(cuda):
+    """Copy-then-keep of an int8 entry between replicas on the card: the
+    rebalance dequantises the donor's int8 rows through ``kv_dequant`` (one
+    launch per quantised leaf, counted inside the rebalance tick), and the
+    copy lands in the target's host tier as host arrays, bit for bit the
+    plain dequantisation of the donor's bytes, with the donor's int8 copy
+    kept.  The same cluster on the CPU makes the same copies and tokens."""
+    from repro_torch.kvcache import compression
+    from repro_torch.serving import events as ev
+
+    def copies(cl):
+        out = []
+        for _, e in cl.events:
+            if isinstance(e, ev.ReplicaRebalanced):
+                (d,) = [x for x in cl.replicas[e.from_replica].store.entries.values()
+                        if x.content_key == e.content_key]
+                (t,) = [x for x in cl.replicas[e.to_replica].store.entries.values()
+                        if x.content_key == e.content_key]
+                out.append((e, d, t))
+        return out
+
+    cl, ticks = _int8_rebalance_cluster("cuda")
+    torch.cuda.synchronize()
+    done = copies(cl)
+    assert done and cl.rebalances == len(done)
+    quantised = 0
+    for e, d, t in done:
+        assert (d.tier, d.compressed) == ("local_nvme", True)
+        assert (t.tier, t.compressed, t.nbytes) == ("host_dram", False, e.nbytes)
+        src = cl.replicas[e.from_replica].store.backends["local_nvme"].peek(d.entry_id)
+        got = cl.replicas[e.to_replica].store.backends["host_dram"].peek(t.entry_id)
+        want = compression.decompress_tree(src, "cpu")
+        pairs = list(zip(compression.tree_leaves(got), compression.tree_leaves(want)))
+        assert pairs and all(isinstance(g, np.ndarray) for g, _ in pairs)
+        assert all(g.dtype == w.dtype and np.array_equal(g, w) for g, w in pairs)
+        quantised += sum(isinstance(x, compression.CompressedArray)
+                         for x in compression.tree_leaves(src))
+    assert sum(ticks) == quantised > 0
+    cpu, cpu_ticks = _int8_rebalance_cluster("cpu")
+    assert sum(cpu_ticks) == 0
+    assert [(e.content_key, e.from_replica, e.to_replica, e.nbytes) for e, _, _ in done] == \
+        [(e.content_key, e.from_replica, e.to_replica, e.nbytes) for e, _, _ in copies(cpu)]
+    assert {r.req_id: r.tokens for r in cl.records} == {r.req_id: r.tokens for r in cpu.records}
