@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's nine CUDA kernels from ``src/repro_torch/kernels/csrc``
-with nvcc (one nvcc per source, all started together), then drives ten
+with nvcc (one nvcc per source, all started together), then drives eleven
 paths of the port, each with every launch counter zeroed just before it and
 read just after it:
 
@@ -115,12 +115,24 @@ read just after it:
    recorded once, logits within ``LOGIT_ATOL`` and the dense serve's
    tokens up to a near-tie.  The affinity serve counts 4 reuse hits and
    the round-robin serve 5, the counts the reference cluster gives on this
-   mix (affinity's ring owner is full when wave 3 arrives).
-9. the serving launcher — ``repro_torch.launch.serve`` with ``--requests 8
+   mix (affinity's ring owner is full when wave 3 arrives).  The two-replica
+   serves run with ``obs.Telemetry`` and a JSONL ``TraceWriter``: the
+   ledger conserves against each replica's summary at 1e-9, the telemetry
+   sees each ``RequestRouted`` and ``ReplicaCrashed`` exactly once, and the
+   trace's per-replica audit equals the live one.
+9. telemetry phase — the dense serve of phase 1 once more with
+   ``obs.Telemetry`` and a JSONL trace on: tokens, records, summary and
+   launch counts equal to the dense serve's, first-token logits bit for
+   bit; the ledger conserves at 1e-9; the trace read back gives the
+   summary (1e-9), the audit rows and the span trees of the live stream.
+   It logs the console dashboard, the trace's events and bytes,
+   telemetry's own host ms per step (``on_events`` and the trace write)
+   and each step's card wall beside the dense serve's.
+10. the serving launcher — ``repro_torch.launch.serve`` with ``--requests 8
    --contexts 2 --policy always --compress --json`` (reduced compute,
    full-size economics) on the card: int8 launches and at least four reuse
    hits; then with ``--overlap --hedge``.
-10. SSM serve phase — after the llama engines and weights are freed,
+11. SSM serve phase — after the llama engines and weights are freed,
    full-width, full-depth mamba2-1.3b in bf16 (random weights from a seeded
    generator) serves the prefix mix behind the same ``ServingEngine``
    settings, H100 ``PerfModel`` and prices and ``CostAwarePlanner``.  It
@@ -188,6 +200,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -231,7 +244,17 @@ from repro_torch.serving import (  # noqa: E402
     ServingCluster,
     ServingEngine,
 )
+from repro_torch.obs import Telemetry, build_spans, chrome_trace  # noqa: E402
+from repro_torch.obs.console import render  # noqa: E402
+from repro_torch.serving import TraceWriter, read_events  # noqa: E402
 from repro_torch.serving import events as ev  # noqa: E402
+from repro_torch.serving.audit import (  # noqa: E402
+    audit,
+    audit_from_trace,
+    cluster_audit,
+    cluster_audit_from_trace,
+)
+from repro_torch.serving.metrics import summarize_events  # noqa: E402
 from repro_torch.serving.scheduler import HedgePolicy  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
@@ -635,7 +658,7 @@ def of_type(events, cls, req_ids=None):
 
 
 def serve(cfg, params, *, reuse: bool = True, planner=None, make_traffic=traffic,
-          setup=None, **ec_kw):
+          setup=None, telemetry=None, **ec_kw):
     """Serve the traffic once; returns (engine, records by id, recorder,
     per-step rows (kind, wall_s, modelled load_s, modelled step s, q_len or
     decode rows or tokens prefilled, kv_len or chunk tokens or the plan of a
@@ -643,10 +666,11 @@ def serve(cfg, params, *, reuse: bool = True, planner=None, make_traffic=traffic
     The recorder keeps, per request, the logits each of its tokens was
     taken from (``req_logits``, ``first_logits``) and the wall-clock instant
     of each token (``token_wall``, seconds from the first step).  ``setup``,
-    if given, is called with the engine before the traffic is submitted."""
+    if given, is called with the engine before the traffic is submitted;
+    ``telemetry`` is the engine's ``obs.Telemetry`` (off by default)."""
     eng = ServingEngine(
         cfg, params, engine_cfg=EngineConfig(reuse_enabled=reuse, **SERVE, **ec_kw),
-        planner=planner or CostAwarePlanner(), device=DEVICE,
+        planner=planner or CostAwarePlanner(), device=DEVICE, telemetry=telemetry,
     )
     if setup is not None:
         setup(eng)
@@ -1818,18 +1842,20 @@ def fault_phase(cfg, params, dense, unified, card):
 # --------------------------------------------------------------------------- #
 # Cluster phase
 # --------------------------------------------------------------------------- #
-def serve_cluster(cfg, params, n_replicas, router, *, setup=None, cc_kw=None, **ec_kw):
+def serve_cluster(cfg, params, n_replicas, router, *, setup=None, cc_kw=None,
+                  telemetry=None, trace=None, **ec_kw):
     """Serve the prefix mix once through a ``ServingCluster`` of
     ``n_replicas`` dense engines behind ``router``, ``CostAwarePlanner``,
     H100 ``PerfModel`` and prices (the engine's defaults); returns (cluster,
     one recorder per replica).  A cluster step steps at most one replica:
     its events, card wall time and modelled time go to that replica's
     recorder (``Recorder.note_step``).  ``setup``, if given, is called with
-    the cluster before the traffic is submitted."""
+    the cluster before the traffic is submitted; ``telemetry`` and
+    ``trace`` (a ``TraceWriter``) are the cluster's, off by default."""
     cl = ServingCluster(
         cfg, params, cluster_cfg=ClusterConfig(n_replicas=n_replicas, **(cc_kw or {})),
         engine_cfg=EngineConfig(**SERVE, **ec_kw), router=router,
-        planner_factory=CostAwarePlanner, device=DEVICE,
+        planner_factory=CostAwarePlanner, device=DEVICE, telemetry=telemetry, trace=trace,
     )
     if setup is not None:
         setup(cl)
@@ -1958,11 +1984,32 @@ def check_cluster_serve(label, cl, recs, ref_recs, ref_logits, card):
     assert c["packed_flash_attention"] > 0 and c["decode_attention"] > 0, c
 
 
-def cluster_phase(cfg, params, dense, card):
+def check_cluster_telemetry(label, cl, tel, trace):
+    """The telemetry gates of a cluster serve: the ledger conserves per
+    replica at 1e-9, the telemetry saw the cluster's stream, each
+    ``RequestRouted`` and ``ReplicaCrashed`` exactly once, and the trace
+    read back gives the live per-replica audit."""
+    trace.close()
+    residuals = tel.check_cluster(cl.summary())
+    assert all(v <= 1e-9 for per in residuals.values() for v in per.values()), residuals
+    assert tel.events == cl.events, label
+    by_replica = cluster_audit(cl.events_by_replica)
+    assert cluster_audit_from_trace(trace.path) == by_replica, label
+    acts = tel.ledger.by_activity()
+    log(f"{label} telemetry: conservation residuals {residuals}; "
+        f"{sum(isinstance(e, ev.RequestRouted) for _, e in tel.events)} RequestRouted and "
+        f"{sum(isinstance(e, ev.ReplicaCrashed) for _, e in tel.events)} ReplicaCrashed seen "
+        f"once each; ledger by activity {json.dumps(acts)}; trace {trace.n_events} events, "
+        f"{trace.path.stat().st_size} bytes; its audit equals the live one "
+        f"({sum(len(r) for r in by_replica.values())} rows)")
+
+
+def cluster_phase(cfg, params, dense, card, tmp):
     """Three cluster serves of the prefix mix on the full llama (dense
     decode), held to the dense serve ``dense`` = (records by request, each
     request's per-token logits, launch counts, summary).  ``card`` is the
-    card's name and power limit, as nvidia-smi gives them."""
+    card's name and power limit, as nvidia-smi gives them; the traces of
+    serves 2 and 3 go to the directory ``tmp``."""
     ref_recs, ref_logits, ref_counts, ref_summary = dense
     n_reqs = len(traffic(cfg.vocab))
 
@@ -1989,12 +2036,16 @@ def cluster_phase(cfg, params, dense, card):
     del cl, rec, got
     release()
 
-    # 2. two replicas behind the affinity router over one shared s3 tier
+    # 2. two replicas behind the affinity router over one shared s3 tier,
+    # with telemetry and a trace on
     zero_counts()
+    tel, tw = Telemetry(), TraceWriter(tmp / "cluster2.jsonl")
     cl, recs = serve_cluster(cfg, params, 2, AffinityRouter(), tier_specs=CLUSTER_TIERS,
-                             cc_kw=dict(gossip_interval_s=GOSSIP_INTERVAL_S, shared_tier="s3"))
+                             cc_kw=dict(gossip_interval_s=GOSSIP_INTERVAL_S, shared_tier="s3"),
+                             telemetry=tel, trace=tw)
     check_cluster_serve("cluster serve 2 (two replicas, affinity)", cl, recs, ref_recs,
                         ref_logits, card)
+    check_cluster_telemetry("cluster serve 2", cl, tel, tw)
     # the gossiped digests were fresh: every request routed on a digest hit
     # found that many tokens stored where it landed
     realised = {r.req_id: r.matched_tokens for r in cl.records}
@@ -2043,11 +2094,14 @@ def cluster_phase(cfg, params, dense, card):
         eng.step, cl.remove_replica = stepped, tracked
 
     zero_counts()
+    tel, tw = Telemetry(), TraceWriter(tmp / "cluster3.jsonl")
     cl, recs = serve_cluster(cfg, params, 2, RoundRobinRouter(), setup=hooks,
                              tier_specs=CLUSTER_TIERS, faults=inj,
-                             cc_kw=dict(gossip_interval_s=GOSSIP_INTERVAL_S, shared_tier="s3"))
+                             cc_kw=dict(gossip_interval_s=GOSSIP_INTERVAL_S, shared_tier="s3"),
+                             telemetry=tel, trace=tw)
     check_cluster_serve("cluster serve 3 (two replicas, round robin, crash)", cl, recs,
                         ref_recs, ref_logits, card)
+    check_cluster_telemetry("cluster serve 3", cl, tel, tw)
     log(f"cluster serve 3: replica 1's s3 entries at its release (entry, stamp equal "
         f"to the shared bytes): {[(k, payload_checksum(p) == c) for k, p, c in released]}")
     released.clear()
@@ -2080,6 +2134,109 @@ def cluster_phase(cfg, params, dense, card):
     # other replica, which recomputes; round robin loses one hit fewer
     assert (affinity["reuse_hits"], rr["reuse_hits"]) == (4, 5), (affinity, rr)
     del cl, recs
+    release()
+
+
+# --------------------------------------------------------------------------- #
+# Telemetry phase
+# --------------------------------------------------------------------------- #
+def telemetry_phase(cfg, params, dense, card, tmp):
+    """The dense serve once more with ``obs.Telemetry`` and a JSONL trace on,
+    held to the dense serve ``dense`` = (records by request, first-token
+    logits, launch counts, summary, step rows): the same tokens, records,
+    summary and launch counts, the first-token logits bit for bit; the
+    ledger conserves at 1e-9; the trace read back gives the summary, the
+    audit and the span trees of the live stream.  Logs the dashboard, the
+    trace's size, telemetry's own host time per step and the step walls
+    beside the dense serve's."""
+    ref_recs, ref_first, ref_counts, ref_summary, ref_steps = dense
+    tel = Telemetry()
+    path = tmp / "telemetry.jsonl"
+    # per step call: [kind, telemetry's own host seconds (on_events + trace write)]
+    host = []
+    observe = tel.on_events
+
+    def timed_observe(events, **kw):
+        t0 = time.perf_counter()
+        observe(events, **kw)
+        host[-1][1] += time.perf_counter() - t0
+    tel.on_events = timed_observe
+
+    with TraceWriter(path) as tw:
+        def traced(eng):
+            step = eng.step
+
+            def stepped():
+                host.append(["idle", 0.0])
+                events = step()
+                t0 = time.perf_counter()
+                tw.write_all(events)
+                host[-1][1] += time.perf_counter() - t0
+                if any(isinstance(e, ev.BatchAdmitted) for e in events):
+                    host[-1][0] = "admission"
+                elif any(isinstance(e, ev.TokenEmitted) for e in events):
+                    host[-1][0] = "decode"
+                return events
+            eng.step = stepped
+
+        zero_counts()
+        eng, recs, rec, steps, _ = serve(cfg, params, setup=traced, telemetry=tel)
+        c = counts()
+    log(f"telemetry serve launches: {c}")
+    assert c == ref_counts, (c, ref_counts)
+    assert sorted(recs) == sorted(ref_recs)
+    for i, r in recs.items():
+        assert r == ref_recs[i], f"telemetry serve request {i}: record differs"
+        assert torch.equal(rec.first_logits[i], ref_first[i]), f"request {i}: logits differ"
+    summary = eng.summary()
+    assert summary.as_dict() == ref_summary, (summary.as_dict(), ref_summary)
+    log("telemetry serve: tokens, records, summary and launch counts equal to the dense "
+        "serve's, first-token logits bit for bit")
+
+    residuals = tel.check(summary)
+    assert max(residuals.values()) <= 1e-9, residuals
+    log(f"telemetry ledger: conservation residuals {residuals}; by activity "
+        f"{json.dumps(tel.ledger.by_activity())}; {len(tel.ledger.all_entries())} entries")
+
+    live = rec.events
+    replayed = read_events(path)
+    assert replayed == live
+    assert_close(summarize_events(replayed, storage_cost=summary.storage_cost,
+                                  transfer_cost=summary.transfer_cost).as_dict(),
+                 summary.as_dict(), "replayed summary")
+    rows = audit(live)
+    assert audit_from_trace(path) == rows
+    spans = build_spans(live)
+    assert build_spans(replayed) == spans == tel.engine_spans()
+    doc = chrome_trace(spans)
+    log(f"telemetry trace: {tw.n_events} events, {path.stat().st_size} bytes; the replay "
+        f"gives the summary, the {len(rows)} audit rows and the {len(spans)} span trees "
+        f"({sum(1 for s in spans for _ in s.walk())} spans; Chrome trace "
+        f"{sum(e['ph'] == 'X' for e in doc['traceEvents'])} complete events, "
+        f"{sum(e['ph'] == 'i' for e in doc['traceEvents'])} instants)")
+    tel.collect_engine(eng)
+    for line in render(tel, summary).splitlines():
+        log(f"telemetry dashboard | {line}")
+    for line in tel.registry.to_prometheus().splitlines():
+        if line.startswith(("jit_bucket_calls", "kv_cache_hit_rate", "store_entries")):
+            log(f"telemetry prometheus | {line}")
+    for kind in ("admission", "decode", "idle", "all"):
+        ms = np.array([h for k, h in host if kind in (k, "all")]) * 1e3
+        if len(ms):
+            log(f"telemetry host ms per {kind} step (on_events + trace write, perf_counter; "
+                f"{len(ms)} steps): median {np.median(ms):.4f}, mean {ms.mean():.4f}, "
+                f"max {ms.max():.4f}, total {ms.sum():.3f}")
+    log(f"telemetry serve steps, card wall with telemetry and the trace beside the dense "
+        f"serve's ({card}):")
+    assert len(steps) == len(ref_steps), (len(steps), len(ref_steps))
+    for n, (row, ref_row) in enumerate(zip(steps, ref_steps)):
+        assert row[0] == ref_row[0], (n, row[0], ref_row[0])
+        log(f"telemetry step {n} {row[0]}: wall_ms={1e3 * row[1]:.2f} "
+            f"dense wall_ms={1e3 * ref_row[1]:.2f}")
+    walls = [(r[1], d[1]) for r, d in zip(steps, ref_steps) if r[0] == "decode"]
+    log(f"telemetry decode step wall ms median {1e3 * np.median([w for w, _ in walls]):.2f} "
+        f"beside the dense serve's {1e3 * np.median([d for _, d in walls]):.2f}")
+    del eng, rec
     release()
 
 
@@ -2415,7 +2572,13 @@ def main() -> None:
                 (urecs, unified_logits, {}, unified_summary), smi)
 
     # ---- cluster phase ----------------------------------------------------
-    cluster_phase(cfg, params, (recs, dense_logits, dense_counts, summary), smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        cluster_phase(cfg, params, (recs, dense_logits, dense_counts, summary), smi,
+                      pathlib.Path(tmp))
+
+        # ---- telemetry phase ----------------------------------------------
+        telemetry_phase(cfg, params, (recs, first_logits, dense_counts, summary, steps), smi,
+                        pathlib.Path(tmp))
     del params, artifact
     release()
     launcher_phase()

@@ -41,9 +41,11 @@ seed trace through it).
 This is the port of the reference's cluster.  Every replica runs on
 ``device`` (the card unless the caller asks for another).  Its pricing and
 perf default to the port engine's own, ``h100_pricing(1)`` and
-``PerfModel(h100(1))``.  Event traces, telemetry and the marketplace are
-not ported yet: ``trace=``, ``telemetry=`` and ``market=`` raise
-``NotImplementedError`` naming their ROADMAP items."""
+``PerfModel(h100(1))``.  ``trace=`` (a ``serving.trace.TraceWriter``)
+writes every replica-tagged event as it is emitted, and ``telemetry=`` (an
+``obs.Telemetry``) is shared by every replica.  The marketplace is not
+ported yet: ``market=`` raises ``NotImplementedError`` naming its ROADMAP
+item."""
 from __future__ import annotations
 
 import dataclasses
@@ -130,16 +132,16 @@ class ServingCluster:
         """``device`` is where every replica's model runs: the card unless
         the caller asks for another (``device="cpu"``); with no CUDA and no
         device given, this raises.  ``params`` must already live there."""
-        if trace is not None or telemetry is not None:
-            raise NotImplementedError(
-                "cluster event traces and telemetry are not ported yet: "
-                "ROADMAP queue A item 7"
-            )
         if market is not None:
             raise NotImplementedError(
                 "the KV marketplace is not ported yet: ROADMAP queue A item 8"
             )
         self.device = resolve_device(device)
+        self.trace = trace
+        # replica engines feed their own events to telemetry from step(); the
+        # cluster feeds only its cluster-level events (routing, rebalance,
+        # crashes) and gossip ticks, so nothing is counted twice
+        self.telemetry = telemetry
         self.cc = cluster_cfg or ClusterConfig()
         self.ec = engine_cfg or EngineConfig()
         n = self.cc.n_replicas
@@ -260,6 +262,8 @@ class ServingCluster:
             clock=clock,
             transfer=transfer,
             on_token=((lambda e, _i=i: on_token(_i, e)) if on_token else None),
+            telemetry=self.telemetry,
+            telemetry_replica=i,
             device=self.device,
         )
 
@@ -390,7 +394,7 @@ class ServingCluster:
         self._route_hits.setdefault(ck, {}).setdefault(d.replica, 0)
         self._route_hits[ck][d.replica] += 1
         self._ctx_tokens[ck] = tuple(req.context_tokens)
-        self._emit(
+        self._emit_cluster(
             d.replica,
             ev.RequestRouted(
                 t_s=req.arrival_s, req_id=req.req_id, replica=d.replica,
@@ -403,6 +407,16 @@ class ServingCluster:
     def _emit(self, replica: int, event: ev.Event, out) -> None:
         out.append((replica, event))
         self.events_by_replica[replica].append(event)
+        if self.trace is not None:
+            self.trace.write(event, replica=replica)
+
+    def _emit_cluster(self, replica: int, event: ev.Event, out) -> None:
+        """Emit a cluster-originated event (routing, rebalance, crash):
+        engine events reach telemetry from the engine's own step(), these
+        only from here."""
+        self._emit(replica, event, out)
+        if self.telemetry is not None:
+            self.telemetry.on_events([event], replica=replica)
 
     # ------------------------------------------------------------------ #
     # Gossip
@@ -417,6 +431,7 @@ class ServingCluster:
         bits are identical to a from-scratch rebuild every tick (the
         staleness-equivalence test in tests/test_torch_cluster.py).  Pure
         host-side work: nothing runs on the device."""
+        nbytes = 0.0
         for i, eng in enumerate(self.replicas):
             if not self._alive[i]:
                 continue
@@ -428,13 +443,20 @@ class ServingCluster:
                 d.update(log)
                 self._digests[i] = d
                 self.gossip_full_syncs += 1
+                nbytes += self.cc.digest_bits / 8.0
             else:
                 added = log[state[1]:]
                 if added:
                     d.update(added)
                     self.gossip_delta_hashes += len(added)
+                    # delta gossip ships the new hash ids, not the bitmap
+                    nbytes += 16.0 * len(added)
             self._digest_state[i] = (epoch, len(log))
         self.gossip_ticks += 1
+        if self.telemetry is not None:
+            # digest traffic is host-side and unbilled: a zero-dollar ledger
+            # entry records the bytes on the wire
+            self.telemetry.note_gossip(nbytes=nbytes)
 
     # ------------------------------------------------------------------ #
     # Rebalancing (copy-then-keep)
@@ -488,15 +510,16 @@ class ServingCluster:
                 )
                 if d_entry.compressed else payload
             )
-            eid, _ = t_eng.store.put(
-                list(tokens), art,
-                tier=t_eng.store.tier_order[0],
-                saved_per_use=d_entry.saved_per_use,
-            )
+            with t_eng._attr("rebalance"):
+                eid, _ = t_eng.store.put(
+                    list(tokens), art,
+                    tier=t_eng.store.tier_order[0],
+                    saved_per_use=d_entry.saved_per_use,
+                )
             if eid is None:
                 continue
             self.rebalances += 1
-            self._emit(
+            self._emit_cluster(
                 target,
                 ev.ReplicaRebalanced(
                     t_s=now, req_id=-1, content_key=ck,
@@ -526,7 +549,7 @@ class ServingCluster:
         released = self.remove_replica(idx)
         for req in inflight + queued:
             self.submit(dataclasses.replace(req, arrival_s=max(req.arrival_s, now)))
-        self._emit(
+        self._emit_cluster(
             idx,
             ev.ReplicaCrashed(
                 t_s=now, req_id=-1, replica=idx,

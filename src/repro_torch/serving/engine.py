@@ -56,6 +56,11 @@ break-even migration pass on the clock, idle gaps included.
 ``load()`` and ``free_capacity()`` are what a cluster's router reads of a
 replica (``serving/cluster.py``).
 
+``telemetry=`` (an ``obs.Telemetry``, off by default) sees every step's
+events and every charged fee, each fee attributed to the request and
+activity (fetch, retried fetch, write-back) that caused it, and settles the
+store's GB-hours at each ``summary()``: host-side only, it launches nothing.
+
 This is the port of the JAX engine under every ``EngineConfig`` option.
 Compute runs eagerly in PyTorch (no jit): on CUDA tensors the kernels are
 the hand-written ones, on CPU tensors their plain versions.  Times and
@@ -66,6 +71,7 @@ carry them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Iterator, List, Optional
 
@@ -221,11 +227,16 @@ class ServingEngine:
         clock: Optional[SimClock] = None,
         transfer: Optional[TransferModel] = None,
         on_token=None,
+        telemetry=None,
+        telemetry_replica: int = 0,
         device=None,
     ):
         """``device`` is where the model runs: the card unless the caller
         asks for another (``device="cpu"``); with no CUDA and no device
-        given, this raises.  ``params`` must already live there."""
+        given, this raises.  ``params`` must already live there.
+        ``telemetry`` (an ``obs.Telemetry``, off by default) observes the
+        event stream and the transfer model's fees; ``telemetry_replica``
+        tags this engine's events and ledger entries inside a cluster."""
         self.cfg = cfg
         self.params = params
         self.ec = engine_cfg or EngineConfig()
@@ -249,6 +260,13 @@ class ServingEngine:
         self.transfer = transfer or TransferModel(self.perf, self.pricing)
         # streaming per-token hook: called with every TokenEmitted event
         self.on_token = on_token
+        # Telemetry is host-side only: it reads the events already built and
+        # the fees already charged, so it launches nothing and cannot change
+        # a token.  Off, each site pays one ``is None`` test.
+        self.telemetry = telemetry
+        self._replica = telemetry_replica
+        if telemetry is not None:
+            self.transfer.bind_ledger(telemetry.ledger, replica=telemetry_replica)
         self._c_gpu_s = self.pricing.compute.cost_per_hour / 3600.0
         if self.ec.tier_specs is not None:
             specs = list(self.ec.tier_specs)
@@ -404,6 +422,12 @@ class ServingEngine:
         unified step, one mixed launch instead (``_step_unified``).  A due
         migration pass (``migration_interval_s``) runs at the top of the step
         and surfaces as TierMigrated events."""
+        events = self._step()
+        if self.telemetry is not None and events:
+            self.telemetry.on_events(events, replica=self._replica)
+        return events
+
+    def _step(self) -> List[ev.Event]:
         if self._unified_on:
             return self._step_unified()
         events: List[ev.Event] = []
@@ -445,11 +469,22 @@ class ServingEngine:
         return self.summary()
 
     def summary(self) -> metrics_mod.ServingSummary:
+        if self.telemetry is not None:
+            # settle the accrued GB-hours into the ledger at the instant the
+            # summary reads them, so the conservation check is exact
+            self.telemetry.settle_engine(self, replica=self._replica)
         return metrics_mod.summarize(
             self.records,
             storage_cost=self.store.storage_cost(self.pricing),
             transfer_cost=self.transfer.transfer_fees(),
         )
+
+    def _attr(self, activity: str, req_id: Optional[int] = None):
+        """Attribution scope for the transfer fees charged inside; a
+        nullcontext when telemetry is off."""
+        if self.telemetry is None:
+            return contextlib.nullcontext()
+        return self.transfer.attributed(activity=activity, req_id=req_id)
 
     def _run_migrations(self, events: List[ev.Event]) -> None:
         """The clock-driven migration pass, when one is due."""
@@ -939,8 +974,10 @@ class ServingEngine:
             nbytes = self._entry_fetch_bytes(e, rows)
             override = nbytes if self.cost_cfg is not self.cfg else None
 
-            def attempt(eid=eid, e=e, rows=rows, override=override):
-                return self.store.fetch(eid, fraction=rows / max(e.n_tokens, 1), nbytes=override)
+            def attempt(activity, eid=eid, e=e, rows=rows, override=override):
+                with self._attr(activity, req.req_id):
+                    return self.store.fetch(eid, fraction=rows / max(e.n_tokens, 1),
+                                            nbytes=override)
 
             out, wasted, attempts = self._retry_fetch(
                 req, tier=e.tier, entry_id=eid, matched=rows, nbytes=nbytes,
@@ -1082,10 +1119,12 @@ class ServingEngine:
         self._pool_update(dst, pool.k[:, src], pool.v[:, src])
 
     # -- storage fetch with cost-aware retry ----------------------------- #
-    def _fetch_kv(self, req: Request, plan: ReusePlan, lookup: StoreLookup):
+    def _fetch_kv(self, req: Request, plan: ReusePlan, lookup: StoreLookup,
+                  activity: str = "fetch"):
         """Charge + execute the storage fetch of a load/partial plan; returns
         (artifact, delay_s, billed_nbytes).  A lookahead prefetch already in
-        flight shrinks the delay to its unfinished remainder."""
+        flight shrinks the delay to its unfinished remainder.  ``activity``
+        tags the ledger attribution ("fetch_retry" on re-issued attempts)."""
         entry = lookup.entry
         matched = plan.matched_tokens
         nbytes = plan.fetch_bytes
@@ -1095,9 +1134,10 @@ class ServingEngine:
             # the tier's link for them
             nbytes = self._entry_fetch_bytes(entry, matched)
             override = nbytes
-        artifact, delay = self.store.fetch(
-            entry.entry_id, fraction=matched / entry.n_tokens, nbytes=override
-        )
+        with self._attr(activity, req.req_id):
+            artifact, delay = self.store.fetch(
+                entry.entry_id, fraction=matched / entry.n_tokens, nbytes=override
+            )
         ready = self._prefetch_ready.pop(req.req_id, None)
         if ready is not None:
             # the fetch was issued while earlier requests were served: only
@@ -1107,8 +1147,8 @@ class ServingEngine:
 
     def _retry_fetch(self, req: Request, *, tier: str, entry_id: str, matched: int,
                      nbytes: float, attempt_fn, events: List[ev.Event]):
-        """Run one storage fetch (``attempt_fn()``) under the cost-aware
-        retry policy.  Returns (result | None, wasted_s, attempts): the
+        """Run one storage fetch (``attempt_fn(activity)``) under the
+        cost-aware retry policy.  Returns (result | None, wasted_s, attempts): the
         result is whatever ``attempt_fn`` returned on success; None means
         every attempt failed (or retrying stopped beating recompute) and the
         caller must degrade.  ``wasted_s`` sums the failed attempts' charged
@@ -1119,7 +1159,7 @@ class ServingEngine:
         while True:
             attempt += 1
             try:
-                return attempt_fn(), wasted, attempt
+                return attempt_fn("fetch" if attempt == 1 else "fetch_retry"), wasted, attempt
             except StorageError as exc:
                 wasted += exc.delay_s
                 self.fetch_failures += 1
@@ -1130,6 +1170,15 @@ class ServingEngine:
                     attempt=attempt, reason=exc.reason, wasted_s=exc.delay_s,
                     wasted_bytes=exc.wasted_bytes,
                 ))
+                if self.telemetry is not None:
+                    # zero-dollar marker: the attempt's dollars were charged
+                    # (stats and ledger) when its bytes moved; this makes the
+                    # waste queryable per request and tier
+                    self.telemetry.ledger.add(
+                        "transfer", "fetch_failed", 0.0,
+                        replica=self._replica, req_id=req.req_id,
+                        tier=tier, nbytes=exc.wasted_bytes, kind="load",
+                    )
                 backoff = policy.backoff(attempt)
                 retry_cost = policy.retry_cost(
                     backoff_s=backoff,
@@ -1164,7 +1213,8 @@ class ServingEngine:
             nbytes = self._entry_fetch_bytes(entry, plan.matched_tokens)
         out, wasted, attempts = self._retry_fetch(
             req, tier=entry.tier, entry_id=entry.entry_id, matched=plan.matched_tokens,
-            nbytes=nbytes, attempt_fn=lambda: self._fetch_kv(req, plan, a.lookup),
+            nbytes=nbytes,
+            attempt_fn=lambda activity: self._fetch_kv(req, plan, a.lookup, activity),
             events=events,
         )
         if out is None:
@@ -1192,7 +1242,17 @@ class ServingEngine:
         tier = self._store_tier()
         if tier != self.ec.compress_tier:
             artifact = paged.artifact_to_host(artifact)
-        entry_id, _ = self.store.put(ctx, artifact, tier=tier, saved_per_use=saved)
+        with self._attr("write_back", req.req_id):
+            entry_id, _ = self.store.put(ctx, artifact, tier=tier, saved_per_use=saved)
+        if (self.telemetry is not None and entry_id is not None
+                and self.store.last_put_handle.dedup):
+            # a content-addressed shared tier already held these bytes: no
+            # upload, no fee; a zero-dollar entry shows the saving per request
+            self.telemetry.ledger.add(
+                "transfer", "write_back_dedup", 0.0,
+                replica=self._replica, req_id=req.req_id,
+                tier=self.store.last_put_handle.tier, nbytes=0.0, kind="store",
+            )
         self._emit_migrations(events)
         if entry_id is not None:
             e = self.store.entries[entry_id]

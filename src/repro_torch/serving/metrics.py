@@ -1,10 +1,11 @@
 """Serving metrics: delay distributions + the paper's cost breakdown,
-summarized over the engine's records (``summarize``), and a cluster's
-aggregate over its replicas' summaries (``ClusterSummary``)."""
+summarized over the engine's records (``summarize``) or over a typed event
+stream (``summarize_events``), and a cluster's aggregate over its replicas'
+summaries (``ClusterSummary``)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, Iterable, List
 
 import numpy as np
 
@@ -118,3 +119,19 @@ class ClusterSummary:
             "total_cost": self.total_cost,
             "per_replica": [s.as_dict() for s in self.replicas],
         }
+
+
+def summarize_events(
+    events: Iterable,
+    *,
+    storage_cost: float,
+    transfer_cost: float,
+) -> ServingSummary:
+    """Summary from a typed event stream: every finished request's record
+    rides on its RequestFinished event, so the stream is self-sufficient."""
+    from repro_torch.serving.events import RequestFinished
+
+    records = [e.record for e in events if isinstance(e, RequestFinished)]
+    return summarize(
+        records, storage_cost=storage_cost, transfer_cost=transfer_cost
+    )

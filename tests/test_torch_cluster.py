@@ -207,7 +207,7 @@ class TestSharedColdTier:
                 art, _ = s.fetch(eid)
                 assert art is not None
 
-    @settings(max_examples=25, deadline=None)
+    @settings(max_examples=25, deadline=None, derandomize=True)
     @given(
         ops=st.lists(
             st.tuples(
@@ -261,7 +261,7 @@ def _req(ctx=None):
 
 
 class TestRouterInvariants:
-    @settings(max_examples=50, deadline=None)
+    @settings(max_examples=50, deadline=None, derandomize=True)
     @given(
         frees=st.lists(st.integers(0, 3), min_size=2, max_size=5),
         loads=st.lists(st.integers(0, 6), min_size=5, max_size=5),
@@ -950,8 +950,7 @@ def test_default_hardware_is_the_port_engines(qwen):
         assert isinstance(eng.backends["s3"], SharedTierBackend)
 
 
-@pytest.mark.parametrize("kw,item", [(dict(trace=object()), 7), (dict(telemetry=object()), 7),
-                                     (dict(market=object()), 8)])
+@pytest.mark.parametrize("kw,item", [(dict(market=object()), 8)])
 def test_unported_options_raise(qwen, kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue A item {item}"):
         ServingCluster(qwen[2], qwen[3], engine_cfg=_cluster_ec(), device="cpu", **kw)

@@ -11,10 +11,12 @@ same crash schedule, and the port is held to it: tokens exactly, every
 record (and the replica it landed on) and the merged event stream at 1e-9,
 ``fault_stats()`` per replica and the injector's tally.
 
-The reference's ledger assertions (``obs.Telemetry.check``) wait for the
-port's telemetry (ROADMAP queue A item 7); these tests count ``FetchFailed``,
+The crash test and the chaos property run with ``obs.Telemetry`` on both
+clusters, as the reference's tests do: the port's ledger conserves against
+each replica's summary at 1e-9 (``check`` per replica) and equals the
+reference's ledger entry by entry.  Every test also counts ``FetchFailed``,
 ``DegradedToRecompute`` and ``ReplicaCrashed`` from the cluster's own event
-stream instead and hold them to ``fault_stats()`` and the injector.
+stream and holds them to ``fault_stats()`` and the injector.
 """
 import math
 
@@ -24,15 +26,18 @@ torch = pytest.importorskip("torch")
 
 from _hypothesis_compat import given, settings, st  # noqa: E402
 
+from repro import obs as jobs  # noqa: E402
 from repro import serving as jserving  # noqa: E402
 from repro.kvcache import faults as jfaults  # noqa: E402
 from repro.kvcache import hierarchy as jhierarchy  # noqa: E402
 from repro_torch import serving as pserving  # noqa: E402
 from repro_torch.kvcache import faults as pfaults  # noqa: E402
 from repro_torch.kvcache import hierarchy as phierarchy  # noqa: E402
+from repro_torch.obs import Telemetry  # noqa: E402
 from repro_torch.serving import events as ev  # noqa: E402
 from test_torch_engine import _close, _reference_perf_and_pricing, _setup  # noqa: E402
 from test_torch_faults import _requests  # noqa: E402
+from test_torch_obs import _same_ledger  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -42,7 +47,7 @@ def setup():
     return _setup("llama-7b")
 
 
-def _run_cluster(setup, reqs, *, faults=None, retry=None, port=True):
+def _run_cluster(setup, reqs, *, faults=None, retry=None, port=True, tel=None):
     """``tests/test_faults.py``'s ``_run_cluster`` on one package: returns
     (cluster, summary, tokens by request)."""
     jcfg, jparams, cfg, params = setup
@@ -58,24 +63,27 @@ def _run_cluster(setup, reqs, *, faults=None, retry=None, port=True):
         kw = dict(perf=perf, pricing=pricing, device="cpu")
     cl = mod.ServingCluster(cfg if port else jcfg, params if port else jparams,
                             cluster_cfg=mod.ClusterConfig(n_replicas=2), engine_cfg=ec,
-                            planner_factory=mod.AlwaysReusePlanner, **kw)
+                            planner_factory=mod.AlwaysReusePlanner, telemetry=tel, **kw)
     for r in reqs:
         cl.submit(mod.Request(**r))
     summary = cl.run()
     return cl, summary, {r.req_id: r.tokens for r in cl.records}
 
 
-def _held_to_reference(setup, reqs, make_injector, retry=None):
+def _held_to_reference(setup, reqs, make_injector, retry=None, telemetry=False):
     """Serve ``reqs`` on both clusters, each with the injector
     ``make_injector(faults module)`` builds and the retry policy ``retry``
-    (kwargs of ``RetryPolicy``); hold the port to the reference.  Returns the
-    port's (cluster, summary, tokens, injector)."""
+    (kwargs of ``RetryPolicy``), and with telemetry if ``telemetry``; hold
+    the port to the reference (the ledger too, and its conservation per
+    replica).  Returns the port's (cluster, summary, tokens, injector)."""
     out = []
     for port, mod in ((True, pfaults), (False, jfaults)):
         inj = make_injector(mod)
         policy = mod.RetryPolicy(**retry) if retry is not None else None
-        out.append(_run_cluster(setup, reqs, faults=inj, retry=policy, port=port) + (inj,))
-    (cl, summary, tok, inj), (jcl, jsummary, jtok, jinj) = out
+        tel = (Telemetry() if port else jobs.Telemetry()) if telemetry else None
+        out.append(_run_cluster(setup, reqs, faults=inj, retry=policy, port=port, tel=tel)
+                   + (inj, tel))
+    (cl, summary, tok, inj, tel), (jcl, jsummary, jtok, jinj, jtel) = out
     assert tok == jtok
     where = {r.req_id: i for i, e in enumerate(cl.replicas) for r in e.records}
     jwhere = {r.req_id: i for i, e in enumerate(jcl.replicas) for r in e.records}
@@ -93,6 +101,12 @@ def _held_to_reference(setup, reqs, make_injector, retry=None):
     assert inj.stats() == jinj.stats()
     _close(_nan_named(summary.as_dict()), _nan_named(jsummary.as_dict()), "summary")
     _check_event_counts(cl, inj)
+    if telemetry:
+        for i, s in enumerate(summary.replicas):
+            assert max(tel.check(s, replica=i).values()) <= 1e-9
+        _same_ledger(tel.ledger, jtel.ledger)
+        # each cluster-level event reached the telemetry once
+        assert tel.events == cl.events
     return cl, summary, tok, inj
 
 
@@ -145,7 +159,8 @@ class TestClusterCrash:
             return inj
 
         cl, summary, tok1, inj = _held_to_reference(
-            setup, reqs, injector, retry=dict(max_attempts=2, cost_aware=False))
+            setup, reqs, injector, retry=dict(max_attempts=2, cost_aware=False),
+            telemetry=True)
         crashes = [e for _, e in cl.events if isinstance(e, ev.ReplicaCrashed)]
         assert len(crashes) == 1 and crashes[0].replica == 1
         assert inj.stats()["crashes_fired"] == 1
@@ -181,7 +196,7 @@ class TestChaosProperty:
            corrupt_rate=st.floats(0.0, 0.3),
            crash_replica=st.integers(0, 1),
            crash_at=st.floats(0.0, 0.3))
-    @settings(max_examples=5, deadline=None)
+    @settings(max_examples=5, deadline=None, derandomize=True)
     def test_any_schedule_token_identical_and_conserving(
             self, setup, cluster_baseline, seed, fail_rate, corrupt_rate,
             crash_replica, crash_at):
@@ -195,5 +210,5 @@ class TestChaosProperty:
             return inj
 
         _, _, tok1, _ = _held_to_reference(setup, reqs, injector,
-                                           retry=dict(max_attempts=2))
+                                           retry=dict(max_attempts=2), telemetry=True)
         assert tok1 == tok0

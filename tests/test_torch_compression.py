@@ -137,7 +137,7 @@ def test_ops_dispatch_by_device_with_no_head_dim_threshold():
     assert (kq.kv_quant.launches, kq.kv_dequant.launches) == before
 
 
-@settings(max_examples=30, deadline=None, database=None)
+@settings(max_examples=30, deadline=None, database=None, derandomize=True)
 @given(rows=st.integers(1, 12), hd=st.integers(1, 300), scale=st.floats(0.01, 100.0))
 @example(rows=3, hd=255, scale=14.0)  # a value at exactly 76.5 scales: error scale / 2
 def test_quant_error_bound(rows, hd, scale):

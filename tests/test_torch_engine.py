@@ -164,13 +164,14 @@ def _close(got, want, where):
 
 
 def _serve_both(llama, reqs, planner=None, jax_kw=None, perf=None, pricing=None,
-                **ec_kw):
+                telemetry=(None, None), **ec_kw):
     """The same requests through the port's and the JAX engine, step by
     step: the reference's hardware and prices on both sides, unless
     ``perf`` and ``pricing`` are given as (port's, reference's) pairs.
     ``jax_kw`` overrides ``ec_kw`` on the JAX side (an option object, such
-    as a fault injector, is each package's own).  Returns (engine, events,
-    JAX engine, JAX events)."""
+    as a fault injector, is each package's own), and ``telemetry`` is the
+    (port's, reference's) ``Telemetry`` pair, off by default.  Returns
+    (engine, events, JAX engine, JAX events)."""
     jcfg, jparams, cfg, params = llama
     if perf is None:
         perf, pricing = _reference_perf_and_pricing()
@@ -181,10 +182,12 @@ def _serve_both(llama, reqs, planner=None, jax_kw=None, perf=None, pricing=None,
                 "cost": (CostAwarePlanner, jserving.CostAwarePlanner)}.get(planner)
     kw = {**ENGINE_KW, **ec_kw}
     eng = ServingEngine(cfg, params, engine_cfg=EngineConfig(**kw), perf=perf, pricing=pricing,
-                        planner=planners[0]() if planners else None, device="cpu")
+                        planner=planners[0]() if planners else None, device="cpu",
+                        telemetry=telemetry[0])
     jeng = jserving.ServingEngine(
         jcfg, jparams, engine_cfg=jserving.EngineConfig(**{**kw, **(jax_kw or {})}),
-        planner=planners[1]() if planners else None, perf=jperf, pricing=jpricing)
+        planner=planners[1]() if planners else None, perf=jperf, pricing=jpricing,
+        telemetry=telemetry[1])
     events, jevents = [], []
     for e, make, out in ((eng, Request, events), (jeng, jserving.Request, jevents)):
         for r in reqs:

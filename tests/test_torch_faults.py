@@ -14,19 +14,34 @@ same requests, each with its own injector drawn from the same seed, and
 holds the port to the reference at 1e-9: actions, matched tokens,
 ``degraded``, every modelled time and dollar, ``fault_stats()`` without the
 injector's tally, then the tally itself, and the typed event stream field by
-field.  Tokens must match exactly.  The reference's ledger assertions
-(``obs.Telemetry``) wait for the port's telemetry; these tests count events
-from the engine's own drained stream instead.
+field.  Tokens must match exactly.  The faulted scenario also runs with
+``obs.Telemetry`` on both engines, as the reference's test does: the
+port's ledger conserves against its summary at 1e-9, carries one
+zero-dollar ``fetch_failed`` marker per failed attempt, and equals the
+reference's ledger entry by entry.
 """
+import os
 import pickle
+import tempfile
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from _hypothesis_compat import given, settings, st  # noqa: E402
+from _hypothesis_compat import HAVE_HYPOTHESIS, given, settings, st  # noqa: E402
 
+if HAVE_HYPOTHESIS and not os.environ.get("HYPOTHESIS_STORAGE_DIRECTORY"):
+    # Every ``st.text()`` draw rewrites hypothesis's codec table under its
+    # storage directory, and the checkout's ``.hypothesis/`` is tracked, so
+    # the session keeps that storage in the temporary directory instead.
+    # Each pytest-xdist worker imports this module while it collects, before
+    # any property test of the session draws.
+    from hypothesis.configuration import set_hypothesis_home_dir
+
+    set_hypothesis_home_dir(os.path.join(tempfile.gettempdir(), "hypothesis-port"))
+
+from repro import obs as jobs  # noqa: E402
 from repro.kvcache import faults as jfaults  # noqa: E402
 from repro.kvcache import hierarchy as jhierarchy  # noqa: E402
 from repro_torch.kvcache import faults as pfaults  # noqa: E402
@@ -42,10 +57,12 @@ from repro_torch.kvcache.faults import (  # noqa: E402
     retryable,
 )
 from repro_torch.kvcache.hierarchy import DiskSpillBackend, TieredStore, TierSpec  # noqa: E402
+from repro_torch.obs import Telemetry  # noqa: E402
 from repro_torch.serving import Request  # noqa: E402
 from repro_torch.serving import events as ev  # noqa: E402
 from repro_torch.serving.scheduler import AdmissionQueue  # noqa: E402
 from test_torch_engine import _close, _serve_both, _setup  # noqa: E402
+from test_torch_obs import _same_ledger  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -169,7 +186,7 @@ class TestInjector:
     @given(seed=st.integers(0, 2**32 - 1),
            rate=st.floats(0.0, 1.0),
            key=st.text(min_size=1, max_size=12))
-    @settings(max_examples=50, deadline=None)
+    @settings(max_examples=50, deadline=None, derandomize=True)
     def test_draw_sequence_is_pure(self, seed, rate, key):
         a = FaultInjector(seed=seed, fail_rate=rate)
         b = FaultInjector(seed=seed, fail_rate=rate)
@@ -383,13 +400,14 @@ def _fault_kw(seed, retry=None, brownout=None, **rates):
     return out
 
 
-def _held_to_reference(llama, reqs, port_kw, jax_kw, **ec_kw):
+def _held_to_reference(llama, reqs, port_kw, jax_kw, telemetry=(None, None), **ec_kw):
     """Serve ``reqs`` on both engines (``AlwaysReusePlanner``, the
-    reference's hardware and prices); hold records, summary, store entries,
-    events, ``fault_stats()`` and the injector's tally to the reference.
-    Returns the port's engine and events."""
+    reference's hardware and prices, the (port's, reference's)
+    ``telemetry`` pair); hold records, summary, store entries, events,
+    ``fault_stats()`` and the injector's tally to the reference.  Returns
+    the port's engine and events."""
     eng, events, jeng, jevents = _serve_both(
-        llama, reqs, "always", jax_kw=jax_kw, **ec_kw, **port_kw)
+        llama, reqs, "always", jax_kw=jax_kw, telemetry=telemetry, **ec_kw, **port_kw)
     recs = sorted(eng.records, key=lambda r: r.req_id)
     jrecs = sorted(jeng.records, key=lambda r: r.req_id)
     assert [r.tokens for r in recs] == [r.tokens for r in jrecs]
@@ -418,21 +436,31 @@ class TestEngineDegradation:
         clean, _ = _held_to_reference(llama, reqs, {}, {})
         port_kw, jax_kw = _fault_kw(7, retry=dict(max_attempts=2, cost_aware=False),
                                     fail_rate=0.4, corrupt_rate=0.2)
-        eng, events = _held_to_reference(llama, reqs, port_kw, jax_kw)
+        tel, jtel = Telemetry(), jobs.Telemetry()
+        eng, events = _held_to_reference(llama, reqs, port_kw, jax_kw, telemetry=(tel, jtel))
         assert _tokens(eng) == _tokens(clean)
         fs = eng.fault_stats()
         assert fs["fetch_failures"] > 0
         assert fs["fetch_wasted_bytes"] > 0
-        n_failed = sum(isinstance(e, ev.FetchFailed) for e in events)
-        n_deg = sum(isinstance(e, ev.DegradedToRecompute) for e in events)
+        evs = [e for _, e in tel.events]  # replica-tagged, replica 0 here
+        assert evs == events
+        n_failed = sum(isinstance(e, ev.FetchFailed) for e in evs)
+        n_deg = sum(isinstance(e, ev.DegradedToRecompute) for e in evs)
         assert n_failed == fs["fetch_failures"]
         assert n_deg == fs["degraded_requests"]
         # degraded requests are recorded as recompute and flagged
-        degraded_ids = {e.req_id for e in events if isinstance(e, ev.DegradedToRecompute)}
+        degraded_ids = {e.req_id for e in evs if isinstance(e, ev.DegradedToRecompute)}
         for rec in eng.records:
             assert rec.degraded == (rec.req_id in degraded_ids)
             if rec.degraded:
                 assert rec.action == "recompute"
+        # the ledger still conserves, wasted attempts marked zero-dollar
+        assert max(tel.check(eng.summary()).values()) <= 1e-9
+        marks = [e for e in tel.ledger.entries if e.activity == "fetch_failed"]
+        assert len(marks) == fs["fetch_failures"]
+        assert all(m.dollars == 0.0 and m.nbytes > 0 for m in marks)
+        assert fs["fetch_retries"] > 0 and "fetch_retry" in tel.ledger.by_activity()
+        _same_ledger(tel.ledger, jtel.ledger)
 
     def test_cost_aware_gate_skips_pointless_retries(self, llama):
         """At reduced-config scale recomputing a short prefix costs almost

@@ -10,7 +10,9 @@ mamba2-1.3b and runs the launcher with ``--arch mamba2-1.3b``; a third runs
 the simulator and its benchmark files, serves under fault injection, hedged
 and overlapped loads, lookahead prefetch and migrations, and runs the
 launcher with ``--overlap --hedge``; a fourth serves a two-replica
-cluster behind the affinity router over one shared, deduplicating s3 tier.
+cluster behind the affinity router over one shared, deduplicating s3 tier;
+a fifth serves an engine and a cluster with telemetry and a JSONL trace on,
+and reads the trace back.
 """
 import pathlib
 import re
@@ -35,6 +37,10 @@ def test_no_jax_or_reference_imports():
     files = ([p for p in _port_sources() if p.suffix == ".py"] + [ROOT / "chip_smoke.py"]
              + sorted((ROOT / "benchmarks").glob("torch_*.py")))
     assert any(p.name == "simulator.py" for p in files)
+    names = {str(p.relative_to(PORT)) for p in files if PORT in p.parents}
+    assert {"obs/__init__.py", "obs/registry.py", "obs/ledger.py", "obs/spans.py",
+            "obs/telemetry.py", "obs/console.py", "serving/trace.py",
+            "serving/audit.py"} <= names, names
     hits = [f"{p}: {m.group(0).strip()}" for p in files for m in pattern.finditer(p.read_text())]
     assert not hits, hits
 
@@ -97,7 +103,10 @@ def test_port_imports_and_serves_with_jax_and_repro_blocked():
         for name in names:
             importlib.import_module(name)
         for name in ("repro_torch.kvcache.compression", "repro_torch.kernels.kv_quant",
-                     "repro_torch.data.synthetic", "repro_torch.launch.serve"):
+                     "repro_torch.data.synthetic", "repro_torch.launch.serve",
+                     "repro_torch.obs", "repro_torch.obs.telemetry",
+                     "repro_torch.obs.console", "repro_torch.serving.trace",
+                     "repro_torch.serving.audit"):
             assert name in names, name
         import torch
         torch.set_num_threads(1)
@@ -227,3 +236,82 @@ def test_port_serves_a_cluster_with_jax_and_repro_blocked():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert "RoundRobinRouter" in out.stdout
+
+
+def test_port_serves_with_telemetry_and_a_trace_with_jax_and_repro_blocked(tmp_path):
+    """An engine and a two-replica cluster of the reduced llama-7b served on
+    the CPU with ``obs.Telemetry`` and a ``TraceWriter``, with JAX and the
+    reference blocked: the ledger conserves, and the trace read back gives
+    the live summary, audit and span trees."""
+    script = textwrap.dedent(
+        f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import torch
+        torch.set_num_threads(1)
+        from repro_torch.configs import get_config, reduced_config
+        from repro_torch.kvcache.hierarchy import TierSpec
+        from repro_torch.models import lm
+        from repro_torch.obs import Telemetry, build_cluster_spans, build_spans
+        from repro_torch.obs.console import render
+        from repro_torch.serving import (AlwaysReusePlanner, ClusterConfig, EngineConfig,
+                                         Request, ServingCluster, ServingEngine, TraceWriter,
+                                         read_events, read_tagged_events)
+        from repro_torch.serving.audit import audit, cluster_audit, cluster_audit_from_trace
+        from repro_torch.serving.metrics import summarize_events
+        cfg = reduced_config(get_config("llama-7b"))
+        params = lm.init(cfg, seed=0, device="cpu")
+        ec = EngineConfig(max_slots=2, max_len=128,
+                          tier_specs=[TierSpec("host_dram", 1.0), TierSpec("s3", 1.0)])
+        reqs = [Request(req_id=i, context_tokens=list(range(100 * (i % 2), 100 * (i % 2) + 40)),
+                        prompt_tokens=[7, 8, 9], max_new_tokens=2, arrival_s=i * 0.02,
+                        expected_reuses=3) for i in range(6)]
+        tel = Telemetry()
+        eng = ServingEngine(cfg, params, device="cpu", planner=AlwaysReusePlanner(),
+                            engine_cfg=ec, telemetry=tel)
+        for r in reqs:
+            eng.submit(r)
+        live = []
+        with TraceWriter({str(tmp_path / "e.jsonl")!r}) as tw:
+            for e in eng.drain():
+                live.append(e)
+                tw.write(e)
+        s = eng.summary()
+        assert max(tel.check(s).values()) <= 1e-9 and s.reuse_hits > 0, s
+        got = read_events({str(tmp_path / "e.jsonl")!r})
+        assert got == live
+        assert summarize_events(got, storage_cost=s.storage_cost,
+                                transfer_cost=s.transfer_cost) == s
+        assert audit(got) == audit(live) and build_spans(got) == build_spans(live)
+        tel.collect_engine(eng)
+        assert "conservation vs summary: OK" in render(tel, s)
+        ctel = Telemetry()
+        tw = TraceWriter({str(tmp_path / "c.jsonl")!r})
+        cl = ServingCluster(cfg, params, device="cpu", engine_cfg=ec, telemetry=ctel,
+                            trace=tw, cluster_cfg=ClusterConfig(n_replicas=2,
+                                                               gossip_interval_s=0.01),
+                            planner_factory=AlwaysReusePlanner)
+        for r in reqs:
+            cl.submit(r)
+        cs = cl.run()
+        tw.close()
+        for per_cat in ctel.check_cluster(cs).values():
+            assert max(per_cat.values()) <= 1e-9
+        tagged = read_tagged_events({str(tmp_path / "c.jsonl")!r})
+        assert tagged == cl.events == ctel.events
+        assert build_cluster_spans(tagged) == ctel.spans()
+        assert cluster_audit_from_trace({str(tmp_path / "c.jsonl")!r}) == \
+            cluster_audit(cl.events_by_replica)
+        ctel.collect_cluster(cl)
+        print("telemetry", len(live), len(tagged))
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("telemetry")

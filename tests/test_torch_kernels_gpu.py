@@ -1034,6 +1034,86 @@ def test_reduced_llama_serves_on_card_as_on_cpu(cuda, mode):
         assert all(e.compressed for e in eng.store.entries.values())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["dense", "compressed"])
+def test_reduced_llama_serves_on_card_with_telemetry_as_without(cuda, mode, tmp_path):
+    """The reduced llama-7b served on the card twice, with ``obs.Telemetry``
+    and a JSONL trace on and with both off: the same tokens, records and
+    summary, the same launches of every kernel and the same shape-bucket
+    counts; the ledger conserves at 1e-9 and the trace replays the live
+    events."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kvcache.hierarchy import TierSpec
+    from repro_torch.models import lm
+    from repro_torch.obs import Telemetry
+    from repro_torch.serving import (AlwaysReusePlanner, EngineConfig, Request, ServingEngine,
+                                     TraceWriter, read_events)
+
+    cfg = reduced_config(get_config("llama-7b"))
+    params = _to(lm.init(cfg, seed=0, device="cpu"), cuda)
+    kernels = {"packed": pk.packed_flash_attention, "decode": dk.decode_attention,
+               "flash": fk.flash_attention, "paged": pdk.paged_decode_attention,
+               "chunked": cpk.chunked_prefill_attention, "fused": fuk.fused_flash_attention,
+               "kv_quant": kq.kv_quant, "kv_dequant": kq.kv_dequant}
+    rng = np.random.default_rng(5)
+    ctxs = [rng.integers(0, cfg.vocab, 48).tolist() for _ in range(2)]
+    reqs = [dict(req_id=i, context_tokens=ctxs[i % 2],
+                 prompt_tokens=rng.integers(0, cfg.vocab, 8).tolist(), max_new_tokens=4,
+                 arrival_s=0.01 * i, expected_reuses=3) for i in range(6)]
+    ec = dict(max_slots=2, max_len=128, chunk_tokens=16,
+              tier_specs=[TierSpec("host_dram", 1.0), TierSpec("io2", 1.0)],
+              **({"compress_tier": "io2"} if mode == "compressed" else {}))
+
+    def serve(tel):
+        before = {n: fn.launches for n, fn in kernels.items()}
+        eng = ServingEngine(cfg, params, engine_cfg=EngineConfig(**ec), device=cuda,
+                            planner=AlwaysReusePlanner(), telemetry=tel)
+        for r in reqs:
+            eng.submit(Request(**r))
+        events = []
+        with TraceWriter(tmp_path / f"{tel is not None}.jsonl") as tw:
+            while not eng.idle:
+                out = eng.step()
+                events.extend(out)
+                if tel is not None:
+                    tw.write_all(out)
+        torch.cuda.synchronize()
+        launched = {n: fn.launches - before[n] for n, fn in kernels.items()}
+        return eng, events, launched
+
+    tel = Telemetry()
+    on, on_events, on_launches = serve(tel)
+    off, off_events, off_launches = serve(None)
+    assert on.records == off.records and on_events == off_events
+    assert on.summary() == off.summary()
+    assert on_launches == off_launches and on_launches["packed"] > 0, on_launches
+    assert on_launches["decode"] > 0
+    if mode == "compressed":
+        assert on_launches["kv_quant"] > 0 and on_launches["kv_dequant"] > 0, on_launches
+    assert on.jit_stats.calls == off.jit_stats.calls
+    assert on.fused_jit.calls == off.fused_jit.calls
+    assert max(tel.check(on.summary()).values()) <= 1e-9
+    assert read_events(tmp_path / "True.jsonl") == on_events
+    assert [e for _, e in tel.events] == on_events
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_trace_serializes_a_tensor_on_the_card(cuda, dtype, tmp_path):
+    """A trace leaf that lies on the card is copied to the host and written
+    as its values: the same line as the same tensor on the CPU."""
+    from repro_torch.serving import TraceWriter, read_trace
+    from repro_torch.serving import events as ev
+
+    x = torch.tensor([[0.5, -1.25, 3.0], [1.0078125, 0.0, -2.0]],
+                     dtype=getattr(torch, dtype))
+    with TraceWriter(tmp_path / "t.jsonl") as tw:
+        for leaf in (x.to(cuda), x):
+            tw.write(ev.ClockAdvanced(t_s=1.0, req_id=-1, to_s=1.0), dev=leaf)
+    card, host = read_trace(tmp_path / "t.jsonl")
+    assert card == host and card["dev"] == x.float().tolist()
+
+
 # --------------------------------------------------------------------------- #
 # The Mamba2 SSD chunked scan
 # --------------------------------------------------------------------------- #

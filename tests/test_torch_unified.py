@@ -26,12 +26,14 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro import obs as jobs  # noqa: E402
 from repro import serving as jserving  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.core.perf_model import PerfModel as JPerfModel  # noqa: E402
 from repro.core.perf_model import tpu_v5e  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.chunked_prefill import chunked_prefill_attention as pallas_chunked  # noqa: E402
+from repro.kvcache import hierarchy as jhierarchy  # noqa: E402
 from repro.kvcache import paged as jpaged  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.serving import events as jev  # noqa: E402
@@ -39,10 +41,13 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import chunked_prefill as cpk  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kvcache import paged  # noqa: E402
+from repro_torch.kvcache.hierarchy import TierSpec  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.obs import Telemetry  # noqa: E402
 from repro_torch.serving import AlwaysReusePlanner, EngineConfig, Request, ServingEngine  # noqa: E402
 from repro_torch.serving import events as ev  # noqa: E402
 from test_torch_engine import _reference_perf_and_pricing, _setup  # noqa: E402
+from test_torch_obs import _same_ledger  # noqa: E402
 
 torch.set_num_threads(1)
 KERNEL_ATOL = 2e-5
@@ -435,6 +440,39 @@ def test_unified_engine_runs_prefetch_and_migrations(llama, field, value):
     else:
         assert any(isinstance(e, ev.TierMigrated) for e in events)
     assert all(e.pins == 0 for e in eng.store.entries.values())
+
+
+def test_unified_conservation_with_telemetry(llama):
+    """``tests/test_unified.py``'s conservation test on the port: under the
+    unified step (the chunked kernel's plain version on the CPU) the
+    ledger's compute, storage and transfer totals match the summary at
+    1e-9, and the ledger equals the reference engine's entry by entry."""
+    jcfg, jparams, cfg, params = llama
+    perf, pricing = _reference_perf_and_pricing()
+    reqs = _burst(cfg.vocab, n=6, ctx_lens=[64, 96], seed=8)
+    kw = dict(max_slots=2, max_len=128, chunk_tokens=16, paged_decode=True, unified_step=True,
+              store_tier="s3")
+    tel, jtel = Telemetry(), jobs.Telemetry()
+    eng = ServingEngine(
+        cfg, params, engine_cfg=EngineConfig(
+            **kw, tier_specs=[TierSpec("host_dram", 1.0), TierSpec("s3", 1.0)]),
+        planner=AlwaysReusePlanner(), perf=perf, pricing=pricing, telemetry=tel,
+        device="cpu")
+    jeng = jserving.ServingEngine(
+        jcfg, jparams, engine_cfg=jserving.EngineConfig(
+            **kw, tier_specs=[jhierarchy.TierSpec("host_dram", 1.0),
+                              jhierarchy.TierSpec("s3", 1.0)]),
+        planner=jserving.AlwaysReusePlanner(), telemetry=jtel)
+    for e, make in ((eng, Request), (jeng, jserving.Request)):
+        for r in reqs:
+            e.submit(make(**r))
+    s, js = eng.run(), jeng.run()
+    residuals = tel.check(s)
+    assert max(residuals.values()) <= 1e-9
+    assert eng.unified_stats()["steps"] > 0
+    assert [r.tokens for r in eng.records] == [r.tokens for r in jeng.records]
+    assert max(jtel.check(js).values()) <= 1e-9
+    _same_ledger(tel.ledger, jtel.ledger)
 
 
 def test_unified_engine_refuses_embeds(llama):
