@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's nine CUDA kernels from ``src/repro_torch/kernels/csrc``
-with nvcc (one nvcc per source, all started together), then drives eleven
+with nvcc (one nvcc per source, all started together), then drives twelve
 paths of the port, each with every launch counter zeroed just before it and
 read just after it:
 
@@ -128,11 +128,39 @@ read just after it:
    It logs the console dashboard, the trace's events and bytes,
    telemetry's own host ms per step (``on_events`` and the trace write)
    and each step's card wall beside the dense serve's.
-10. the serving launcher — ``repro_torch.launch.serve`` with ``--requests 8
+10. market phase — four tenants of one ``Marketplace(verify_rate=1.0,
+   seed=0)`` on the full llama (dense decode, H100 ``PerfModel`` and
+   prices), each behind ``MarketPlanner(AlwaysReusePlanner())``, with
+   ``MARKET_NEW_TOKENS`` decode tokens a request.  Seller ``s`` recomputes
+   the prefix mix's contexts A, B and B's variant and writes them back;
+   buyer ``b``'s first A request buys A from ``s`` (one ``KVPurchased``,
+   one ``SellerVerified(ok=True, deep=True)``; the spot check's
+   ``lm.prefill`` adds one ``flash_attention`` launch per layer, the only
+   ones of the serve, and the first layer's inputs are kept for the kernel
+   phase) with first-token logits within ``LOGIT_ATOL`` of the same request
+   served with reuse off, and its second A request loads the absorbed entry
+   locally; the settlement conserves at 1e-9, ``b``'s account is minus its
+   spend, and ``s``'s stored A still hashes to its catalog stamp.  A seller
+   under ``paged_decode=True, unified_step=True, kv_block=128`` stores the
+   same three contexts through the chunked kernel.  Seller ``t``, armed
+   through ``arm_adversary`` to corrupt every delivery, sells a 512-token
+   context C to buyer ``u``: ``SellerVerified(ok=False)``,
+   ``SellerBlacklisted``, ``DegradedToRecompute(reason=
+   "market:verify_failed")``, nothing settled, and ``u``'s tokens and
+   first-token logits those of C served with reuse off.  Then the spot
+   check's readings: every honest artifact (A, B and the variant from both
+   sellers, C from ``t``) under its own tokens must lie within the bf16
+   ``SPOT_CHECK_TOL``, and each of A's and B's rows under the other's
+   tokens (the controls) at least ten times above it.  A witness logs where
+   A's honest reading comes from: the bought rows and the kernel's fresh
+   rows against a fresh side with plain attention and one computed in f32.
+   It logs the phase's wall and each step's card wall beside the modelled
+   step.
+11. the serving launcher — ``repro_torch.launch.serve`` with ``--requests 8
    --contexts 2 --policy always --compress --json`` (reduced compute,
    full-size economics) on the card: int8 launches and at least four reuse
    hits; then with ``--overlap --hedge``.
-11. SSM serve phase — after the llama engines and weights are freed,
+12. SSM serve phase — after the llama engines and weights are freed,
    full-width, full-depth mamba2-1.3b in bf16 (random weights from a seeded
    generator) serves the prefix mix behind the same ``ServingEngine``
    settings, H100 ``PerfModel`` and prices and ``CostAwarePlanner``.  It
@@ -157,8 +185,11 @@ launches on those paths received (first layer) and held against its plain
 PyTorch version: in bf16 at atol 1e-2, and cast to f32 (TF32 off) at the
 CPU tests' atol 2e-5; ``kv_quant`` and ``kv_dequant`` (on the first leaf
 the compressed serve quantised and the first it dequantised) bit for bit;
-``ssd_chunked`` on the 2,000-token launch and a 32-token launch after a
-stored state (see ``check_ssd`` for its tolerances; two bf16 launches must
+``flash_attention`` on the per-request prefill's 2,032-token launch, its
+32-token suffix launch and the market's spot check (16 tokens over an
+empty 4,096-row cache), the kernels line carrying the first with the
+per-request phase's launches; ``ssd_chunked`` on the 2,000-token launch
+and a 32-token launch after a stored state (see ``check_ssd`` for its tolerances; two bf16 launches must
 give the same bits, and the host enqueue and the compiler's registers and
 spills of its kernels are logged).  The four prefill
 attention kernels run bf16 on the tensor-core tile of
@@ -231,10 +262,12 @@ from repro_torch.kvcache import compression, fusion, paged  # noqa: E402
 from repro_torch.kvcache.faults import FaultInjector, RetryPolicy, payload_checksum  # noqa: E402
 from repro_torch.kvcache.hierarchy import TierSpec  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.market import Marketplace, MarketPlanner  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     AffinityRouter,
+    AlwaysReusePlanner,
     BlendPlanner,
     ClusterConfig,
     CostAwarePlanner,
@@ -248,6 +281,7 @@ from repro_torch.obs import Telemetry, build_spans, chrome_trace  # noqa: E402
 from repro_torch.obs.console import render  # noqa: E402
 from repro_torch.serving import TraceWriter, read_events  # noqa: E402
 from repro_torch.serving import events as ev  # noqa: E402
+from repro_torch.serving.engine import SPOT_CHECK_TOL  # noqa: E402
 from repro_torch.serving.audit import (  # noqa: E402
     audit,
     audit_from_trace,
@@ -331,6 +365,10 @@ COUNTERS = {"packed_flash_attention": pk.packed_flash_attention,
             "kv_quant": kq.kv_quant,
             "kv_dequant": kq.kv_dequant,
             "ssd_chunked": ssk.ssd_chunked}
+# the market phase: decode tokens per request (the phase's gates are its
+# purchase and first-token logits; few decode steps keep it short) and the
+# length of the adversary's context C
+MARKET_NEW_TOKENS, MARKET_C_LEN = 4, 512
 # the fused phase's RAG traffic: documents of DOC_LEN tokens, a 32-token
 # prompt per request, the reference's default chunk_tokens of 16, and
 # CacheBlend's default recompute fraction
@@ -658,7 +696,7 @@ def of_type(events, cls, req_ids=None):
 
 
 def serve(cfg, params, *, reuse: bool = True, planner=None, make_traffic=traffic,
-          setup=None, telemetry=None, **ec_kw):
+          setup=None, telemetry=None, market=None, **ec_kw):
     """Serve the traffic once; returns (engine, records by id, recorder,
     per-step rows (kind, wall_s, modelled load_s, modelled step s, q_len or
     decode rows or tokens prefilled, kv_len or chunk tokens or the plan of a
@@ -667,10 +705,12 @@ def serve(cfg, params, *, reuse: bool = True, planner=None, make_traffic=traffic
     taken from (``req_logits``, ``first_logits``) and the wall-clock instant
     of each token (``token_wall``, seconds from the first step).  ``setup``,
     if given, is called with the engine before the traffic is submitted;
-    ``telemetry`` is the engine's ``obs.Telemetry`` (off by default)."""
+    ``telemetry`` is the engine's ``obs.Telemetry`` and ``market`` its
+    ``MarketSession`` (both off by default)."""
     eng = ServingEngine(
         cfg, params, engine_cfg=EngineConfig(reuse_enabled=reuse, **SERVE, **ec_kw),
         planner=planner or CostAwarePlanner(), device=DEVICE, telemetry=telemetry,
+        market=market,
     )
     if setup is not None:
         setup(eng)
@@ -2240,6 +2280,261 @@ def telemetry_phase(cfg, params, dense, card, tmp):
     release()
 
 
+# --------------------------------------------------------------------------- #
+# Market phase
+# --------------------------------------------------------------------------- #
+def rows_of(state, n):
+    """The first ``n`` positions of batch-1 ``state``, copied on the card
+    (so the state itself can be freed)."""
+    return compression.tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+                                paged.slot_artifact(state, 0, n))
+
+
+def fresh_rows(api, cfg, params, tokens):
+    """The spot check's fresh side: ``tokens`` prefilled through
+    ``ModelApi.prefill`` into an empty batch-1 state of the serve's length."""
+    state = api.init_state(cfg, 1, SERVE["max_len"], device=DEVICE)
+    with torch.inference_mode():
+        _, state = api.prefill(params, cfg, torch.tensor([tokens], device=DEVICE), state)
+    return rows_of(state, len(tokens))
+
+
+def bought_rows(api, cfg, artifact, n):
+    """The spot check's bought side: ``artifact``'s first ``n`` positions
+    inserted into an empty batch-1 state."""
+    state = api.init_state(cfg, 1, SERVE["max_len"], device=DEVICE)
+    paged.insert_slot(cfg, state, 0, artifact, n_tokens=n)
+    return rows_of(state, n)
+
+
+def reading_detail(got, want):
+    """The spot check's rule, max over leaves of max|got - want| / max(1,
+    max|want|), with where it is read: (reading, leaf index, the leaf's
+    max|want|, the largest difference, that difference in bf16 ulps of the
+    leaf's max|want|)."""
+    best = (0.0, -1, 0.0, 0.0, 0.0)
+    for i, (g, w) in enumerate(zip(compression.tree_leaves(got),
+                                   compression.tree_leaves(want))):
+        g, w = torch.as_tensor(g).double(), torch.as_tensor(w).double()
+        d, top = (g - w).abs().max().item(), w.abs().max().item()
+        r = d / max(1.0, top)
+        if r > best[0]:
+            ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 2.0 ** -133
+            best = (r, i, top, d, d / ulp)
+    return best
+
+
+def spot_check_witness(api, cfg, params, sample, art, honest):
+    """Where the honest reading comes from: the bought rows and the kernel's
+    fresh rows each read against a fresh side whose attention is the plain
+    version (``flash_attention_plain``) and against one computed in f32
+    (weights and activations), and the kernel's fresh rows against the
+    plain one's.  Logs each reading with the leaf and magnitude it is read
+    at; returns {name: reading}."""
+    n = len(sample)
+    got = bought_rows(api, cfg, art, n)
+    fresh = fresh_rows(api, cfg, params, sample)
+    flash = ops.flash_attention
+    ops.flash_attention = lambda q, k, v, **kw: fk.flash_attention_plain(q, k, v, **kw)
+    try:
+        plain = fresh_rows(api, cfg, params, sample)
+    finally:
+        ops.flash_attention = flash
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params32 = compression.tree_map(lambda t: t.float(), params)
+    f32 = fresh_rows(api, cfg32, params32, sample)
+    del params32
+    release()
+    out = {}
+    for name, a, b in (("bought vs fresh (kernel)", got, fresh),
+                       ("bought vs fresh (plain attention)", got, plain),
+                       ("fresh (kernel) vs fresh (plain attention)", fresh, plain),
+                       ("bought vs fresh f32", got, f32),
+                       ("fresh (kernel) vs fresh f32", fresh, f32)):
+        r, leaf, mag, d, ulps = reading_detail(a, b)
+        out[name] = r
+        log(f"market spot check witness: {name}: reading {r:.6g} at leaf {leaf} "
+            f"(leaf max|ref| {mag:.4g}, max|diff| {d:.4g}, {ulps:.2f} bf16 ulps of the "
+            f"leaf's max|ref|)")
+    assert out["bought vs fresh (kernel)"] == honest, (out, honest)
+    return out
+
+
+def market_phase(cfg, params, card):
+    """Two sellers and two buyers of one ``Marketplace`` on the full llama,
+    and a unified-step seller outside it (see the module docstring, phase
+    10).  Returns the first layer's inputs of the honest purchase's spot
+    check and the ``flash_attention`` launches of that serve."""
+    t_phase = time.perf_counter()
+    base = traffic(cfg.vocab)
+    ctx_a, ctx_b, ctx_bv = (base[i]["context_tokens"] for i in (0, 1, 5))
+    rng = np.random.default_rng(SEED + 2)
+    ctx_c = rng.integers(0, cfg.vocab, MARKET_C_LEN).tolist()
+
+    def req(i, ctx, arrival_s=0.0):
+        return dict(req_id=i, context_tokens=ctx,
+                    prompt_tokens=rng.integers(0, cfg.vocab, PROMPT_LEN).tolist(),
+                    max_new_tokens=MARKET_NEW_TOKENS, arrival_s=arrival_s, expected_reuses=3)
+
+    sold = [req(0, ctx_a), req(1, ctx_b), req(6, ctx_bv)]
+    bought = [req(2, ctx_a), req(3, ctx_a, 1.0)]
+    cheat_sold, cheat_bought = [req(4, ctx_c)], [req(5, ctx_c)]
+    mp = Marketplace(verify_rate=1.0, seed=0)
+    executed = []  # wall s of each Marketplace.execute (delivery, checks, settlement)
+    execute = mp.execute
+
+    def timed_execute(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = execute(*args, **kw)
+        torch.cuda.synchronize()
+        executed.append(time.perf_counter() - t0)
+        return out
+    mp.execute = timed_execute
+
+    def market_serve(tenant, reqs):
+        return serve(cfg, params, planner=MarketPlanner(AlwaysReusePlanner()),
+                     market=mp.join(tenant), make_traffic=lambda vocab: reqs)
+
+    def stored(eng, contexts):
+        """Each context's stored artifact (host payload) in ``eng``'s store."""
+        out = []
+        for ctx in contexts:
+            e = eng.store.lookup(ctx)[1]
+            assert e is not None and e.n_tokens == len(ctx), (e, len(ctx))
+            out.append(eng.store.backends[e.tier].peek(e.entry_id))
+        return out
+
+    s, _, s_rec, s_steps, s_writebacks = market_serve("s", sold)
+    log_steps("market seller s", s_steps)
+    assert s_writebacks == 3 and len(s.store.entries) == 3, (s_writebacks, s.store.entries)
+    art_a, art_b, art_bv = stored(s, (ctx_a, ctx_b, ctx_bv))
+    e_a = s.store.lookup(ctx_a)[1]
+    stamp = mp.tenants["s"].checksum(e_a.entry_id)  # the catalog's, before any sale
+    del s_rec
+
+    # the buyer's serve; its only flash launches are the spot check's, whose
+    # first layer's inputs are kept for the kernel phase
+    spot = {}
+    flash = ops.flash_attention
+
+    def record_spot(*args, **kw):
+        spot.setdefault("inputs", keep(args, kw))
+        return flash(*args, **kw)
+
+    zero_counts()
+    ops.flash_attention = record_spot
+    try:
+        b, recs, rec, steps, writebacks = market_serve("b", bought)
+    finally:
+        ops.flash_attention = flash
+    c = counts()
+    log(f"market buyer launches: {c} (decode steps {b.decode_stats()['decode_steps']})")
+    log_steps("market buyer b", steps)
+    log(f"market execute wall ms (delivery, checksum, spot check, settlement): "
+        f"{[round(1e3 * w, 2) for w in executed]}")
+    purchased = of_type(rec.events, ev.KVPurchased)
+    verified = of_type(rec.events, ev.SellerVerified)
+    assert [(e.req_id, e.seller, e.buyer) for e in purchased] == [(2, "s", "b")], purchased
+    assert [(e.req_id, e.ok, e.deep) for e in verified] == [(2, True, True)], verified
+    assert (recs[2].action, recs[2].plan.tier) == ("load", "market:s"), recs[2].plan
+    assert recs[3].action == "load" and not recs[3].plan.tier.startswith("market"), recs[3].plan
+    assert b.market_purchases == 1 and b.market_failed == 0 and writebacks == 1
+    assert c["flash_attention"] == cfg.n_layers, c  # the spot check's lm.prefill
+    assert c["packed_flash_attention"] > 0 and c["decode_attention"] > 0, c
+    led = mp.settlement
+    residual = led.assert_conserved(1e-9)
+    assert led.accounts["b"] == -b.market_spend and b.market_spend > 0, led.accounts
+    assert payload_checksum(s.store.backends[e_a.tier].peek(e_a.entry_id)) == stamp
+    log(f"market purchase: price ${b.market_spend:.6g}, fee ${led.fees_collected:.6g}, "
+        f"accounts {led.accounts}, conservation residual {residual}; the seller's stored A "
+        f"hashes to its catalog stamp")
+    bought_first = rec.first_logits[2]
+    del rec, s
+    release()
+
+    # the purchase against the same request served with reuse off
+    _, off_recs, off_rec, _, _ = serve(cfg, params, reuse=False,
+                                       make_traffic=lambda vocab: bought[:1])
+    diff = (bought_first - off_rec.first_logits[2]).abs().max().item()
+    same = sum(x == y for x, y in zip(recs[2].tokens, off_recs[2].tokens))
+    log(f"market purchase: first-token logits max|bought - recompute| = {diff:.4f}, "
+        f"tokens agreeing {same}/{MARKET_NEW_TOKENS}")
+    assert diff <= LOGIT_ATOL, diff
+    del off_rec
+    release()
+
+    # a seller whose rows come out of the unified step (the chunked kernel)
+    # instead of a packed admission
+    v, _, v_rec, _, v_writebacks = serve(
+        cfg, params, planner=AlwaysReusePlanner(), make_traffic=lambda vocab: sold,
+        paged_decode=True, unified_step=True, kv_block=128)
+    assert v_writebacks == 3, v_writebacks
+    unified_arts = stored(v, (ctx_a, ctx_b, ctx_bv))
+    del v, v_rec
+    release()
+
+    # a dishonest seller: its deliveries are corrupted in flight
+    t, _, _, _, _ = market_serve("t", cheat_sold)
+    (art_c,) = stored(t, (ctx_c,))
+    injector = FaultInjector(seed=0)
+    injector.arm(corrupt_rate=1.0)
+    mp.arm_adversary("t", injector)
+    u, u_recs, u_rec, u_steps, _ = market_serve("u", cheat_bought)
+    log_steps("market buyer u (adversary)", u_steps)
+    kinds = [(type(e).__name__, getattr(e, "ok", None)) for e in u_rec.events
+             if isinstance(e, (ev.KVPurchased, ev.SellerVerified, ev.SellerBlacklisted,
+                               ev.DegradedToRecompute))]
+    assert kinds == [("SellerVerified", False), ("SellerBlacklisted", None),
+                     ("DegradedToRecompute", None)], kinds
+    assert of_type(u_rec.events, ev.DegradedToRecompute)[0].reason == "market:verify_failed"
+    assert mp.reputation.is_blacklisted("t") and led.n_purchases == 1 and mp.purchases == 1
+    assert u.market_failed == 1 and u_recs[5].action == "recompute"
+    u_first = u_rec.first_logits[5]
+    del u_rec, t, u
+    release()
+    _, off_recs, off_rec, _, _ = serve(cfg, params, reuse=False,
+                                       make_traffic=lambda vocab: cheat_bought)
+    assert u_recs[5].tokens == off_recs[5].tokens, (u_recs[5].tokens, off_recs[5].tokens)
+    assert torch.equal(u_first, off_rec.first_logits[5])
+    log(f"market adversary: {kinds}; nothing settled, the buyer's tokens and first-token "
+        f"logits those of reuse off; stats {json.dumps({k: v for k, v in mp.stats().items() if k not in ('settlement', 'reputation')})}")
+    del off_rec
+    release()
+
+    # the spot check's readings: every honest artifact under its own
+    # tokens, packed and unified sellers alike; the controls, each
+    # context's rows under the other's tokens
+    n = mp.verify_sample_tokens
+    tol = SPOT_CHECK_TOL[cfg.dtype]
+    honest = {}
+    for seller, arts in (("packed", (art_a, art_b, art_bv)), ("unified", unified_arts)):
+        for name, ctx, art in zip(("A", "B", "B variant"), (ctx_a, ctx_b, ctx_bv), arts):
+            honest[f"{name} ({seller} seller)"] = b.spot_check_reading(ctx[:n], art)
+    honest["C (packed seller t)"] = b.spot_check_reading(ctx_c[:n], art_c)
+    control = {"B's rows under A's tokens": b.spot_check_reading(ctx_a[:n], art_b),
+               "A's rows under B's tokens": b.spot_check_reading(ctx_b[:n], art_a)}
+    ok_honest = b.market_spot_check(ctx_a, art_a, n)[0]
+    ok_control = b.market_spot_check(ctx_a, art_b, n)[0]
+    check_ms = time_ms(lambda: b.market_spot_check(ctx_a, art_a, n), reps=5)
+    worst, least = max(honest.values()), min(control.values())
+    log(f"market spot check ({n} tokens, {card}): honest readings "
+        f"{ {k: float(f'{r:.6g}') for k, r in honest.items()} }, largest {worst:.6g}; "
+        f"control readings { {k: float(f'{r:.6g}') for k, r in control.items()} }, "
+        f"least {least:.6g}; {cfg.dtype} tol {tol:g} (tol / largest honest "
+        f"{tol / worst if worst else math.inf:.2f}, least control / tol {least / tol:.1f}); "
+        f"{check_ms:.3f} ms a check")
+    assert ok_honest and not ok_control, (ok_honest, ok_control)
+    assert worst <= tol and least >= 10 * tol, (honest, control, tol)
+    # the sessions hold every tenant's engine: free them for the f32 weights
+    del b, mp, execute, timed_execute
+    release()
+    spot_check_witness(get_model(cfg), cfg, params, ctx_a[:n], art_a,
+                       honest["A (packed seller)"])
+    log(f"market phase wall: {time.perf_counter() - t_phase:.1f} s")
+    return spot["inputs"], c["flash_attention"]
+
+
 def launcher_phase():
     """``python -m repro_torch.launch.serve --requests 8 --contexts 2 --policy
     always --compress --json`` on the card (reduced compute, full-size
@@ -2579,6 +2874,9 @@ def main() -> None:
         # ---- telemetry phase ----------------------------------------------
         telemetry_phase(cfg, params, (recs, first_logits, dense_counts, summary, steps), smi,
                         pathlib.Path(tmp))
+
+    # ---- market phase -----------------------------------------------------
+    spot_inputs, market_flash = market_phase(cfg, params, smi)
     del params, artifact
     release()
     launcher_phase()
@@ -2597,6 +2895,7 @@ def main() -> None:
                check_kv_dequant(comp["dequant_inputs"], comp["dense"]["counts"]["kv_dequant"]),
                check_ssd(ssd_inputs, ssd_launches)]
     check_flash(flash_suffix, prefill_counts["flash_attention"], "suffix")
+    check_flash(spot_inputs, market_flash, "spot check")
     check_wide_group()
     log_device_times()
     print(json.dumps({"kernels": kernels}))

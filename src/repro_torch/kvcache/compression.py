@@ -55,17 +55,17 @@ def tree_leaves(tree: Any) -> Iterator[Any]:
         yield tree
 
 
-def _tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     """``fn`` over the leaves of ``tree``, keeping its containers (and
     NamedTuple types); ``None`` stays ``None``."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_tree_map(fn, x) for x in tree))
+        return type(tree)(*(tree_map(fn, x) for x in tree))
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_tree_map(fn, x) for x in tree)
+        return type(tree)(tree_map(fn, x) for x in tree)
     return fn(tree)
 
 
@@ -108,7 +108,7 @@ def compress_tree(tree: Any) -> Any:
             orig_dtype=str(t.dtype).removeprefix("torch."),
         )
 
-    return _tree_map(leaf, tree)
+    return tree_map(leaf, tree)
 
 
 def decompress_tree(tree: Any, device=None) -> Any:
@@ -127,12 +127,12 @@ def decompress_tree(tree: Any, device=None) -> Any:
         )
         return out if out.is_cuda else to_host(out)
 
-    return _tree_map(leaf, tree)
+    return tree_map(leaf, tree)
 
 
 def to_host_tree(tree: Any) -> Any:
     """A tree with every tensor leaf copied to the host (``paged.to_host``)."""
-    return _tree_map(lambda x: to_host(x) if isinstance(x, torch.Tensor) else x, tree)
+    return tree_map(lambda x: to_host(x) if isinstance(x, torch.Tensor) else x, tree)
 
 
 def tree_nbytes(tree: Any) -> int:

@@ -100,11 +100,14 @@ def payload_checksum(payload: Any) -> str:
     """Stable content checksum over an arbitrary KV payload pytree.
 
     Walks tuples/lists/dicts (namedtuples included) and hashes each leaf's
-    dtype, shape, and raw bytes; jax arrays are pulled to host first.  Two
-    payloads with identical contents hash identically regardless of
-    container identity, so dedup'd shared-tier writes agree on the stamp.
+    dtype, shape, and raw bytes.  A tensor, on any device, hashes as its host
+    copy (bf16 as its ``uint16`` pattern, the form the store keeps), so a
+    payload on the card and its host copy stamp the same.  Two payloads with
+    identical contents hash identically regardless of container identity, so
+    dedup'd shared-tier writes agree on the stamp.
     """
     import numpy as np
+    import torch
 
     h = hashlib.blake2b(digest_size=16)
 
@@ -126,6 +129,12 @@ def payload_checksum(payload: Any) -> str:
         elif isinstance(x, str):
             h.update(b"\x00S")
             h.update(x.encode())
+        elif isinstance(x, torch.Tensor):
+            t = x.detach()
+            if t.dtype == torch.bfloat16:
+                _walk(t.view(torch.int16).cpu().numpy().view(np.uint16))
+            else:
+                _walk(t.cpu().numpy())
         else:
             a = np.asarray(x)
             if a.dtype == object:

@@ -23,9 +23,10 @@ tests/test_torch_obs.py and by ``chip_smoke.py`` on the card).
 The series and their names are the reference package's, so both packages
 expose the same metrics.  The port runs eagerly: its ``jit_*`` gauges count
 first calls (misses) and repeat calls (hits) per launch-shape bucket
-(``serving/jit_cache.py``), not compiles.  The marketplace series
-(``kv_purchases_total`` and the three after it) are registered but stay
-empty until the marketplace and its events are ported.
+(``serving/jit_cache.py``), not compiles.  A purchase's dollars settle in
+the marketplace's own ``SettlementLedger``; here it is a zero-dollar
+``kv_purchase`` marker, so the engine's conservation law holds with the
+market on.
 
 Usage::
 
@@ -138,22 +139,20 @@ class Telemetry:
         self._m_crashes = r.counter(
             "replica_crashes_total", "Replicas lost mid-run", ("replica",)
         )
-        # the marketplace's series: registered so the snapshot lists the
-        # reference's series, fed once its events are ported
-        r.counter(
+        self._m_purchases = r.counter(
             "kv_purchases_total", "Marketplace KV purchases settled",
             ("replica", "seller"),
         )
-        r.counter(
+        self._m_purchased_bytes = r.counter(
             "kv_purchased_bytes_total", "Bytes bought from marketplace peers",
             ("replica", "seller"),
         )
-        r.counter(
+        self._m_verifications = r.counter(
             "seller_verifications_total",
             "Purchased-payload verifications (checksum and/or spot check)",
             ("replica", "ok"),
         )
-        r.counter(
+        self._m_blacklists = r.counter(
             "sellers_blacklisted_total",
             "Sellers ejected for corrupt deliveries", ("seller",),
         )
@@ -209,6 +208,25 @@ class Telemetry:
             self._m_degraded.inc(replica=replica)
         elif isinstance(e, ev.ReplicaCrashed):
             self._m_crashes.inc(replica=e.replica)
+        elif isinstance(e, ev.KVPurchased):
+            self._m_purchases.inc(replica=replica, seller=e.seller)
+            self._m_purchased_bytes.inc(
+                e.nbytes, replica=replica, seller=e.seller
+            )
+            # purchase dollars settle in the marketplace's own
+            # SettlementLedger (buyer debit == seller credit + fee at 1e-9);
+            # a zero-dollar marker here keeps the bytes queryable per
+            # request without double-billing the engine's conservation law
+            self.ledger.add(
+                "transfer", "kv_purchase", 0.0, replica=replica,
+                req_id=e.req_id, tier=e.tier, nbytes=e.nbytes, kind="load",
+            )
+        elif isinstance(e, ev.SellerVerified):
+            self._m_verifications.inc(
+                replica=replica, ok="ok" if e.ok else "corrupt"
+            )
+        elif isinstance(e, ev.SellerBlacklisted):
+            self._m_blacklists.inc(seller=e.seller)
         elif isinstance(e, ev.RequestRouted):
             self._m_routed.inc(replica=replica)
         elif isinstance(e, ev.ReplicaRebalanced):

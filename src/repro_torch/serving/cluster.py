@@ -43,9 +43,9 @@ This is the port of the reference's cluster.  Every replica runs on
 perf default to the port engine's own, ``h100_pricing(1)`` and
 ``PerfModel(h100(1))``.  ``trace=`` (a ``serving.trace.TraceWriter``)
 writes every replica-tagged event as it is emitted, and ``telemetry=`` (an
-``obs.Telemetry``) is shared by every replica.  The marketplace is not
-ported yet: ``market=`` raises ``NotImplementedError`` naming its ROADMAP
-item."""
+``obs.Telemetry``) is shared by every replica.  ``market=`` (a
+``market.Marketplace``) makes each replica a tenant of it, under
+``ClusterConfig.tenants``."""
 from __future__ import annotations
 
 import dataclasses
@@ -96,9 +96,9 @@ class ClusterConfig:
     # Router view: expected per-request service time used to estimate the
     # queue wait of a replica with no free capacity.
     est_service_s: float = 0.05
-    # Tenant tags, one per replica: each replica's shared-tier namespace
-    # carries its tenant's name, so dedup'd bytes stay attributable.
-    # None = anonymous "r{i}" namespaces.
+    # Tenant tags, one per replica (marketplace runs: each replica serves a
+    # tenant, and its shared-tier namespace carries the tenant's name so
+    # dedup'd bytes stay attributable).  None = anonymous "r{i}" namespaces.
     tenants: Optional[List[str]] = None
 
 
@@ -132,16 +132,16 @@ class ServingCluster:
         """``device`` is where every replica's model runs: the card unless
         the caller asks for another (``device="cpu"``); with no CUDA and no
         device given, this raises.  ``params`` must already live there."""
-        if market is not None:
-            raise NotImplementedError(
-                "the KV marketplace is not ported yet: ROADMAP queue A item 8"
-            )
         self.device = resolve_device(device)
         self.trace = trace
         # replica engines feed their own events to telemetry from step(); the
         # cluster feeds only its cluster-level events (routing, rebalance,
         # crashes) and gossip ticks, so nothing is counted twice
         self.telemetry = telemetry
+        # each replica joins the marketplace as its tenant; a MarketPlanner
+        # built by planner_factory gets that replica's session.  None = no
+        # market (the default cluster, unchanged).
+        self.market = market
         self.cc = cluster_cfg or ClusterConfig()
         self.ec = engine_cfg or EngineConfig()
         n = self.cc.n_replicas
@@ -250,12 +250,14 @@ class ServingCluster:
                 b = ConcurrencyLimitedBackend(b, spec.concurrency, clock=clock)
             backends[spec.name] = b
 
-        planner = planner_factory() if planner_factory else None
+        # a bare MarketPlanner from the factory gets the replica's session
+        # from the engine, which binds it
+        session = self.market.join(self.tenants[i]) if self.market is not None else None
         return ServingEngine(
             cfg,
             params,
             engine_cfg=self.ec,
-            planner=planner,
+            planner=planner_factory() if planner_factory else None,
             backends=backends,
             pricing=pricing,
             perf=perf,
@@ -264,6 +266,7 @@ class ServingCluster:
             on_token=((lambda e, _i=i: on_token(_i, e)) if on_token else None),
             telemetry=self.telemetry,
             telemetry_replica=i,
+            market=session,
             device=self.device,
         )
 

@@ -61,13 +61,19 @@ events and every charged fee, each fee attributed to the request and
 activity (fetch, retried fetch, write-back) that caused it, and settles the
 store's GB-hours at each ``summary()``: host-side only, it launches nothing.
 
+``market=`` (a ``market.MarketSession``, off by default) publishes the
+store as the tenant's catalog and lets a ``MarketPlanner`` buy a context's
+KV from a peer: a bought plan's fetch is the marketplace's delivery,
+verification and settlement (``_market_fetch``), checked against a fresh
+prefill of a prefix sample (``market_spot_check``), and a full-entry
+purchase is absorbed into the local store.
+
 This is the port of the JAX engine under every ``EngineConfig`` option.
 Compute runs eagerly in PyTorch (no jit): on CUDA tensors the kernels are
 the hand-written ones, on CPU tensors their plain versions.  Times and
 dollars are modelled (``PerfModel``), as in the reference, so the
-reference's golden records replay on the port.  Market plans and embedding
-contexts raise ``NotImplementedError`` naming the ROADMAP item that will
-carry them.
+reference's golden records replay on the port.  Embedding contexts raise
+``NotImplementedError`` naming the ROADMAP item that will carry them.
 """
 from __future__ import annotations
 
@@ -82,7 +88,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.cost_model import Workload, s_storage_bytes
 from repro_torch.core.perf_model import PerfModel, h100
 from repro_torch.core.pricing import Pricing, h100_pricing
-from repro_torch.kvcache import fusion, paged
+from repro_torch.kvcache import compression, fusion, paged
 from repro_torch.kvcache.backend import StorageBackend
 from repro_torch.kvcache.faults import FaultInjector, RetryPolicy, StorageError
 from repro_torch.kvcache.hierarchy import (
@@ -105,6 +111,23 @@ from repro_torch.serving.planner import (
 )
 from repro_torch.serving.request import Request, RequestRecord, Slot
 from repro_torch.serving.scheduler import AdmissionQueue, HedgePolicy
+
+# The market's spot check, per model dtype: a purchased state passes when,
+# for every leaf, max|bought - fresh| <= tol * max(1, max|fresh|), with
+# ``fresh`` a prefill of the same prefix sample on this engine.  A tolerance,
+# not bitwise equality: the seller's rows come out of a packed admission (or
+# the unified step's chunks) and the check's out of a per-request prefill,
+# whose launches and matmul shapes differ, so their roundings do (ROADMAP C9).
+# f32: the North star's attention rule; honest purchases of the reduced
+# llama-7b read ~4e-7 in the reference on the CPU, and 0 (packed seller) and
+# 7.2e-7 (unified seller) in the port on the H100.  bf16, full llama-7b on the
+# H100 (``chip_smoke.py``'s market phase, PERF.md): the largest honest
+# reading over the prefix mix's contexts and C, from packed and unified
+# sellers, is 0.0202; each bf16 side alone reads 0.016-0.017 against an f32
+# prefill, so the honest reading is two bf16 roundings through 32 layers.
+# The least control, another context's rows under these tokens, is 1.343.
+# 0.1 sits 5x above the one and 13x below the other.
+SPOT_CHECK_TOL = {"float32": 2e-5, "bfloat16": 1e-1}
 
 
 @dataclasses.dataclass
@@ -229,6 +252,7 @@ class ServingEngine:
         on_token=None,
         telemetry=None,
         telemetry_replica: int = 0,
+        market=None,
         device=None,
     ):
         """``device`` is where the model runs: the card unless the caller
@@ -236,7 +260,9 @@ class ServingEngine:
         given, this raises.  ``params`` must already live there.
         ``telemetry`` (an ``obs.Telemetry``, off by default) observes the
         event stream and the transfer model's fees; ``telemetry_replica``
-        tags this engine's events and ledger entries inside a cluster."""
+        tags this engine's events and ledger entries inside a cluster.
+        ``market`` (a ``market.MarketSession``, off by default) is this
+        engine's tenant on a marketplace."""
         self.cfg = cfg
         self.params = params
         self.ec = engine_cfg or EngineConfig()
@@ -301,6 +327,18 @@ class ServingEngine:
             write_back=self.ec.reuse_enabled and self.ec.store_write_back,
             min_store_tokens=max(self.ec.chunk_tokens, self.ec.min_cache_tokens),
         )
+        # Marketplace session, duck-typed so the engine never imports the
+        # market package.  Binding publishes this engine's store as the
+        # tenant's catalog and hands the market the spot check
+        # (``market_spot_check``).  None = no market: every plan and token
+        # is what it was without one.
+        self.market = market
+        if market is not None:
+            market.bind_engine(self)
+            # a MarketPlanner built without a session shops through this
+            # engine's (only planners that can buy have the attribute)
+            if getattr(self.planner, "session", "no") is None:
+                self.planner.session = market
         self.queue = AdmissionQueue()
         self.slots = [Slot(i) for i in range(self.ec.max_slots)]
         self.records: List[RequestRecord] = []
@@ -381,6 +419,10 @@ class ServingEngine:
         self.degraded_requests = 0  # admissions that fell back to recompute
         self.fetch_wasted_s = 0.0  # time burned by failed attempts + backoff
         self.fetch_wasted_bytes = 0.0  # transfer bytes charged but unusable
+        # marketplace (all stay 0 without a market)
+        self.market_purchases = 0  # plans served with bought peer KV
+        self.market_failed = 0  # purchases that degraded to recompute
+        self.market_spend = 0.0  # buyer dollars settled through the market
 
     # ------------------------------------------------------------------ #
     # Public API: submit / step / drain / run
@@ -655,11 +697,6 @@ class ServingEngine:
             slo_ttft_s=req.slo_ttft_s,
         )
         plan = self.planner.plan(req, lookup, workload)
-        if plan.action not in ("recompute", "load", "partial", "fused") or plan.market is not None:
-            self._release_prefetch(req.req_id)
-            raise NotImplementedError(
-                f"plan action {plan.action!r} is not ported yet (ROADMAP queue A item 8)"
-            )
         events.append(ev.PlanChosen(t_s=self.clock.now, req_id=req.req_id, plan=plan))
         return _Admission(req=req, rec=rec, slot=slot, plan=plan, lookup=lookup)
 
@@ -700,7 +737,9 @@ class ServingEngine:
         """Plan, fetch and prefill one request through ``ModelApi.prefill``
         into a batch-1 state, then install it in ``slot``."""
         a = self._plan_admission(req, slot, events)
-        if a.plan.loads_kv and a.lookup.entry is not None:
+        if a.plan.market is not None:
+            self._market_fetch(a, events)
+        elif a.plan.loads_kv and a.lookup.entry is not None:
             self._fetch_kv_resilient(a, events)
         if a.artifact is not None:
             load_s, prefill_s, logits, temp = self._execute_load(req, a, events)
@@ -738,13 +777,21 @@ class ServingEngine:
         prefill_s = self.perf.t_prefill(self.cost_cfg, len(tokens))
         load_s = self._overlapped(a.delay, prefill_s)
         events.append(ev.KVLoaded(
-            t_s=self.clock.now, req_id=req.req_id, tier=a.lookup.entry.tier,
+            t_s=self.clock.now, req_id=req.req_id, tier=self._loaded_tier(a),
             nbytes=a.nbytes, load_s=load_s, matched_tokens=matched,
         ))
         events.append(ev.PrefillDone(
             t_s=self.clock.now, req_id=req.req_id, n_tokens=len(tokens), prefill_s=prefill_s,
         ))
         return load_s, prefill_s, logits, temp
+
+    @staticmethod
+    def _loaded_tier(a: _Admission) -> str:
+        """The tier a ``KVLoaded`` names: the local entry's, else (a bought
+        plan with no local match) the plan's ``market:<seller>``."""
+        if a.lookup.entry is not None:
+            return a.lookup.entry.tier
+        return a.plan.tier or "market"
 
     def _overlapped(self, delay: float, prefill_s: float) -> float:
         """The part of a fetch's delay charged to the request: all of it, or
@@ -759,7 +806,9 @@ class ServingEngine:
         batch slot."""
         t0 = self.clock.now
         for a in admissions:
-            if a.plan.loads_kv and a.lookup.entry is not None:
+            if a.plan.market is not None:
+                self._market_fetch(a, events)
+            elif a.plan.loads_kv and a.lookup.entry is not None:
                 self._fetch_kv_resilient(a, events)
             self._release_prefetch(a.req.req_id)
             ctx = list(a.req.context_tokens)
@@ -813,7 +862,7 @@ class ServingEngine:
                 # batch-barrier wait it experiences lands on the record below
                 events.append(
                     ev.KVLoaded(
-                        t_s=t0, req_id=a.req.req_id, tier=a.lookup.entry.tier,
+                        t_s=t0, req_id=a.req.req_id, tier=self._loaded_tier(a),
                         nbytes=a.nbytes, load_s=a.load_s, matched_tokens=a.matched,
                     )
                 )
@@ -1233,6 +1282,124 @@ class ServingEngine:
         a.delay = wasted + delay
         a.matched = plan.matched_tokens
 
+    # -- marketplace: purchased KV --------------------------------------- #
+    def _market_fetch(self, a: _Admission, events: List[ev.Event]) -> None:
+        """Execute a bought plan (``ReusePlan.market``): delivery,
+        verification and settlement run inside the marketplace.  On success
+        a full-entry purchase is absorbed into this engine's own store, so a
+        repeat of the context loads locally; on any failure (seller gone,
+        fetch error, failed verification) the request degrades to exact
+        recompute."""
+        req, quote = a.req, a.plan.market
+        res = self.market.execute(
+            quote, req_id=req.req_id, now=self.clock.now,
+            context_tokens=req.context_tokens, replica=self._replica,
+        )
+        events.extend(res.events)
+        # the spot check ran on this engine's device: its GPU seconds are
+        # compute this request caused, charged win or lose
+        a.rec.compute_cost += res.verify_cost
+        if not res.ok:
+            self.degraded_requests += 1
+            self.market_failed += 1
+            a.rec.degraded = True
+            a.artifact, a.nbytes, a.matched = None, 0.0, 0
+            a.delay = res.wasted_s
+            events.append(ev.DegradedToRecompute(
+                t_s=self.clock.now, req_id=req.req_id, tier=a.plan.tier,
+                entry_id=quote.entry_id, attempts=1, wasted_s=res.wasted_s,
+                reason=f"market:{res.reason}",
+            ))
+            return
+        a.artifact = res.artifact
+        a.nbytes = res.nbytes
+        a.matched = res.matched_tokens
+        a.delay = res.delay_s + res.verify_s
+        self.market_purchases += 1
+        self.market_spend += res.price
+        if self.ec.store_write_back and res.matched_tokens >= quote.n_tokens:
+            # full-entry purchase: the artifact's rows cover exactly the
+            # matched prefix, so the stored identity is sound; partial
+            # matches are served but not stored
+            ctx = list(req.context_tokens[:res.matched_tokens])
+            saved = self._c_gpu_s * self.perf.t_prefill(self.cost_cfg, len(ctx))
+            tier = self._store_tier()
+            art = res.artifact
+            if tier != self.ec.compress_tier:
+                # a delivery dequantised on the card comes to the host first
+                art = compression.to_host_tree(art)
+            with self._attr("market_absorb", req.req_id):
+                entry_id, _ = self.store.put(ctx, art, tier=tier, saved_per_use=saved)
+            self._note_dedup(entry_id, req)
+            self._emit_migrations(events)
+            if entry_id is not None:
+                e = self.store.entries[entry_id]
+                events.append(ev.StoreWriteBack(
+                    t_s=self.clock.now, req_id=req.req_id,
+                    entry_id=entry_id, tier=e.tier, nbytes=e.nbytes,
+                ))
+
+    def _note_dedup(self, entry_id: Optional[str], req: Request) -> bool:
+        """KVShare dedup: whether the put just made found its bytes already
+        in a shared core (another tenant stored them); if so the market books
+        a zero-dollar credit for the bytes the core did not duplicate.  Only
+        the market and telemetry read it: with both off nothing is read."""
+        if entry_id is None or (self.market is None and self.telemetry is None):
+            return False
+        dedup = self.store.last_put_handle.dedup
+        if dedup and self.market is not None:
+            self.market.note_dedup(
+                self.store.entries[entry_id].nbytes,
+                req_id=req.req_id, replica=self._replica,
+            )
+        return dedup
+
+    def market_spot_check(self, context_tokens, artifact, n_tokens: int):
+        """The market's check of purchased KV: prefill the first
+        ``n_tokens`` of the context fresh through ``lm.prefill`` and compare
+        the purchased state with it, both canonicalised through the same
+        slot layout.  It passes when every leaf is within
+        ``SPOT_CHECK_TOL`` of the model dtype (``spot_check_reading``).
+
+        A tolerance check, not the reference's bitwise one: the seller's
+        rows come out of a packed admission and the check's out of a
+        per-request prefill, whose launches and matmul shapes differ, so
+        even an honest seller's rows differ in their last bits (the
+        reference's own check rejects its honest purchase on the CPU).  The
+        checksum, checked on every delivery, catches tampered bytes; this
+        catches a seller whose published KV is not what this model computes
+        for these tokens, which lands orders of magnitude above the
+        tolerance (ROADMAP C9).  Returns (ok, verify_s, verify_cost): the
+        sample prefill's modelled GPU seconds and dollars, which the caller
+        charges to the request."""
+        n = int(min(n_tokens, len(context_tokens)))
+        if n <= 0:
+            return True, 0.0, 0.0
+        reading = self.spot_check_reading(list(context_tokens)[:n], artifact)
+        verify_s = self.perf.t_prefill(self.cost_cfg, n)
+        return reading <= SPOT_CHECK_TOL[self.cfg.dtype], verify_s, self._c_gpu_s * verify_s
+
+    def spot_check_reading(self, tokens: List[int], artifact) -> float:
+        """max over the state's leaves of max|bought - fresh| / max(1,
+        max|fresh|): ``fresh`` is a prefill of ``tokens`` into an empty
+        batch-1 state, ``bought`` the first ``len(tokens)`` positions of
+        ``artifact`` inserted into another (an SSM state whole, as the
+        reference inserts it)."""
+        n = len(tokens)
+        temp = self.api.init_state(self.cfg, 1, self.ec.max_len, device=self.device)
+        _, fresh = self._prefill(tokens, temp)
+        want = paged.slot_artifact(fresh, 0, n)
+        temp = self.api.init_state(self.cfg, 1, self.ec.max_len, device=self.device)
+        paged.insert_slot(self.cfg, temp, 0, artifact, n_tokens=n)
+        got = paged.slot_artifact(temp, 0, n)
+        reading = 0.0
+        for g, w in zip(compression.tree_leaves(got), compression.tree_leaves(want)):
+            g = torch.as_tensor(g).double()
+            w = torch.as_tensor(w).double()
+            scale = max(1.0, w.abs().max().item())
+            reading = max(reading, (g - w).abs().max().item() / scale)
+        return reading
+
     def _write_back(self, req: Request, artifact: Any, events: List[ev.Event]) -> None:
         """Store a context's device-side artifact.  The int8 tier takes it as
         it lies, so ``kv_quant`` runs where the rows are and only the int8
@@ -1244,8 +1411,7 @@ class ServingEngine:
             artifact = paged.artifact_to_host(artifact)
         with self._attr("write_back", req.req_id):
             entry_id, _ = self.store.put(ctx, artifact, tier=tier, saved_per_use=saved)
-        if (self.telemetry is not None and entry_id is not None
-                and self.store.last_put_handle.dedup):
+        if self._note_dedup(entry_id, req) and self.telemetry is not None:
             # a content-addressed shared tier already held these bytes: no
             # upload, no fee; a zero-dollar entry shows the saving per request
             self.telemetry.ledger.add(
@@ -1430,8 +1596,7 @@ class ServingEngine:
         """Take every admissible request with a free slot in as a pending
         chunk stream: plan it, execute its storage fetch (the delay becomes
         the stream's ready time, so a load overlaps other slots' compute)
-        and admit its pool blocks.  Plans the port does not carry (market)
-        raise in ``_plan_admission``; embeds already in ``submit``."""
+        and admit its pool blocks (embeds raise in ``submit``)."""
         free = [s for s in self.slots if not s.active and s.index not in self._chunks]
         if not free:
             return False
@@ -1463,7 +1628,9 @@ class ServingEngine:
         if a.plan.action == "fused":
             fused_out = self._fetch_fused_sources(a, events)  # releases the prefetch
         else:
-            if a.plan.loads_kv and a.lookup.entry is not None:
+            if a.plan.market is not None:
+                self._market_fetch(a, events)
+            elif a.plan.loads_kv and a.lookup.entry is not None:
                 self._fetch_kv_resilient(a, events)
             self._release_prefetch(req.req_id)
         own = ps.admit(a.slot.index, n_total)
@@ -1503,7 +1670,7 @@ class ServingEngine:
                 paged.to_device(stored.v[:, 0, :matched], dtype, self.device),
             )
             events.append(ev.KVLoaded(
-                t_s=t0, req_id=req.req_id, tier=a.lookup.entry.tier, nbytes=a.nbytes,
+                t_s=t0, req_id=req.req_id, tier=self._loaded_tier(a), nbytes=a.nbytes,
                 load_s=a.delay, matched_tokens=matched,
             ))
             tokens = np.asarray(ctx[matched:] + prompt, np.int32)

@@ -19,7 +19,11 @@ lands over several ``UnifiedStep`` launches between ``KVLoaded`` and
 ``KVLoaded`` per source entry, then ``FusedAdmitted``, then ``PrefillDone``.
 A cluster (``serving/cluster.py``) adds ``RequestRouted`` before the landing
 replica's ``RequestAdmitted``, and the cluster-level ``ReplicaRebalanced``
-and ``ReplicaCrashed``.  The reference's market events come with the market.
+and ``ReplicaCrashed``.  A plan bought from a marketplace peer
+(``repro_torch.market``) emits ``KVPurchased`` and ``SellerVerified`` when
+the purchase settles; a failed purchase emits ``SellerVerified(ok=False)``
+(and ``SellerBlacklisted`` if that ejected the seller) where verification
+failed, then ``DegradedToRecompute``.
 
 ``ClockAdvanced`` appears between requests when the engine is idle and jumps
 simulated time to the next arrival.
@@ -217,6 +221,47 @@ class DegradedToRecompute(Event):
 
 
 @dataclasses.dataclass(frozen=True)
+class KVPurchased(Event):
+    """The request's stored-KV fetch was bought from a marketplace peer
+    instead of served from the engine's own store (``repro_torch.market``).
+    The purchase settled (buyer debited, seller credited) through the
+    ``SettlementLedger``; ``price`` is the buyer's total spend including the
+    market's transaction fee."""
+
+    seller: str  # tenant id of the selling peer
+    buyer: str
+    entry_id: str  # entry in the SELLER's store
+    tier: str  # seller-side tier the bytes came from
+    nbytes: float
+    price: float  # buyer spend in $ (ask x risk multiplier + flat fee)
+    matched_tokens: int
+
+
+@dataclasses.dataclass(frozen=True)
+class SellerVerified(Event):
+    """A purchased payload was verified before being served: checksum
+    against the catalog stamp always, plus (``deep=True``) a spot recompute
+    of a prefix sample compared against the delivered KV within the model
+    dtype's tolerance (``ServingEngine.market_spot_check``).  ``ok=False``
+    means the payload was corrupt or not this model's KV for these tokens:
+    it was never served, and the request degrades to exact recompute."""
+
+    seller: str
+    entry_id: str
+    ok: bool
+    deep: bool  # the spot recompute-sample check ran (vs checksum-only)
+
+
+@dataclasses.dataclass(frozen=True)
+class SellerBlacklisted(Event):
+    """The reputation book ejected a seller caught serving corrupt or wrong
+    payloads: no future quote will name it again."""
+
+    seller: str
+    corrupt_count: int  # failed verifications that earned the ejection
+
+
+@dataclasses.dataclass(frozen=True)
 class ReplicaCrashed(Event):
     """A replica died mid-run (req_id is -1: a cluster-level act).  Its
     in-flight and queued requests were harvested and resubmitted to the
@@ -234,7 +279,7 @@ AnyEvent = Union[
     PrefillDone,
     StoreWriteBack, TokenEmitted, RequestFinished, ClockAdvanced, TierMigrated,
     RequestRouted, ReplicaRebalanced, FetchFailed, FetchRetried, DegradedToRecompute,
-    ReplicaCrashed,
+    KVPurchased, SellerVerified, SellerBlacklisted, ReplicaCrashed,
 ]
 
 

@@ -59,6 +59,7 @@ from repro_torch.kvcache.hierarchy import (  # noqa: E402
     TierSpec,
 )
 from repro_torch.kvcache.transfer import SimClock, TransferModel  # noqa: E402
+from repro_torch.market import Marketplace, MarketPlanner  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.attention import KVCache  # noqa: E402
 from repro_torch.models.blocks import BlockCache  # noqa: E402
@@ -950,10 +951,20 @@ def test_default_hardware_is_the_port_engines(qwen):
         assert isinstance(eng.backends["s3"], SharedTierBackend)
 
 
-@pytest.mark.parametrize("kw,item", [(dict(market=object()), 8)])
-def test_unported_options_raise(qwen, kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue A item {item}"):
-        ServingCluster(qwen[2], qwen[3], engine_cfg=_cluster_ec(), device="cpu", **kw)
+def test_cluster_takes_a_market(qwen):
+    """``market=`` makes each replica its tenant of the marketplace: one
+    session per replica under ``ClusterConfig.tenants``, each engine's store
+    published, and a ``MarketPlanner`` built bare by the factory shopping
+    through its own replica's session (served and held to the reference in
+    ``tests/test_torch_market.py``)."""
+    mp = Marketplace()
+    cl = ServingCluster(qwen[2], qwen[3], engine_cfg=_cluster_ec(), device="cpu", market=mp,
+                        cluster_cfg=ClusterConfig(n_replicas=2, tenants=["a", "b"]),
+                        planner_factory=lambda: MarketPlanner(AlwaysReusePlanner()))
+    assert sorted(mp.tenants) == sorted(mp.sessions) == ["a", "b"]
+    for name, eng in zip(("a", "b"), cl.replicas):
+        assert eng.market is mp.sessions[name] and eng.planner.session is eng.market
+        assert mp.sessions[name].engine is eng and mp.tenants[name].store is eng.store
 
 
 def test_cluster_needs_a_device_without_cuda(qwen):

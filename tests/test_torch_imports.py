@@ -12,7 +12,8 @@ and overlapped loads, lookahead prefetch and migrations, and runs the
 launcher with ``--overlap --hedge``; a fourth serves a two-replica
 cluster behind the affinity router over one shared, deduplicating s3 tier;
 a fifth serves an engine and a cluster with telemetry and a JSONL trace on,
-and reads the trace back.
+and reads the trace back; a sixth serves a marketplace purchase between two
+engines.
 """
 import pathlib
 import re
@@ -40,7 +41,9 @@ def test_no_jax_or_reference_imports():
     names = {str(p.relative_to(PORT)) for p in files if PORT in p.parents}
     assert {"obs/__init__.py", "obs/registry.py", "obs/ledger.py", "obs/spans.py",
             "obs/telemetry.py", "obs/console.py", "serving/trace.py",
-            "serving/audit.py"} <= names, names
+            "serving/audit.py", "market/__init__.py", "market/catalog.py",
+            "market/market.py", "market/planner.py", "market/reputation.py",
+            "market/settlement.py"} <= names, names
     hits = [f"{p}: {m.group(0).strip()}" for p in files for m in pattern.finditer(p.read_text())]
     assert not hits, hits
 
@@ -106,7 +109,8 @@ def test_port_imports_and_serves_with_jax_and_repro_blocked():
                      "repro_torch.data.synthetic", "repro_torch.launch.serve",
                      "repro_torch.obs", "repro_torch.obs.telemetry",
                      "repro_torch.obs.console", "repro_torch.serving.trace",
-                     "repro_torch.serving.audit"):
+                     "repro_torch.serving.audit", "repro_torch.market",
+                     "repro_torch.market.market"):
             assert name in names, name
         import torch
         torch.set_num_threads(1)
@@ -315,3 +319,56 @@ def test_port_serves_with_telemetry_and_a_trace_with_jax_and_repro_blocked(tmp_p
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("telemetry")
+
+
+def test_port_serves_a_market_purchase_with_jax_and_repro_blocked():
+    """Two tenants of one ``Marketplace`` on the CPU, with JAX and the
+    reference blocked: the buyer buys the seller's stored context, its
+    spot check passes, the settlement conserves, and its tokens equal a
+    recompute's."""
+    script = textwrap.dedent(
+        """
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import torch
+        torch.set_num_threads(1)
+        from repro_torch.configs import get_config, reduced_config
+        from repro_torch.market import Marketplace, MarketPlanner
+        from repro_torch.models import lm
+        from repro_torch.serving import AlwaysReusePlanner, EngineConfig, Request, ServingEngine
+        from repro_torch.serving import events as ev
+        cfg = reduced_config(get_config("llama-7b"))
+        params = lm.init(cfg, seed=0, device="cpu")
+        mp = Marketplace(verify_rate=1.0, seed=0)
+        def engine(tenant=None):
+            return ServingEngine(cfg, params, device="cpu",
+                                 engine_cfg=EngineConfig(max_slots=2, max_len=128),
+                                 planner=MarketPlanner(AlwaysReusePlanner()),
+                                 market=mp.join(tenant) if tenant else None)
+        def req(i):
+            return Request(req_id=i, context_tokens=list(range(64)), prompt_tokens=[7, 8, i],
+                           max_new_tokens=3, arrival_s=i * 0.01)
+        seller, buyer, plain = engine("s"), engine("b"), engine()
+        seller.submit(req(0))
+        seller.run()
+        buyer.submit(req(1))
+        events = list(buyer.drain())
+        plain.submit(req(1))
+        plain.run()
+        assert buyer.market_purchases == 1, [type(e).__name__ for e in events]
+        assert [(e.ok, e.deep) for e in events if isinstance(e, ev.SellerVerified)] == \\
+            [(True, True)]
+        assert mp.settlement.assert_conserved(1e-9) <= 1e-9
+        assert buyer.records[0].tokens == plain.records[0].tokens
+        print("market", buyer.market_spend)
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("market")

@@ -1098,6 +1098,72 @@ def test_reduced_llama_serves_on_card_with_telemetry_as_without(cuda, mode, tmp_
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("seller", ["packed", "unified"])
+def test_reduced_llama_f32_purchase_on_card(cuda, seller):
+    """An f32 purchase of the reduced llama-7b on the card: seller ``s``
+    recomputes a context through packed admissions (or the unified step's
+    chunks) and writes it back; buyer ``b`` buys it, and its spot check
+    launches ``flash_attention`` once per layer and passes.  The honest
+    reading, the bought rows against a fresh prefill of the sample on the
+    card, lies within the f32 ``SPOT_CHECK_TOL`` (printed, ``-s`` shows
+    it); the trade's actions, tokens and settlement equal the same trade's
+    on the CPU."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.market import Marketplace, MarketPlanner
+    from repro_torch.models import lm
+    from repro_torch.serving import AlwaysReusePlanner, EngineConfig, Request, ServingEngine
+    from repro_torch.serving import events as ev
+    from repro_torch.serving.engine import SPOT_CHECK_TOL
+
+    cfg = reduced_config(get_config("llama-7b"))
+    assert cfg.dtype == "float32"
+    cpu_params = lm.init(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(6)
+    ctx = rng.integers(0, cfg.vocab, 96).tolist()
+    reqs = [dict(req_id=i, context_tokens=ctx,
+                 prompt_tokens=rng.integers(0, cfg.vocab, 8).tolist(), max_new_tokens=4,
+                 arrival_s=0.0, expected_reuses=3) for i in range(2)]
+    seller_ec = dict(paged_decode=True, unified_step=True) if seller == "unified" else {}
+
+    def trade(device):
+        params = _to(cpu_params, device)
+        mp = Marketplace(verify_rate=1.0, seed=0)
+        out = {}
+        for name, r, ec in (("s", reqs[0], seller_ec), ("b", reqs[1], {})):
+            before = fk.flash_attention.launches
+            eng = ServingEngine(cfg, params, device=device, market=mp.join(name),
+                                planner=MarketPlanner(AlwaysReusePlanner()),
+                                engine_cfg=EngineConfig(max_slots=2, max_len=128,
+                                                        chunk_tokens=16, **ec))
+            eng.submit(Request(**r))
+            events = list(eng.drain())
+            out[name] = eng, events, fk.flash_attention.launches - before
+        return mp, out
+
+    before = cpk.chunked_prefill_attention.launches
+    mp, out = trade(cuda)
+    torch.cuda.synchronize()
+    (s, _, _), (b, events, flash) = out["s"], out["b"]
+    assert (cpk.chunked_prefill_attention.launches > before) == (seller == "unified")
+    assert [(e.ok, e.deep) for e in events if isinstance(e, ev.SellerVerified)] == [(True, True)]
+    assert len([e for e in events if isinstance(e, ev.KVPurchased)]) == 1
+    assert b.market_purchases == 1 and flash == cfg.n_layers, (b.market_purchases, flash)
+    e = s.store.lookup(ctx)[1]
+    art = s.store.backends[e.tier].peek(e.entry_id)
+    reading = b.spot_check_reading(ctx[:mp.verify_sample_tokens], art)
+    print(f"f32 honest spot-check reading on the card, {seller} seller: {reading:.6g} "
+          f"(tol {SPOT_CHECK_TOL['float32']:g}; {torch.cuda.get_device_name(0)})")
+    assert reading <= SPOT_CHECK_TOL["float32"], reading
+    cpu_mp, cpu_out = trade("cpu")
+    cpu_b = cpu_out["b"][0]
+    assert {r.req_id: (r.action, r.tokens) for r in b.records} == {
+        r.req_id: (r.action, r.tokens) for r in cpu_b.records}
+    assert mp.settlement.accounts.keys() == cpu_mp.settlement.accounts.keys()
+    for k, v in mp.settlement.accounts.items():
+        assert abs(v - cpu_mp.settlement.accounts[k]) <= 1e-9, (k, v)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_trace_serializes_a_tensor_on_the_card(cuda, dtype, tmp_path):
     """A trace leaf that lies on the card is copied to the host and written
