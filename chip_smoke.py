@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's nine CUDA kernels from ``src/repro_torch/kernels/csrc``
-with nvcc (one nvcc per source, all started together), then drives twelve
+with nvcc (one nvcc per source, all started together), then drives thirteen
 paths of the port, each with every launch counter zeroed just before it and
 read just after it:
 
@@ -179,6 +179,29 @@ read just after it:
    agrees with the engine's recompute; and
    the same traffic with ``paged_decode=True`` keeps the dense decode
    (``decode_stats()["paged"]`` False) with the dense run's tokens.
+13. other families — after the mamba2 engines and weights are freed, the
+   prefix mix behind the same ``ServingEngine`` settings, H100 ``PerfModel``
+   and prices and ``CostAwarePlanner`` on two more full-width, full-depth
+   bf16 archs with random weights from a seeded generator.  First
+   mistral-nemo-12b (40 layers, d_model 5120, 32 query heads of width 128 on
+   8 kv heads: H·hd 4096 against d_model 5120), served dense with reuse on
+   and off: each reused request's first-token logits within ``LOGIT_ATOL``
+   of reuse off.  It is freed, then olmoe-1b-7b (16 layers, d_model 2048,
+   64 experts of width 1024, top-8, capacity factor 1.25) serves the mix
+   dense, paged (``paged_decode=True``), unified (``unified_step=True``) and
+   with reuse off.  The MoE FFN routes each launch's T tokens, padding
+   included, into experts of capacity C (``moe.expert_capacity``); for each
+   admission launch the phase logs T, C, the MoE FFN's card time and the
+   pairs dropped in each layer, real tokens' apart from padding's (decode
+   launches, T = 4 and C = 8, can drop none).  The same actions in all three
+   serves, the paged serve's tokens equal to the dense serve's, and each
+   serve's reused requests' first-token logits within ``LOGIT_ATOL`` of
+   reuse off, except a request whose tokens lost pairs on either side,
+   which is logged beside its drops, not gated.  With random weights the
+   router sends most tokens to a few experts, so at 1.25 nearly every
+   request loses pairs: the same weights then serve dense, unified and with
+   reuse off at the dropless capacity factor n_experts / top_k (C >= T),
+   where no pair may drop and every reused request is gated.
 
 Then the kernel phase: each kernel is called on the inputs one of its
 launches on those paths received (first layer) and held against its plain
@@ -201,7 +224,10 @@ the bf16 one are logged.  Both decode kernels split each sequence's rows into
 fixed parts of 256 positions (``csrc/decode_block.cuh``): two launches on
 the recorded inputs must give the same bits (bf16 and f32), and the part
 count, the host enqueue time and the compiler's registers and spills are
-logged.
+logged.  The packed and decode kernels are held against their plain
+versions on nemo's recorded first-layer inputs too, and the packed, decode,
+paged and chunked ones on olmoe's; the kernels line counts their launches
+on those serves beside llama's.
 Times come from CUDA events after warm-up, beside the plain version's, one
 PyTorch library call's (``scaled_dot_product_attention`` with an explicit
 boolean mask, timed here only; for the paged kernels on rows gathered
@@ -263,8 +289,8 @@ from repro_torch.kvcache.faults import FaultInjector, RetryPolicy, payload_check
 from repro_torch.kvcache.hierarchy import TierSpec  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.market import Marketplace, MarketPlanner  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
-from repro_torch.models.registry import get_model  # noqa: E402
+from repro_torch.models import lm, moe  # noqa: E402
+from repro_torch.models.registry import count_active_params, get_model  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     AffinityRouter,
     AlwaysReusePlanner,
@@ -852,7 +878,7 @@ def check_kernel(name, source, replaces, launches, inputs, kernel, plain, *, mas
                 library_ms=r["lib"])
 
 
-def check_packed(inputs, launches):
+def check_packed(inputs, launches, label=""):
     (q, k, _), kw = inputs
     qp, kp = kw["q_pos"][0].long(), kw["kv_pos"][0].long()
     qs, ks = kw["q_seg"][0].long(), kw["kv_seg"][0].long()
@@ -866,13 +892,13 @@ def check_packed(inputs, launches):
         pk.packed_flash_attention, pk.packed_flash_attention_plain,
         mask4=mask[None, None], index=[kw[n] for n in ("q_pos", "kv_pos", "q_seg", "kv_seg")],
         kv_rows=k.shape[0] * k.shape[1], pairs=pairs,
-        note=f"kv{tuple(k.shape)} kept_pairs/head={pairs}", times=times)
-    mma_tile_notes("packed_flash_attention", "packed_prefill", inputs,
+        note=f"kv{tuple(k.shape)} kept_pairs/head={pairs}", label=label, times=times)
+    mma_tile_notes(f"packed_flash_attention {label}".strip(), "packed_prefill", inputs,
                    pk.packed_flash_attention, pk.split_count(q.to(torch.bfloat16), k), times)
     return entry
 
 
-def check_decode(inputs, launches):
+def check_decode(inputs, launches, label=""):
     (q, k, _), kw = inputs
     mask = (kw["kv_pos"].long() >= 0) & (kw["kv_pos"].long() <= kw["q_pos"].long())
     kept = int(mask.sum())  # [B, L] rows each sequence's query keeps
@@ -882,8 +908,8 @@ def check_decode(inputs, launches):
         launches, inputs, dk.decode_attention, dk.decode_attention_plain,
         mask4=mask[:, None, None, :], index=[kw["q_pos"], kw["kv_pos"]], kv_rows=kept,
         pairs=kept, note=f"cache{tuple(k.shape)} kept_rows={kept}", reps=20, plain_reps=5,
-        times=times)
-    decode_notes("decode_attention", "decode_attention", "decode_kernel",
+        label=label, times=times)
+    decode_notes(f"decode_attention {label}".strip(), "decode_attention", "decode_kernel",
                  lambda q, k, v: dk.decode_attention(q, k, v, **kw), inputs[0], times,
                  dk.part_count(k.shape[1]))
     return entry
@@ -913,7 +939,7 @@ def check_flash(inputs, launches, label):
     return entry
 
 
-def check_paged(inputs, launches):
+def check_paged(inputs, launches, label=""):
     (q, k_pool, _), kw = inputs
     B = q.shape[0]
     table, block = kw["block_table"], kw["block"]
@@ -933,8 +959,9 @@ def check_paged(inputs, launches):
         mask4=mask[:, None, None, :], index=[table, kw["q_pos"]], kv_rows=kept, pairs=kept,
         note=f"pool{tuple(k_pool.shape)} table{tuple(table.shape)} kept_rows={kept}",
         reps=20, plain_reps=5, sdpa_kv=lambda t: t[rows], sdpa_note=" (gather excluded)",
-        times=times)
-    decode_notes("paged_decode_attention", "paged_decode", "paged_decode_kernel",
+        label=label, times=times)
+    decode_notes(f"paged_decode_attention {label}".strip(), "paged_decode",
+                 "paged_decode_kernel",
                  lambda q, k, v: pdk.paged_decode_attention(q, k, v, **kw), inputs[0], times,
                  pdk.part_count(table.shape[1], block))
     return entry
@@ -1017,7 +1044,7 @@ def mma_tile_notes(name, lib, inputs, kernel, splits, times):
         f"{ptxas_notes(lib, 'attn_kernel|tile_kernel|combine_kernel')}")
 
 
-def check_chunked(inputs, launches):
+def check_chunked(inputs, launches, label=""):
     (q, k_pool, _), kw = inputs
     B = q.shape[0]
     table, block = kw["block_table"], kw["block"]
@@ -1045,8 +1072,8 @@ def check_chunked(inputs, launches):
         note=f"pool{tuple(k_pool.shape)} table{tuple(table.shape)} valid queries/row "
              f"{n_valid} kept_pairs/head={pairs} kept_rows={kept}",
         reps=20, plain_reps=5, sdpa_kv=lambda t: t[rows], sdpa_note=" (gather excluded)",
-        times=times)
-    mma_tile_notes("chunked_prefill_attention", "chunked_prefill", inputs,
+        label=label, times=times)
+    mma_tile_notes(f"chunked_prefill_attention {label}".strip(), "chunked_prefill", inputs,
                    cpk.chunked_prefill_attention,
                    cpk.split_count(q.to(torch.bfloat16), table, block), times)
     return entry
@@ -2689,6 +2716,257 @@ def ssm_phase():
     return ssd_inputs, launches
 
 
+# --------------------------------------------------------------------------- #
+# Other families: mistral-nemo-12b (dense GQA) and olmoe-1b-7b (MoE)
+# --------------------------------------------------------------------------- #
+PAD_OWNER, DECODE_OWNER = -1, -2  # token owners that are not a prefilling request
+
+
+class DropRecorder:
+    """The MoE routing of every launch of one serve (``moe.dispatch``): each
+    layer's token count T, capacity C and kept pairs, the card time of each
+    layer's MoE FFN (CUDA events around ``moe.apply_moe``), and who owns each
+    token of the launch: a prefilling request, a decode row, or padding.
+    Nothing is read back until ``resolve``, so recording adds no sync to the
+    steps the serve times.  ``install`` is ``serve``'s setup hook."""
+
+    def __init__(self):
+        self.launches = []  # dict(kind, owner [T] np, layers [(T, C, keep, token)], events)
+        self._dispatch, self._apply = moe.dispatch, moe.apply_moe
+        moe.dispatch, moe.apply_moe = self._record_dispatch, self._timed_apply
+
+    def close(self):
+        moe.dispatch, moe.apply_moe = self._dispatch, self._apply
+
+    def install(self, eng):
+        self.eng = eng
+        api = eng.api
+        eng.api = api._replace(
+            prefill_packed=self._launch("packed", api.prefill_packed),
+            prefill_chunked=self._launch("chunked", api.prefill_chunked),
+            decode=self._launch("decode", api.decode),
+            decode_paged=self._launch("decode", api.decode_paged))
+
+    def _owner(self, kind, tokens, kw):
+        if kind == "packed":  # segment index (mapped to a request in resolve)
+            return kw["q_seg"][0].cpu().numpy().astype(np.int64)
+        slots = self.eng.slots
+        if kind == "decode":
+            return np.array([DECODE_OWNER if s.active else PAD_OWNER for s in slots])
+        prefilling = {c.a.slot.index: c.a.req.req_id for c in self.eng._chunks.values()}
+        valid = kw["q_pos"].cpu().numpy() >= 0
+        owner = np.full(valid.shape, PAD_OWNER, np.int64)
+        for b in range(valid.shape[0]):
+            owner[b][valid[b]] = prefilling.get(b, DECODE_OWNER)
+        return owner.reshape(-1)
+
+    def _launch(self, kind, fn):
+        def run(params, cfg, tokens, caches, **kw):
+            self.launches.append(dict(kind=kind, owner=self._owner(kind, tokens, kw),
+                                      layers=[], events=[]))
+            return fn(params, cfg, tokens, caches, **kw)
+        return run
+
+    def _record_dispatch(self, p, cfg, xf):
+        d = self._dispatch(p, cfg, xf)
+        self.launches[-1]["layers"].append((xf.shape[0], d.capacity, d.keep, d.token))
+        return d
+
+    def _timed_apply(self, p, cfg, x):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = self._apply(p, cfg, x)
+        end.record()
+        self.launches[-1]["events"].append((start, end))
+        return out
+
+    def resolve(self, events, label):
+        """Read the routing back and log it: for each prefill launch its T,
+        C, the MoE FFN's card ms and the pairs dropped in each layer, real
+        tokens' (by request) apart from padding's; the decode launches in
+        one line.  Returns each request's real pairs dropped before its
+        first token (in the launches that prefilled it)."""
+        torch.cuda.synchronize()
+        batches = iter([e.req_ids for e in events if isinstance(e, ev.BatchAdmitted)])
+        first = {}
+        decode = dict(n=0, T=set(), C=set(), dropped=0, moe_ms=[])
+        for n, L in enumerate(self.launches):
+            owner = L["owner"]
+            if L["kind"] == "packed":
+                ids = np.asarray(next(batches))
+                owner = np.where(owner >= 0, ids[owner.clip(0)], owner)
+            moe_ms = sum(a.elapsed_time(b) for a, b in L["events"])
+            real, pad, rows = [], [], []
+            for T, C, keep, token in L["layers"]:
+                own = owner[token[~keep].cpu().numpy()]
+                by_req = {int(r): int((own == r).sum()) for r in np.unique(own[own >= 0])}
+                for r, k in by_req.items():
+                    first[r] = first.get(r, 0) + k
+                real.append(sum(by_req.values()))
+                pad.append(int((own == PAD_OWNER).sum()))
+                rows.append(int((own == DECODE_OWNER).sum()))
+            T, C = L["layers"][0][:2]
+            if L["kind"] == "decode":
+                decode["n"] += 1
+                decode["T"].add(T)
+                decode["C"].add(C)
+                decode["dropped"] += sum(real) + sum(pad) + sum(rows)
+                decode["moe_ms"].append(moe_ms)
+                continue
+            reqs = sorted({int(r) for r in owner if r >= 0})
+            log(f"{label} launch {n} {L['kind']} requests {reqs}: T={T} C={C} "
+                f"moe_ms={moe_ms:.2f}; pairs dropped per layer: real tokens {real}, "
+                f"padding {pad}" + (f", decode rows {rows}" if any(rows) else ""))
+        if decode["n"]:
+            log(f"{label} decode launches {decode['n']}: T={sorted(decode['T'])} "
+                f"C={sorted(decode['C'])}, pairs dropped {decode['dropped']}; moe_ms median "
+                f"{np.median(decode['moe_ms']):.2f}")
+            assert decode["dropped"] == 0, decode  # C >= T*k/E*cf >= T: none can drop
+        return first
+
+
+def gate_reuse(label, runs, mode, base="reuse off"):
+    """Reused against recomputed first-token logits within ``LOGIT_ATOL``,
+    for every reused request whose tokens dropped no pair on either side;
+    one that did is logged beside its drops, not gated.  Returns the
+    number of requests gated."""
+    got, want = runs[mode], runs[base]
+    gated = 0
+    for i, (action, _) in sorted(got["actions"].items()):
+        if action not in ("load", "partial"):
+            continue
+        diff = (got["first"][i] - want["first"][i]).abs().max().item()
+        same = sum(x == y for x, y in zip(got["recs"][i].tokens, want["recs"][i].tokens))
+        drops = (got["drops"].get(i, 0), want["drops"].get(i, 0))
+        if any(drops):
+            log(f"{label} {mode} request {i} ({action}): first-token logits max|reuse - "
+                f"recompute| = {diff:.4f}, tokens agreeing {same}/{NEW_TOKENS}; real pairs "
+                f"dropped (reuse, recompute) {drops}: not gated")
+            continue
+        log(f"{label} {mode} request {i} ({action}): first-token logits max|reuse - "
+            f"recompute| = {diff:.4f} (gate {LOGIT_ATOL}), tokens agreeing {same}/{NEW_TOKENS}")
+        assert diff <= LOGIT_ATOL, (label, mode, i, diff)
+        gated += 1
+    log(f"{label} {mode}: {gated} reused requests gated")
+    return gated
+
+
+def family_params(name):
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    params = lm.init(cfg, seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"{name} bf16: {sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B params "
+        f"({count_active_params(cfg) / 1e9:.3f} B active a token) drawn in "
+        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated on the card")
+    return cfg, params
+
+
+def family_serve(label, cfg, params, mode, **kw):
+    """One serve of the prefix mix, its routing recorded where the arch has
+    experts; returns its run (records, actions, logits, launches, drops)
+    and the recorder's kernel inputs."""
+    drops = DropRecorder() if cfg.moe is not None else None
+    zero_counts()
+    try:
+        eng, recs, rec, steps, writebacks = serve(
+            cfg, params, setup=drops.install if drops else None, **kw)
+    finally:
+        if drops:
+            drops.close()
+    c = counts()
+    n_decode = eng.decode_stats()["decode_steps"]
+    mixed = eng.unified_stats()["steps"]
+    actions = {i: (r.action, r.matched_tokens) for i, r in sorted(recs.items())}
+    log(f"{label} {mode} serve launches: {c} (decode steps {n_decode}, mixed steps {mixed}, "
+        f"packed batches {eng.batches}); actions {actions}; write-backs {writebacks}")
+    log_steps(f"{label} {mode}", steps)
+    assert len(recs) == 8 and all(len(r.tokens) == NEW_TOKENS for r in recs.values())
+    assert c["flash_attention"] == c["fused_flash_attention"] == c["ssd_chunked"] == 0, c
+    assert c["kv_quant"] == c["kv_dequant"] == 0, c
+    L = cfg.n_layers
+    if kw.get("unified_step"):
+        assert c["chunked_prefill_attention"] == L * mixed > 0, c
+        assert c["paged_decode_attention"] == L * n_decode and c["packed_flash_attention"] == 0
+    elif kw.get("paged_decode"):
+        assert c["paged_decode_attention"] == L * n_decode > 0 and c["decode_attention"] == 0
+        assert c["packed_flash_attention"] > 0 and c["chunked_prefill_attention"] == 0, c
+    else:
+        assert c["decode_attention"] == L * n_decode > 0 and c["paged_decode_attention"] == 0
+        assert c["packed_flash_attention"] > 0 and c["chunked_prefill_attention"] == 0, c
+    if kw.get("reuse", True):
+        assert any(a in ("load", "partial") for a, _ in actions.values()), actions
+    run = dict(recs=recs, actions=actions, first=rec.first_logits, steps=rec.step_logits,
+               counts=c, drops=drops.resolve(rec.events, f"{label} {mode}") if drops else {})
+    inputs = dict(packed=rec.packed_inputs, decode=rec.decode_inputs,
+                  chunked=rec.chunked_inputs)
+    assert inputs["chunked" if kw.get("unified_step") else "decode"] is not None, inputs
+    del eng, rec
+    release()
+    return run, inputs
+
+
+def nemo_phase():
+    """Full-width mistral-nemo-12b (bf16, random weights; H·hd 4096 against
+    d_model 5120, 4 query heads a kv head) serves the prefix mix dense with
+    reuse on and off; returns its first layer's packed and decode inputs
+    and the dense serve's launches."""
+    cfg, params = family_params("mistral-nemo-12b")
+    runs = {}
+    runs["dense"], inputs = family_serve("nemo", cfg, params, "dense")
+    runs["reuse off"], _ = family_serve("nemo", cfg, params, "reuse off", reuse=False)
+    assert gate_reuse("nemo", runs, "dense") > 0, "nemo: no reused request gated"
+    del params
+    release()
+    return inputs, runs["dense"]["counts"]
+
+
+MOE_MODES = (("dense", {}), ("paged", dict(paged_decode=True, kv_block=128)),
+             ("unified", dict(paged_decode=True, unified_step=True, kv_block=128)),
+             ("reuse off", dict(reuse=False)))
+# the dropless serves: capacity factor n_experts / top_k, so C >= T and no
+# pair drops (the rule of the reference's reduced configs)
+DROPLESS_MODES = ("dense", "unified", "reuse off")
+
+
+def moe_phase():
+    """Full-width olmoe-1b-7b (bf16, random weights, 64 experts, top-8)
+    serves the prefix mix dense, paged and unified and with reuse off at its
+    capacity factor 1.25, then dense, unified and with reuse off dropless
+    (see the module docstring, phase 13).  Returns its first layer's kernel
+    inputs of each capacity-1.25 serve and the launches of every serve."""
+    cfg, params = family_params("olmoe-1b-7b")
+    dropless = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    runs, inputs = {}, {}
+    for mode, kw in MOE_MODES:
+        runs[mode], inputs[mode] = family_serve("olmoe", cfg, params, mode, **kw)
+    for mode in DROPLESS_MODES:
+        runs[f"dropless {mode}"], _ = family_serve("olmoe", dropless, params,
+                                                   f"dropless {mode}", **dict(MOE_MODES)[mode])
+        assert not runs[f"dropless {mode}"]["drops"], runs[f"dropless {mode}"]["drops"]
+    dense = runs["dense"]
+    for mode in ("paged", "unified", "dropless dense", "dropless unified"):
+        assert runs[mode]["actions"] == dense["actions"], (mode, runs[mode]["actions"])
+    paged_run = runs["paged"]
+    same_first = all(torch.equal(paged_run["first"][i], dense["first"][i]) for i in dense["first"])
+    same_steps = sum(torch.equal(a[1], b[1]) for a, b in zip(paged_run["steps"], dense["steps"]))
+    log(f"olmoe paged vs dense: first-token logits equal bit for bit {same_first}; decode steps "
+        f"with equal logits {same_steps}/{len(dense['steps'])}")
+    assert {i: r.tokens for i, r in paged_run["recs"].items()} == {
+        i: r.tokens for i, r in dense["recs"].items()}, "olmoe: paged tokens differ from dense"
+    for mode in ("dense", "paged", "unified"):
+        gate_reuse("olmoe", runs, mode)
+    n_reused = sum(a in ("load", "partial") for a, _ in dense["actions"].values())
+    for mode in ("dropless dense", "dropless unified"):
+        gated = gate_reuse("olmoe", runs, mode, base="dropless reuse off")
+        assert gated == n_reused > 0, (mode, gated, n_reused)
+    del params
+    release()
+    return inputs, {mode: runs[mode]["counts"] for mode in runs}
+
+
 def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2884,18 +3162,46 @@ def main() -> None:
     # ---- SSM serve phase --------------------------------------------------
     ssd_inputs, ssd_launches = ssm_phase()
 
+    # ---- other families: dense GQA nemo, then the MoE olmoe --------------
+    t_phase = time.perf_counter()
+    nemo_inputs, nemo_counts = nemo_phase()
+    log(f"nemo phase wall: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    moe_inputs, moe_counts = moe_phase()
+    log(f"olmoe phase wall: {time.perf_counter() - t_phase:.1f} s")
+
     # ---- kernel phase -----------------------------------------------------
-    kernels = [check_packed(packed_inputs, dense_counts["packed_flash_attention"]),
-               check_decode(decode_inputs, dense_counts["decode_attention"]),
+    # the kernels line counts each kernel's launches on its llama path and
+    # on the same path of nemo's and olmoe's serves
+    def launches(name, *runs):
+        return sum(c[name] for c in runs)
+
+    dense_runs = (dense_counts, nemo_counts, moe_counts["dense"])
+    kernels = [check_packed(packed_inputs, launches("packed_flash_attention", *dense_runs)),
+               check_decode(decode_inputs, launches("decode_attention", *dense_runs)),
                check_flash(flash_full, prefill_counts["flash_attention"], "full"),
-               check_paged(paged_inputs, paged_counts["paged_decode_attention"]),
-               check_chunked(chunked_inputs, unified_counts["chunked_prefill_attention"]),
+               check_paged(paged_inputs, launches("paged_decode_attention", paged_counts,
+                                                  moe_counts["paged"])),
+               check_chunked(chunked_inputs, launches("chunked_prefill_attention",
+                                                      unified_counts, moe_counts["unified"])),
                check_fused(fused_inputs, fused_launches),
                check_kv_quant(comp["quant_input"], comp["dense"]["counts"]["kv_quant"]),
                check_kv_dequant(comp["dequant_inputs"], comp["dense"]["counts"]["kv_dequant"]),
                check_ssd(ssd_inputs, ssd_launches)]
     check_flash(flash_suffix, prefill_counts["flash_attention"], "suffix")
     check_flash(spot_inputs, market_flash, "spot check")
+    # the same kernels on nemo's (G 4, hd 128, H·hd != d_model) and olmoe's
+    # recorded first-layer inputs, each beside its launches on that serve
+    check_packed(nemo_inputs["packed"], nemo_counts["packed_flash_attention"], "nemo")
+    check_decode(nemo_inputs["decode"], nemo_counts["decode_attention"], "nemo")
+    check_packed(moe_inputs["dense"]["packed"],
+                 moe_counts["dense"]["packed_flash_attention"], "olmoe")
+    check_decode(moe_inputs["dense"]["decode"], moe_counts["dense"]["decode_attention"],
+                 "olmoe")
+    check_paged(moe_inputs["paged"]["decode"], moe_counts["paged"]["paged_decode_attention"],
+                "olmoe")
+    check_chunked(moe_inputs["unified"]["chunked"],
+                  moe_counts["unified"]["chunked_prefill_attention"], "olmoe")
     check_wide_group()
     log_device_times()
     print(json.dumps({"kernels": kernels}))

@@ -1,19 +1,29 @@
 """Config registry of the port: the archs its slices serve.
 
-``llama-7b`` is the paper's own model; ``qwen2-1.5b`` adds QKV bias, GQA and
-tied embeddings; ``mamba2-1.3b`` is the attention-free SSM family.  The
-other archs of the reference's registry come with their model families
-(ROADMAP queue A item 9)."""
+``llama-7b`` is the paper's own model; ``qwen2-1.5b`` and ``qwen2-0.5b`` add
+QKV bias, GQA and tied embeddings; ``mistral-nemo-12b`` is GQA with a head
+width apart from d_model / n_heads; ``mamba2-1.3b`` is the attention-free
+SSM family; ``olmoe-1b-7b`` the MoE family.  The reference's encoder-decoder,
+VLM, hybrid and sliding-window archs come with their families (ROADMAP queue
+A item 9)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs import llama_7b, mamba2_1_3b, qwen2_1_5b
+from repro_torch.configs import (
+    llama_7b,
+    mamba2_1_3b,
+    mistral_nemo_12b,
+    olmoe_1b_7b,
+    qwen2_0_5b,
+    qwen2_1_5b,
+)
 from repro_torch.configs.base import ArchConfig
 
 CONFIGS: Dict[str, ArchConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (llama_7b, qwen2_1_5b, mamba2_1_3b)
+    m.CONFIG.name: m.CONFIG
+    for m in (llama_7b, qwen2_1_5b, qwen2_0_5b, mistral_nemo_12b, mamba2_1_3b, olmoe_1b_7b)
 }
 
 
@@ -24,12 +34,14 @@ def get_config(name: str) -> ArchConfig:
 
 
 def reduced_config(cfg: ArchConfig, **overrides) -> ArchConfig:
-    """A small same-family config for CPU tests: keeps GQA ratios, biases
-    and the SSD layout while shrinking every dimension (the reference's
-    ``reduced_config``, restricted to the dense and SSM families)."""
-    if cfg.family not in ("dense", "ssm"):
+    """A small same-family config for CPU tests: keeps GQA ratios, biases,
+    the MoE routing and the SSD layout while shrinking every dimension (the
+    reference's ``reduced_config``, restricted to the dense, MoE and SSM
+    families)."""
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
-            f"{cfg.family} archs are not ported yet (ROADMAP queue A item 9)"
+            f"{cfg.family} archs are not ported yet: the port carries the dense, MoE "
+            "and SSM families (ROADMAP queue A item 9)"
         )
     small = dict(
         n_layers=2,
@@ -45,6 +57,12 @@ def reduced_config(cfg: ArchConfig, **overrides) -> ArchConfig:
         param_dtype="float32",
         dtype="float32",
     )
+    if cfg.moe is not None:
+        # capacity_factor >= n_experts / top_k drops no token, so reuse and
+        # recompute agree exactly in the CPU tests
+        small["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=4, top_k=min(cfg.moe.top_k, 2), capacity_factor=4.0
+        )
     if cfg.ssm is not None:
         small["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=16, chunk=16)
     if cfg.sliding_window:

@@ -256,3 +256,30 @@ def kv_dequant_ref(
 ) -> torch.Tensor:
     """``q * scale`` in f32, cast to ``dtype``."""
     return (q.float() * scale.float()).to(dtype)
+
+
+# --------------------------------------------------------------------------- #
+# MoE: dense loop-over-experts oracle (tests only: O(E) compute)
+# --------------------------------------------------------------------------- #
+def moe_ref(
+    x: torch.Tensor,  # [T, D]
+    router_w: torch.Tensor,  # [D, E]
+    w_gate: torch.Tensor,  # [E, D, F]
+    w_up: torch.Tensor,  # [E, D, F]
+    w_down: torch.Tensor,  # [E, F, D]
+    top_k: int,
+) -> torch.Tensor:
+    """Exact dropless top-k MoE in f32: every token through each of its
+    top-k experts (every expert computed densely over every token, then
+    weighted by the renormalised router weights)."""
+    xf = x.float()
+    probs = torch.softmax(xf @ router_w.float(), dim=-1)  # [T, E]
+    top_p, top_i = torch.topk(probs, top_k, dim=-1)
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    weight = torch.zeros_like(probs).scatter_(1, top_i, top_p)  # [T, E]
+    out = torch.zeros_like(xf)
+    for e in range(router_w.shape[1]):
+        g = xf @ w_gate[e].float()
+        u = xf @ w_up[e].float()
+        out = out + (torch.nn.functional.silu(g) * u) @ w_down[e].float() * weight[:, e:e + 1]
+    return out.to(x.dtype)

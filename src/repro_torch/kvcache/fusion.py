@@ -417,10 +417,10 @@ def build_fused_caches(
     from repro_torch.models.blocks import BlockCache
     from repro_torch.models.common import resolve_dtype
 
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.family} archs cannot be fused (SSM) or are not ported yet (ROADMAP "
-            "queue A item 9)"
+            f"{cfg.family} archs cannot be fused (SSM) or are not ported yet (hybrid and "
+            "VLM archs: ROADMAP queue A item 9)"
         )
     dtype = dtype or resolve_dtype(cfg.dtype)
     shape = (cfg.n_layers, 1, kv_len + 1, cfg.n_kv_heads, cfg.resolved_head_dim)

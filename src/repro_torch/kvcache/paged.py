@@ -19,8 +19,8 @@ Under paged decode the device state is instead one shared KV block pool
 (``init_pool_caches``): host-side ``PagedSlots`` keep each slot's block
 table, and packed admissions land their block-aligned spans in the pool.
 
-This is the port of the reference's ``kvcache/paged.py`` for dense and SSM
-archs.
+This is the port of the reference's ``kvcache/paged.py`` for dense, MoE and
+SSM archs.
 """
 from __future__ import annotations
 
@@ -230,10 +230,10 @@ def build_packed_caches(
     multi-slot insertion of the load path.  ``artifacts[i]`` is segment i's
     stored artifact (or None for recompute).  The extra last row is the
     scratch row the padding tokens' K/V land on."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.family} archs have no packed or pooled KV in the port (SSM state "
-            "cannot be packed or paged; other families: ROADMAP queue A item 9)"
+            "cannot be packed or paged; hybrid and VLM archs: ROADMAP queue A item 9)"
         )
     dtype = dtype or resolve_dtype(cfg.dtype)
     shape = (cfg.n_layers, 1, layout.kv_len + 1, cfg.n_kv_heads, cfg.resolved_head_dim)
@@ -503,10 +503,10 @@ def init_pool_caches(
     """The shared KV block pool on ``device`` (the card unless the caller
     asks for another): one flat-row KV buffer ``[n_layers, n_blocks * block,
     KV, hd]``, the paged counterpart of ``lm.init_state``'s slotted caches."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.family} archs have no packed or pooled KV in the port (SSM state "
-            "cannot be packed or paged; other families: ROADMAP queue A item 9)"
+            "cannot be packed or paged; hybrid and VLM archs: ROADMAP queue A item 9)"
         )
     device = resolve_device(device)
     dtype = dtype or resolve_dtype(cfg.dtype)

@@ -1,8 +1,11 @@
-"""Decoder blocks: (attention | mamba) mixer + optional SwiGLU MLP, pre-norm.
+"""Decoder blocks: (attention | mamba) mixer + optional (SwiGLU MLP | MoE)
+FFN, pre-norm.
 
 A block is described by a static :class:`BlockKind`, as in the reference's
-``models/blocks.py``; the port carries the dense (``("a", "mlp")``) and SSM
-(``("m", "none")``) kinds.
+``models/blocks.py``; the port carries the dense (``("a", "mlp")``), MoE
+(``("a", "moe")``) and SSM (``("m", "none")``) kinds.  The MoE FFN's aux
+loss is a training term: the serving paths drop it, as the reference's
+``lm.py`` does.
 """
 from __future__ import annotations
 
@@ -11,13 +14,13 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, layers, ssm
+from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.common import Params
 
 
 class BlockKind(NamedTuple):
     mixer: str  # "a" (attention) | "m" (mamba)
-    ffn: str  # "mlp" | "none"
+    ffn: str  # "mlp" | "moe" | "none"
 
 
 def block_kinds(cfg: ArchConfig) -> Tuple[BlockKind, ...]:
@@ -25,9 +28,17 @@ def block_kinds(cfg: ArchConfig) -> Tuple[BlockKind, ...]:
     families the port carries)."""
     if cfg.family == "ssm":
         return (BlockKind("m", "none" if cfg.d_ff == 0 else "mlp"),)
+    if cfg.family == "moe":
+        assert cfg.moe is not None and cfg.moe.every == 1, (
+            "uniform stacks need MoE on every layer; use family='hybrid' otherwise"
+        )
+        return (BlockKind("a", "moe"),)
     if cfg.family == "dense":
         return (BlockKind("a", "mlp"),)
-    raise NotImplementedError(f"{cfg.family} archs are not ported yet (ROADMAP queue A item 9)")
+    raise NotImplementedError(
+        f"{cfg.family} archs are not ported yet: the port carries the dense, MoE and SSM "
+        "families (ROADMAP queue A item 9)"
+    )
 
 
 class BlockCache(NamedTuple):
@@ -47,7 +58,8 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, kind: BlockKind, device) -
         p["mamba"] = ssm.init_mamba(gen, cfg, device)
     if kind.ffn != "none":
         p["norm2"] = layers.init_norm(cfg, device)
-        p["ffn"] = layers.init_mlp(gen, cfg, device)
+        p["ffn"] = (moe.init_moe(gen, cfg, device) if kind.ffn == "moe"
+                    else layers.init_mlp(gen, cfg, device))
     return p
 
 
@@ -67,7 +79,10 @@ def init_block_cache(cfg: ArchConfig, kind: BlockKind, n: int, batch: int, max_l
 def _apply_ffn(p: Params, cfg: ArchConfig, kind: BlockKind, x: torch.Tensor) -> torch.Tensor:
     if kind.ffn == "none":
         return x
-    return x + layers.apply_mlp(p["ffn"], cfg, layers.apply_norm(p["norm2"], cfg, x))
+    h = layers.apply_norm(p["norm2"], cfg, x)
+    if kind.ffn == "moe":
+        return x + moe.apply_moe(p["ffn"], cfg, h)[0]
+    return x + layers.apply_mlp(p["ffn"], cfg, h)
 
 
 def _write_state(dst: ssm.MambaState, src: ssm.MambaState) -> None:

@@ -6,8 +6,9 @@ returns the port's tree.  The reference stacks each layer weight over the
 layers for ``lax.scan`` (``lm.init``, ``common.init_stacked``); the port
 keeps one dict per layer, so this unstacks them.  Layouts inside a layer are
 the same in both packages, and so are dtypes: every leaf takes the
-config's ``param_dtype`` but the SSD's ``A_log``, ``D_skip`` and ``dt_bias``,
-which stay f32 as the reference keeps them.
+config's ``param_dtype`` but the SSD's ``A_log``, ``D_skip`` and ``dt_bias``
+and the MoE router, which stay f32 as the reference keeps them.  The expert
+stacks ``[E, D, F]`` of an MoE layer unstack like any other leaf.
 """
 from __future__ import annotations
 
@@ -19,7 +20,10 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import Params, resolve_device, resolve_dtype
 from repro_torch.models.registry import get_model
-from repro_torch.models.ssm import F32_LEAVES
+from repro_torch.models import ssm
+
+# leaves the reference keeps in f32 whatever the param_dtype
+F32_LEAVES = (*ssm.F32_LEAVES, "router")
 
 
 def _tensor(a: Any, device, dtype) -> torch.Tensor:
@@ -37,7 +41,7 @@ def from_jax_params(cfg: ArchConfig, params_np: Dict[str, Any], device=None,
                     dtype=None) -> Params:
     """The port's parameters for ``cfg`` from the reference's numpy tree.
     ``dtype`` defaults to the config's ``param_dtype``; the SSD's f32 leaves
-    stay f32."""
+    and the MoE router stay f32."""
     get_model(cfg)  # raises for families the port does not carry
     device = resolve_device(device)
     dtype = dtype or resolve_dtype(cfg.param_dtype)

@@ -28,11 +28,12 @@ class ModelApi(NamedTuple):
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    if (cfg.family not in ("dense", "ssm") or cfg.norm_type != "rmsnorm"
+    if (cfg.family not in ("dense", "moe", "ssm") or cfg.norm_type != "rmsnorm"
             or cfg.mlp_type != "swiglu"):
         raise NotImplementedError(
-            f"{cfg.name}: only dense and SSM RMSNorm/SwiGLU archs are ported yet "
-            "(ROADMAP queue A item 9)"
+            f"{cfg.name}: only dense, MoE and SSM RMSNorm/SwiGLU archs are ported yet; "
+            "hybrid, encoder-decoder, VLM, LayerNorm and GELU archs are ROADMAP queue A "
+            "item 9"
         )
 
 
@@ -64,10 +65,24 @@ def count_params(cfg: ArchConfig) -> int:
         mixer = D * H * hd + 2 * D * KV * hd + H * hd * D
         if cfg.qkv_bias:
             mixer += H * hd + 2 * KV * hd
-    ffn = D + 3 * D * cfg.d_ff if cfg.d_ff else 0  # norm2 and SwiGLU
+    if cfg.moe is not None:  # norm2, the f32 router and E SwiGLU experts
+        ffn = D + D * cfg.moe.n_experts + cfg.moe.n_experts * 3 * D * cfg.d_ff
+    else:
+        ffn = D + 3 * D * cfg.d_ff if cfg.d_ff else 0  # norm2 and SwiGLU
     return embed + cfg.n_layers * (D + mixer + ffn) + D  # norm1 per layer, final norm
 
 
+@functools.lru_cache(maxsize=None)
 def count_active_params(cfg: ArchConfig) -> int:
-    """Active parameters per token: every parameter (no MoE arch is ported)."""
-    return count_params(cfg)
+    """Active parameters per token (MoE: only ``top_k`` of ``n_experts``
+    experts count), as ``PerfModel`` prices every prefill, decode and load."""
+    total = count_params(cfg)
+    if cfg.moe is None:
+        return total
+    per_expert = 3 * cfg.d_model * cfg.d_ff
+    return total - _moe_layer_count(cfg) * (cfg.moe.n_experts - cfg.moe.top_k) * per_expert
+
+
+def _moe_layer_count(cfg: ArchConfig) -> int:
+    """MoE layers of the stack: every layer of the uniform MoE family."""
+    return cfg.n_layers

@@ -69,7 +69,10 @@ prefill of a prefix sample (``market_spot_check``), and a full-entry
 purchase is absorbed into the local store.
 
 This is the port of the JAX engine under every ``EngineConfig`` option.
-Compute runs eagerly in PyTorch (no jit): on CUDA tensors the kernels are
+It serves the dense archs (``llama-7b``, ``qwen2-1.5b``, ``qwen2-0.5b``,
+``mistral-nemo-12b``) and the MoE arch ``olmoe-1b-7b`` through every
+admission and decode path, and the SSM arch ``mamba2-1.3b`` through the
+per-request path.  Compute runs eagerly in PyTorch (no jit): on CUDA tensors the kernels are
 the hand-written ones, on CPU tensors their plain versions.  Times and
 dollars are modelled (``PerfModel``), as in the reference, so the
 reference's golden records replay on the port.  Embedding contexts raise
@@ -1104,7 +1107,7 @@ class ServingEngine:
     def _pool_update(self, dst: np.ndarray, k_rows: torch.Tensor, v_rows: torch.Tensor) -> None:
         """Land KV rows at pool rows ``dst`` in place: the one scatter every
         landing shares.  The pool holds one attention cache, since the port
-        builds it for dense archs only (``paged.init_pool_caches``)."""
+        builds it for attention-only archs (``paged.init_pool_caches``)."""
         idx = self._tensor(dst)
         pool = self._pool_caches[0].attn
         pool.k.index_copy_(1, idx, k_rows)

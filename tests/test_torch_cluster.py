@@ -6,10 +6,8 @@ refcounted ownership, crash safety, the hypothesis op sequence), the router
 invariants, cluster serving (one-replica golden parity at 1e-9, bloom false
 positives, copy-then-keep rebalancing, affinity against round robin,
 ``remove_replica``) and delta gossip.  The engines run on the CPU
-(``device="cpu"``) with weights converted from the reference's.  The port
-registers ``qwen2-1.5b`` where the reference's cluster tests take
-``qwen2-0.5b``: reduced, both are the same family (QKV bias, GQA, tied
-embeddings).
+(``device="cpu"``) with weights converted from the reference's, on reduced
+``qwen2-0.5b`` as the reference's cluster tests take it.
 
 Then the port is held to the reference directly: the same hashes give the
 same bloom bits, the two consistent-hash rings name the same owners before
@@ -96,7 +94,7 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def qwen():
-    return _setup("qwen2-1.5b")
+    return _setup("qwen2-0.5b")
 
 
 @pytest.fixture(scope="module")

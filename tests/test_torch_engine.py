@@ -240,7 +240,7 @@ def test_golden_scenario_replays_on_port(llama, name):
     assert tokens == _run_jax(jcfg, jparams, reqs, **kw)
 
 
-@pytest.mark.parametrize("arch", ["llama-7b", "qwen2-1.5b"])
+@pytest.mark.parametrize("arch", ["llama-7b", "qwen2-1.5b", "olmoe-1b-7b"])
 def test_reuse_tokens_identical_to_recompute(arch):
     """Loading stored context state generates the same tokens as full
     recomputation (the reference's core property, ``test_serving.py:87``)."""

@@ -260,7 +260,7 @@ def _fused_both(arch, r):
 
 
 @pytest.mark.parametrize("r", [0.25, 1.0])
-@pytest.mark.parametrize("arch", ["llama-7b", "qwen2-1.5b"])
+@pytest.mark.parametrize("arch", ["llama-7b", "qwen2-1.5b", "olmoe-1b-7b"])
 def test_prefill_fused_matches_reference(arch, r):
     """Logits and every context+prompt cache row of ``lm.prefill_fused``
     within 1e-4 of the reference's, with the same argmax."""
@@ -274,7 +274,7 @@ def test_prefill_fused_matches_reference(arch, r):
                                    atol=MODEL_ATOL)
 
 
-@pytest.mark.parametrize("arch", ["llama-7b", "qwen2-1.5b"])
+@pytest.mark.parametrize("arch", ["llama-7b", "qwen2-1.5b", "olmoe-1b-7b"])
 def test_prefill_fused_at_full_recompute_is_prefill(arch):
     """At r = 1.0 the fused launch recomputes every token: its logits and
     cache rows are ``lm.prefill``'s of the whole sequence, within tolerance
@@ -320,7 +320,7 @@ def _h100_both():
     return PerfModel(hw), pricing, jperf_mod.PerfModel(jhw), jp
 
 
-@pytest.mark.parametrize("arch", ["llama-7b", "qwen2-1.5b"])
+@pytest.mark.parametrize("arch", ["llama-7b", "qwen2-1.5b", "olmoe-1b-7b"])
 def test_fused_prefill_pricing_matches_reference(arch):
     """``t_prefill_fused`` equals the reference's at 1e-12 relative; a small
     r is cheaper than a full prefill and monotone in the recompute count;

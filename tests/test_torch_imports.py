@@ -43,7 +43,7 @@ def test_no_jax_or_reference_imports():
             "obs/telemetry.py", "obs/console.py", "serving/trace.py",
             "serving/audit.py", "market/__init__.py", "market/catalog.py",
             "market/market.py", "market/planner.py", "market/reputation.py",
-            "market/settlement.py"} <= names, names
+            "market/settlement.py", "models/moe.py"} <= names, names
     hits = [f"{p}: {m.group(0).strip()}" for p in files for m in pattern.finditer(p.read_text())]
     assert not hits, hits
 
@@ -110,7 +110,7 @@ def test_port_imports_and_serves_with_jax_and_repro_blocked():
                      "repro_torch.obs", "repro_torch.obs.telemetry",
                      "repro_torch.obs.console", "repro_torch.serving.trace",
                      "repro_torch.serving.audit", "repro_torch.market",
-                     "repro_torch.market.market"):
+                     "repro_torch.market.market", "repro_torch.models.moe"):
             assert name in names, name
         import torch
         torch.set_num_threads(1)

@@ -22,7 +22,7 @@ version's error) away from the f64 sequential scan of the same inputs, 5e-5
 being the reference's SSD atol; a bf16 y lies within one bf16 ulp (2^-7 of
 the plain version's magnitude) plus 5e-5 of the plain version's, since
 both round f32 sums of the same inputs to bf16.  The reduced mamba2-1.3b
-is served on the card against the same engine on the CPU.
+and olmoe-1b-7b are served on the card against the same engine on the CPU.
 """
 import os
 import pathlib
@@ -1032,6 +1032,31 @@ def test_reduced_llama_serves_on_card_as_on_cpu(cuda, mode):
         r.req_id: (r.action, r.tokens) for r in cpu.records}
     if mode == "compressed":
         assert all(e.compressed for e in eng.store.entries.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["dense", "paged", "unified"])
+def test_reduced_olmoe_serves_on_card_as_on_cpu(cuda, mode):
+    """The reduced olmoe-1b-7b (4 experts, top-2, f32) served on the card: the
+    MoE FFN's routing, dispatch and combine on CUDA tensors between the
+    attention kernels.  Every prefill call's logits are within 1e-3 of the
+    same engine run on the CPU, and the tokens and actions are the same."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import lm
+
+    cfg = reduced_config(get_config("olmoe-1b-7b"))
+    params = lm.init(cfg, seed=0, device="cpu")
+    ec = {"dense": {}, "paged": dict(paged_decode=True),
+          "unified": dict(paged_decode=True, unified_step=True)}[mode]
+    eng, calls = _serve_recording(cfg, _to(params, cuda), cuda, **ec)
+    torch.cuda.synchronize()
+    cpu, cpu_calls = _serve_recording(cfg, params, "cpu", **ec)
+    assert [r.action for r in eng.records].count("fused") == 3
+    assert len(calls) == len(cpu_calls)
+    for got, want in zip(calls, cpu_calls):
+        assert (got - want).abs().max().item() <= 1e-3
+    assert {r.req_id: (r.action, r.tokens) for r in eng.records} == {
+        r.req_id: (r.action, r.tokens) for r in cpu.records}
 
 
 @pytest.mark.gpu

@@ -92,3 +92,19 @@ def test_h100_platform_serves_and_tpu_is_not_offered(capsys):
     assert out["n_requests"] == 8 and out["compute_cost"] > 0
     with pytest.raises(SystemExit):
         serve.main(ARGV + ["--platform", "tpu", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("policy", ["always", "cost"])
+def test_launcher_serves_olmoe_as_the_reference(capsys, monkeypatch, policy):
+    """``--arch olmoe-1b-7b``: the MoE family packs like a dense arch, and its
+    full-size economics price only the top-8 experts' parameters; the same
+    summary and store statistics on both sides."""
+    argv = ["--arch", "olmoe-1b-7b", "--requests", "8", "--contexts", "2", "--policy",
+            policy, "--json"]
+    got = dict(_flat(json.loads(_port(capsys, argv))))
+    want = dict(_flat(json.loads(_reference(capsys, monkeypatch, argv))))
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert got[k] == pytest.approx(v, abs=1e-9), k
+    if policy == "always":
+        assert got["reuse_hits"] >= 4 and got["store.entries"] == 2

@@ -1,10 +1,13 @@
-"""The port's dense decoder against ``repro.models.lm`` on the same weights.
+"""The port's decoders against ``repro.models.lm`` on the same weights.
 
 Weights come from ``api.init(jax.random.PRNGKey(0), cfg)`` through
 ``repro_torch.models.convert.from_jax_params``; both sides run in f32 on the
 CPU (the JAX side on its reference attention, the port on its kernels'
 plain versions).  Logits and KV rows are held at atol 1e-4; greedy tokens
-must be identical.
+must be identical.  The archs: the dense llama-7b and qwen2-1.5b, the MoE
+olmoe-1b-7b (reduced: 4 experts, top-2, no drops) and mistral-nemo-12b with
+``head_dim`` 32 at d_model 64 and 4 heads, so that H·hd differs from d_model
+as at full width.
 """
 import dataclasses
 
@@ -22,7 +25,7 @@ from repro.kvcache import faults as jfaults  # noqa: E402
 from repro.kvcache import paged as jpaged  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.models import registry as jregistry  # noqa: E402
-from repro_torch.configs import get_config, reduced_config  # noqa: E402
+from repro_torch.configs import CONFIGS, get_config, reduced_config  # noqa: E402
 from repro_torch.kvcache import compression, faults, paged  # noqa: E402
 from repro_torch.models import lm, registry  # noqa: E402
 from repro_torch.models.attention import KVCache  # noqa: E402
@@ -31,13 +34,16 @@ from repro_torch.models.convert import from_jax_params  # noqa: E402
 
 torch.set_num_threads(1)
 ATOL = 1e-4
-ARCHS = ["llama-7b", "qwen2-1.5b"]
+ARCHS = ["llama-7b", "qwen2-1.5b", "olmoe-1b-7b", "mistral-nemo-12b"]
+# reduced nemo keeps hd = d_model / n_heads unless told otherwise: wq and wo
+# are then square, which full-width nemo's are not
+OVERRIDES = {"mistral-nemo-12b": dict(head_dim=32)}
 MAX_LEN = 128
 
 
 def _setup(arch):
-    jcfg = jreduced(jget_config(arch))
-    cfg = reduced_config(get_config(arch))
+    jcfg = jreduced(jget_config(arch), **OVERRIDES.get(arch, {}))
+    cfg = reduced_config(get_config(arch), **OVERRIDES.get(arch, {}))
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     jparams = jregistry.get_model(jcfg).init(jax.random.PRNGKey(0), jcfg)
     params = from_jax_params(cfg, jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
@@ -128,7 +134,7 @@ def test_prefill_packed_and_decode_match_reference(arch):
         np.testing.assert_allclose(got.caches[0].attn.v, want.caches[0].attn.v, atol=ATOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", sorted(CONFIGS))
 def test_param_counts_match_reference(arch):
     for reduce in (False, True):
         jcfg, cfg = jget_config(arch), get_config(arch)

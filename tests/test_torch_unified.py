@@ -138,7 +138,7 @@ def test_chunked_wrapper_never_falls_back():
 # --------------------------------------------------------------------------- #
 # Model level
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("arch", ["llama-7b", "qwen2-1.5b"])
+@pytest.mark.parametrize("arch", ["llama-7b", "qwen2-1.5b", "olmoe-1b-7b"])
 def test_prefill_chunked_matches_reference(arch):
     """``lm.prefill_chunked`` on the port and on the reference, the same
     weights and inputs: slot 0 lands a 24-token prompt after 13 stored rows
@@ -257,6 +257,10 @@ MIXES = {
     "reuse_burst": ("llama-7b", lambda v: _burst(v, n=8, ctx_lens=[64, 64], seed=1), {}),
     "reuse_burst_qwen2": (
         "qwen2-1.5b", lambda v: _burst(v, n=8, ctx_lens=[64, 64], seed=1), {}),
+    # the MoE family: the launch's B x C tokens, idle rows included, route
+    # through the experts (``tests/test_unified.py:79``)
+    "reuse_burst_olmoe": (
+        "olmoe-1b-7b", lambda v: _burst(v, n=8, ctx_lens=[64, 64], seed=1), {}),
     # two context lengths: one launch shape for the whole serve
     "two_contexts": ("llama-7b", lambda v: _burst(v, n=8, ctx_lens=[64, 96], seed=2), {}),
     # a long burst landing mid-decode, priced at full llama-7b scale
