@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's nine CUDA kernels from ``src/repro_torch/kernels/csrc``
-with nvcc (one nvcc per source, all started together), then drives thirteen
+with nvcc (one nvcc per source, all started together), then drives fourteen
 paths of the port, each with every launch counter zeroed just before it and
 read just after it:
 
@@ -202,6 +202,35 @@ read just after it:
    request loses pairs: the same weights then serve dense, unified and with
    reuse off at the dropless capacity factor n_experts / top_k (C >= T),
    where no pair may drop and every reused request is gated.
+14. sliding window — after the olmoe weights are freed, mixtral-8x22b at
+   full width (d_model 6144, 48 query heads of width 128 on 8 kv heads, 8
+   experts of width 16384, top-2, vocabulary 32768) in bf16 with random
+   weights from a seeded generator, cut to ``SWA_DEPTH`` (8) of its 56
+   layers: one layer holds ~2.5 B parameters (~5.0 GB), so eight layers,
+   the embedding and the head take ~41 GB and the whole model (~282 GB) does
+   not fit the card.  The serves run at the dropless capacity factor
+   n_experts / top_k = 4.  The ring serve: ``max_len=8192``, so the slotted
+   cache is a ring of 4,096 rows (the window) and the arch is not packable:
+   every admission runs through ``ModelApi.prefill``, one request per step,
+   and decode is dense.  Two 6,000-token contexts A and B arrive in four
+   waves (``swa_traffic``): wave 0 recomputes and writes back, wave 1
+   loads both, wave 2 sends A extended by 256 tokens (``partial``, all 6,000
+   stored tokens matched) and a variant of B sharing its first 1,600
+   tokens (recomputed: a partial match below the stored length of a
+   wrapped ring cannot be served, ROADMAP C11), wave 3 loads A twice; then
+   the decode steps, every one writing past the ring's wrap.  The plans
+   are ``SWA_PLANS``; 8 ``flash_attention`` launches per ``prefill`` call,
+   8 ``decode_attention`` launches per decode step and no other kernel; A's
+   and B's stored artifacts each hold 4,096 rows a layer (134,217,728 bytes
+   of K/V).  The same traffic with reuse off: each reused request's
+   first-token logits within ``LOGIT_ATOL`` of it, and the control, B's
+   variant rebuilt the reference's way (rows ``[:1600]`` of B's wrapped
+   ring inserted as positions 0-1,599, its suffix prefilled after them),
+   outside it.  Then the packable serves at ``max_len=4096`` (the window):
+   the prefix mix of phase 1 dense, unified and with reuse off, the same
+   actions and reused logits within ``LOGIT_ATOL`` of reuse off, and once
+   more dense at the capacity factor 1.25 with each launch's T, C and drops
+   logged, not gated (ROADMAP C10).
 
 Then the kernel phase: each kernel is called on the inputs one of its
 launches on those paths received (first layer) and held against its plain
@@ -225,9 +254,14 @@ fixed parts of 256 positions (``csrc/decode_block.cuh``): two launches on
 the recorded inputs must give the same bits (bf16 and f32), and the part
 count, the host enqueue time and the compiler's registers and spills are
 logged.  The packed and decode kernels are held against their plain
-versions on nemo's recorded first-layer inputs too, and the packed, decode,
-paged and chunked ones on olmoe's; the kernels line counts their launches
-on those serves beside llama's.
+versions on nemo's recorded first-layer inputs too, the packed, decode,
+paged and chunked ones on olmoe's, and on mixtral's: ``flash_attention`` on
+the ring serve's wave-0 launch (6,000 queries past the window over the
+empty ring and the new rows) and on its first load's suffix launch (over
+a stored, wrapped ring whose oldest rows the window masks),
+``decode_attention`` on a decode step past the wrap, and the packed, paged
+and chunked kernels on the packable serves' inputs; the kernels line counts
+their launches on those serves beside llama's.
 Times come from CUDA events after warm-up, beside the plain version's, one
 PyTorch library call's (``scaled_dot_product_attention`` with an explicit
 boolean mask, timed here only; for the paged kernels on rows gathered
@@ -395,6 +429,13 @@ COUNTERS = {"packed_flash_attention": pk.packed_flash_attention,
 # purchase and first-token logits; few decode steps keep it short) and the
 # length of the adversary's context C
 MARKET_NEW_TOKENS, MARKET_C_LEN = 4, 512
+# the sliding-window phase: mixtral-8x22b cut to SWA_DEPTH of its 56 layers
+# (one layer holds ~2.5 B parameters, ~5.0 GB in bf16: eight fit the card,
+# the whole model does not), contexts of SWA_CTX_LEN tokens past its window
+# of 4,096 and the extension of A in wave 2, served at SWA_MAX_LEN (a ring of
+# 4,096 rows); the contexts are whole chunks of the store (16 tokens), so a
+# request that extends a stored context matches all of it
+SWA_DEPTH, SWA_CTX_LEN, SWA_EXTEND, SWA_MAX_LEN = 8, 6000, 256, 8192
 # the fused phase's RAG traffic: documents of DOC_LEN tokens, a 32-token
 # prompt per request, the reference's default chunk_tokens of 16, and
 # CacheBlend's default recompute fraction
@@ -734,7 +775,7 @@ def serve(cfg, params, *, reuse: bool = True, planner=None, make_traffic=traffic
     ``telemetry`` is the engine's ``obs.Telemetry`` and ``market`` its
     ``MarketSession`` (both off by default)."""
     eng = ServingEngine(
-        cfg, params, engine_cfg=EngineConfig(reuse_enabled=reuse, **SERVE, **ec_kw),
+        cfg, params, engine_cfg=EngineConfig(**{**SERVE, "reuse_enabled": reuse, **ec_kw}),
         planner=planner or CostAwarePlanner(), device=DEVICE, telemetry=telemetry,
         market=market,
     )
@@ -2851,12 +2892,13 @@ def gate_reuse(label, runs, mode, base="reuse off"):
     return gated
 
 
-def family_params(name):
-    cfg = get_config(name)
+def family_params(name, **cut):
+    cfg = dataclasses.replace(get_config(name), **cut)
     t0 = time.perf_counter()
     params = lm.init(cfg, seed=SEED, device=DEVICE)
     torch.cuda.synchronize()
-    log(f"{name} bf16: {sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B params "
+    log(f"{name}{f' cut to {cut}' if cut else ''} bf16: "
+        f"{sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B params "
         f"({count_active_params(cfg) / 1e9:.3f} B active a token) drawn in "
         f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         f"allocated on the card")
@@ -2962,6 +3004,184 @@ def moe_phase():
     for mode in ("dropless dense", "dropless unified"):
         gated = gate_reuse("olmoe", runs, mode, base="dropless reuse off")
         assert gated == n_reused > 0, (mode, gated, n_reused)
+    del params
+    release()
+    return inputs, {mode: runs[mode]["counts"] for mode in runs}
+
+
+# --------------------------------------------------------------------------- #
+# Sliding-window phase (mixtral-8x22b's ring-buffer KV cache)
+# --------------------------------------------------------------------------- #
+def swa_traffic(vocab: int):
+    """Eight requests over two ``SWA_CTX_LEN``-token contexts A and B, each
+    longer than the window, in four waves one modelled second apart: wave 0
+    recomputes A and B and writes them back, wave 1 loads them, wave 2
+    sends A extended by ``SWA_EXTEND`` tokens (a ``partial`` of A's whole
+    stored context) and a variant of B that shares only its first
+    ``VARIANT_SHARED`` tokens (no usable match: ROADMAP C11), wave 3 loads A
+    twice."""
+    rng = np.random.default_rng(SEED + 2)
+    a = rng.integers(0, vocab, SWA_CTX_LEN).tolist()
+    b = rng.integers(0, vocab, SWA_CTX_LEN).tolist()
+    a_ext = a + rng.integers(0, vocab, SWA_EXTEND).tolist()
+    b_variant = b[:VARIANT_SHARED] + rng.integers(
+        0, vocab, SWA_CTX_LEN - VARIANT_SHARED + 16).tolist()
+    contexts = [a, b, a, b, a_ext, b_variant, a, a]
+    return [
+        dict(req_id=i, context_tokens=ctx,
+             prompt_tokens=rng.integers(0, vocab, PROMPT_LEN).tolist(),
+             max_new_tokens=NEW_TOKENS, arrival_s=float(i // 2), expected_reuses=3)
+        for i, ctx in enumerate(contexts)
+    ]
+
+
+# the ring serve's expected plans: (action, matched tokens) by request
+SWA_PLANS = {0: ("recompute", 0), 1: ("recompute", 0), 2: ("load", 6000), 3: ("load", 6000),
+             4: ("partial", 6000), 5: ("recompute", 0), 6: ("load", 6000), 7: ("load", 6000)}
+
+
+class RingFlashRecorder:
+    """The first layer's ``flash_attention`` inputs of two launches of the
+    ring serve: its first (wave 0's context, queries past the window) and
+    the first one inside a load (the suffix over a stored ring, where the
+    window masks the ring's oldest rows).  ``install`` is ``serve``'s setup
+    hook."""
+
+    def __init__(self, n_layers):
+        self.n_layers, self.inputs, self._calls, self._loading = n_layers, {}, 0, False
+        self._flash = ops.flash_attention
+        ops.flash_attention = self._record
+
+    def close(self):
+        ops.flash_attention = self._flash
+
+    def install(self, eng):
+        load = eng._execute_load
+
+        def run(*args, **kw):
+            self._loading = True
+            try:
+                return load(*args, **kw)
+            finally:
+                self._loading = False
+        eng._execute_load = run
+
+    def _record(self, *args, **kw):
+        if self._calls % self.n_layers == 0:
+            label = "wave 0" if self._calls == 0 else "suffix" if self._loading else None
+            if label is not None and label not in self.inputs:
+                self.inputs[label] = keep(args, kw)
+        self._calls += 1
+        return self._flash(*args, **kw)
+
+
+def ring_serve(cfg, params, reuse=True):
+    """One serve of ``swa_traffic`` with ``max_len=SWA_MAX_LEN`` (a ring of
+    ``window`` rows): per-request admissions through ``ModelApi.prefill``
+    and dense decode.  Returns its run (records, actions, logits, launches),
+    the recorded flash and decode inputs and the engine."""
+    flash = RingFlashRecorder(cfg.n_layers)
+    zero_counts()
+    try:
+        eng, recs, rec, steps, writebacks = serve(
+            cfg, params, reuse=reuse, make_traffic=swa_traffic, setup=flash.install,
+            max_len=SWA_MAX_LEN)
+    finally:
+        flash.close()
+    c = counts()
+    n_decode = eng.decode_stats()["decode_steps"]
+    actions = {i: (r.action, r.matched_tokens) for i, r in sorted(recs.items())}
+    mode = "ring" if reuse else "ring reuse off"
+    log(f"mixtral {mode} serve launches: {c} (decode steps {n_decode}, prefill calls "
+        f"{rec.prefill_calls}); actions {actions}; write-backs {writebacks}")
+    log_steps(f"mixtral {mode}", steps)
+    L = cfg.n_layers
+    assert len(recs) == 8 and all(len(r.tokens) == NEW_TOKENS for r in recs.values())
+    assert c["flash_attention"] == L * rec.prefill_calls > 0, c
+    assert c["decode_attention"] == L * n_decode > 0, c
+    others = sum(v for k, v in c.items() if k not in ("flash_attention", "decode_attention"))
+    assert others == 0, c
+    assert eng.packed_stats()["batches"] == 0 and not eng.decode_stats()["paged"]
+    assert eng._state.caches[0].attn.k.shape[2] == cfg.sliding_window  # the ring
+    run = dict(recs=recs, actions=actions, first=rec.first_logits, steps=rec.step_logits,
+               counts=c, drops={})
+    inputs = dict(flash=flash.inputs, decode=rec.decode_inputs)
+    return run, inputs, eng
+
+
+def swa_phase():
+    """Full-width mixtral-8x22b cut to ``SWA_DEPTH`` layers (bf16, random
+    weights): the ring serve with reuse on and off, its gates and the C11
+    control, then the packable serves at ``max_len == window`` (see the
+    module docstring, phase 14).  Returns the recorded kernel inputs and the
+    launches of every serve."""
+    cfg, params = family_params("mixtral-8x22b", n_layers=SWA_DEPTH)
+    # the dropless capacity factor n_experts / top_k: C >= T, no pair drops
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    W = cfg.sliding_window
+    runs, inputs = {}, {}
+    runs["ring"], inputs["ring"], eng = ring_serve(cfg, params)
+    reqs = swa_traffic(cfg.vocab)
+    assert runs["ring"]["actions"] == SWA_PLANS, runs["ring"]["actions"]
+    assert set(inputs["ring"]["flash"]) == {"wave 0", "suffix"}, inputs["ring"]["flash"].keys()
+    assert int(inputs["ring"]["flash"]["wave 0"][1]["q_pos"].max()) >= W
+    # every stored artifact is the ring: W rows a layer, whatever the context
+    kv_bytes = {}
+    for i in (0, 1):
+        art = stored_artifact(eng, reqs[i]["context_tokens"])
+        a = art.caches[0].attn
+        kv_bytes[i] = int(a.k.nbytes + a.v.nbytes)
+        assert a.k.shape == (SWA_DEPTH, 1, W, cfg.n_kv_heads, cfg.resolved_head_dim), a.k.shape
+        assert paged.artifact_length(art) == SWA_CTX_LEN
+    size = a.k.dtype.itemsize  # bf16 rows are kept as their 2-byte pattern
+    want = W * SWA_DEPTH * 2 * cfg.n_kv_heads * cfg.resolved_head_dim * size
+    log(f"mixtral stored K/V bytes of A and B: {kv_bytes} (want {want} each: {W} rows x "
+        f"{SWA_DEPTH} layers x K, V x {cfg.n_kv_heads} x {cfg.resolved_head_dim} x {size} B)")
+    assert kv_bytes == {0: want, 1: want}, kv_bytes
+    # the control: B's variant rebuilt the reference's way, reading rows
+    # [:VARIANT_SHARED] of B's wrapped stored ring as positions 0..1599
+    api = get_model(cfg)
+    art_b = stored_artifact(eng, reqs[1]["context_tokens"])
+    del eng
+    release()
+    state = api.init_state(cfg, 1, SWA_MAX_LEN, device=DEVICE)
+    paged.insert_slot(cfg, state, 0, art_b, n_tokens=VARIANT_SHARED)
+    variant = reqs[5]
+    suffix = variant["context_tokens"][VARIANT_SHARED:] + variant["prompt_tokens"]
+    control, _ = api.prefill(params, cfg, torch.tensor([suffix], device=DEVICE), state)
+    control = control[0].float().cpu()
+    del state, art_b
+    release()
+
+    runs["ring reuse off"], _, eng = ring_serve(cfg, params, reuse=False)
+    del eng
+    release()
+    n_reused = sum(a in ("load", "partial") for a, _ in SWA_PLANS.values())
+    assert gate_reuse("mixtral", runs, "ring", base="ring reuse off") == n_reused
+    off5 = runs["ring reuse off"]["first"][5]
+    served5 = (runs["ring"]["first"][5] - off5).abs().max().item()
+    diff = (control - off5).abs().max().item()
+    log(f"mixtral C11 control (request 5, B's variant, its first {VARIANT_SHARED} rows read "
+        f"from B's wrapped ring as positions 0..{VARIANT_SHARED - 1}): first-token logits "
+        f"max|control - recompute| = {diff:.4f} (must exceed {LOGIT_ATOL}); the served "
+        f"request (recomputed) {served5:.4f}")
+    assert diff > LOGIT_ATOL, diff
+    assert served5 <= LOGIT_ATOL, served5
+
+    # the packable serves: max_len == window, the prefix mix of phase 1
+    assert SERVE["max_len"] == W and paged.packable_arch(cfg, SERVE["max_len"])
+    for mode, kw in (("dense", {}), ("unified", dict(paged_decode=True, unified_step=True,
+                                                     kv_block=128)),
+                     ("reuse off", dict(reuse=False))):
+        runs[mode], inputs[mode] = family_serve("mixtral", cfg, params, mode, **kw)
+        assert not runs[mode]["drops"], runs[mode]["drops"]
+    assert runs["unified"]["actions"] == runs["dense"]["actions"], runs["unified"]["actions"]
+    for mode in ("dense", "unified"):
+        assert gate_reuse("mixtral", runs, mode) > 0, mode
+    # once at the capacity factor 1.25, the drops logged and not gated (C10)
+    c125 = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=1.25))
+    runs["dense cf 1.25"], _ = family_serve("mixtral", c125, params, "dense cf 1.25")
     del params
     release()
     return inputs, {mode: runs[mode]["counts"] for mode in runs}
@@ -3170,20 +3390,28 @@ def main() -> None:
     moe_inputs, moe_counts = moe_phase()
     log(f"olmoe phase wall: {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- sliding-window phase: mixtral-8x22b's ring ----------------------
+    t_phase = time.perf_counter()
+    swa_inputs, swa_counts = swa_phase()
+    log(f"mixtral phase wall: {time.perf_counter() - t_phase:.1f} s")
+
     # ---- kernel phase -----------------------------------------------------
     # the kernels line counts each kernel's launches on its llama path and
-    # on the same path of nemo's and olmoe's serves
+    # on the same path of nemo's, olmoe's and mixtral's serves
     def launches(name, *runs):
         return sum(c[name] for c in runs)
 
-    dense_runs = (dense_counts, nemo_counts, moe_counts["dense"])
+    dense_runs = (dense_counts, nemo_counts, moe_counts["dense"], swa_counts["ring"],
+                  swa_counts["dense"])
     kernels = [check_packed(packed_inputs, launches("packed_flash_attention", *dense_runs)),
                check_decode(decode_inputs, launches("decode_attention", *dense_runs)),
-               check_flash(flash_full, prefill_counts["flash_attention"], "full"),
+               check_flash(flash_full, launches("flash_attention", prefill_counts,
+                                                swa_counts["ring"]), "full"),
                check_paged(paged_inputs, launches("paged_decode_attention", paged_counts,
-                                                  moe_counts["paged"])),
+                                                  moe_counts["paged"], swa_counts["unified"])),
                check_chunked(chunked_inputs, launches("chunked_prefill_attention",
-                                                      unified_counts, moe_counts["unified"])),
+                                                      unified_counts, moe_counts["unified"],
+                                                      swa_counts["unified"])),
                check_fused(fused_inputs, fused_launches),
                check_kv_quant(comp["quant_input"], comp["dense"]["counts"]["kv_quant"]),
                check_kv_dequant(comp["dequant_inputs"], comp["dense"]["counts"]["kv_dequant"]),
@@ -3202,6 +3430,20 @@ def main() -> None:
                 "olmoe")
     check_chunked(moe_inputs["unified"]["chunked"],
                   moe_counts["unified"]["chunked_prefill_attention"], "olmoe")
+    # mixtral's (G 6, hd 128): flash and decode over the wrapped ring, the
+    # packable serve's packed, paged and chunked launches
+    ring = swa_counts["ring"]
+    check_flash(swa_inputs["ring"]["flash"]["wave 0"], ring["flash_attention"],
+                "mixtral ring wave 0")
+    check_flash(swa_inputs["ring"]["flash"]["suffix"], ring["flash_attention"],
+                "mixtral ring suffix")
+    check_decode(swa_inputs["ring"]["decode"], ring["decode_attention"], "mixtral ring")
+    check_packed(swa_inputs["dense"]["packed"], swa_counts["dense"]["packed_flash_attention"],
+                 "mixtral")
+    check_paged(swa_inputs["unified"]["decode"],
+                swa_counts["unified"]["paged_decode_attention"], "mixtral")
+    check_chunked(swa_inputs["unified"]["chunked"],
+                  swa_counts["unified"]["chunked_prefill_attention"], "mixtral")
     check_wide_group()
     log_device_times()
     print(json.dumps({"kernels": kernels}))

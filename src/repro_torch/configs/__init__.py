@@ -3,9 +3,10 @@
 ``llama-7b`` is the paper's own model; ``qwen2-1.5b`` and ``qwen2-0.5b`` add
 QKV bias, GQA and tied embeddings; ``mistral-nemo-12b`` is GQA with a head
 width apart from d_model / n_heads; ``mamba2-1.3b`` is the attention-free
-SSM family; ``olmoe-1b-7b`` the MoE family.  The reference's encoder-decoder,
-VLM, hybrid and sliding-window archs come with their families (ROADMAP queue
-A item 9)."""
+SSM family; ``olmoe-1b-7b`` the MoE family and ``mixtral-8x22b`` the MoE
+family with sliding-window attention over a ring-buffer cache.  The
+reference's encoder-decoder, VLM and hybrid archs come with their families
+(ROADMAP queue A item 9)."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,6 +16,7 @@ from repro_torch.configs import (
     llama_7b,
     mamba2_1_3b,
     mistral_nemo_12b,
+    mixtral_8x22b,
     olmoe_1b_7b,
     qwen2_0_5b,
     qwen2_1_5b,
@@ -23,7 +25,8 @@ from repro_torch.configs.base import ArchConfig
 
 CONFIGS: Dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (llama_7b, qwen2_1_5b, qwen2_0_5b, mistral_nemo_12b, mamba2_1_3b, olmoe_1b_7b)
+    for m in (llama_7b, qwen2_1_5b, qwen2_0_5b, mistral_nemo_12b, mamba2_1_3b, olmoe_1b_7b,
+              mixtral_8x22b)
 }
 
 
@@ -35,9 +38,9 @@ def get_config(name: str) -> ArchConfig:
 
 def reduced_config(cfg: ArchConfig, **overrides) -> ArchConfig:
     """A small same-family config for CPU tests: keeps GQA ratios, biases,
-    the MoE routing and the SSD layout while shrinking every dimension (the
-    reference's ``reduced_config``, restricted to the dense, MoE and SSM
-    families)."""
+    the MoE routing, a sliding window (of 16) and the SSD layout while
+    shrinking every dimension (the reference's ``reduced_config``,
+    restricted to the dense, MoE and SSM families)."""
     if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"{cfg.family} archs are not ported yet: the port carries the dense, MoE "

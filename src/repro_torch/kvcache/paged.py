@@ -79,7 +79,8 @@ def artifact_to_host(art: LMState) -> LMState:
     )
 
 
-def _pos(artifact: LMState) -> int:
+def artifact_length(artifact: LMState) -> int:
+    """The token count of the context an artifact holds (its ``pos``)."""
     p = artifact.pos
     return int(p[0].item() if isinstance(p, torch.Tensor) else np.asarray(p)[0])
 
@@ -116,7 +117,7 @@ def insert_slot(
     place, with ``pos[slot]`` set to its token count (or ``n_tokens`` for a
     partial-prefix insert of attention K/V; SSM state is all or nothing, a
     whole snapshot at the stored context's length).  Returns ``state``."""
-    art_pos = _pos(artifact)
+    art_pos = artifact_length(artifact)
     L = art_pos if n_tokens is None else min(n_tokens, art_pos)
     for c, a in zip(state.caches, artifact.caches):
         if c.attn is not None:
@@ -132,6 +133,22 @@ def insert_slot(
 def partial_reuse_allowed(cfg: ArchConfig) -> bool:
     """Partial-prefix reuse needs per-position state (attention KV)."""
     return cfg.family in ("dense", "moe", "vlm") and cfg.n_ssm_layers == 0
+
+
+def ring_match_usable(cfg: ArchConfig, stored_tokens: int, matched: int) -> bool:
+    """Whether ``matched`` leading tokens of a stored context of
+    ``stored_tokens`` tokens can be served from its artifact (ROADMAP C11).
+
+    The artifact of a sliding-window arch holds the context's last
+    ``min(stored_tokens, window)`` positions in ring order, and
+    ``insert_slot`` reads its rows ``[:matched]`` as positions ``0 ..
+    matched - 1``.  That holds while the ring never wrapped
+    (``stored_tokens <= window``), and a match of the whole stored context
+    inserts the ring as it is.  Any other match needs positions ``[matched
+    - window, matched)``, which the ring no longer holds: the reference
+    serves it anyway and generates wrong tokens; the port does not."""
+    W = cfg.sliding_window
+    return not W or stored_tokens <= W or matched == stored_tokens
 
 
 # --------------------------------------------------------------------------- #

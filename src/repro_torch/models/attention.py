@@ -22,6 +22,13 @@ KV_heads, head_dim]``).  Unlike the JAX package, which returns new cache
 arrays, every mode writes the new rows into the cache tensors in place: the
 dense cache of a full-width model is gigabytes, and a copy per layer per
 step would double it.
+
+Sliding-window archs keep ``L_cache = min(max_len, window)`` rows.  When
+``L_cache == window`` the slotted cache is a ring: position ``p`` lives in
+row ``p % window`` and ``_ring_positions`` says which position each row
+holds, so ``prefill`` and ``decode`` attend by those positions (the
+reference's ring branch).  The packed and fused buffers stay linear, as in
+the reference: the engine packs only when ``window >= max_len``.
 """
 from __future__ import annotations
 
@@ -82,11 +89,37 @@ def _out(p: Params, o: torch.Tensor) -> torch.Tensor:
     return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
 
 
-def _no_ring(cfg: ArchConfig, L: int) -> None:
-    if cfg.sliding_window and L >= cfg.sliding_window:
-        raise NotImplementedError(
-            "sliding-window ring caches are not ported yet (ROADMAP queue A item 9)"
-        )
+def _ring_positions(length: torch.Tensor, window: int, batch: int) -> torch.Tensor:
+    """Absolute position held by each ring row once ``length [B]`` tokens
+    were seen: row ``j`` holds the largest ``p < length`` with ``p % window
+    == j``, or -1 if no token ever landed there.  Returns ``[batch, window]``
+    int32 (the reference's ``_ring_positions``)."""
+    j = torch.arange(window, dtype=torch.int32, device=length.device)[None]  # [1, W]
+    ln = length.to(torch.int32).reshape(batch, 1)  # [B, 1]
+    p = ln - 1 - torch.remainder(ln - 1 - j, window)
+    return torch.where((p >= 0) & (ln > 0), p, -1).to(torch.int32)
+
+
+def _ring(cfg: ArchConfig, L: int) -> bool:
+    """Whether a slotted cache of ``L`` rows is a ring (the reference's
+    condition: a window exactly as long as the cache)."""
+    return bool(cfg.sliding_window) and L == cfg.sliding_window
+
+
+def _ring_write(cache: torch.Tensor, positions: torch.Tensor, new: torch.Tensor) -> None:
+    """Write the new rows ``new [B, S, ...]`` at ``positions [B, S]`` into the
+    ring ``cache [B, W, ...]`` in place, keeping each ring row's last
+    occurrence only.  The reference scatters every row and sends the
+    earlier occurrences to a dropped scratch row (``_scatter_rows_padded``);
+    those are the first ``S - W`` tokens of every sequence, so writing the
+    last ``min(S, W)`` tokens keeps the same rows and hands the scatter
+    ``min(S, W)`` distinct ring rows per sequence, never a duplicate index
+    (on CUDA a duplicate would keep an arbitrary one of its writes)."""
+    B, S = positions.shape
+    W = cache.shape[1]
+    n = min(S, W)
+    rows = torch.arange(B, device=cache.device)[:, None]
+    cache[rows, (positions[:, S - n:] % W).long()] = new[:, S - n:]
 
 
 # --------------------------------------------------------------------------- #
@@ -100,16 +133,33 @@ def prefill(
     offset: torch.Tensor,  # [B] int32 — tokens already in the cache
 ) -> torch.Tensor:
     """Write the new tokens' K/V at rows ``[offset, offset+S)`` and attend
-    every row below ``offset+S`` causally at absolute positions."""
+    every row below ``offset+S`` causally at absolute positions.
+
+    On a ring (``_ring``) a query early in the call needs rows that later
+    tokens of the same call overwrite, so attention runs over ``[the ring
+    as it was ++ the new K/V]`` at ``[_ring_positions(offset) ++
+    positions]`` with the window, and only then does each ring row take the
+    last new token that maps to it (the reference's ring branch)."""
     B, S, _ = x.shape
     L = cache.k.shape[1]
-    _no_ring(cfg, L)
     q, k_new, v_new = _qkv(p, cfg, x)
     offset = offset.to(torch.int32)[:, None]  # [B, 1]
     positions = offset + torch.arange(S, dtype=torch.int32, device=x.device)[None]  # [B, S]
     if cfg.rope_theta is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    if _ring(cfg, L):
+        # the concatenations copy the ring before any of its rows is written
+        k_all = torch.cat([cache.k, k_new], dim=1)
+        v_all = torch.cat([cache.v, v_new], dim=1)
+        kv_pos = torch.cat([_ring_positions(offset[:, 0], L, B), positions], dim=1)
+        o = ops.flash_attention(
+            q.contiguous(), k_all, v_all, q_pos=positions.contiguous(),
+            kv_pos=kv_pos.contiguous(), causal=True, window=cfg.sliding_window,
+        )
+        _ring_write(cache.k, positions, k_new)
+        _ring_write(cache.v, positions, v_new)
+        return _out(p, o)
     rows = torch.arange(B, device=x.device)[:, None]
     cache.k[rows, positions.long()] = k_new
     cache.v[rows, positions.long()] = v_new
@@ -146,7 +196,6 @@ def prefill_packed(
     attends its own segment only, causally at segment-local positions.
     """
     Skv = kv_pos.shape[1]
-    _no_ring(cfg, Skv)
     q, k_new, v_new = _qkv(p, cfg, x)
     if cfg.rope_theta is not None:
         q = apply_rope(q, q_pos, cfg.rope_theta)
@@ -185,7 +234,6 @@ def prefill_fused(
     (``ops.fused_prefill``).  At r=1.0 every row is overwritten and this is
     ``prefill`` of the whole sequence."""
     Skv = kv_pos.shape[1]
-    _no_ring(cfg, Skv)
     q, k_new, v_new = _qkv(p, cfg, x)
     if cfg.rope_theta is not None:
         q = apply_rope(q, q_pos, cfg.rope_theta)
@@ -209,19 +257,26 @@ def decode(
     cache: KVCache,  # [B, L, KV, hd], written in place
     pos: torch.Tensor,  # [B] int32 — position of this token (== cached length)
 ) -> torch.Tensor:
+    """One token per sequence: its K/V row lands at row ``pos`` (on a ring,
+    ``pos % window``), then it attends every row the cache holds at or
+    below ``pos``, by position (on a ring, ``_ring_positions(pos + 1)``)."""
     B = x.shape[0]
     L = cache.k.shape[1]
-    _no_ring(cfg, L)
     q, k_new, v_new = _qkv(p, cfg, x)
     positions = pos[:, None].to(torch.int32).contiguous()  # [B, 1]
     if cfg.rope_theta is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k_new = apply_rope(k_new, positions, cfg.rope_theta)
     rows = torch.arange(B, device=x.device)
-    cache.k[rows, pos.long()] = k_new[:, 0]
-    cache.v[rows, pos.long()] = v_new[:, 0]
-    idx = torch.arange(L, dtype=torch.int32, device=x.device)[None]
-    kv_pos = torch.where(idx <= positions, idx, -1).to(torch.int32)
+    ring = _ring(cfg, L)
+    slots = (pos % L if ring else pos).long()
+    cache.k[rows, slots] = k_new[:, 0]
+    cache.v[rows, slots] = v_new[:, 0]
+    if ring:
+        kv_pos = _ring_positions(pos + 1, L, B)
+    else:
+        idx = torch.arange(L, dtype=torch.int32, device=x.device)[None]
+        kv_pos = torch.where(idx <= positions, idx, -1).to(torch.int32)
     o = ops.decode_attention(
         q.contiguous(), cache.k, cache.v, q_pos=positions, kv_pos=kv_pos,
         window=cfg.sliding_window,

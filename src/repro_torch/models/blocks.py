@@ -66,10 +66,13 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, kind: BlockKind, device) -
 def init_block_cache(cfg: ArchConfig, kind: BlockKind, n: int, batch: int, max_len: int,
                      device, dtype: torch.dtype) -> BlockCache:
     """The caches of ``n`` layers of ``kind``, stacked on a leading axis:
-    K/V ``[n, B, max_len, KV, hd]``, or the mamba state ``conv [n, B, d_conv-1,
-    conv_dim]`` (``dtype``) and ``ssd [n, B, H, P, S]`` (f32)."""
+    K/V ``[n, B, L, KV, hd]`` with ``L = min(max_len, window)`` on a
+    sliding-window arch (a ring, ``attention._ring``) and ``max_len``
+    otherwise, or the mamba state ``conv [n, B, d_conv-1, conv_dim]``
+    (``dtype``) and ``ssd [n, B, H, P, S]`` (f32)."""
     if kind.mixer == "a":
-        shape = (n, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        length = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+        shape = (n, batch, length, cfg.n_kv_heads, cfg.resolved_head_dim)
         return BlockCache(attention.KVCache(torch.zeros(shape, dtype=dtype, device=device),
                                             torch.zeros(shape, dtype=dtype, device=device)))
     one = ssm.init_mamba_state(cfg, batch, device, dtype)

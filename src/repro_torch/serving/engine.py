@@ -1469,7 +1469,8 @@ class ServingEngine:
         )
         frac = 0.0
         n_ctx = len(req.context_tokens)
-        if entry is not None and match.matched_tokens > 0:
+        if (entry is not None and match.matched_tokens > 0
+                and self._ring_rows_usable(entry, match.matched_tokens)):
             if match.matched_tokens >= n_ctx:
                 frac = 1.0
             elif partial_ok:
@@ -1514,6 +1515,22 @@ class ServingEngine:
             queue_wait_s=queue_wait, composite=composite, fused_bytes_by_tier=fused_bytes,
             unavailable_tiers=unavailable,
         )
+
+    def _ring_rows_usable(self, entry, matched: int) -> bool:
+        """``paged.ring_match_usable`` for a stored entry: on a sliding-window
+        arch a match counts only if its rows lie in the artifact as
+        positions (ROADMAP C11); otherwise the request plans as a miss, as
+        an SSM arch's partial match does.  The stored context's length is
+        its artifact's own ``pos`` (``entry.n_tokens`` rounds it down to
+        whole chunks), read without a transfer; a payload the tier no
+        longer holds keeps the match, so its fetch fails as any other."""
+        if not self.cfg.sliding_window:
+            return True
+        try:
+            stored = paged.artifact_length(self.store.backends[entry.tier].peek(entry.entry_id))
+        except StorageError:
+            return True
+        return paged.ring_match_usable(self.cfg, stored, matched)
 
     def _entry_fetch_bytes(self, e, matched_tokens: int) -> float:
         """Bytes a fetch of ``matched_tokens`` moves, at economics scale."""

@@ -9,15 +9,19 @@ the port's values.
 
   * ``TestPaperNumbers``: the paper's numbers on ``llama-7b`` with
     ``V100_X4_HF``, ``V100_X1_PAPER`` and ``AWS_PAPER``.
-  * ``TestProperties``: the structural properties over the six registered
+  * ``TestProperties``: the structural properties over the seven registered
     archs, on seeded grids of the reference's hypothesis ranges; the
     reference's TPU case becomes an H100 one (``h100``, ``h100_pricing``).
-  * ``PerfModel`` on ``h100`` and ``V100_X4`` over the six archs.  The
-    reference's sliding-window cases wait for a sliding-window arch
-    (``mixtral-8x22b``) and its many-chip case runs on nemo, not granite.
+  * ``PerfModel`` on ``h100`` and ``V100_X4`` over the seven archs, with
+    the reference's sliding-window cases on ``mixtral-8x22b``
+    (``tests/test_perf_model.py:56, 91``); its many-chip case runs on nemo,
+    not granite.
 
 MoE archs price only their active parameters (``count_active_params``), so
-``olmoe-1b-7b`` is where a port that counted every expert would differ.
+``olmoe-1b-7b`` and ``mixtral-8x22b`` are where a port that counted every
+expert would differ.  ``mixtral-8x22b`` stores and attends ``min(L,
+window)`` rows a layer, so its stored bytes and decode time stop growing
+past the window.
 """
 import dataclasses
 
@@ -189,6 +193,9 @@ class TestProperties:
 
     @pytest.mark.parametrize("arch", ARCHS)
     def test_storage_bytes_structure(self, arch):
+        """``tests/test_cost_model.py:133``: O(1) in L for attention-free
+        archs, constant past the window for a sliding-window one, growing
+        otherwise."""
         cfg, jcfg = get_config(arch), jget_config(arch)
         rng = np.random.default_rng(5)
         for L in rng.integers(1_000, 64_001, 20).tolist():
@@ -197,8 +204,23 @@ class TestProperties:
             assert s > 0
             if cfg.family == "ssm":
                 assert s2 == s  # O(1) in L for attention-free archs
+            elif cfg.sliding_window:
+                w = cfg.sliding_window
+                assert _same(cm.s_storage_bytes(cfg, 10 * w), jcm.s_storage_bytes(
+                    jcfg, 10 * w)) == cm.s_storage_bytes(cfg, 20 * w)
+                assert s2 >= s
             else:
                 assert s2 > s
+
+    def test_window_caps_stored_bytes(self):
+        """mixtral-8x22b stores ``min(L, 4096)`` rows a layer: 4,096 rows of
+        56 layers x 8 kv heads x 128 x K and V in bf16 at every length past
+        the window, and ``L`` rows below it."""
+        cfg, jcfg = get_config("mixtral-8x22b"), jget_config("mixtral-8x22b")
+        per_row = 56 * 2 * 8 * 128 * 2
+        for L in (1, 1000, 4095, 4096, 4097, 6000, 65_536):
+            s = _same(cm.s_storage_bytes(cfg, L), jcm.s_storage_bytes(jcfg, L))
+            assert s == min(L, 4096) * per_row
 
     def test_gqa_cheaper_to_store_than_mha(self):
         """The reference's MQA case (granite-34b) waits for granite; GQA shows
@@ -267,6 +289,35 @@ def test_decode_linear_in_output_and_monotone_in_context(arch, hw):
             assert two == pytest.approx(one, rel=1e-9)
         else:
             assert two >= one
+
+
+@pytest.mark.parametrize("hw", sorted(HW))
+def test_swa_decode_time_bounded_by_window(hw):
+    """``tests/test_perf_model.py:56``: past the window a decode step reads
+    the same rows whatever the context, on both packages."""
+    perf, jperf = _both(HW[hw])
+    cfg, jcfg = get_config("mixtral-8x22b"), jget_config("mixtral-8x22b")
+    w = cfg.sliding_window
+    for batch in (1, 4):
+        t10 = _same(perf.t_decode(cfg, 1, 10 * w, batch=batch),
+                    jperf.t_decode(jcfg, 1, 10 * w, batch=batch))
+        t20 = _same(perf.t_decode(cfg, 1, 20 * w, batch=batch),
+                    jperf.t_decode(jcfg, 1, 20 * w, batch=batch))
+        assert t10 == pytest.approx(t20, rel=1e-9)
+        assert perf.t_decode(cfg, 1, w // 2, batch=batch) < t10
+
+
+@pytest.mark.parametrize("hw", sorted(HW))
+def test_paged_decode_caps_each_slot_at_the_window(hw):
+    """``tests/test_perf_model.py:91``'s sliding-window case: the paged
+    price caps each slot's live context at the window."""
+    perf, jperf = _both(HW[hw])
+    cfg, jcfg = get_config("mixtral-8x22b"), jget_config("mixtral-8x22b")
+    w = cfg.sliding_window
+    for lens in ([10 * w, w], [20 * w, w], [3 * w, w // 2, 7, w + 1]):
+        _same(perf.t_decode_paged(cfg, lens), jperf.t_decode_paged(jcfg, lens), lens)
+    assert perf.t_decode_paged(cfg, [10 * w, w]) == pytest.approx(
+        perf.t_decode_paged(cfg, [20 * w, w]), rel=1e-9)
 
 
 @pytest.mark.parametrize("hw", sorted(HW))

@@ -193,6 +193,72 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, atol, B, Sq, L, H, KV, 
     assert (got.float() - want.float()).abs().max().item() <= atol
 
 
+# (B, W, offsets, S): a ring of W rows holding `offset` tokens (wrapped when
+# offset > W), then S new tokens, as the sliding-window prefill lays them out
+RING_FLASH_CASES = [
+    (1, 256, (0,), 600),  # the first call: an empty ring, queries past W
+    (2, 256, (700, 300), 90),  # wrapped rings, a suffix shorter than W
+    (1, 512, (1300,), 700),  # a wrapped ring, a suffix longer than W
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [("float32", F32_ATOL), ("bfloat16", BF16_ATOL)])
+@pytest.mark.parametrize("B,W,offsets,S", RING_FLASH_CASES)
+def test_flash_kernel_over_a_wrapped_ring_matches_plain(cuda, dtype, atol, B, W, offsets, S):
+    """The sliding-window prefill's launch: queries at ``offset + [0, S)``
+    over ``[the ring ++ the new rows]`` at ``[_ring_positions(offset) ++
+    positions]`` (not monotone along the rows once the ring wraps), within
+    the window, at mixtral's heads (48 on 8 kv heads, hd 128)."""
+    from repro_torch.models.attention import _ring_positions
+
+    H, KV, hd = 48, 8, 128
+    g = torch.Generator(device=cuda)
+    g.manual_seed(W + S)
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, S, H, hd, generator=g, device=cuda).to(dt)
+    k = torch.randn(B, W + S, KV, hd, generator=g, device=cuda).to(dt)
+    v = torch.randn(B, W + S, KV, hd, generator=g, device=cuda).to(dt)
+    offset = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    q_pos = (offset[:, None] + torch.arange(S, dtype=torch.int32, device=cuda)[None]).contiguous()
+    kv_pos = torch.cat([_ring_positions(offset, W, B), q_pos], dim=1).contiguous()
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, causal=True, window=W)
+    got = fk.flash_attention(q, k, v, **kw)
+    want = fk.flash_attention_plain(q, k, v, **kw)
+    again = fk.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [("float32", F32_ATOL), ("bfloat16", BF16_ATOL)])
+@pytest.mark.parametrize("W,lengths", [(256, (700, 256, 100, 513)), (4096, (6100, 4097, 30, 8191))])
+def test_decode_kernel_over_ring_positions_matches_plain(cuda, dtype, atol, W, lengths):
+    """The sliding-window decode: each slot's query at ``length - 1`` over its
+    ring of W rows at ``_ring_positions(length)``, within the window, at
+    mixtral's heads (48 on 8 kv heads, hd 128)."""
+    from repro_torch.models.attention import _ring_positions
+
+    B, H, KV, hd = len(lengths), 48, 8, 128
+    g = torch.Generator(device=cuda)
+    g.manual_seed(W)
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, 1, H, hd, generator=g, device=cuda).to(dt)
+    k = torch.randn(B, W, KV, hd, generator=g, device=cuda).to(dt)
+    v = torch.randn(B, W, KV, hd, generator=g, device=cuda).to(dt)
+    length = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    kv_pos = _ring_positions(length, W, B).contiguous()
+    q_pos = (length - 1)[:, None].contiguous()
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, window=W)
+    got = dk.decode_attention(q, k, v, **kw)
+    want = dk.decode_attention_plain(q, k, v, **kw)
+    again = dk.decode_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    assert torch.equal(got, again)
+
+
 def _pool(cuda, dt, lens, KV, H, hd, block, max_len, seed):
     """A pool whose live blocks are scattered at random, with the block
     tables and the equivalent dense cache of the same padded length."""
@@ -1057,6 +1123,67 @@ def test_reduced_olmoe_serves_on_card_as_on_cpu(cuda, mode):
         assert (got - want).abs().max().item() <= 1e-3
     assert {r.req_id: (r.action, r.tokens) for r in eng.records} == {
         r.req_id: (r.action, r.tokens) for r in cpu.records}
+
+
+def _ring_serve(cfg, params, device):
+    """Serve 64-token contexts (four turns of a 16-row ring) whole and
+    partly shared under ``AlwaysReusePlanner``; returns (engine, each
+    ``prefill`` call's logits, each decode step's)."""
+    from repro_torch.serving import AlwaysReusePlanner, EngineConfig, Request, ServingEngine
+
+    eng = ServingEngine(cfg, params, planner=AlwaysReusePlanner(), device=device,
+                        engine_cfg=EngineConfig(max_slots=2, max_len=128, chunk_tokens=16))
+    calls = []
+
+    def record(fn):
+        def run(*args, **kw):
+            logits, state = fn(*args, **kw)
+            calls.append(logits.float().cpu())
+            return logits, state
+        return run
+
+    eng.api = eng.api._replace(prefill=record(eng.api.prefill), decode=record(eng.api.decode))
+    rng = np.random.default_rng(2)
+    a = rng.integers(0, cfg.vocab, 64).tolist()
+    b = a[:32] + rng.integers(0, cfg.vocab, 32).tolist()  # C11: no partial from a's ring
+    for i, ctx in enumerate([a, b, a, a + rng.integers(0, cfg.vocab, 16).tolist()]):
+        eng.submit(Request(req_id=i, context_tokens=ctx,
+                           prompt_tokens=rng.integers(0, cfg.vocab, 8).tolist(),
+                           max_new_tokens=4, arrival_s=0.01 * i, expected_reuses=2))
+    eng.run()
+    return eng, calls
+
+
+@pytest.mark.gpu
+def test_reduced_mixtral_serves_on_card_as_on_cpu(cuda):
+    """The reduced mixtral-8x22b (window 16, f32) served on the card: every
+    admission through ``flash_attention`` over a wrapped ring, every decode
+    step through ``decode_attention`` at ring positions, no other attention
+    kernel.  Every prefill and decode call's logits are within 1e-3 of the
+    same engine run on the CPU; the tokens and actions are the same, a
+    load, a whole-context ``partial`` and no other partial among them."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import lm
+
+    cfg = reduced_config(get_config("mixtral-8x22b"))
+    params = lm.init(cfg, seed=0, device="cpu")
+    kernels = {"flash": fk.flash_attention, "decode": dk.decode_attention,
+               "packed": pk.packed_flash_attention, "paged": pdk.paged_decode_attention,
+               "chunked": cpk.chunked_prefill_attention}
+    before = {n: fn.launches for n, fn in kernels.items()}
+    eng, calls = _ring_serve(cfg, _to(params, cuda), cuda)
+    torch.cuda.synchronize()
+    launched = {n: fn.launches - before[n] for n, fn in kernels.items()}
+    cpu, cpu_calls = _ring_serve(cfg, params, "cpu")
+    assert launched["flash"] > 0 and launched["decode"] > 0, launched
+    assert launched["packed"] == launched["paged"] == launched["chunked"] == 0, launched
+    assert len(calls) == len(cpu_calls)
+    for got, want in zip(calls, cpu_calls):
+        assert (got - want).abs().max().item() <= 1e-3
+    got = {r.req_id: (r.action, r.matched_tokens, r.tokens) for r in eng.records}
+    assert got == {r.req_id: (r.action, r.matched_tokens, r.tokens) for r in cpu.records}
+    assert [got[i][:2] for i in range(4)] == [("recompute", 0), ("recompute", 0), ("load", 64),
+                                               ("partial", 64)]
 
 
 @pytest.mark.gpu
