@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's nine CUDA kernels from ``src/repro_torch/kernels/csrc``
-with nvcc (one nvcc per source, all started together), then drives fourteen
+with nvcc (one nvcc per source, all started together), then drives fifteen
 paths of the port, each with every launch counter zeroed just before it and
 read just after it:
 
@@ -231,6 +231,30 @@ read just after it:
    actions and reused logits within ``LOGIT_ATOL`` of reuse off, and once
    more dense at the capacity factor 1.25 with each launch's T, C and drops
    logged, not gated (ROADMAP C10).
+15. hybrid — after the mixtral weights are freed, jamba-1.5-large-398b at
+   full width (d_model 8192; Mamba layers of 128 SSD heads of width 128,
+   d_state 16, one group, d_inner 16,384; an attention layer of 64 query
+   heads of width 128 on 8 kv heads with no positional embedding; MoE of 16
+   experts of width 24,576, top-2, on every other layer; vocabulary 65,536)
+   in bf16 with random weights from a seeded generator, cut to
+   ``HYBRID_CUT``: Jamba's first five layers as a period of their own, four
+   Mamba layers (MoE on the second and fourth) then the attention layer,
+   23.98 B parameters (44.67 GiB); one whole 8-layer period (84.05 GiB)
+   does not fit the card.  ``PerfModel`` models the cut.  The prefix mix of
+   phase 1 at the dropless capacity factor n_experts / top_k = 8: the stack
+   cannot be packed, so every admission runs through ``ModelApi.prefill``
+   one request per step (4 ``ssd_chunked`` and 1 ``flash_attention`` launch
+   a call) and decode is dense (1 ``decode_attention`` launch a step), no
+   other kernel; the plans are mamba2's (``SSM_ACTIONS``: loads, B's variant
+   recomputed, no partial reuse from SSM state).  The stored artifact of A
+   holds the attention layer's K/V (4,096 bytes a token) and four Mamba
+   states (f32 SSD and bf16 conv tail, 1,147,072 bytes each), logged beside
+   the cost model's ``s_storage_bytes``, which prices the state at 2 bytes
+   an element.  With reuse off: each load's first-token logits within
+   ``LOGIT_ATOL`` of it; one load rebuilt from the store repeats the served
+   one within ``SSM_REBUILD_ATOL``; the control, that load with every
+   stored SSD state zeroed, outside ``LOGIT_ATOL``.  Then once more at the
+   capacity factor 1.25, each launch's T, C and drops logged, not gated.
 
 Then the kernel phase: each kernel is called on the inputs one of its
 launches on those paths received (first layer) and held against its plain
@@ -261,7 +285,11 @@ empty ring and the new rows) and on its first load's suffix launch (over
 a stored, wrapped ring whose oldest rows the window masks),
 ``decode_attention`` on a decode step past the wrap, and the packed, paged
 and chunked kernels on the packable serves' inputs; the kernels line counts
-their launches on those serves beside llama's.
+their launches on those serves beside llama's.  On jamba's: ``ssd_chunked``
+on its 2,000-token and 32-token launches (H 128, P 128, S 16),
+``flash_attention`` on its wave-0 and suffix launches (G 8, no RoPE) and
+``decode_attention`` on a decode step, the three appended to the kernels
+line with an ``at`` key naming the cut and their launches on its serve.
 Times come from CUDA events after warm-up, beside the plain version's, one
 PyTorch library call's (``scaled_dot_product_attention`` with an explicit
 boolean mask, timed here only; for the paged kernels on rows gathered
@@ -306,6 +334,7 @@ import numpy as np  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import simulator  # noqa: E402
+from repro_torch.core.cost_model import s_storage_bytes  # noqa: E402
 from repro_torch.core.perf_model import V100_X4_HF, PerfModel  # noqa: E402
 from repro_torch.core.pricing import AWS_PAPER  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
@@ -436,6 +465,16 @@ MARKET_NEW_TOKENS, MARKET_C_LEN = 4, 512
 # 4,096 rows); the contexts are whole chunks of the store (16 tokens), so a
 # request that extends a stored context matches all of it
 SWA_DEPTH, SWA_CTX_LEN, SWA_EXTEND, SWA_MAX_LEN = 8, 6000, 256, 8192
+# the hybrid phase: jamba-1.5-large-398b cut to Jamba's first five layers as
+# a period of their own (four Mamba layers, MoE FFNs on the second and the
+# fourth, then the attention layer): one 8-layer period at full width holds
+# 45.12 B parameters (84.05 GiB in bf16) and does not fit the card, the cut
+# 23.98 B (44.67 GiB)
+HYBRID_CUT = dict(n_layers=5, hybrid_period=("m", "m", "m", "m", "a"))
+HYBRID_AT = "jamba-1.5-large-398b, 5-layer cut"
+# the prefix mix's plans on a stack with Mamba layers: loads, and B's
+# variant recomputed (SSM state is all or nothing: no partial reuse)
+SSM_ACTIONS = ["recompute", "recompute", "load", "load", "load", "recompute", "load", "load"]
 # the fused phase's RAG traffic: documents of DOC_LEN tokens, a 32-token
 # prompt per request, the reference's default chunk_tokens of 16, and
 # CacheBlend's default recompute fraction
@@ -515,8 +554,11 @@ class Recorder:
     card before and after, so device work is charged to the part that
     queued it)."""
 
-    def __init__(self, eng: ServingEngine, n_layers: int):
-        self.eng, self.n_layers = eng, n_layers
+    def __init__(self, eng: ServingEngine, cfg):
+        # launches of each kind per model call: one per attention layer, or
+        # one per Mamba layer (a hybrid stack has both)
+        self.eng = eng
+        self.n_attn, self.n_ssm = max(1, cfg.n_attn_layers), max(1, cfg.n_ssm_layers)
         self.packed_inputs, self.decode_inputs, self.chunked_inputs = None, None, None
         self.fused_inputs = None  # the first layer of the fused launch with most queries
         self.step_logits = []  # every decode step's logits of the active slots
@@ -661,7 +703,7 @@ class Recorder:
     def _ssd_scan(self, *args, **kw):
         # the first layer of the first context-length launch and of the first
         # prompt-length one
-        if self._calls["ssd"] % self.n_layers == 0:
+        if self._calls["ssd"] % self.n_ssm == 0:
             label = "long" if args[0].shape[1] >= CTX_LEN else "short"
             if label not in self.ssd_inputs:
                 self.ssd_inputs[label] = keep(args, kw)
@@ -690,7 +732,7 @@ class Recorder:
 
     def _decoded(self, fn, args, kw):
         # the first layer of the first wave's last decode step
-        if self._calls["decode"] == self.n_layers * (NEW_TOKENS - 2):
+        if self._calls["decode"] == self.n_attn * (NEW_TOKENS - 2):
             self.decode_inputs = keep(args, kw)
         self._calls["decode"] += 1
         return fn(*args, **kw)
@@ -698,7 +740,7 @@ class Recorder:
     def _chunked(self, *args, **kw):
         # the first layer of the first launch that holds a decode row, a
         # prefill chunk and an idle row
-        if self.chunked_inputs is None and self._calls["chunked"] % self.n_layers == 0:
+        if self.chunked_inputs is None and self._calls["chunked"] % self.n_attn == 0:
             valid = (kw["q_pos"] >= 0).sum(dim=1).tolist()
             if 1 in valid and 0 in valid and max(valid) > 1:
                 self.chunked_inputs = keep(args, kw)
@@ -707,7 +749,7 @@ class Recorder:
 
     def _fused_attn(self, *args, **kw):
         # the first layer of the fused launch with the most valid queries
-        if self._calls["fused"] % self.n_layers == 0:
+        if self._calls["fused"] % self.n_attn == 0:
             n_valid = int((kw["q_pos"] >= 0).sum())
             best = self.fused_inputs
             if best is None or n_valid > int((best[1]["q_pos"] >= 0).sum()):
@@ -783,7 +825,7 @@ def serve(cfg, params, *, reuse: bool = True, planner=None, make_traffic=traffic
         setup(eng)
     for r in make_traffic(cfg.vocab):
         eng.submit(Request(**r))
-    rec = Recorder(eng, cfg.n_layers)
+    rec = Recorder(eng, cfg)
     start = time.perf_counter()
     try:
         while not eng.idle:
@@ -1256,12 +1298,12 @@ SSD_KERNELS = {"chunk states": "chunk_state_kernel", "state pass": "state_pass_k
                "chunk outputs": "chunk_output_kernel"}
 
 
-def check_ssd(inputs, launches):
+def check_ssd(inputs, launches, label=""):
     """Hold ``ssd_chunked`` against its plain version on two recorded first-
-    layer launches of the SSM serve (``inputs["long"]``, a 2,000-token
-    context with a fresh state, run here with no initial state: the engine
-    passed zeros; ``inputs["short"]``, a 32-token prompt after a stored
-    state), and time both.
+    layer launches of a serve (``inputs["long"]``, a 2,000-token context
+    with a fresh state, run here with no initial state: the engine passed
+    zeros; ``inputs["short"]``, a 32-token prompt after a stored state), and
+    time both; ``label`` names the serve (mamba2's when empty).
 
     One rule, the one ``tests/test_torch_kernels_gpu.py`` applies: each f32
     output (y in the f32 run, with inputs cast and TF32 off, and the state
@@ -1285,10 +1327,11 @@ def check_ssd(inputs, launches):
     kernel's entry of the ``{"kernels": [...]}`` line, from the bf16
     2,000-token run."""
     entry = None
-    for label in ("long", "short"):
-        (x, dt, A, Bm, Cm), kw = inputs[label]
+    for part in ("long", "short"):
+        (x, dt, A, Bm, Cm), kw = inputs[part]
         h0, chunk = kw["initial_state"], kw["chunk"]
-        if label == "long":
+        where = f"{label} {part}".strip()
+        if part == "long":
             assert h0 is None or not h0.any(), "the context launch started from a stored state"
             h0 = None
         Bsz, L, H, P = x.shape
@@ -1306,7 +1349,7 @@ def check_ssd(inputs, launches):
                 ulp = (err["y"] - yp.float().abs() * 2.0**-7).max().item()
                 notes.append(f"y max err {err['y'].max().item():.3e}, over one bf16 ulp by "
                              f"{max(ulp, 0.0):.3e} (gate {SSD_ATOL})")
-                assert ulp <= SSD_ATOL, (label, ulp)
+                assert ulp <= SSD_ATOL, (where, ulp)
             # f32 outputs: y in the f32 run, the state in both
             f32_out = {"h": (hT, hp, want64[1])}
             if dtype == torch.float32:
@@ -1317,7 +1360,7 @@ def check_ssd(inputs, launches):
                 notes.append(f"{name} max err against the f64 scan: kernel {k64:.3e}, plain "
                              f"{p64:.3e} (gate max({SSD_ATOL}, plain)); kernel - plain "
                              f"{err[name].max().item():.3e}")
-                assert k64 <= max(SSD_ATOL, p64), (label, dtype, name, k64, p64)
+                assert k64 <= max(SSD_ATOL, p64), (where, dtype, name, k64, p64)
             ms = time_ms(lambda: ssk.ssd_chunked(xx, dt, A, bb, cc, chunk=chunk,
                                                  initial_state=h0), reps=20)
             plain_ms = time_ms(lambda: ssk.ssd_chunked_plain(xx, dt, A, bb, cc, chunk=chunk,
@@ -1332,16 +1375,16 @@ def check_ssd(inputs, launches):
                 again = call()
                 torch.cuda.synchronize()
                 assert torch.equal(again[0], y) and torch.equal(again[1], hT), (
-                    f"ssd_chunked {label}: two bf16 launches differ")
+                    f"ssd_chunked {where}: two bf16 launches differ")
                 notes.append(f"two launches equal bit for bit; kernel chunk {ssk.CHUNK}, "
                              f"{ssk.chunk_count(L)} chunks; host enqueue ms={host_ms(call):.4f}")
-                device_ms_later(f"ssd_chunked {label} bf16", call, SSD_KERNELS, reps=20,
+                device_ms_later(f"ssd_chunked {where} bf16", call, SSD_KERNELS, reps=20,
                                 host=True)
-            log(f"kernel ssd_chunked {label} {str(dtype)[6:]} x{tuple(x.shape)} G {G} S {S} "
+            log(f"kernel ssd_chunked {where} {str(dtype)[6:]} x{tuple(x.shape)} G {G} S {S} "
                 f"chunk {chunk} initial state {h0 is not None}: {'; '.join(notes)}; "
                 f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}); no single "
                 f"library call")
-            if label == "long" and dtype == torch.bfloat16:
+            if part == "long" and dtype == torch.bfloat16:
                 entry = dict(name="ssd_chunked", route="cuda",
                              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
                              replaces="src/repro/kernels/ssd_scan.py:91", launches=launches,
@@ -1973,7 +2016,7 @@ def serve_cluster(cfg, params, n_replicas, router, *, setup=None, cc_kw=None,
     start = time.perf_counter()
     try:
         for eng in cl.replicas:
-            recs.append(Recorder(eng, cfg.n_layers))
+            recs.append(Recorder(eng, cfg))
         while not cl.idle:
             busy0 = [e.admission_busy_s + e.decode_busy_s for e in cl.replicas]
             torch.cuda.synchronize()
@@ -2634,9 +2677,11 @@ def launcher_phase():
 
 
 def zeroed_ssd(artifact):
-    """A stored SSM artifact with its SSD state zeroed, the conv tail kept
-    (the control of the SSM phase)."""
+    """A stored artifact with every Mamba layer's SSD state zeroed, the conv
+    tails and any attention layer's K/V kept (the control of the SSM and
+    hybrid phases)."""
     return paged.LMState(pos=artifact.pos, caches=tuple(
+        c if c.mamba is None else
         paged.BlockCache(None, c.mamba._replace(ssd=np.zeros_like(c.mamba.ssd)))
         for c in artifact.caches))
 
@@ -2674,8 +2719,7 @@ def ssm_phase():
     log_steps("ssm", steps)
     actions = {i: (r.action, r.matched_tokens) for i, r in sorted(recs.items())}
     log(f"ssm actions (action, matched tokens): {actions}; write-backs {writebacks}")
-    assert [a for a, _ in actions.values()] == [
-        "recompute", "recompute", "load", "load", "load", "recompute", "load", "load"], actions
+    assert [a for a, _ in actions.values()] == SSM_ACTIONS, actions
     assert all(recs[i].plan.store_after for i in (0, 1)) and writebacks == 2, writebacks
     assert len(recs) == 8 and all(len(r.tokens) == NEW_TOKENS for r in recs.values())
     # two calls per recompute that writes back, one per load or plain recompute
@@ -2773,6 +2817,7 @@ class DropRecorder:
 
     def __init__(self):
         self.launches = []  # dict(kind, owner [T] np, layers [(T, C, keep, token)], events)
+        self._single = PAD_OWNER
         self._dispatch, self._apply = moe.dispatch, moe.apply_moe
         moe.dispatch, moe.apply_moe = self._record_dispatch, self._timed_apply
 
@@ -2782,13 +2827,22 @@ class DropRecorder:
     def install(self, eng):
         self.eng = eng
         api = eng.api
+        admit = eng._admit_single
+
+        def admit_single(req, *args, **kw):
+            self._single = req.req_id  # the request the next prefill calls serve
+            return admit(req, *args, **kw)
+        eng._admit_single = admit_single
         eng.api = api._replace(
+            prefill=self._launch("single", api.prefill),
             prefill_packed=self._launch("packed", api.prefill_packed),
             prefill_chunked=self._launch("chunked", api.prefill_chunked),
             decode=self._launch("decode", api.decode),
             decode_paged=self._launch("decode", api.decode_paged))
 
     def _owner(self, kind, tokens, kw):
+        if kind == "single":  # a per-request ``prefill`` call: one request
+            return np.full(tokens.shape[1], self._single, np.int64)
         if kind == "packed":  # segment index (mapped to a request in resolve)
             return kw["q_seg"][0].cpu().numpy().astype(np.int64)
         slots = self.eng.slots
@@ -3040,15 +3094,16 @@ SWA_PLANS = {0: ("recompute", 0), 1: ("recompute", 0), 2: ("load", 6000), 3: ("l
              4: ("partial", 6000), 5: ("recompute", 0), 6: ("load", 6000), 7: ("load", 6000)}
 
 
-class RingFlashRecorder:
-    """The first layer's ``flash_attention`` inputs of two launches of the
-    ring serve: its first (wave 0's context, queries past the window) and
-    the first one inside a load (the suffix over a stored ring, where the
-    window masks the ring's oldest rows).  ``install`` is ``serve``'s setup
-    hook."""
+class FlashRecorder:
+    """The first attention layer's ``flash_attention`` inputs of two
+    launches of a per-request serve: its first (wave 0's context; on
+    mixtral's ring, queries past the window) and the first one inside a load
+    (the suffix over stored rows; on a stored ring the window masks its
+    oldest rows).  ``n_attn`` is the stack's attention layers, one launch
+    each per ``prefill`` call.  ``install`` is ``serve``'s setup hook."""
 
-    def __init__(self, n_layers):
-        self.n_layers, self.inputs, self._calls, self._loading = n_layers, {}, 0, False
+    def __init__(self, n_attn):
+        self.n_attn, self.inputs, self._calls, self._loading = n_attn, {}, 0, False
         self._flash = ops.flash_attention
         ops.flash_attention = self._record
 
@@ -3067,7 +3122,7 @@ class RingFlashRecorder:
         eng._execute_load = run
 
     def _record(self, *args, **kw):
-        if self._calls % self.n_layers == 0:
+        if self._calls % self.n_attn == 0:
             label = "wave 0" if self._calls == 0 else "suffix" if self._loading else None
             if label is not None and label not in self.inputs:
                 self.inputs[label] = keep(args, kw)
@@ -3080,7 +3135,7 @@ def ring_serve(cfg, params, reuse=True):
     ``window`` rows): per-request admissions through ``ModelApi.prefill``
     and dense decode.  Returns its run (records, actions, logits, launches),
     the recorded flash and decode inputs and the engine."""
-    flash = RingFlashRecorder(cfg.n_layers)
+    flash = FlashRecorder(cfg.n_layers)
     zero_counts()
     try:
         eng, recs, rec, steps, writebacks = serve(
@@ -3183,6 +3238,117 @@ def swa_phase():
     c125 = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=1.25))
     runs["dense cf 1.25"], _ = family_serve("mixtral", c125, params, "dense cf 1.25")
     del params
+    release()
+    return inputs, {mode: runs[mode]["counts"] for mode in runs}
+
+
+# --------------------------------------------------------------------------- #
+# Hybrid phase (jamba-1.5-large-398b: Mamba, attention and MoE in one stack)
+# --------------------------------------------------------------------------- #
+def hybrid_serve(cfg, params, mode, **kw):
+    """One serve of the prefix mix on the hybrid stack: per-request
+    admissions through ``ModelApi.prefill`` (four ``ssd_chunked`` and one
+    ``flash_attention`` launch a call at the cut) and dense decode (one
+    ``decode_attention`` a step), each launch's routing recorded.  Returns
+    its run (records, actions, logits, launches, drops), the recorded kernel
+    inputs and the engine."""
+    flash, drops = FlashRecorder(cfg.n_attn_layers), DropRecorder()
+
+    def setup(eng):
+        flash.install(eng)
+        drops.install(eng)
+
+    zero_counts()
+    try:
+        eng, recs, rec, steps, writebacks = serve(cfg, params, setup=setup, **kw)
+    finally:
+        flash.close()
+        drops.close()
+    c = counts()
+    n_calls, n_decode = rec.prefill_calls, eng.decode_stats()["decode_steps"]
+    actions = {i: (r.action, r.matched_tokens) for i, r in sorted(recs.items())}
+    log(f"jamba {mode} serve launches: {c} (ModelApi.prefill calls {n_calls}, decode steps "
+        f"{n_decode}); actions {actions}; write-backs {writebacks}")
+    log_steps(f"jamba {mode}", steps)
+    assert len(recs) == 8 and all(len(r.tokens) == NEW_TOKENS for r in recs.values())
+    assert c["ssd_chunked"] == cfg.n_ssm_layers * n_calls > 0, c
+    assert c["flash_attention"] == cfg.n_attn_layers * n_calls, c
+    assert c["decode_attention"] == cfg.n_attn_layers * n_decode > 0, c
+    assert sum(c.values()) == sum(c[k] for k in (
+        "ssd_chunked", "flash_attention", "decode_attention")), c
+    assert eng.batches == 0 and eng.decode_stats()["paged"] is False
+    run = dict(recs=recs, actions=actions, first=rec.first_logits, steps=rec.step_logits,
+               counts=c, drops=drops.resolve(rec.events, f"jamba {mode}"))
+    inputs = dict(flash=flash.inputs, decode=rec.decode_inputs, ssd=rec.ssd_inputs)
+    return run, inputs, eng
+
+
+def hybrid_phase():
+    """Full-width jamba-1.5-large-398b cut to ``HYBRID_CUT`` (bf16, random
+    weights): the prefix mix dropless with reuse on and off, the reuse gate,
+    the stored artifact's bytes beside the cost model's, a rebuilt load and
+    the zeroed-SSD control, then once at capacity factor 1.25 (see the
+    module docstring, phase 15).  Returns the recorded kernel inputs of the
+    dropless reuse-on serve and the launches of every serve."""
+    cfg, params = family_params("jamba-1.5-large-398b", **HYBRID_CUT)
+    # the dropless capacity factor n_experts / top_k: C >= T, no pair drops
+    dropless = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    reqs = traffic(cfg.vocab)
+    runs = {}
+    runs["dense"], inputs, eng = hybrid_serve(dropless, params, "dense")
+    actions = runs["dense"]["actions"]
+    assert [a for a, _ in actions.values()] == SSM_ACTIONS, actions
+    assert set(inputs["flash"]) == {"wave 0", "suffix"}, inputs["flash"].keys()
+    assert set(inputs["ssd"]) == {"long", "short"} and inputs["decode"] is not None
+    # the stored artifact of A: the attention layer's K/V rows and each Mamba
+    # layer's (f32 SSD state, bf16 conv tail), against the cost model's
+    # bytes, which price the state at 2 bytes an element
+    tokens_a = reqs[0]["context_tokens"]
+    artifact = stored_artifact(eng, tokens_a)
+    entry = eng.store.lookup(tokens_a)[1]
+    kv = sum(int(c.attn.k.nbytes + c.attn.v.nbytes) for c in artifact.caches
+             if c.attn is not None)
+    states = [int(c.mamba.conv.nbytes + c.mamba.ssd.nbytes) for c in artifact.caches
+              if c.mamba is not None]
+    s = cfg.ssm
+    ssd_b = s.n_ssm_heads(cfg.d_model) * s.head_dim * s.d_state * 4
+    conv_b = (s.d_conv - 1) * (s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state) * 2
+    kv_want = CTX_LEN * cfg.kv_bytes_per_token()
+    log(f"jamba stored artifact of A ({CTX_LEN} tokens): K/V {kv} bytes (want {kv_want}: "
+        f"{cfg.kv_bytes_per_token()} B a token), Mamba states {states} (want {ssd_b + conv_b} "
+        f"each: SSD f32 {ssd_b} + conv bf16 {conv_b}); the entry's nbytes {entry.nbytes}; the "
+        f"cost model's s_storage_bytes {s_storage_bytes(cfg, CTX_LEN):.0f} (K/V {kv_want} + "
+        f"fixed state {cfg.fixed_state_bytes()}, at 2 bytes an element)")
+    assert kv == kv_want and states == [ssd_b + conv_b] * cfg.n_ssm_layers, (kv, states)
+    del eng
+    release()
+
+    runs["reuse off"], _, eng = hybrid_serve(dropless, params, "reuse off", reuse=False)
+    del eng
+    release()
+    assert gate_reuse("jamba", runs, "dense") == SSM_ACTIONS.count("load")
+    # a load rebuilt from the store repeats the engine's (the same launches on
+    # the same bits); the control, the same load with every Mamba layer's SSD
+    # state zeroed (conv tails and K/V kept), must leave the reuse gate
+    load = next(i for i, (a, _) in actions.items() if a == "load")
+    assert reqs[load]["context_tokens"] == tokens_a
+    rebuilt = prompt_after(dropless, params, artifact, reqs[load]["prompt_tokens"])
+    control = prompt_after(dropless, params, zeroed_ssd(artifact), reqs[load]["prompt_tokens"])
+    same = (rebuilt - runs["dense"]["first"][load]).abs().max().item()
+    ctrl = (control - runs["reuse off"]["first"][load]).abs().max().item()
+    log(f"jamba request {load}'s load rebuilt from the store: max|rebuilt - served| = "
+        f"{same:.3e} (gate {SSM_REBUILD_ATOL}); control with the stored SSD states zeroed: "
+        f"max|control - recompute| = {ctrl:.4f} (must exceed {LOGIT_ATOL})")
+    assert same <= SSM_REBUILD_ATOL, same
+    assert ctrl > LOGIT_ATOL, ctrl
+    del artifact
+    release()
+    # once at the capacity factor 1.25, the drops logged and not gated (C10)
+    c125 = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=1.25))
+    runs["dense cf 1.25"], _, eng = hybrid_serve(c125, params, "dense cf 1.25")
+    assert runs["dense cf 1.25"]["actions"] == actions, runs["dense cf 1.25"]["actions"]
+    del eng, params
     release()
     return inputs, {mode: runs[mode]["counts"] for mode in runs}
 
@@ -3395,6 +3561,11 @@ def main() -> None:
     swa_inputs, swa_counts = swa_phase()
     log(f"mixtral phase wall: {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- hybrid phase: jamba-1.5-large-398b's Mamba, attention and MoE ----
+    t_phase = time.perf_counter()
+    hybrid_inputs, hybrid_counts = hybrid_phase()
+    log(f"jamba phase wall: {time.perf_counter() - t_phase:.1f} s")
+
     # ---- kernel phase -----------------------------------------------------
     # the kernels line counts each kernel's launches on its llama path and
     # on the same path of nemo's, olmoe's and mixtral's serves
@@ -3444,6 +3615,17 @@ def main() -> None:
                 swa_counts["unified"]["paged_decode_attention"], "mixtral")
     check_chunked(swa_inputs["unified"]["chunked"],
                   swa_counts["unified"]["chunked_prefill_attention"], "mixtral")
+    # jamba's (G 8, no RoPE; the SSD at H 128, P 128, S 16, G 1): timed
+    # beside their bound and SDPA, the kernels line carrying each with its
+    # launches on the hybrid serve
+    hybrid = hybrid_counts["dense"]
+    kernels += [
+        dict(check_ssd(hybrid_inputs["ssd"], hybrid["ssd_chunked"], "jamba"), at=HYBRID_AT),
+        dict(check_flash(hybrid_inputs["flash"]["wave 0"], hybrid["flash_attention"],
+                         "jamba wave 0"), at=HYBRID_AT),
+        dict(check_decode(hybrid_inputs["decode"], hybrid["decode_attention"], "jamba"),
+             at=HYBRID_AT)]
+    check_flash(hybrid_inputs["flash"]["suffix"], hybrid["flash_attention"], "jamba suffix")
     check_wide_group()
     log_device_times()
     print(json.dumps({"kernels": kernels}))

@@ -3,16 +3,18 @@
 ``llama-7b`` is the paper's own model; ``qwen2-1.5b`` and ``qwen2-0.5b`` add
 QKV bias, GQA and tied embeddings; ``mistral-nemo-12b`` is GQA with a head
 width apart from d_model / n_heads; ``mamba2-1.3b`` is the attention-free
-SSM family; ``olmoe-1b-7b`` the MoE family and ``mixtral-8x22b`` the MoE
-family with sliding-window attention over a ring-buffer cache.  The
-reference's encoder-decoder, VLM and hybrid archs come with their families
-(ROADMAP queue A item 9)."""
+SSM family; ``olmoe-1b-7b`` the MoE family, ``mixtral-8x22b`` the MoE family
+with sliding-window attention over a ring-buffer cache, and
+``jamba-1.5-large-398b`` the hybrid family (Mamba, attention and MoE layers
+in one 8-layer period).  The reference's encoder-decoder and VLM archs come
+with their families (ROADMAP queue A item 9)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
 from repro_torch.configs import (
+    jamba_1_5_large_398b,
     llama_7b,
     mamba2_1_3b,
     mistral_nemo_12b,
@@ -26,7 +28,7 @@ from repro_torch.configs.base import ArchConfig
 CONFIGS: Dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG
     for m in (llama_7b, qwen2_1_5b, qwen2_0_5b, mistral_nemo_12b, mamba2_1_3b, olmoe_1b_7b,
-              mixtral_8x22b)
+              mixtral_8x22b, jamba_1_5_large_398b)
 }
 
 
@@ -38,16 +40,18 @@ def get_config(name: str) -> ArchConfig:
 
 def reduced_config(cfg: ArchConfig, **overrides) -> ArchConfig:
     """A small same-family config for CPU tests: keeps GQA ratios, biases,
-    the MoE routing, a sliding window (of 16) and the SSD layout while
-    shrinking every dimension (the reference's ``reduced_config``,
-    restricted to the dense, MoE and SSM families)."""
-    if cfg.family not in ("dense", "moe", "ssm"):
+    the MoE routing, a sliding window (of 16), the SSD layout and a hybrid
+    arch's whole period (one period of layers) while shrinking every
+    dimension (the reference's ``reduced_config``, restricted to the dense,
+    MoE, SSM and hybrid families)."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.family} archs are not ported yet: the port carries the dense, MoE "
-            "and SSM families (ROADMAP queue A item 9)"
+            f"{cfg.family} archs are not ported yet: the port carries the dense, MoE, "
+            "SSM and hybrid families; encoder-decoder and VLM archs are ROADMAP queue A "
+            "item 9"
         )
     small = dict(
-        n_layers=2,
+        n_layers=len(cfg.hybrid_period) if cfg.hybrid_period else 2,
         d_model=64,
         n_heads=4,
         n_kv_heads=max(1, min(cfg.n_kv_heads, 2)) if cfg.n_kv_heads < cfg.n_heads else 4,

@@ -419,8 +419,8 @@ def build_fused_caches(
 
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.family} archs cannot be fused (SSM) or are not ported yet (hybrid and "
-            "VLM archs: ROADMAP queue A item 9)"
+            f"{cfg.family} archs cannot be fused (the SSM state of SSM and hybrid stacks) "
+            "or are not ported yet (encoder-decoder and VLM archs: ROADMAP queue A item 9)"
         )
     dtype = dtype or resolve_dtype(cfg.dtype)
     shape = (cfg.n_layers, 1, kv_len + 1, cfg.n_kv_heads, cfg.resolved_head_dim)

@@ -249,8 +249,9 @@ def build_packed_caches(
     scratch row the padding tokens' K/V land on."""
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.family} archs have no packed or pooled KV in the port (SSM state "
-            "cannot be packed or paged; hybrid and VLM archs: ROADMAP queue A item 9)"
+            f"{cfg.family} archs have no packed or pooled KV in the port (the SSM state "
+            "of SSM and hybrid stacks cannot be packed or paged; encoder-decoder and VLM "
+            "archs: ROADMAP queue A item 9)"
         )
     dtype = dtype or resolve_dtype(cfg.dtype)
     shape = (cfg.n_layers, 1, layout.kv_len + 1, cfg.n_kv_heads, cfg.resolved_head_dim)
@@ -522,8 +523,9 @@ def init_pool_caches(
     KV, hd]``, the paged counterpart of ``lm.init_state``'s slotted caches."""
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.family} archs have no packed or pooled KV in the port (SSM state "
-            "cannot be packed or paged; hybrid and VLM archs: ROADMAP queue A item 9)"
+            f"{cfg.family} archs have no packed or pooled KV in the port (the SSM state "
+            "of SSM and hybrid stacks cannot be packed or paged; encoder-decoder and VLM "
+            "archs: ROADMAP queue A item 9)"
         )
     device = resolve_device(device)
     dtype = dtype or resolve_dtype(cfg.dtype)

@@ -33,7 +33,8 @@ from typing import Any, Dict, Optional, Sequence, Set, Tuple
 
 from repro_torch.core.pricing import GB, Pricing
 from repro_torch.kvcache import compression
-from repro_torch.kvcache.faults import payload_checksum
+from repro_torch.kvcache.faults import StorageError, payload_checksum
+from repro_torch.kvcache.paged import artifact_length
 from repro_torch.kvcache.store import StoredEntry
 
 
@@ -141,6 +142,19 @@ class TenantStore:
             got = payload_checksum(payload)
             self._checksums[key] = got
         return got
+
+    def stored_length(self, entry_id: str) -> Optional[int]:
+        """Token count of the context the entry's artifact holds (its own
+        ``pos``; ``n_tokens`` rounds it down to whole chunks), read without
+        charging (``peek``); None when the entry or its payload is gone."""
+        e = self.store.entries.get(entry_id)
+        if e is None:
+            return None
+        try:
+            payload = self.store.backends[e.tier].peek(entry_id)
+        except StorageError:
+            return None
+        return None if payload is None else artifact_length(payload)
 
     # -- market surface -------------------------------------------------- #
     def catalog(self) -> Catalog:

@@ -14,7 +14,8 @@ buy becomes a ``load``/``partial`` plan carrying the ``Quote`` in
 ``ReusePlan.market``; the engine's ``_market_fetch`` executes it (delivery,
 verification, settlement) instead of a local store fetch.  The buyer's own
 store always wins ties: a quote matching no more than the local prefix is
-discarded before pricing.
+discarded before pricing, and so is, on a sliding-window arch, a quote of a
+stored context longer than the window (a wrapped ring, ROADMAP C11).
 
 ``always=True`` is the always-buy baseline for benchmarks: buy whenever a
 peer has anything and the local store can't serve a full load — the bench
@@ -66,6 +67,8 @@ class MarketPlanner(_PlannerBase):
             return None  # own store covers at least as much, fee-free
         if matched < n_ctx and not lookup.partial_ok:
             return None  # architecture can't consume a partial prefix
+        if not self._ring_unwrapped(quote):
+            return None
         frac = matched / max(n_ctx, 1)
         tail = n_ctx - matched
         ttft = quote.est_load_s + self.perf.t_prefill(
@@ -88,6 +91,23 @@ class MarketPlanner(_PlannerBase):
             est_cost=cost,
             market=quote,
         )
+
+    def _ring_unwrapped(self, quote) -> bool:
+        """Whether a quote's artifact holds its rows as positions (ROADMAP
+        C11).  On a sliding-window arch the artifact of a context longer
+        than the window is a wrapped ring: a partial buy would insert rows
+        of the wrong positions, and a whole buy fails the spot check, which
+        compares rows ``[:n]`` with a fresh prefill of the first ``n``
+        tokens, and blacklists an honest seller.  So the buyer declines
+        every such quote and the request keeps its local plan.  The stored
+        length is the artifact's own ``pos``, as the engine's
+        ``_ring_rows_usable`` reads it."""
+        engine = self.session.engine
+        window = engine.cfg.sliding_window if engine is not None else None
+        if not window:
+            return True
+        stored = self.session.marketplace.tenants[quote.seller].stored_length(quote.entry_id)
+        return stored is not None and stored <= window
 
     def plan(self, request: Request, lookup: StoreLookup, workload: Workload) -> ReusePlan:
         base_plan = self.base.plan(request, lookup, workload)

@@ -3,7 +3,8 @@ FFN, pre-norm.
 
 A block is described by a static :class:`BlockKind`, as in the reference's
 ``models/blocks.py``; the port carries the dense (``("a", "mlp")``), MoE
-(``("a", "moe")``) and SSM (``("m", "none")``) kinds.  The MoE FFN's aux
+(``("a", "moe")``) and SSM (``("m", "none")``) kinds, and the hybrid
+family's mix of ``a`` and ``m`` mixers with MLP and MoE FFNs.  The MoE FFN's aux
 loss is a training term: the serving paths drop it, as the reference's
 ``lm.py`` does.
 """
@@ -24,8 +25,16 @@ class BlockKind(NamedTuple):
 
 
 def block_kinds(cfg: ArchConfig) -> Tuple[BlockKind, ...]:
-    """Static per-layer block kinds of one period (length 1 for the uniform
-    families the port carries)."""
+    """Static per-layer block kinds of one period: length 1 for the uniform
+    families; the whole ``hybrid_period`` for a hybrid arch, with MoE on
+    period index ``i`` where ``i % moe.every == moe.offset`` and an MLP
+    elsewhere."""
+    if cfg.family == "hybrid":
+        assert cfg.hybrid_period is not None and cfg.moe is not None
+        return tuple(
+            BlockKind(mixer, "moe" if i % cfg.moe.every == cfg.moe.offset else "mlp")
+            for i, mixer in enumerate(cfg.hybrid_period)
+        )
     if cfg.family == "ssm":
         return (BlockKind("m", "none" if cfg.d_ff == 0 else "mlp"),)
     if cfg.family == "moe":
@@ -36,8 +45,8 @@ def block_kinds(cfg: ArchConfig) -> Tuple[BlockKind, ...]:
     if cfg.family == "dense":
         return (BlockKind("a", "mlp"),)
     raise NotImplementedError(
-        f"{cfg.family} archs are not ported yet: the port carries the dense, MoE and SSM "
-        "families (ROADMAP queue A item 9)"
+        f"{cfg.family} archs are not ported yet: the port carries the dense, MoE, SSM and "
+        "hybrid families; encoder-decoder and VLM archs are ROADMAP queue A item 9"
     )
 
 

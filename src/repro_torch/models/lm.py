@@ -1,5 +1,6 @@
-"""Decoder-only LM over block kinds (dense attention or Mamba2): per-request,
-packed, fused and chunked prefill, dense and paged decode.
+"""Decoder-only LM over block kinds (attention or Mamba2 mixers, MLP or MoE
+FFNs, one kind or a hybrid period of them): per-request, packed, fused and
+chunked prefill, dense and paged decode.
 
 API:
   init(cfg, seed=0, device=None) -> params
@@ -21,10 +22,11 @@ technique) and are not recomputed.
 Layer weights are one dict per layer (the JAX package stacks them over
 periods for ``lax.scan``; ``models.convert`` unstacks them).  Caches keep the
 reference's stacked layout, one ``BlockCache`` per period position stacked
-over periods: ``[n_layers, B, L, KV, hd]`` K/V for attention, the mamba
-state ``conv [n_layers, B, d_conv-1, conv_dim]`` and ``ssd [n_layers, B, H,
-P, S]`` (f32) for SSM, so a stored context is the same array tree in both
-packages.  Packed, fused, paged and chunked calls need attention-only
+over the ``n_periods = n_layers / len(period)`` periods: ``[n_periods, B, L,
+KV, hd]`` K/V for an attention position, the mamba state ``conv [n_periods,
+B, d_conv-1, conv_dim]`` and ``ssd [n_periods, B, H, P, S]`` (f32) for a
+Mamba position (``attn`` None there), so a stored context is the same array
+tree in both packages.  Packed, fused, paged and chunked calls need attention-only
 stacks (SSM state mixes along the sequence).
 """
 from __future__ import annotations
@@ -49,6 +51,7 @@ class LMState(NamedTuple):
 
 def _layout(cfg: ArchConfig):
     kinds = blocks.block_kinds(cfg)
+    assert cfg.n_layers % len(kinds) == 0, (cfg.name, cfg.n_layers, len(kinds))
     return kinds, cfg.n_layers // len(kinds)
 
 

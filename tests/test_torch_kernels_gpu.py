@@ -21,8 +21,10 @@ runs, the final state in every run) is at most max(5e-5, the plain
 version's error) away from the f64 sequential scan of the same inputs, 5e-5
 being the reference's SSD atol; a bf16 y lies within one bf16 ulp (2^-7 of
 the plain version's magnitude) plus 5e-5 of the plain version's, since
-both round f32 sums of the same inputs to bf16.  The reduced mamba2-1.3b
-and olmoe-1b-7b are served on the card against the same engine on the CPU.
+both round f32 sums of the same inputs to bf16.  The decode, flash and
+SSD kernels are also held at jamba-1.5-large-398b's shapes.  The reduced
+mamba2-1.3b, olmoe-1b-7b and jamba-1.5-large-398b are served on the card
+against the same engine on the CPU.
 """
 import os
 import pathlib
@@ -88,6 +90,7 @@ DECODE_CASES = [
     (3, 300, 6, 6, 128, 9, False),
     (2, 48, 4, 4, 256, 20, True),
     (4, 1024, 12, 2, 128, None, False),
+    (4, 4096, 64, 8, 128, None, False),  # jamba-1.5-large-398b's attention layer
 ]
 
 
@@ -164,6 +167,10 @@ FLASH_CASES = [
     (2, 40, 96, 4, 1, 256, False, None, 0, False),  # cross-attention
     (1, 64, 128, 6, 3, 128, True, None, 30, True),
     (1, 130, 256, 16, 2, 128, True, 50, 0, True),  # GQA 8:1, window and kv_valid
+    # jamba-1.5-large-398b's attention layer (64 heads on 8, no RoPE): a
+    # 2,032-token prefill, and a 32-token suffix after 2,000 stored rows
+    (1, 2032, 4096, 64, 8, 128, True, None, 0, False),
+    (1, 32, 4096, 64, 8, 128, True, None, 2000, False),
 ]
 
 
@@ -1358,6 +1365,11 @@ SSD_CASES = [
     # several heads per group share C·Bᵀ; odd widths past a 64-column P tile
     (2, 300, 12, 80, 3, 48, 256, True),
     (1, 130, 6, 40, 2, 24, 64, False),
+    # jamba-1.5-large-398b's Mamba layers: 128 heads of P 128 (two 64-column
+    # P tiles a block), S 16 (one k-step), one group; a 2,032-token launch
+    # and a 32-token one after a stored state
+    (1, 2032, 128, 128, 1, 16, 256, False),
+    (1, 32, 128, 128, 1, 16, 256, True),
 ]
 
 
@@ -1411,6 +1423,19 @@ def test_ssd_two_launches_give_the_same_bits(cuda, dtype):
     atomics, so a rebuilt load sees the bits of the first."""
     x, dts, A, Bm, Cm, h0 = _ssd_inputs(cuda, getattr(torch, dtype), 1, 2000, 64, 64, 1, 128,
                                         True, seed=11)
+    first = ssk.ssd_chunked(x, dts, A, Bm, Cm, chunk=256, initial_state=h0)
+    second = ssk.ssd_chunked(x, dts, A, Bm, Cm, chunk=256, initial_state=h0)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_two_launches_give_the_same_bits_at_jambas_shape(cuda, dtype):
+    """At jamba-1.5-large-398b's Mamba layers (H 128, P 128, S 16, G 1), a
+    2,000-token launch after a stored state: the same bits twice."""
+    x, dts, A, Bm, Cm, h0 = _ssd_inputs(cuda, getattr(torch, dtype), 1, 2000, 128, 128, 1, 16,
+                                        True, seed=13)
     first = ssk.ssd_chunked(x, dts, A, Bm, Cm, chunk=256, initial_state=h0)
     second = ssk.ssd_chunked(x, dts, A, Bm, Cm, chunk=256, initial_state=h0)
     torch.cuda.synchronize()
@@ -1508,6 +1533,67 @@ def test_reduced_mamba_serves_on_card_as_on_cpu(cuda, paged_decode):
     cpu, cpu_calls = serve("cpu")
     assert eng.decode_stats()["paged"] is False and eng.batches == 0
     assert len(calls) == len(cpu_calls) == 8  # 2 recomputes in two phases, 4 loads
+    for got, want in zip(calls, cpu_calls):
+        assert (got - want).abs().max().item() <= 1e-3
+    assert {r.req_id: (r.action, r.tokens) for r in eng.records} == {
+        r.req_id: (r.action, r.tokens) for r in cpu.records}
+    assert [r.action for r in sorted(eng.records, key=lambda r: r.req_id)].count("load") == 4
+
+
+@pytest.mark.gpu
+def test_reduced_jamba_serves_on_card_as_on_cpu(cuda):
+    """The reduced jamba-1.5-large-398b (one 8-layer period: seven Mamba
+    layers and one attention layer, MoE on every other one; f32) served on
+    the card and on the CPU with ``AlwaysReusePlanner``: every prefill
+    call's logits within 1e-3, the same actions and tokens; per
+    ``ModelApi.prefill`` call ``ssd_chunked`` launches once per Mamba layer
+    and ``flash_attention`` once per attention layer, ``decode_attention``
+    once per attention layer per decode step, and no other kernel."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import lm
+    from repro_torch.serving import AlwaysReusePlanner, EngineConfig, Request, ServingEngine
+
+    cfg = reduced_config(get_config("jamba-1.5-large-398b"))
+    params = lm.init(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    ctxs = [list(map(int, rng.integers(0, cfg.vocab, 64))) for _ in range(2)]
+    reqs = [dict(req_id=i, context_tokens=ctxs[i % 2],
+                 prompt_tokens=list(map(int, rng.integers(0, cfg.vocab, 8))),
+                 max_new_tokens=4, arrival_s=i * 0.01, expected_reuses=3) for i in range(6)]
+    others = [pk.packed_flash_attention, pdk.paged_decode_attention,
+              cpk.chunked_prefill_attention, fuk.fused_flash_attention, kq.kv_quant,
+              kq.kv_dequant]
+
+    def serve(device):
+        eng = ServingEngine(cfg, _to(params, device), device=device,
+                            planner=AlwaysReusePlanner(), engine_cfg=EngineConfig(
+                                max_slots=2, max_len=128, chunk_tokens=16))
+        calls = []
+        prefill = eng.api.prefill
+
+        def record(*args, **kw):
+            logits, state = prefill(*args, **kw)
+            calls.append(logits.float().cpu())
+            return logits, state
+
+        eng.api = eng.api._replace(prefill=record)
+        for r in reqs:
+            eng.submit(Request(**r))
+        eng.run()
+        return eng, calls
+
+    kernels = (ssk.ssd_chunked, fk.flash_attention, dk.decode_attention)
+    before = [fn.launches for fn in kernels]
+    other_before = [fn.launches for fn in others]
+    eng, calls = serve(cuda)
+    torch.cuda.synchronize()
+    ssd, flash, decode = (fn.launches - b for fn, b in zip(kernels, before))
+    n_decode = eng.decode_stats()["decode_steps"]
+    assert (ssd, flash) == (cfg.n_ssm_layers * len(calls), cfg.n_attn_layers * len(calls))
+    assert decode == cfg.n_attn_layers * n_decode > 0
+    assert [fn.launches for fn in others] == other_before
+    cpu, cpu_calls = serve("cpu")
+    assert eng.batches == 0 and len(calls) == len(cpu_calls) == 8
     for got, want in zip(calls, cpu_calls):
         assert (got - want).abs().max().item() <= 1e-3
     assert {r.req_id: (r.action, r.tokens) for r in eng.records} == {

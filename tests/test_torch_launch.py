@@ -108,3 +108,18 @@ def test_launcher_serves_olmoe_as_the_reference(capsys, monkeypatch, policy):
         assert got[k] == pytest.approx(v, abs=1e-9), k
     if policy == "always":
         assert got["reuse_hits"] >= 4 and got["store.entries"] == 2
+
+
+def test_launcher_serves_jamba_as_the_reference(capsys, monkeypatch):
+    """``--arch jamba-1.5-large-398b``: the hybrid family rides the
+    per-request admission path on both sides (reduced compute, the full
+    arch's economics: 9 attention layers' K/V and 63 Mamba states); the
+    same summary and store statistics."""
+    argv = ["--arch", "jamba-1.5-large-398b", "--requests", "6", "--contexts", "2",
+            "--policy", "always", "--json"]
+    got = dict(_flat(json.loads(_port(capsys, argv))))
+    want = dict(_flat(json.loads(_reference(capsys, monkeypatch, argv))))
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert got[k] == pytest.approx(v, abs=1e-9), k
+    assert got["reuse_hits"] >= 4 and got["store.entries"] == 2

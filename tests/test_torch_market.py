@@ -24,7 +24,10 @@ purchase under paged decode and under the unified step, a purchase by
 mamba2 engines (whose admissions take ``_admit_single``), a seller that
 publishes another context's KV under this context's key, the seller's
 stored payload left as it was, a two-replica market cluster, and a market
-serve's trace and telemetry.
+serve's trace and telemetry.  Last, ROADMAP C11's market half on reduced
+mixtral (a ring of 16 rows): a buyer never buys a wrapped ring, whole or in
+part, where the reference's planner takes the quote; a ring that has not
+wrapped is bought and passes the spot check.
 """
 import dataclasses
 import json
@@ -745,6 +748,92 @@ def test_tamper_flips_a_copy_on_the_leaf_device():
     assert int(raw[0]) == int(want[0]) ^ 0xFF and torch.equal(raw[1:], want[1:])
     host = _tamper({"pos": np.asarray([64], np.int32)})["pos"]
     assert host.tolist() == [64 ^ 0xFF]
+
+
+# --------------------------------------------------------------------------- #
+# ROADMAP C11, the market half: a wrapped sliding-window ring is never bought
+# --------------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def mixtral():
+    return _setup("mixtral-8x22b")  # reduced: a window (ring) of 16 rows
+
+
+def _recorded_plans(eng):
+    """Every plan the engine's planner returns, by request (on that
+    instance only)."""
+    plans, plan = {}, eng.planner.plan
+
+    def run(request, lookup, workload):
+        plans[request.req_id] = out = plan(request, lookup, workload)
+        return out
+    eng.planner.plan = run
+    return plans
+
+
+def _wrapped_requests(vocab):
+    """Seller ``s`` serves a 48-token context A (three turns of the ring);
+    buyer ``b`` asks for A whole (request 1) and for B, which shares A's
+    first 32 tokens (request 2)."""
+    rng = np.random.default_rng(5)
+    a = tuple(map(int, rng.integers(0, vocab, 48)))
+    b = a[:32] + tuple(map(int, rng.integers(0, vocab, 16)))
+    return [dict(req_id=i, context_tokens=ctx,
+                 prompt_tokens=tuple(map(int, rng.integers(0, vocab, 8))),
+                 max_new_tokens=3, arrival_s=0.01 * i)
+            for i, ctx in enumerate((a, a, b))]
+
+
+@pytest.mark.parametrize("buy", [1, 2], ids=["whole", "partial"])
+def test_c11_wrapped_ring_is_never_bought(mixtral, buy):
+    """The seller's stored A is a wrapped ring: its rows ``[:n]`` hold the
+    last positions, not positions ``0..n-1``.  The reference's
+    ``MarketPlanner`` takes the quote (whole: ``load`` of 48 tokens; partial:
+    ``partial`` of 32), though a whole buy fails the spot check (rows
+    ``[:16]`` against a fresh 16-token prefill) and blacklists an honest
+    seller, and a partial one inserts rows of the wrong positions; only
+    that plan is pinned (the reference's bitwise check fails even honest
+    sales, C5).  The port's buyer declines every quote of a stored context
+    longer than the window: the request keeps its local plan (a recompute),
+    nothing is bought or settled, the seller stays in good standing, and
+    the tokens are recompute's."""
+    reqs = _wrapped_requests(mixtral[2].vocab)
+    reqs = [reqs[0], reqs[buy]]
+    plans = {}
+    for pkg in (PORT, REF):
+        mp = pkg.market.Marketplace(verify_rate=1.0, seed=0)
+        seller = _engine(pkg, mixtral, market=mp.join("s"), planner=_planner(pkg))
+        _run(pkg, seller, reqs[:1])
+        buyer = _engine(pkg, mixtral, market=mp.join("b"), planner=_planner(pkg))
+        plans[pkg.port] = _recorded_plans(buyer)
+        toks = _run(pkg, buyer, reqs[1:])
+        if pkg.port:
+            quote = mp.quote("b", reqs[1]["context_tokens"])
+            assert quote is not None and quote.seller == "s"
+            assert mp.tenants["s"].stored_length(quote.entry_id) == 48
+            assert not buyer.planner._ring_unwrapped(quote)
+            assert (buyer.market_purchases, buyer.market_failed) == (0, 0)
+            assert not mp.reputation.is_blacklisted("s") and mp.purchases == 0
+            assert toks == _run(PORT, _engine(PORT, mixtral, reuse_enabled=False), reqs[1:])
+    want = ("load", 48) if buy == 1 else ("partial", 32)
+    jplan, plan = plans[False][buy], plans[True][buy]
+    assert jplan.market is not None and (jplan.action, jplan.matched_tokens) == want
+    assert plan.market is None and plan.action == "recompute"
+
+
+def test_c11_ring_within_the_window_is_bought_and_passes(mixtral, monkeypatch):
+    """A 16-token context fills the ring without wrapping: its stored rows
+    are positions 0-15, so the buyer buys it whole, the spot check passes
+    and the serve replays the reference's (substituted check) at 1e-9, with
+    recompute's tokens."""
+    reqs = _requests(mixtral[2].vocab, 3, ctx_len=16)
+    (mp, seller, buyer, toks), _ = _both_trades(mixtral, monkeypatch, reqs)
+    (entry,) = seller.store.entries.values()
+    assert mp.tenants["s"].stored_length(entry.entry_id) == 16
+    assert (buyer.market_purchases, buyer.market_failed) == (1, 0)
+    verified = [e for e in buyer.last_events if isinstance(e, pev.SellerVerified)]
+    assert [(e.ok, e.deep) for e in verified] == [(True, True)]
+    assert not mp.reputation.is_blacklisted("s")
+    assert toks == _run(PORT, _engine(PORT, mixtral, reuse_enabled=False), reqs[1:])
 
 
 def _market_clusters(model, monkeypatch, reqs):
