@@ -255,6 +255,49 @@ read just after it:
    one within ``SSM_REBUILD_ATOL``; the control, that load with every
    stored SSD state zeroed, outside ``LOGIT_ATOL``.  Then once more at the
    capacity factor 1.25, each launch's T, C and drops logged, not gated.
+16. MQA and the GELU MLP — after the jamba weights are freed, granite-34b
+   at full width and full depth (88 layers, d_model 6144, 48 query heads of
+   width 128 on one kv head, the two-matrix GELU MLP of width 24,576 with
+   biases, an untied 49,152-entry vocabulary; 33.97 B parameters, 63.26
+   GiB) in bf16 with random weights from a seeded generator.  A token's
+   K/V is 45,056 bytes (88 layers x K and V x 128 x 2 B), so the dense
+   cache of 4 slots x 4,096 rows is 0.74 GB and a stored 2,000-token
+   context 90 MB.  The prefix mix of phase 1 dense, paged, unified and with
+   reuse off (the same actions; each reused request's first-token logits
+   within ``LOGIT_ATOL`` of reuse off; the control, a load's prompt after
+   the other context's stored rows, outside it; A's stored bytes), then
+   ``ModelApi.prefill`` per request as in phase 4 (full and suffix), then
+   the RAG mix of phase 5 once, fused over dense decode, against its
+   serve with reuse off (reported: r < 1 approximates).  Its peak memory
+   is logged.
+17. VLM — internvl2-1b at full width and depth (24 layers, d_model 896, 14
+   query heads of width 64 on 2 kv heads, QKV bias, tied embeddings, 256
+   image positions) in bf16, random weights: three images (seeded ``[1,
+   256, 896]`` embeddings x 0.02 on the card, each named by a 256-token
+   identity proxy) with two requests each and two text-only requests over
+   one 512-token context, ``AlwaysReusePlanner`` (``VLM_PLAN``; the plans
+   ``VLM_ACTIONS``): an image request runs through ``ModelApi.prefill``
+   (the flash kernel), stores its image's rows and later loads them; the
+   text-only requests pack.  Served dense, paged, unified (an image
+   request admitted whole, landed in the pool) and with reuse off: every
+   load within ``LOGIT_ATOL`` of reuse off; the control, request 3's
+   prompt after another image's stored rows, outside it.
+18. encoder-decoder — whisper-tiny at full width and depth (4 encoder and
+   4 decoder layers, d_model 384, 6 heads of width 64, LayerNorm, GELU,
+   1,500 frames, 448 decoder rows) in bf16, random weights: two audios
+   (seeded ``[1, 1500, 384]`` frames on the card, each named by a 32-token
+   identity proxy), three requests each with prompts of 8-32 tokens and
+   16 new tokens, ``AlwaysReusePlanner``, ``max_len`` 448: a recompute
+   encodes the frames (4 non-causal ``flash_attention`` launches over
+   1,500 rows) and stores every decoder layer's cross K/V; a load inserts
+   them and prefills the prompt from position 0; each decoder layer runs
+   its self-attention (``flash_attention`` causal in a prefill,
+   ``decode_attention`` at a step) and its cross-attention
+   (``flash_attention`` non-causal over the 1,500 rows: the prompt's rows,
+   and one query row at each decode step).  With reuse off: every load
+   within ``ENCDEC_LOAD_ATOL`` of it (the same bits: ``LOGIT_ATOL`` is too
+   wide to tell two audios apart with random weights); the control,
+   request 2's prompt after the other audio's cross K/V, outside it.
 
 Then the kernel phase: each kernel is called on the inputs one of its
 launches on those paths received (first layer) and held against its plain
@@ -290,6 +333,17 @@ on its 2,000-token and 32-token launches (H 128, P 128, S 16),
 ``flash_attention`` on its wave-0 and suffix launches (G 8, no RoPE) and
 ``decode_attention`` on a decode step, the three appended to the kernels
 line with an ``at`` key naming the cut and their launches on its serve.
+On granite's: the packed, decode, flash (full and suffix), paged, chunked
+and fused kernels at 48 query heads on one kv head, the first prefill
+launches at that grouping, appended with ``at`` "granite-34b"; on
+internvl's: flash (an image request's prefill and a load's prompt),
+decode, paged and chunked; on whisper's: ``flash_attention`` non-causal on
+the encoder (1,500 x 1,500), on a prompt's cross-attention and on a decode
+step's (one query row over 1,500), and ``decode_attention`` on the
+decoder's self-attention, appended with ``at`` "whisper-tiny, <which
+launch>", each with its own kind's launches (the serve's flash total split
+by its checked decomposition).  The main entries' launches count
+granite's, internvl's and whisper's serves too.
 Times come from CUDA events after warm-up, beside the plain version's, one
 PyTorch library call's (``scaled_dot_product_attention`` with an explicit
 boolean mask, timed here only; for the paged kernels on rows gathered
@@ -422,6 +476,15 @@ SSM_LOGIT_ATOL = 0.25
 # bf16, so any difference at an O(1) logit is at least 2^-8: this gate asks
 # for the same bits.
 SSM_REBUILD_ATOL = 1e-5
+# The encoder-decoder phase's gate: a load of a stored audio's cross K/V
+# against the same request served with reuse off.  The stored rows are the
+# bits the recompute's own call computed, and the load prefills the prompt
+# from position 0 in the recompute's launch shape, so the two give the same
+# bits (on the H100 every load read 0).  ``LOGIT_ATOL`` cannot tell two
+# audios apart there: with random weights the cross-attention averages
+# 1,500 random frames, and the other audio's cross K/V moved the logits by
+# 0.1165 only.  This gate asks for the same bits.
+ENCDEC_LOAD_ATOL = 1e-5
 # The reference's SSD tolerance (tests/test_kernels.py), f32
 SSD_ATOL = 5e-5
 SEED = 0
@@ -569,6 +632,9 @@ class Recorder:
         self.dequant_inputs = None  # the first (q, scale, dtype) it dequantised
         self.ssd_inputs = {}  # first layer: the first long launch, the first short one
         self.prefill_calls = 0  # ModelApi.prefill calls (per-request admissions)
+        # request of the per-request admission running, and each such
+        # request's last ModelApi.prefill logits, until its first token
+        self._single_req, self.single_first = None, {}
         self.events = []  # every event of the serve, in order
         self.spent = {}
         # filled by ``note_step``: per-step rows, slot of each request, the
@@ -587,6 +653,7 @@ class Recorder:
                                           decode_paged=self._step_paged,
                                           prefill_chunked=self._step_chunked,
                                           prefill_fused=self._step_fused)),
+            (eng, "_admit_single", self._admit_single),
         ]
         self._quant, self._dequant, self._ssd = ops.kv_quant, ops.kv_dequant, ops.ssd_chunked
         self._patched += [(ops, "kv_quant", self._kv_quant), (ops, "kv_dequant", self._kv_dequant),
@@ -606,7 +673,7 @@ class Recorder:
             self._patched.append((eng, "_pool_slot_artifact", self._timed(
                 "pool_gather", eng._pool_slot_artifact)))
         self._orig = [(obj, name, getattr(obj, name)) for obj, name, _ in self._patched]
-        self._orig_api = eng.api
+        self._orig_api, self._orig_admit = eng.api, eng._admit_single
         for obj, name, fn in self._patched:
             setattr(obj, name, fn)
 
@@ -640,8 +707,10 @@ class Recorder:
             # batch order, a step's by slot
             if e.index == 0 and e.req_id in launched:
                 lg = self.step_fused[launched.index(e.req_id)][0]
-            elif e.index == 0 and single:
-                lg = self.last_logits[0]
+            elif e.index == 0 and e.req_id in self.single_first:
+                # a per-request admission, also one inside a unified intake
+                # whose step then launches a mixed step
+                lg = self.single_first.pop(e.req_id)[0]
             elif batch and e.req_id in batch[0].req_ids:
                 lg = self.last_logits[batch[0].req_ids.index(e.req_id)]
             else:
@@ -710,11 +779,20 @@ class Recorder:
         self._calls["ssd"] += 1
         return self._ssd(*args, **kw)
 
+    def _admit_single(self, req, *args, **kw):
+        self._single_req = req.req_id
+        try:
+            return self._orig_admit(req, *args, **kw)
+        finally:
+            self._single_req = None
+
     def _prefill_single(self, *args, **kw):
         logits, state = self._timed("model", self._orig_api.prefill)(*args, **kw)
         assert torch.isfinite(logits).all(), "non-finite prefill logits"
         self.prefill_calls += 1
         self.last_logits = logits.float().cpu()
+        if self._single_req is not None:
+            self.single_first[self._single_req] = self.last_logits
         return logits, state
 
     def _packed(self, *args, **kw):
@@ -1001,7 +1079,7 @@ def check_decode(inputs, launches, label=""):
 def check_flash(inputs, launches, label):
     (q, k, _), kw = inputs
     qp, kp = kw["q_pos"].long()[:, :, None], kw["kv_pos"].long()[:, None, :]
-    mask = kp >= 0
+    mask = (kp >= 0).expand(qp.shape[0], qp.shape[1], kp.shape[2])  # [B, Sq, Skv]
     if kw.get("causal", True):
         mask = mask & (kp <= qp)
     if kw.get("window") is not None:
@@ -1162,7 +1240,7 @@ def check_chunked(inputs, launches, label=""):
     return entry
 
 
-def check_fused(inputs, launches):
+def check_fused(inputs, launches, label=""):
     (q, k, _), kw = inputs
     qp, kp = kw["q_pos"].long()[:, :, None], kw["kv_pos"].long()[:, None, :]
     mask = (kp >= 0) & (kp <= qp)  # [B, Sq, Skv]: padding queries keep nothing
@@ -1181,9 +1259,9 @@ def check_fused(inputs, launches):
         mask4=mask[:, None], index=[kw["q_pos"], kw["kv_pos"]], kv_rows=total, pairs=pairs,
         q_rows=n_q,
         note=f"buffer{tuple(k.shape)} valid queries {n_q} of {q.shape[1]}, valid rows "
-             f"{total} of {k.shape[1]}, kept_pairs/head={pairs}", times=times)
-    mma_tile_notes("fused_flash_attention", "fused_prefill", inputs, fuk.fused_flash_attention,
-                   fuk.split_count(q.to(torch.bfloat16), k), times)
+             f"{total} of {k.shape[1]}, kept_pairs/head={pairs}", label=label, times=times)
+    mma_tile_notes(f"fused_flash_attention {label}".strip(), "fused_prefill", inputs,
+                   fuk.fused_flash_attention, fuk.split_count(q.to(torch.bfloat16), k), times)
     return entry
 
 
@@ -2920,11 +2998,11 @@ class DropRecorder:
         return first
 
 
-def gate_reuse(label, runs, mode, base="reuse off"):
-    """Reused against recomputed first-token logits within ``LOGIT_ATOL``,
-    for every reused request whose tokens dropped no pair on either side;
-    one that did is logged beside its drops, not gated.  Returns the
-    number of requests gated."""
+def gate_reuse(label, runs, mode, base="reuse off", atol=LOGIT_ATOL):
+    """Reused against recomputed first-token logits within ``atol``, for
+    every reused request whose tokens dropped no pair on either side; one
+    that did is logged beside its drops, not gated.  Returns the number of
+    requests gated."""
     got, want = runs[mode], runs[base]
     gated = 0
     for i, (action, _) in sorted(got["actions"].items()):
@@ -2939,8 +3017,8 @@ def gate_reuse(label, runs, mode, base="reuse off"):
                 f"dropped (reuse, recompute) {drops}: not gated")
             continue
         log(f"{label} {mode} request {i} ({action}): first-token logits max|reuse - "
-            f"recompute| = {diff:.4f} (gate {LOGIT_ATOL}), tokens agreeing {same}/{NEW_TOKENS}")
-        assert diff <= LOGIT_ATOL, (label, mode, i, diff)
+            f"recompute| = {diff:.4g} (gate {atol}), tokens agreeing {same}/{NEW_TOKENS}")
+        assert diff <= atol, (label, mode, i, diff)
         gated += 1
     log(f"{label} {mode}: {gated} reused requests gated")
     return gated
@@ -2949,7 +3027,7 @@ def gate_reuse(label, runs, mode, base="reuse off"):
 def family_params(name, **cut):
     cfg = dataclasses.replace(get_config(name), **cut)
     t0 = time.perf_counter()
-    params = lm.init(cfg, seed=SEED, device=DEVICE)
+    params = get_model(cfg).init(cfg, seed=SEED, device=DEVICE)
     torch.cuda.synchronize()
     log(f"{name}{f' cut to {cut}' if cut else ''} bf16: "
         f"{sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B params "
@@ -2959,29 +3037,42 @@ def family_params(name, **cut):
     return cfg, params
 
 
-def family_serve(label, cfg, params, mode, **kw):
-    """One serve of the prefix mix, its routing recorded where the arch has
-    experts; returns its run (records, actions, logits, launches, drops)
-    and the recorder's kernel inputs."""
+def family_serve(label, cfg, params, mode, keep_stored=(), flash=False, **kw):
+    """One serve of the prefix mix (or of ``make_traffic``'s, passed on to
+    ``serve`` with the planner), its routing recorded where the arch has
+    experts and, with ``flash``, the first layer's ``flash_attention``
+    inputs of its per-request admissions (one launch a layer a
+    ``ModelApi.prefill`` call); returns its run (records, actions, logits,
+    launches, drops, and the stored artifacts of the contexts
+    ``keep_stored`` names, on the host) and the recorders' kernel inputs."""
     drops = DropRecorder() if cfg.moe is not None else None
+    recorder = FlashRecorder(cfg.n_layers) if flash else None
+    hooks = [h for h in (drops, recorder) if h is not None]
+
+    def setup(eng):
+        for h in hooks:
+            h.install(eng)
+
     zero_counts()
     try:
-        eng, recs, rec, steps, writebacks = serve(
-            cfg, params, setup=drops.install if drops else None, **kw)
+        eng, recs, rec, steps, writebacks = serve(cfg, params, setup=setup, **kw)
     finally:
-        if drops:
-            drops.close()
+        for h in hooks:
+            h.close()
     c = counts()
     n_decode = eng.decode_stats()["decode_steps"]
     mixed = eng.unified_stats()["steps"]
     actions = {i: (r.action, r.matched_tokens) for i, r in sorted(recs.items())}
-    log(f"{label} {mode} serve launches: {c} (decode steps {n_decode}, mixed steps {mixed}, "
-        f"packed batches {eng.batches}); actions {actions}; write-backs {writebacks}")
+    log(f"{label} {mode} serve launches: {c} (ModelApi.prefill calls {rec.prefill_calls}, "
+        f"decode steps {n_decode}, mixed steps {mixed}, packed batches {eng.batches}); actions "
+        f"{actions}; write-backs {writebacks}")
     log_steps(f"{label} {mode}", steps)
     assert len(recs) == 8 and all(len(r.tokens) == NEW_TOKENS for r in recs.values())
-    assert c["flash_attention"] == c["fused_flash_attention"] == c["ssd_chunked"] == 0, c
-    assert c["kv_quant"] == c["kv_dequant"] == 0, c
     L = cfg.n_layers
+    assert c["flash_attention"] == (L * rec.prefill_calls if flash else 0), c
+    assert not flash or rec.prefill_calls > 0, rec.prefill_calls
+    assert c["fused_flash_attention"] == c["ssd_chunked"] == 0, c
+    assert c["kv_quant"] == c["kv_dequant"] == 0, c
     if kw.get("unified_step"):
         assert c["chunked_prefill_attention"] == L * mixed > 0, c
         assert c["paged_decode_attention"] == L * n_decode and c["packed_flash_attention"] == 0
@@ -2991,12 +3082,16 @@ def family_serve(label, cfg, params, mode, **kw):
     else:
         assert c["decode_attention"] == L * n_decode > 0 and c["paged_decode_attention"] == 0
         assert c["packed_flash_attention"] > 0 and c["chunked_prefill_attention"] == 0, c
+    if kw.get("paged_decode"):
+        eng._paged.audit()
+        assert eng._paged.pool.n_used == 0
     if kw.get("reuse", True):
         assert any(a in ("load", "partial") for a, _ in actions.values()), actions
     run = dict(recs=recs, actions=actions, first=rec.first_logits, steps=rec.step_logits,
-               counts=c, drops=drops.resolve(rec.events, f"{label} {mode}") if drops else {})
+               counts=c, drops=drops.resolve(rec.events, f"{label} {mode}") if drops else {},
+               stored={tuple(t): stored_artifact(eng, list(t)) for t in keep_stored})
     inputs = dict(packed=rec.packed_inputs, decode=rec.decode_inputs,
-                  chunked=rec.chunked_inputs)
+                  chunked=rec.chunked_inputs, flash=recorder.inputs if flash else None)
     assert inputs["chunked" if kw.get("unified_step") else "decode"] is not None, inputs
     del eng, rec
     release()
@@ -3353,6 +3448,280 @@ def hybrid_phase():
     return inputs, {mode: runs[mode]["counts"] for mode in runs}
 
 
+# --------------------------------------------------------------------------- #
+# Granite phase (granite-34b: MQA, the GELU MLP)
+# --------------------------------------------------------------------------- #
+SERVE_MODES = (("dense", {}), ("paged", dict(paged_decode=True, kv_block=128)),
+               ("unified", dict(paged_decode=True, unified_step=True, kv_block=128)),
+               ("reuse off", dict(reuse=False)))
+
+
+def other_context_control(label, cfg, params, reqs, runs, req, artifact, base="reuse off",
+                          atol=LOGIT_ATOL):
+    """The control of a reuse gate: request ``req``'s prompt prefilled after
+    another context's stored ``artifact`` (the load path's shape), whose
+    first-token logits must fall outside ``atol`` of ``req`` served with
+    reuse off."""
+    control = prompt_after(cfg, params, artifact, reqs[req]["prompt_tokens"])
+    diff = (control - runs[base]["first"][req]).abs().max().item()
+    log(f"{label} control: request {req}'s prompt after another context's stored state: "
+        f"first-token logits max|control - recompute| = {diff:.4f} (must exceed {atol}; "
+        f"{LOGIT_ATOL} {'exceeded' if diff > LOGIT_ATOL else 'not exceeded'})")
+    assert diff > atol, (label, diff)
+
+
+def granite_phase():
+    """Full-width, full-depth granite-34b (bf16, random weights; 48 query
+    heads on one kv head, the GELU MLP) serves the prefix mix dense, paged,
+    unified and with reuse off, then ``ModelApi.prefill`` per request and
+    the RAG mix fused (see the module docstring, phase 16).  Returns the
+    recorded kernel inputs and the launches of every serve."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = family_params("granite-34b")
+    reqs = traffic(cfg.vocab)
+    a_ctx, b_ctx = reqs[0]["context_tokens"], reqs[1]["context_tokens"]
+    runs, inputs = {}, {}
+    for mode, kw in SERVE_MODES:
+        keep = (a_ctx, b_ctx) if mode == "dense" else ()
+        runs[mode], inputs[mode] = family_serve("granite", cfg, params, mode, keep_stored=keep,
+                                                **kw)
+    dense = runs["dense"]
+    for mode in ("paged", "unified"):
+        assert runs[mode]["actions"] == dense["actions"], (mode, runs[mode]["actions"])
+    for mode in ("dense", "paged", "unified"):
+        assert gate_reuse("granite", runs, mode) > 0, mode
+    art = dense["stored"][tuple(a_ctx)].caches[0].attn
+    want = CTX_LEN * cfg.kv_bytes_per_token()
+    log(f"granite stored K/V of A: {int(art.k.nbytes + art.v.nbytes)} bytes ({CTX_LEN} tokens x "
+        f"{cfg.kv_bytes_per_token()} B: 88 layers x K, V x 1 kv head x 128 x 2 B)")
+    assert int(art.k.nbytes + art.v.nbytes) == want
+    load = next(i for i, (a, m) in dense["actions"].items()
+                if a == "load" and m == len(reqs[i]["context_tokens"]))
+    own = tuple(reqs[load]["context_tokens"])
+    other = tuple(b_ctx) if own == tuple(a_ctx) else tuple(a_ctx)
+    other_context_control("granite", cfg, params, reqs, runs, load, dense["stored"][other])
+    release()
+
+    zero_counts()
+    flash_full, flash_suffix = per_request_prefill(
+        cfg, params, reqs, runs["reuse off"]["first"], reqs[load], dense["stored"][own],
+        dense["first"])
+    runs["prefill"] = dict(counts=counts())
+    assert runs["prefill"]["counts"]["flash_attention"] == cfg.n_layers * (len(reqs) + 2)
+    del dense["stored"]
+    release()
+
+    # the RAG mix once, fused over the dense decode, beside its recompute
+    zero_counts()
+    eng, recs, rec, steps, _ = serve(
+        cfg, params, planner=BlendPlanner(recompute_frac=RECOMPUTE_FRAC, always=True),
+        make_traffic=fused_traffic, fusion_enabled=True, kv_block=128)
+    runs["fused"] = dict(counts=counts())
+    c = runs["fused"]["counts"]
+    log(f"granite fused serve launches: {c}; fused_stats {json.dumps(eng.fused_stats())}")
+    log_steps("granite fused", steps)
+    actions = [r.action for _, r in sorted(recs.items())]
+    assert actions == ["recompute", "fused", "fused"], actions
+    assert c["fused_flash_attention"] == 2 * cfg.n_layers and c["packed_flash_attention"] > 0
+    assert all(n and eq for n, eq in rec.reused_rows_equal), rec.reused_rows_equal
+    fused_inputs, fused_first = rec.fused_inputs, rec.first_logits
+    del eng, rec
+    release()
+    _, base_recs, base_rec, _, _ = serve(cfg, params, reuse=False, make_traffic=fused_traffic)
+    for i in (1, 2):
+        diff = (fused_first[i] - base_rec.first_logits[i]).abs().max().item()
+        same = sum(x == y for x, y in zip(recs[i].tokens, base_recs[i].tokens))
+        log(f"granite fused (r={RECOMPUTE_FRAC}) vs recompute, request {i}: first-token logits "
+            f"max diff {diff:.4f}, tokens agreeing {same}/{NEW_TOKENS} (r < 1 approximates: "
+            f"reported, not gated)")
+    del base_rec, params
+    release()
+    log(f"granite phase: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated "
+        f"of {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} GiB")
+    inputs.update(flash_full=flash_full, flash_suffix=flash_suffix, fused=fused_inputs)
+    return inputs, {mode: run["counts"] for mode, run in runs.items()}
+
+
+# --------------------------------------------------------------------------- #
+# VLM phase (internvl2-1b: image embeddings before the prompt)
+# --------------------------------------------------------------------------- #
+VLM_TEXT_CTX = 512  # the text-only requests' context
+# (image, arrival): three images, the first request of each recomputes and
+# stores, a later one loads; two text-only requests over one context
+VLM_PLAN = [(0, 0.0), (1, 0.0), (None, 0.0), (0, 1.0), (2, 1.0), (None, 1.0), (1, 2.0),
+            (2, 2.0)]
+VLM_ACTIONS = ["recompute", "recompute", "recompute", "load", "recompute", "load", "load",
+               "load"]
+
+
+def vlm_traffic(cfg):
+    """Eight requests with their own 32-token prompts: three images (seeded
+    ``[1, 256, 896]`` embeddings x 0.02 drawn on the card, each named by a
+    256-token identity proxy as its context), two requests each, and two
+    text-only requests over one 512-token context (the packed path)."""
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED + 2)
+    images = [torch.randn(1, cfg.frontend_tokens, cfg.d_model, generator=g, device=DEVICE) * 0.02
+              for _ in range(3)]
+    rng = np.random.default_rng(SEED + 2)
+    proxies = [rng.integers(0, cfg.vocab, cfg.frontend_tokens).tolist() for _ in images]
+    text = rng.integers(0, cfg.vocab, VLM_TEXT_CTX).tolist()
+    reqs = []
+    for i, (img, t) in enumerate(VLM_PLAN):
+        r = dict(req_id=i, context_tokens=text if img is None else proxies[img],
+                 prompt_tokens=rng.integers(0, cfg.vocab, PROMPT_LEN).tolist(),
+                 max_new_tokens=NEW_TOKENS, arrival_s=t, expected_reuses=3)
+        if img is not None:
+            r["embeds"] = images[img]
+        reqs.append(r)
+    return reqs
+
+
+def vlm_phase():
+    """Full-width, full-depth internvl2-1b (bf16, random weights): the image
+    and text mix dense, paged, unified and with reuse off, its gates and
+    the other-image control (see the module docstring, phase 17).  Returns
+    the recorded kernel inputs and the launches of every serve."""
+    cfg, params = family_params("internvl2-1b")
+    reqs = vlm_traffic(cfg)
+    image_ctx = [tuple(reqs[i]["context_tokens"]) for i in (0, 1)]
+    runs, inputs = {}, {}
+    for mode, kw in SERVE_MODES:
+        # the image requests through ModelApi.prefill (the flash kernel),
+        # the text-only ones packed (or chunked under the unified step)
+        runs[mode], inputs[mode] = family_serve(
+            "internvl", cfg, params, mode, keep_stored=image_ctx if mode == "dense" else (),
+            flash=True, planner=AlwaysReusePlanner(), make_traffic=lambda v: vlm_traffic(cfg),
+            **kw)
+    for mode in ("dense", "paged", "unified"):
+        assert [a for a, _ in runs[mode]["actions"].values()] == VLM_ACTIONS, (
+            mode, runs[mode]["actions"])
+        assert gate_reuse("internvl", runs, mode) == VLM_ACTIONS.count("load"), mode
+    # the control: request 3 (image 0) loads image 1's stored rows instead
+    other_context_control("internvl", cfg, params, reqs, runs, 3,
+                          runs["dense"]["stored"][image_ctx[1]])
+    del runs["dense"]["stored"], params
+    release()
+    return inputs, {mode: run["counts"] for mode, run in runs.items()}
+
+
+# --------------------------------------------------------------------------- #
+# Encoder-decoder phase (whisper-tiny: cross-attention K/V as the context)
+# --------------------------------------------------------------------------- #
+WHISPER_CTX_LEN, WHISPER_MAX_LEN = 32, 448  # an audio's identity proxy; decoder rows
+
+
+def audio_traffic(cfg):
+    """Six requests over two audios (seeded ``[1, 1500, 384]`` frames drawn
+    on the card, each named by a 32-token identity proxy as its context),
+    three each, one wave a modelled second: wave 0 recomputes both, waves 1
+    and 2 load them; prompts of 8-32 tokens, 16 new tokens."""
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED + 3)
+    audios = [torch.randn(1, cfg.encoder_seq_len, cfg.d_model, generator=g, device=DEVICE)
+              for _ in range(2)]
+    rng = np.random.default_rng(SEED + 3)
+    proxies = [rng.integers(0, cfg.vocab, WHISPER_CTX_LEN).tolist() for _ in audios]
+    return [dict(req_id=i, context_tokens=proxies[i % 2], embeds=audios[i % 2],
+                 prompt_tokens=rng.integers(0, cfg.vocab, int(rng.integers(8, 33))).tolist(),
+                 max_new_tokens=NEW_TOKENS, arrival_s=float(i // 2), expected_reuses=3)
+            for i in range(6)]
+
+
+class CrossRecorder:
+    """The first decoder (or encoder) layer's ``flash_attention`` inputs of
+    the first launch of each non-causal kind of a whisper serve: the
+    encoder's self-attention (frames over frames), a prompt's
+    cross-attention and a decode step's (one query row)."""
+
+    def __init__(self):
+        self.inputs = {}
+        self._flash = ops.flash_attention
+        ops.flash_attention = self._record
+
+    def close(self):
+        ops.flash_attention = self._flash
+
+    def _record(self, q, k, v, **kw):
+        if not kw.get("causal", True):
+            Sq, Skv = q.shape[1], k.shape[1]
+            kind = "encoder" if Sq == Skv else "cross step" if Sq == 1 else "cross prompt"
+            if kind not in self.inputs:
+                self.inputs[kind] = keep((q, k, v), kw)
+        return self._flash(q, k, v, **kw)
+
+
+def whisper_serve(cfg, params, mode, **kw):
+    """One serve of ``audio_traffic`` with ``AlwaysReusePlanner`` at
+    ``max_len`` 448: every admission through ``ModelApi.prefill`` (the
+    encoder on the recomputes), dense decode.  Returns its run and the
+    recorded kernel inputs."""
+    cross = CrossRecorder()
+    zero_counts()
+    try:
+        eng, recs, rec, steps, writebacks = serve(
+            cfg, params, planner=AlwaysReusePlanner(), make_traffic=lambda v: audio_traffic(cfg),
+            max_len=WHISPER_MAX_LEN, **kw)
+    finally:
+        cross.close()
+    c = counts()
+    n_decode = eng.decode_stats()["decode_steps"]
+    actions = {i: (r.action, r.matched_tokens) for i, r in sorted(recs.items())}
+    n_enc = sum(a == "recompute" for a, _ in actions.values())
+    log(f"whisper {mode} serve launches: {c} (ModelApi.prefill calls {rec.prefill_calls}, "
+        f"encoder runs {n_enc}, decode steps {n_decode}); actions {actions}; write-backs "
+        f"{writebacks}")
+    log_steps(f"whisper {mode}", steps)
+    L = cfg.n_layers
+    assert len(recs) == 6 and all(len(r.tokens) == NEW_TOKENS for r in recs.values())
+    # the flash launches by kind: the encoder's layers on a recompute, per
+    # prefill call a decoder layer's causal self- and its cross-attention,
+    # a cross-attention a layer a decode step
+    kinds = {"encoder": cfg.n_encoder_layers * n_enc, "self prompt": L * rec.prefill_calls,
+             "cross prompt": L * rec.prefill_calls, "cross step": L * n_decode}
+    assert c["flash_attention"] == sum(kinds.values()), (c, kinds)
+    assert c["decode_attention"] == L * n_decode > 0, c
+    assert sum(c.values()) == c["flash_attention"] + c["decode_attention"], c
+    assert eng.batches == 0 and eng.decode_stats()["paged"] is False
+    reqs = audio_traffic(cfg)
+    stored = ({i: stored_artifact(eng, reqs[i]["context_tokens"]) for i in (0, 1)}
+              if kw.get("reuse", True) else {})
+    run = dict(recs=recs, actions=actions, first=rec.first_logits, counts=c, drops={},
+               stored=stored, flash_kinds=kinds)
+    inputs = dict(cross.inputs, decode=rec.decode_inputs)
+    del eng, rec
+    release()
+    return run, inputs
+
+
+def whisper_phase():
+    """Full whisper-tiny (bf16, random weights; 4 encoder and 4 decoder
+    layers, 1,500 frames): the audio mix with reuse on and off, the gate and
+    the other-audio control (see the module docstring, phase 18).  Returns
+    the recorded kernel inputs, the launches of both serves and the
+    reuse-on serve's ``flash_attention`` launches by kind."""
+    cfg, params = family_params("whisper-tiny")
+    runs, inputs = {}, {}
+    runs["dense"], inputs = whisper_serve(cfg, params, "dense")
+    runs["reuse off"], _ = whisper_serve(cfg, params, "reuse off", reuse=False)
+    actions = [a for a, _ in runs["dense"]["actions"].values()]
+    assert actions == ["recompute", "recompute", "load", "load", "load", "load"], actions
+    art = runs["dense"]["stored"][0]
+    log(f"whisper stored artifact of audio 0: pos {paged.artifact_length(art)}, self K/V rows "
+        f"{art.self_kv.k.shape[2]}, cross K/V {tuple(art.cross_kv.k.shape)}, "
+        f"{compression.tree_nbytes(art)} bytes")
+    assert paged.artifact_length(art) == 0 and art.cross_kv.k.shape[2] == cfg.encoder_seq_len
+    assert gate_reuse("whisper", runs, "dense", atol=ENCDEC_LOAD_ATOL) == 4
+    # the control: request 2 (audio 0) loads audio 1's stored cross K/V
+    other_context_control("whisper", cfg, params, audio_traffic(cfg), runs, 2,
+                          runs["dense"]["stored"][1], atol=ENCDEC_LOAD_ATOL)
+    assert set(inputs) == {"encoder", "cross prompt", "cross step", "decode"}, inputs.keys()
+    del runs["dense"]["stored"], params
+    release()
+    return (inputs, {mode: run["counts"] for mode, run in runs.items()},
+            runs["dense"]["flash_kinds"])
+
+
 def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3566,24 +3935,45 @@ def main() -> None:
     hybrid_inputs, hybrid_counts = hybrid_phase()
     log(f"jamba phase wall: {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- the rest of the model zoo: granite-34b, internvl2-1b, whisper-tiny --
+    t_phase = time.perf_counter()
+    granite_inputs, granite_counts = granite_phase()
+    log(f"granite phase wall: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    vlm_inputs, vlm_counts = vlm_phase()
+    log(f"internvl phase wall: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    whisper_inputs, whisper_counts, whisper_flash = whisper_phase()
+    log(f"whisper phase wall: {time.perf_counter() - t_phase:.1f} s")
+
     # ---- kernel phase -----------------------------------------------------
     # the kernels line counts each kernel's launches on its llama path and
-    # on the same path of nemo's, olmoe's and mixtral's serves
+    # on the same path of nemo's, olmoe's, mixtral's, granite's, internvl's
+    # and whisper's serves
     def launches(name, *runs):
         return sum(c[name] for c in runs)
 
     dense_runs = (dense_counts, nemo_counts, moe_counts["dense"], swa_counts["ring"],
-                  swa_counts["dense"])
+                  swa_counts["dense"], granite_counts["dense"], vlm_counts["dense"],
+                  whisper_counts["dense"])
     kernels = [check_packed(packed_inputs, launches("packed_flash_attention", *dense_runs)),
                check_decode(decode_inputs, launches("decode_attention", *dense_runs)),
                check_flash(flash_full, launches("flash_attention", prefill_counts,
-                                                swa_counts["ring"]), "full"),
+                                                swa_counts["ring"], granite_counts["prefill"],
+                                                vlm_counts["dense"], whisper_counts["dense"]),
+                           "full"),
                check_paged(paged_inputs, launches("paged_decode_attention", paged_counts,
-                                                  moe_counts["paged"], swa_counts["unified"])),
+                                                  moe_counts["paged"], swa_counts["unified"],
+                                                  granite_counts["paged"],
+                                                  granite_counts["unified"],
+                                                  vlm_counts["paged"], vlm_counts["unified"])),
                check_chunked(chunked_inputs, launches("chunked_prefill_attention",
                                                       unified_counts, moe_counts["unified"],
-                                                      swa_counts["unified"])),
-               check_fused(fused_inputs, fused_launches),
+                                                      swa_counts["unified"],
+                                                      granite_counts["unified"],
+                                                      vlm_counts["unified"])),
+               check_fused(fused_inputs, fused_launches + granite_counts["fused"][
+                   "fused_flash_attention"]),
                check_kv_quant(comp["quant_input"], comp["dense"]["counts"]["kv_quant"]),
                check_kv_dequant(comp["dequant_inputs"], comp["dense"]["counts"]["kv_dequant"]),
                check_ssd(ssd_inputs, ssd_launches)]
@@ -3626,6 +4016,48 @@ def main() -> None:
         dict(check_decode(hybrid_inputs["decode"], hybrid["decode_attention"], "jamba"),
              at=HYBRID_AT)]
     check_flash(hybrid_inputs["flash"]["suffix"], hybrid["flash_attention"], "jamba suffix")
+    # granite's (G 48, hd 128): the first prefill launches at 48 query heads
+    # a kv head, each on its served inputs and beside its launches there
+    g = granite_counts
+    kernels += [dict(entry, at="granite-34b") for entry in (
+        check_packed(granite_inputs["dense"]["packed"], g["dense"]["packed_flash_attention"],
+                     "granite"),
+        check_decode(granite_inputs["dense"]["decode"], g["dense"]["decode_attention"],
+                     "granite"),
+        check_flash(granite_inputs["flash_full"], g["prefill"]["flash_attention"],
+                    "granite full"),
+        check_paged(granite_inputs["paged"]["decode"], g["paged"]["paged_decode_attention"],
+                    "granite"),
+        check_chunked(granite_inputs["unified"]["chunked"],
+                      g["unified"]["chunked_prefill_attention"], "granite"),
+        check_fused(granite_inputs["fused"], g["fused"]["fused_flash_attention"], "granite"))]
+    check_flash(granite_inputs["flash_suffix"], g["prefill"]["flash_attention"],
+                "granite suffix")
+    # internvl's (G 7, hd 64, qkv bias): an image request's prefill and a
+    # load's prompt after the stored image, decode dense and paged, chunked
+    v = vlm_counts
+    check_flash(vlm_inputs["dense"]["flash"]["wave 0"], v["dense"]["flash_attention"],
+                "internvl image")
+    check_flash(vlm_inputs["dense"]["flash"]["suffix"], v["dense"]["flash_attention"],
+                "internvl suffix")
+    check_decode(vlm_inputs["dense"]["decode"], v["dense"]["decode_attention"], "internvl")
+    check_paged(vlm_inputs["paged"]["decode"], v["paged"]["paged_decode_attention"],
+                "internvl")
+    check_chunked(vlm_inputs["unified"]["chunked"], v["unified"]["chunked_prefill_attention"],
+                  "internvl")
+    # whisper's (G 1, hd 64): the first served non-causal launches, the
+    # kernels line carrying each with its own kind's launches on the serve
+    # (the causal self-attention prefills are in the main flash entry's)
+    wf = whisper_flash
+    kernels += [dict(entry, at=f"whisper-tiny, {at}") for at, entry in (
+        ("encoder", check_flash(whisper_inputs["encoder"], wf["encoder"], "whisper encoder")),
+        ("a prompt's cross-attention", check_flash(
+            whisper_inputs["cross prompt"], wf["cross prompt"], "whisper cross prompt")),
+        ("a decode step's cross-attention", check_flash(
+            whisper_inputs["cross step"], wf["cross step"], "whisper cross decode step")),
+        ("self-attention", check_decode(whisper_inputs["decode"],
+                                        whisper_counts["dense"]["decode_attention"],
+                                        "whisper")))]
     check_wide_group()
     log_device_times()
     print(json.dumps({"kernels": kernels}))

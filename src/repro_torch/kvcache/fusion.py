@@ -417,10 +417,10 @@ def build_fused_caches(
     from repro_torch.models.blocks import BlockCache
     from repro_torch.models.common import resolve_dtype
 
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"{cfg.family} archs cannot be fused (the SSM state of SSM and hybrid stacks) "
-            "or are not ported yet (encoder-decoder and VLM archs: ROADMAP queue A item 9)"
+            f"{cfg.family} archs cannot be fused (the SSM state of SSM and hybrid stacks; "
+            "an encoder-decoder arch has no fused entry point, as in the reference)"
         )
     dtype = dtype or resolve_dtype(cfg.dtype)
     shape = (cfg.n_layers, 1, kv_len + 1, cfg.n_kv_heads, cfg.resolved_head_dim)

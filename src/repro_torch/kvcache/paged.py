@@ -9,7 +9,11 @@ layout:
     (O(L) bytes);
   * Mamba/SSD layers: the conv tail ``[n_layers, 1, d_conv-1, conv_dim]``
     in the model dtype and the SSD state ``[n_layers, 1, H, P, S]`` in f32
-    (O(1) bytes, all or nothing).
+    (O(1) bytes, all or nothing);
+  * an encoder-decoder: an ``EncDecState`` holding the audio's decoder
+    cross K/V ``[n_dec, 1, S_enc, KV, hd]`` (O(L_enc) bytes), an empty
+    self K/V and ``pos`` 0, since the decoder restarts at position 0 on
+    reuse.
 
 bf16 rows are kept as their 2-byte pattern (``uint16``), so byte accounting
 matches the reference's; an f32 artifact is the same tree, byte for byte,
@@ -19,8 +23,7 @@ Under paged decode the device state is instead one shared KV block pool
 (``init_pool_caches``): host-side ``PagedSlots`` keep each slot's block
 table, and packed admissions land their block-aligned spans in the pool.
 
-This is the port of the reference's ``kvcache/paged.py`` for dense, MoE and
-SSM archs.
+This is the port of the reference's ``kvcache/paged.py``.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import KVCache
 from repro_torch.models.blocks import BlockCache
 from repro_torch.models.common import resolve_device, resolve_dtype
+from repro_torch.models.encdec import EncDecState
 from repro_torch.models.lm import LMState
 from repro_torch.models.ssm import MambaState
 
@@ -69,18 +73,26 @@ def _map_cache(c: BlockCache, fn) -> BlockCache:
     return BlockCache(None, MambaState(fn(c.mamba.conv), fn(c.mamba.ssd)))
 
 
-def artifact_to_host(art: LMState) -> LMState:
+def _host_pos(pos) -> np.ndarray:
+    return np.asarray(pos.cpu() if isinstance(pos, torch.Tensor) else pos, np.int32)
+
+
+def artifact_to_host(art):
     """A device-side artifact (``packed_to_artifact``, ``slot_artifact``) as a
     host tree."""
-    return LMState(
-        pos=np.asarray(art.pos.cpu() if isinstance(art.pos, torch.Tensor) else art.pos,
-                       np.int32),
-        caches=tuple(_map_cache(c, to_host) for c in art.caches),
-    )
+    if isinstance(art, EncDecState):
+        return EncDecState(
+            pos=_host_pos(art.pos),
+            self_kv=KVCache(to_host(art.self_kv.k), to_host(art.self_kv.v)),
+            cross_kv=KVCache(to_host(art.cross_kv.k), to_host(art.cross_kv.v)),
+        )
+    return LMState(pos=_host_pos(art.pos),
+                   caches=tuple(_map_cache(c, to_host) for c in art.caches))
 
 
-def artifact_length(artifact: LMState) -> int:
-    """The token count of the context an artifact holds (its ``pos``)."""
+def artifact_length(artifact) -> int:
+    """The token count of the context an artifact holds (its ``pos``; 0 for
+    an encoder-decoder's, whose decoder restarts at position 0)."""
     p = artifact.pos
     return int(p[0].item() if isinstance(p, torch.Tensor) else np.asarray(p)[0])
 
@@ -88,9 +100,17 @@ def artifact_length(artifact: LMState) -> int:
 # --------------------------------------------------------------------------- #
 # Extract / insert: one slot of the batched device state
 # --------------------------------------------------------------------------- #
-def slot_artifact(state: LMState, slot: int, length: int) -> LMState:
+def slot_artifact(state, slot: int, length: int):
     """Slot ``slot``'s first ``length`` tokens of context state as an artifact
-    of device views (an SSM layer's whole state: it is O(1) in ``length``)."""
+    of device views (an SSM layer's whole state: it is O(1) in ``length``;
+    an encoder-decoder's whole cross K/V, no self K/V row and ``pos`` 0)."""
+    if isinstance(state, EncDecState):
+        one = slice(slot, slot + 1)
+        return EncDecState(
+            pos=np.zeros((1,), np.int32),
+            self_kv=KVCache(state.self_kv.k[:, one, :0], state.self_kv.v[:, one, :0]),
+            cross_kv=KVCache(state.cross_kv.k[:, one], state.cross_kv.v[:, one]),
+        )
 
     def rows(t: torch.Tensor) -> torch.Tensor:
         return t[:, slot : slot + 1, :length]
@@ -105,18 +125,27 @@ def slot_artifact(state: LMState, slot: int, length: int) -> LMState:
     )
 
 
-def extract_slot(cfg: ArchConfig, state: LMState, slot: int, length: int) -> LMState:
+def extract_slot(cfg: ArchConfig, state, slot: int, length: int):
     """Slot ``slot``'s first ``length`` tokens of context state, on the host."""
     return artifact_to_host(slot_artifact(state, slot, length))
 
 
-def insert_slot(
-    cfg: ArchConfig, state: LMState, slot: int, artifact: LMState, n_tokens: int = None
-) -> LMState:
+def insert_slot(cfg: ArchConfig, state, slot: int, artifact, n_tokens: int = None):
     """Write a context (host or device artifact) into batch slot ``slot`` in
     place, with ``pos[slot]`` set to its token count (or ``n_tokens`` for a
     partial-prefix insert of attention K/V; SSM state is all or nothing, a
-    whole snapshot at the stored context's length).  Returns ``state``."""
+    whole snapshot at the stored context's length).  An encoder-decoder's
+    artifact brings its cross K/V and its self K/V rows (none for a stored
+    context, the prompt's for a freshly prefilled batch-1 state) and its
+    ``pos``, whatever ``n_tokens``.  Returns ``state``."""
+    if isinstance(state, EncDecState):
+        for dst, src in zip(state.cross_kv, artifact.cross_kv):
+            dst[:, slot] = to_device(src[:, 0], dst.dtype, dst.device)
+        n_self = artifact.self_kv.k.shape[2]
+        for dst, src in zip(state.self_kv, artifact.self_kv):
+            dst[:, slot, :n_self] = to_device(src[:, 0], dst.dtype, dst.device)
+        state.pos[slot] = artifact_length(artifact)
+        return state
     art_pos = artifact_length(artifact)
     L = art_pos if n_tokens is None else min(n_tokens, art_pos)
     for c, a in zip(state.caches, artifact.caches):
@@ -247,11 +276,11 @@ def build_packed_caches(
     multi-slot insertion of the load path.  ``artifacts[i]`` is segment i's
     stored artifact (or None for recompute).  The extra last row is the
     scratch row the padding tokens' K/V land on."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"{cfg.family} archs have no packed or pooled KV in the port (the SSM state "
-            "of SSM and hybrid stacks cannot be packed or paged; encoder-decoder and VLM "
-            "archs: ROADMAP queue A item 9)"
+            f"{cfg.family} archs have no packed or pooled KV (the SSM state of SSM and "
+            "hybrid stacks cannot be packed or paged; an encoder-decoder arch has no "
+            "packed or paged entry point, as in the reference)"
         )
     dtype = dtype or resolve_dtype(cfg.dtype)
     shape = (cfg.n_layers, 1, layout.kv_len + 1, cfg.n_kv_heads, cfg.resolved_head_dim)
@@ -521,11 +550,11 @@ def init_pool_caches(
     """The shared KV block pool on ``device`` (the card unless the caller
     asks for another): one flat-row KV buffer ``[n_layers, n_blocks * block,
     KV, hd]``, the paged counterpart of ``lm.init_state``'s slotted caches."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"{cfg.family} archs have no packed or pooled KV in the port (the SSM state "
-            "of SSM and hybrid stacks cannot be packed or paged; encoder-decoder and VLM "
-            "archs: ROADMAP queue A item 9)"
+            f"{cfg.family} archs have no packed or pooled KV (the SSM state of SSM and "
+            "hybrid stacks cannot be packed or paged; an encoder-decoder arch has no "
+            "packed or paged entry point, as in the reference)"
         )
     device = resolve_device(device)
     dtype = dtype or resolve_dtype(cfg.dtype)

@@ -1,6 +1,9 @@
-"""Grouped-query self-attention against the slotted KV cache or the shared block pool.
+"""Grouped-query self-attention against the slotted KV cache or the shared
+block pool, plain self-attention without a cache, and cross-attention.
 
-Six call modes of the serving path share one weight set:
+Seven call modes share one weight set:
+  * ``forward`` — attention over the call's own tokens, causal or not, with
+    no cache (the Whisper encoder's self-attention).
   * ``prefill`` — ``S`` new tokens per sequence written at ``offset`` into
     the slotted cache, attending causally over ``[0, offset+S)``; with
     ``offset > 0`` this is the paper's suffix prefill over reused context.
@@ -17,6 +20,10 @@ Six call modes of the serving path share one weight set:
     reuse admission, at gappy positions, against one assembled buffer whose
     reused spans were preloaded from storage.
 
+Cross-attention (the Whisper decoder's) computes its K/V once from the
+encoder's output (``cross_kv``) and attends them non-causally
+(``cross_attend``): the K/V of one audio context are the reusable state.
+
 Cache layout: k/v ``[B, L_cache, KV_heads, head_dim]`` (the pool: ``[N_rows,
 KV_heads, head_dim]``).  Unlike the JAX package, which returns new cache
 arrays, every mode writes the new rows into the cache tensors in place: the
@@ -32,7 +39,7 @@ the reference: the engine packs only when ``window >= max_len``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -120,6 +127,34 @@ def _ring_write(cache: torch.Tensor, positions: torch.Tensor, new: torch.Tensor)
     n = min(S, W)
     rows = torch.arange(B, device=cache.device)[:, None]
     cache[rows, (positions[:, S - n:] % W).long()] = new[:, S - n:]
+
+
+# --------------------------------------------------------------------------- #
+# Forward over the call's own tokens (no cache)
+# --------------------------------------------------------------------------- #
+def forward(
+    p: Params,
+    cfg: ArchConfig,
+    x: torch.Tensor,  # [B, S, D]
+    *,
+    causal: bool = True,
+    positions: Optional[torch.Tensor] = None,  # [B, S] int32; 0 .. S-1 if not given
+) -> torch.Tensor:
+    """Every token attends the call's tokens at ``positions`` (causally, or
+    all of them), through ``ops.flash_attention``."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, cfg, x)
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    positions = positions.to(torch.int32).contiguous()
+    if cfg.rope_theta is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    o = ops.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), q_pos=positions, kv_pos=positions,
+        causal=causal, window=cfg.sliding_window,
+    )
+    return _out(p, o)
 
 
 # --------------------------------------------------------------------------- #
@@ -360,4 +395,44 @@ def prefill_chunked(
         q.contiguous(), pool.k, pool.v, block_table=table, q_pos=q_pos.contiguous(),
         block=block, window=cfg.sliding_window,
     )
+    return _out(p, o)
+
+
+# --------------------------------------------------------------------------- #
+# Cross-attention (Whisper decoder): K/V computed once from the encoder output
+# --------------------------------------------------------------------------- #
+def init_cross_attention(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
+    return init_attention(gen, cfg, device)
+
+
+def cross_kv(p: Params, cfg: ArchConfig, enc_out: torch.Tensor) -> KVCache:
+    """The cross-attention K/V ``[B, S_enc, KV, hd]`` of the encoder output
+    ``[B, S_enc, D]``."""
+    dt = enc_out.dtype
+    B, S, D = enc_out.shape
+    k = (enc_out @ p["wk"].to(dt).reshape(D, -1)).view(B, S, cfg.n_kv_heads, -1)
+    v = (enc_out @ p["wv"].to(dt).reshape(D, -1)).view(B, S, cfg.n_kv_heads, -1)
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    return KVCache(k, v)
+
+
+def cross_attend(p: Params, cfg: ArchConfig, x: torch.Tensor, ckv: KVCache) -> torch.Tensor:
+    """The decoder tokens ``x [B, S, D]`` attend every row of the cross K/V,
+    non-causally (queries at position 0, rows at 0 .. S_enc-1, as the
+    reference places them), through ``ops.flash_attention``: at a decode
+    step that is one query row per sequence.  ``ops.decode_attention``
+    would keep only the rows at or below the query's position, here row 0
+    alone."""
+    B, S, D = x.shape
+    dt = x.dtype
+    q = (x @ p["wq"].to(dt).reshape(D, -1)).view(B, S, cfg.n_heads, -1)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+    Skv = ckv.k.shape[1]
+    q_pos = torch.zeros((B, S), dtype=torch.int32, device=x.device)
+    kv_pos = torch.arange(Skv, dtype=torch.int32, device=x.device)[None].expand(B, Skv)
+    o = ops.flash_attention(q.contiguous(), ckv.k, ckv.v, q_pos=q_pos,
+                            kv_pos=kv_pos.contiguous(), causal=False)
     return _out(p, o)

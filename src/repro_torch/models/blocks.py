@@ -1,10 +1,10 @@
-"""Decoder blocks: (attention | mamba) mixer + optional (SwiGLU MLP | MoE)
-FFN, pre-norm.
+"""Decoder blocks: (attention | mamba) mixer + optional (MLP | MoE) FFN,
+pre-norm.
 
 A block is described by a static :class:`BlockKind`, as in the reference's
-``models/blocks.py``; the port carries the dense (``("a", "mlp")``), MoE
-(``("a", "moe")``) and SSM (``("m", "none")``) kinds, and the hybrid
-family's mix of ``a`` and ``m`` mixers with MLP and MoE FFNs.  The MoE FFN's aux
+``models/blocks.py``: the dense and VLM (``("a", "mlp")``), MoE (``("a",
+"moe")``) and SSM (``("m", "none")``) kinds, and the hybrid family's mix of
+``a`` and ``m`` mixers with MLP and MoE FFNs.  The MoE FFN's aux
 loss is a training term: the serving paths drop it, as the reference's
 ``lm.py`` does.
 """
@@ -42,12 +42,7 @@ def block_kinds(cfg: ArchConfig) -> Tuple[BlockKind, ...]:
             "uniform stacks need MoE on every layer; use family='hybrid' otherwise"
         )
         return (BlockKind("a", "moe"),)
-    if cfg.family == "dense":
-        return (BlockKind("a", "mlp"),)
-    raise NotImplementedError(
-        f"{cfg.family} archs are not ported yet: the port carries the dense, MoE, SSM and "
-        "hybrid families; encoder-decoder and VLM archs are ROADMAP queue A item 9"
-    )
+    return (BlockKind("a", "mlp"),)  # dense and VLM (the encoder-decoder: models.encdec)
 
 
 class BlockCache(NamedTuple):

@@ -68,6 +68,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * weight.float()).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm in f32 with the population variance, cast back to ``x``'s
+    dtype (the reference's ``layer_norm``)."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
+
+
 def swiglu(x_gate: torch.Tensor, x_up: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.silu(x_gate) * x_up
 

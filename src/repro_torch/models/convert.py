@@ -4,7 +4,8 @@
 example ``jax.tree_util.tree_map(np.asarray, api.init(key, cfg))``) and
 returns the port's tree.  The reference stacks each layer weight over the
 layers for ``lax.scan`` (``lm.init``, ``common.init_stacked``); the port
-keeps one dict per layer, so this unstacks them.  Layouts inside a layer are
+keeps one dict per layer, so this unstacks them (an encoder-decoder's
+``encoder`` and ``decoder`` stacks alike).  Layouts inside a layer are
 the same in both packages, and so are dtypes: every leaf takes the
 config's ``param_dtype`` but the SSD's ``A_log``, ``D_skip`` and ``dt_bias``
 and the MoE router, which stay f32 as the reference keeps them.  The expert
@@ -19,7 +20,6 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import Params, resolve_device, resolve_dtype
-from repro_torch.models.registry import get_model
 from repro_torch.models import ssm
 
 # leaves the reference keeps in f32 whatever the param_dtype
@@ -42,7 +42,6 @@ def from_jax_params(cfg: ArchConfig, params_np: Dict[str, Any], device=None,
     """The port's parameters for ``cfg`` from the reference's numpy tree.
     ``dtype`` defaults to the config's ``param_dtype``; the SSD's f32 leaves
     and the MoE router stay f32."""
-    get_model(cfg)  # raises for families the port does not carry
     device = resolve_device(device)
     dtype = dtype or resolve_dtype(cfg.param_dtype)
 
@@ -50,6 +49,18 @@ def from_jax_params(cfg: ArchConfig, params_np: Dict[str, Any], device=None,
         a = a if i is None else a[i]
         return _tensor(a, device, torch.float32 if name in F32_LEAVES else dtype)
 
+    def unstack(tree, n):
+        return [_map(tree, lambda k, a, i=i: leaf(k, a, i)) for i in range(n)]
+
+    if cfg.family == "encdec":
+        return {
+            "embed": _map(params_np["embed"], leaf),
+            "dec_pos": leaf("dec_pos", params_np["dec_pos"]),
+            "encoder": unstack(params_np["encoder"], cfg.n_encoder_layers),
+            "enc_norm": _map(params_np["enc_norm"], leaf),
+            "decoder": unstack(params_np["decoder"], cfg.n_layers),
+            "dec_norm": _map(params_np["dec_norm"], leaf),
+        }
     stacks = params_np["layers"]  # one stack per layer kind of a period
     period = len(stacks)
     per_layer = [

@@ -1,4 +1,5 @@
-"""Core layers of the dense decoder: RoPE, RMSNorm, embedding, LM head, MLP."""
+"""Core layers: RoPE, the sinusoidal table, RMSNorm and LayerNorm, the
+embedding, the LM head, and the SwiGLU and GELU MLPs."""
 from __future__ import annotations
 
 import numpy as np
@@ -30,17 +31,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(max_len: int, d_model: int, device) -> torch.Tensor:
+    """The transformer's sinusoidal table ``[max_len, d_model]`` (Whisper's
+    encoder positions), built in numpy as the reference builds it, in f32."""
+    pos = np.arange(max_len)[:, None]
+    dim = np.arange(d_model // 2)[None, :]
+    angle = pos / np.power(10_000.0, 2 * dim / d_model)
+    table = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return torch.from_numpy(table.astype(np.float32)).to(device)
+
+
 # --------------------------------------------------------------------------- #
-# Norm
+# Norms
 # --------------------------------------------------------------------------- #
 def init_norm(cfg: ArchConfig, device) -> Params:
-    if cfg.norm_type != "rmsnorm":
-        raise NotImplementedError("LayerNorm archs are not ported yet (ROADMAP queue A item 9)")
-    return {"scale": torch.ones(cfg.d_model, dtype=common.resolve_dtype(cfg.param_dtype),
-                                device=device)}
+    pdtype = common.resolve_dtype(cfg.param_dtype)
+    p = {"scale": torch.ones(cfg.d_model, dtype=pdtype, device=device)}
+    if cfg.norm_type == "layernorm":
+        p["bias"] = torch.zeros(cfg.d_model, dtype=pdtype, device=device)
+    return p
 
 
 def apply_norm(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm_type == "layernorm":
+        return common.layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
     return common.rms_norm(x, p["scale"], cfg.norm_eps)
 
 
@@ -71,13 +85,18 @@ def lm_logits(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
-# MLP (SwiGLU)
+# MLP: SwiGLU, or the two-matrix GELU form with biases (granite, Whisper)
 # --------------------------------------------------------------------------- #
 def init_mlp(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
-    if cfg.mlp_type != "swiglu":
-        raise NotImplementedError("GELU MLPs are not ported yet (ROADMAP queue A item 9)")
     pdtype = common.resolve_dtype(cfg.param_dtype)
     D, F = cfg.d_model, cfg.d_ff
+    if cfg.mlp_type == "gelu":
+        return {
+            "w1": common.dense_init(gen, (D, F), pdtype, device),
+            "b1": torch.zeros(F, dtype=pdtype, device=device),
+            "w2": common.dense_init(gen, (F, D), pdtype, device, fan_in=F),
+            "b2": torch.zeros(D, dtype=pdtype, device=device),
+        }
     return {
         "w_gate": common.dense_init(gen, (D, F), pdtype, device),
         "w_up": common.dense_init(gen, (D, F), pdtype, device),
@@ -87,6 +106,12 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
 
 def apply_mlp(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
+    if cfg.mlp_type == "gelu":
+        # jax.nn.gelu's default is the tanh approximation; the biases are
+        # added in the activation dtype, as the reference adds them
+        h = x @ p["w1"].to(dt) + p["b1"].to(dt)
+        h = torch.nn.functional.gelu(h, approximate="tanh")
+        return h @ p["w2"].to(dt) + p["b2"].to(dt)
     gate = x @ p["w_gate"].to(dt)
     up = x @ p["w_up"].to(dt)
     return common.swiglu(gate, up) @ p["w_down"].to(dt)

@@ -5,7 +5,7 @@ chunked prefill, dense and paged decode.
 API:
   init(cfg, seed=0, device=None) -> params
   init_state(cfg, batch, max_len, device=None) -> LMState
-  prefill(params, cfg, tokens [B, S], state) -> (last logits [B, V], LMState)
+  prefill(params, cfg, tokens [B, S], state, embeds=None) -> (last logits [B, V], LMState)
   prefill_packed(params, cfg, tokens, caches, **layout) -> (logits [n, V], caches)
   prefill_fused(params, cfg, tokens, caches, q_pos=, q_rows=, kv_pos=, last_idx=)
       -> (logits [1, V], caches)
@@ -31,7 +31,7 @@ stacks (SSM state mixes along the sequence).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -114,14 +114,32 @@ def init_state(cfg: ArchConfig, batch: int, max_len: int, device=None,
 # --------------------------------------------------------------------------- #
 # Prefill (full when state.pos == 0; suffix when state.pos > 0)
 # --------------------------------------------------------------------------- #
+def _embed_inputs(params: Params, cfg: ArchConfig, tokens: Optional[torch.Tensor],
+                  embeds) -> torch.Tensor:
+    """The token embeddings, after the precomputed ``embeds [B, E, D]`` (a
+    VLM's image patches; a tensor or an array) cast to ``cfg.dtype`` where
+    given (the reference's ``_embed_inputs``)."""
+    parts = []
+    if embeds is not None:
+        device = params["embed"]["table"].device
+        parts.append(torch.as_tensor(embeds, device=device).to(resolve_dtype(cfg.dtype)))
+    if tokens is not None:
+        parts.append(layers.embed_tokens(params["embed"], cfg, tokens))
+    if not parts:
+        raise ValueError("prefill needs tokens, embeds or both")
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
 def prefill(
-    params: Params, cfg: ArchConfig, tokens: torch.Tensor, state: LMState
+    params: Params, cfg: ArchConfig, tokens: Optional[torch.Tensor], state: LMState,
+    embeds=None,
 ) -> Tuple[torch.Tensor, LMState]:
     """Prefill ``tokens`` [B, S] after the ``state.pos`` tokens already in
-    the caches (written in place); returns the last token's logits [B, V]
-    and the state with ``pos + S``."""
+    the caches (written in place), with ``embeds [B, E, D]`` before them
+    where given (positions ``pos .. pos + E - 1``); returns the last
+    position's logits [B, V] and the state with ``pos + E + S``."""
     kinds, _ = _layout(cfg)
-    x = layers.embed_tokens(params["embed"], cfg, tokens)
+    x = _embed_inputs(params, cfg, tokens, embeds)
     S = x.shape[1]
     for lp, kind, j, i in _layers(params, kinds):
         x = blocks.prefill(lp, cfg, kind, x, _block_cache(state.caches[j], i), state.pos)

@@ -6,44 +6,48 @@ the two counts equal."""
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.blocks import block_kinds
 
 
 class ModelApi(NamedTuple):
-    """The model's functions on the serving path (see ``models.lm``).  The
-    packed, paged, chunked and fused calls raise for a stack with Mamba
-    layers, as the reference's assert."""
+    """The model's functions on the serving path (see ``models.lm`` and
+    ``models.encdec``).  The packed, paged, chunked and fused calls raise
+    for a stack with Mamba layers, as the reference's assert; an
+    encoder-decoder arch has none of them (None), as in the reference, and
+    the engine serves it per request with dense decode."""
 
     init: Callable[..., Any]
     init_state: Callable[..., Any]
     prefill: Callable[..., Any]
-    prefill_packed: Callable[..., Any]
     decode: Callable[..., Any]
-    decode_paged: Callable[..., Any]
-    prefill_chunked: Callable[..., Any]
-    prefill_fused: Callable[..., Any]
-
-
-def _check_ported(cfg: ArchConfig) -> None:
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.norm_type != "rmsnorm"
-            or cfg.mlp_type != "swiglu"):
-        raise NotImplementedError(
-            f"{cfg.name}: only dense, MoE, SSM and hybrid RMSNorm/SwiGLU archs are ported "
-            "yet; encoder-decoder, VLM, LayerNorm and GELU archs are ROADMAP queue A item 9"
-        )
+    prefill_packed: Optional[Callable[..., Any]] = None
+    decode_paged: Optional[Callable[..., Any]] = None
+    prefill_chunked: Optional[Callable[..., Any]] = None
+    prefill_fused: Optional[Callable[..., Any]] = None
 
 
 def get_model(cfg: ArchConfig) -> ModelApi:
-    _check_ported(cfg)
+    if cfg.family == "encdec":
+        return ModelApi(init=encdec.init, init_state=encdec.init_state,
+                        prefill=encdec.prefill, decode=encdec.decode)
     return ModelApi(
-        init=lm.init, init_state=lm.init_state, prefill=lm.prefill,
-        prefill_packed=lm.prefill_packed, decode=lm.decode, decode_paged=lm.decode_paged,
+        init=lm.init, init_state=lm.init_state, prefill=lm.prefill, decode=lm.decode,
+        prefill_packed=lm.prefill_packed, decode_paged=lm.decode_paged,
         prefill_chunked=lm.prefill_chunked, prefill_fused=lm.prefill_fused,
     )
+
+
+def _norm_params(cfg: ArchConfig) -> int:
+    return cfg.d_model * (2 if cfg.norm_type == "layernorm" else 1)  # scale (and bias)
+
+
+def _mlp_params(cfg: ArchConfig) -> int:
+    D, F = cfg.d_model, cfg.d_ff
+    return 2 * D * F + F + D if cfg.mlp_type == "gelu" else 3 * D * F
 
 
 def _mixer_params(cfg: ArchConfig, mixer: str) -> int:
@@ -64,20 +68,25 @@ def _ffn_params(cfg: ArchConfig, ffn: str) -> int:
     D = cfg.d_model
     if ffn == "moe":  # norm2, the f32 router and E SwiGLU experts
         return D + D * cfg.moe.n_experts + cfg.moe.n_experts * 3 * D * cfg.d_ff
-    return D + 3 * D * cfg.d_ff if ffn == "mlp" else 0  # norm2 and SwiGLU
+    return _norm_params(cfg) + _mlp_params(cfg) if ffn == "mlp" else 0  # norm2 and the MLP
 
 
 @functools.lru_cache(maxsize=None)
 def count_params(cfg: ArchConfig) -> int:
     """Exact parameter count of the implemented model (padded embedding
     table, biases and norms included), summed over the block kinds of one
-    period (``blocks.block_kinds``) times the periods."""
-    _check_ported(cfg)
-    kinds = block_kinds(cfg)
+    period (``blocks.block_kinds``) times the periods; an encoder-decoder
+    arch's over its encoder and decoder layers."""
     embed = cfg.padded_vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
-    period = sum(cfg.d_model + _mixer_params(cfg, k.mixer) + _ffn_params(cfg, k.ffn)
+    norm, attn, mlp = _norm_params(cfg), _mixer_params(cfg, "a"), _mlp_params(cfg)
+    if cfg.family == "encdec":  # decoder positions, the encoder, the decoder, two norms
+        return (embed + cfg.decoder_seq_len * cfg.d_model
+                + cfg.n_encoder_layers * (2 * norm + attn + mlp)
+                + cfg.n_layers * (3 * norm + 2 * attn + mlp) + 2 * norm)
+    kinds = block_kinds(cfg)
+    period = sum(_norm_params(cfg) + _mixer_params(cfg, k.mixer) + _ffn_params(cfg, k.ffn)
                  for k in kinds)  # norm1, the mixer and the FFN of each layer
-    return embed + cfg.n_layers // len(kinds) * period + cfg.d_model  # final norm
+    return embed + cfg.n_layers // len(kinds) * period + _norm_params(cfg)  # final norm
 
 
 @functools.lru_cache(maxsize=None)

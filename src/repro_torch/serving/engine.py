@@ -274,9 +274,10 @@ class ServingEngine:
         self.perf = perf or PerfModel(h100(1))
         self.api = registry.get_model(cfg)
         # packed admission, paged decode, the unified step and fusion need
-        # per-position attention state: other archs admit one request per
-        # step (``_admit_single``) and keep dense decode, with those options
-        # quietly off, as in the reference
+        # per-position attention state: other archs (SSM state, an
+        # encoder-decoder) admit one request per step (``_admit_single``) and
+        # keep dense decode, with those options quietly off, as in the
+        # reference
         self._packable = paged.packable_arch(cfg, self.ec.max_len)
         if self.ec.cost_arch is not None:
             from repro_torch.configs import get_config
@@ -431,10 +432,6 @@ class ServingEngine:
     # Public API: submit / step / drain / run
     # ------------------------------------------------------------------ #
     def submit(self, req: Request) -> None:
-        if req.embeds is not None:
-            raise NotImplementedError(
-                "embedding contexts (VLM) are not ported yet: ROADMAP queue A item 9"
-            )
         self.queue.push(req)
 
     @property
@@ -613,19 +610,24 @@ class ServingEngine:
         """Admit every admissible request with a free slot (up to
         ``admit_batch``): plan each individually, then execute all their
         suffix-prefills as ONE packed ragged launch, and each fused plan as
-        its own selective-recompute launch.  An arch that cannot be packed
-        takes the per-request path instead, one request per step."""
+        its own selective-recompute launch.  A request the packed path
+        cannot carry (an arch that cannot be packed, or embeds) takes the
+        per-request path instead, one per step: one at the head of the queue
+        is admitted alone, one behind packable requests waits a step."""
         free = [s for s in self.slots if not s.active]
         if not free:
             return False
-        if not self._packable:
-            if self.queue.peek_next(self.clock.now) is None:
-                return False
-            return self._admit_single(self.queue.pop_admissible(self.clock.now), free[0],
-                                      events)
         limit = min(len(free), self.ec.admit_batch or self.ec.max_slots)
         reqs: List[Request] = []
-        while len(reqs) < limit and self.queue.peek_next(self.clock.now) is not None:
+        while len(reqs) < limit:
+            nxt = self.queue.peek_next(self.clock.now)
+            if nxt is None:
+                break
+            if not (self._packable and nxt.embeds is None):
+                if reqs:
+                    break
+                return self._admit_single(self.queue.pop_admissible(self.clock.now),
+                                          free[0], events)
             reqs.append(self.queue.pop_admissible(self.clock.now))
         if not reqs:
             return False
@@ -727,18 +729,20 @@ class ServingEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
-    def _prefill(self, tokens: List[int], state):
+    def _prefill(self, tokens: List[int], state, embeds=None):
         """``ModelApi.prefill`` of one request's ``tokens`` after the state's
-        cached positions (written in place); returns (logits, state)."""
+        cached positions (written in place), with its ``embeds`` context
+        where given; returns (logits, state)."""
         with torch.inference_mode():
-            return self.api.prefill(
-                self.params, self.cfg, self._tensor(np.asarray([tokens], np.int32)), state
-            )
+            return self.api.prefill(self.params, self.cfg,
+                                    self._tensor(np.asarray([tokens], np.int32)), state,
+                                    embeds=embeds)
 
-    # -- per-request execution (archs that cannot be packed) ------------- #
+    # -- per-request execution (archs that cannot be packed, embeds) ---- #
     def _admit_single(self, req: Request, slot: Slot, events: List[ev.Event]) -> bool:
         """Plan, fetch and prefill one request through ``ModelApi.prefill``
-        into a batch-1 state, then install it in ``slot``."""
+        into a batch-1 state, then install it in ``slot`` (under paged
+        decode, in newly admitted pool blocks)."""
         a = self._plan_admission(req, slot, events)
         if a.plan.market is not None:
             self._market_fetch(a, events)
@@ -755,7 +759,10 @@ class ServingEngine:
             prefill_s, logits, temp = self._execute_recompute(
                 req, events, store_after=a.plan.store_after)
         self._release_prefetch(req.req_id)
-        paged.insert_slot(self.cfg, self._state, slot.index, temp)
+        if self._paged_on:
+            self._land_state_in_pool(slot, temp)
+        else:
+            paged.insert_slot(self.cfg, self._state, slot.index, temp)
         first_tok = int(logits[0].argmax())
         self.clock.advance(load_s + prefill_s)
         self.admission_busy_s += load_s + prefill_s
@@ -770,12 +777,14 @@ class ServingEngine:
     def _execute_load(self, req: Request, a: _Admission, events: List[ev.Event]):
         """Insert the fetched stored context state into a fresh batch-1 state
         and prefill only the unmatched tail and the prompt after it (for SSM
-        state, all or nothing, the tail is empty).  Returns (load_s,
+        state, all or nothing, the tail is empty; an embeds context is
+        stored whole, so its tail is empty too).  Returns (load_s,
         prefill_s, logits, state)."""
         matched = a.matched
         temp = self.api.init_state(self.cfg, 1, self.ec.max_len, device=self.device)
         paged.insert_slot(self.cfg, temp, 0, a.artifact, n_tokens=matched)
-        tokens = list(req.context_tokens)[matched:] + list(req.prompt_tokens)
+        tail = [] if req.embeds is not None else list(req.context_tokens)[matched:]
+        tokens = tail + list(req.prompt_tokens)
         logits, temp = self._prefill(tokens, temp)
         prefill_s = self.perf.t_prefill(self.cost_cfg, len(tokens))
         load_s = self._overlapped(a.delay, prefill_s)
@@ -1087,10 +1096,17 @@ class ServingEngine:
         falls back to (fused plans never write back).  With ``store_after``
         it runs in two phases, so the stored snapshot holds no prompt token
         (SSM state mixes them in): the context alone, its write-back, then
-        the prompt on the same state.  Returns (prefill_s, logits, state)."""
+        the prompt on the same state.  An embeds context (a VLM's image, an
+        audio's frames) is one phase: the prompt after the embeds, the
+        context's positions depending on the embeds alone, so the artifact
+        is taken after the call.  Returns (prefill_s, logits, state)."""
         ctx, prompt = list(req.context_tokens), list(req.prompt_tokens)
         temp = self.api.init_state(self.cfg, 1, self.ec.max_len, device=self.device)
-        if store_after:
+        if req.embeds is not None:
+            logits, temp = self._prefill(prompt, temp, embeds=req.embeds)
+            if store_after:
+                self._write_back(req, paged.slot_artifact(temp, 0, len(ctx)), events)
+        elif store_after:
             _, temp = self._prefill(ctx, temp)
             self._write_back(req, paged.slot_artifact(temp, 0, len(ctx)), events)
             logits, temp = self._prefill(prompt, temp)
@@ -1462,7 +1478,7 @@ class ServingEngine:
         else:
             match, entry = self.store.lookup(list(req.context_tokens))
             self.lookup_walks += 1
-        partial_ok = paged.partial_reuse_allowed(self.cfg)
+        partial_ok = paged.partial_reuse_allowed(self.cfg) and req.embeds is None
         unavailable = frozenset(
             t for t in self.store.tier_order
             if self.ec.faults is not None and self.ec.faults.browned_out(t, self.clock.now)
@@ -1487,7 +1503,7 @@ class ServingEngine:
                 queue_wait[entry.tier] = wait
         composite = None
         fused_bytes: Dict[str, float] = {}
-        if self._fusion_on and frac < 1.0:
+        if self._fusion_on and req.embeds is None and frac < 1.0:
             comp = self.store.lookup_composite(list(req.context_tokens))
             if comp.matched_tokens > 0 and not any(
                 (e := self.store.entries.get(eid)) is not None and e.tier in unavailable
@@ -1616,7 +1632,9 @@ class ServingEngine:
         """Take every admissible request with a free slot in as a pending
         chunk stream: plan it, execute its storage fetch (the delay becomes
         the stream's ready time, so a load overlaps other slots' compute)
-        and admit its pool blocks (embeds raise in ``submit``)."""
+        and admit its pool blocks.  A request the pool cannot take in chunks
+        (embeds) is admitted whole through the per-request path
+        (``_admit_single``)."""
         free = [s for s in self.slots if not s.active and s.index not in self._chunks]
         if not free:
             return False
@@ -1625,6 +1643,10 @@ class ServingEngine:
         n = 0
         while n < limit and self.queue.peek_next(self.clock.now) is not None:
             req = self.queue.pop_admissible(self.clock.now)
+            if req.embeds is not None:
+                self._admit_single(req, free[n], events)
+                n += 1
+                continue
             a = self._plan_admission(req, free[n], events, pending=pending)
             self._note_pending(a, pending)
             self._start_chunk_stream(a, events)

@@ -9,13 +9,14 @@ the port's values.
 
   * ``TestPaperNumbers``: the paper's numbers on ``llama-7b`` with
     ``V100_X4_HF``, ``V100_X1_PAPER`` and ``AWS_PAPER``.
-  * ``TestProperties``: the structural properties over the seven registered
-    archs, on seeded grids of the reference's hypothesis ranges; the
+  * ``TestProperties``: the structural properties over every registered
+    arch (the eleven of the reference), on seeded grids of the reference's
+    hypothesis ranges, with its MQA case on ``granite-34b``; the
     reference's TPU case becomes an H100 one (``h100``, ``h100_pricing``).
-  * ``PerfModel`` on ``h100`` and ``V100_X4`` over the seven archs, with
-    the reference's sliding-window cases on ``mixtral-8x22b``
-    (``tests/test_perf_model.py:56, 91``); its many-chip case runs on nemo,
-    not granite.
+  * ``PerfModel`` on ``h100`` and ``V100_X4`` over every registered arch,
+    with the reference's sliding-window cases on ``mixtral-8x22b``
+    (``tests/test_perf_model.py:56, 91``); its many-chip case runs on
+    granite, as the reference's, and on nemo.
 
 MoE archs price only their active parameters (``count_active_params``), so
 ``olmoe-1b-7b`` and ``mixtral-8x22b`` are where a port that counted every
@@ -222,10 +223,22 @@ class TestProperties:
             s = _same(cm.s_storage_bytes(cfg, L), jcm.s_storage_bytes(jcfg, L))
             assert s == min(L, 4096) * per_row
 
+    def test_mqa_cheaper_to_store_than_mha(self):
+        """``tests/test_cost_model.py:150``: granite's MQA (one kv head of
+        128) stores 32x less than llama's MHA (32 heads of 128) a layer,
+        and its stored bytes are the reference's at every length."""
+        g, jg = get_config("granite-34b"), jget_config("granite-34b")
+        per_tok_g = g.kv_bytes_per_token() / g.n_layers
+        per_tok_l = LLAMA.kv_bytes_per_token() / LLAMA.n_layers
+        assert per_tok_l / per_tok_g == pytest.approx(32.0, rel=0.01)
+        assert g.kv_bytes_per_token() == jg.kv_bytes_per_token() == 88 * 2 * 128 * 2
+        for L in (1, 2032, 32_768):
+            assert _same(cm.s_storage_bytes(g, L), jcm.s_storage_bytes(jg, L)) == (
+                L * g.kv_bytes_per_token())
+
     def test_gqa_cheaper_to_store_than_mha(self):
-        """The reference's MQA case (granite-34b) waits for granite; GQA shows
-        the same rule: nemo's 8 kv heads store a quarter of llama's 32 per
-        layer (both hd 128)."""
+        """GQA follows MQA's rule: nemo's 8 kv heads store a quarter of
+        llama's 32 per layer (both hd 128)."""
         nemo = get_config("mistral-nemo-12b")
         per_tok_n = nemo.kv_bytes_per_token() / nemo.n_layers
         per_tok_l = LLAMA.kv_bytes_per_token() / LLAMA.n_layers
@@ -379,6 +392,17 @@ def test_more_chips_never_slower():
             small.t_prefill(cfg, L), jsmall.t_prefill(jcfg, L))
         assert _same(big.t_decode(cfg, 1, L), jbig.t_decode(jcfg, 1, L)) <= _same(
             small.t_decode(cfg, 1, L), jsmall.t_decode(jcfg, 1, L))
+
+
+def test_more_chips_never_slower_on_granite():
+    """``tests/test_perf_model.py:126`` on its own arch, granite-34b: eight
+    H100s never model a slower prefill or decode than one."""
+    cfg, jcfg = get_config("granite-34b"), jget_config("granite-34b")
+    (small, jsmall), (big, jbig) = _both(pm.h100(1)), _both(pm.h100(8))
+    assert _same(big.t_prefill(cfg, 32_768), jbig.t_prefill(jcfg, 32_768)) <= _same(
+        small.t_prefill(cfg, 32_768), jsmall.t_prefill(jcfg, 32_768))
+    assert _same(big.t_decode(cfg, 1, 32_768), jbig.t_decode(jcfg, 1, 32_768)) <= _same(
+        small.t_decode(cfg, 1, 32_768), jsmall.t_decode(jcfg, 1, 32_768))
 
 
 def test_kv_load_time_scales_with_hosts():

@@ -22,9 +22,12 @@ version's error) away from the f64 sequential scan of the same inputs, 5e-5
 being the reference's SSD atol; a bf16 y lies within one bf16 ulp (2^-7 of
 the plain version's magnitude) plus 5e-5 of the plain version's, since
 both round f32 sums of the same inputs to bf16.  The decode, flash and
-SSD kernels are also held at jamba-1.5-large-398b's shapes.  The reduced
-mamba2-1.3b, olmoe-1b-7b and jamba-1.5-large-398b are served on the card
-against the same engine on the CPU.
+SSD kernels are also held at jamba-1.5-large-398b's shapes, the prefill
+kernels at granite-34b's 48 query heads on one kv head, and the flash
+kernel non-causal at whisper-tiny's (hd 64, 1,500 rows; one query row and
+1,500).  The reduced mamba2-1.3b, olmoe-1b-7b, jamba-1.5-large-398b,
+granite-34b, internvl2-1b and whisper-tiny are served on the card against
+the same engine on the CPU.
 """
 import os
 import pathlib
@@ -82,6 +85,7 @@ PACKED_CASES = [
     ([(8, 30), (0, 25)], 8, 2, 128, 64, 12),
     ([(16, 5)], 2, 1, 256, 8, None),
     ([(0, 300), (100, 150)], 4, 4, 128, 512, None),
+    ([(0, 300), (100, 150)], 48, 1, 128, 512, None),  # granite-34b: 48 query heads on 1
 ]
 DECODE_CASES = [
     # (B, L, H, KV, hd, window, with kv_valid)
@@ -171,6 +175,13 @@ FLASH_CASES = [
     # 2,032-token prefill, and a 32-token suffix after 2,000 stored rows
     (1, 2032, 4096, 64, 8, 128, True, None, 0, False),
     (1, 32, 4096, 64, 8, 128, True, None, 2000, False),
+    # granite-34b's MQA (48 query heads on 1): a prefill after 100 stored rows
+    (1, 300, 1024, 48, 1, 128, True, None, 100, False),
+    # whisper-tiny (6 heads of 64, non-causal): the encoder over 1,500
+    # frames, a prompt's and a decode step's cross-attention over them
+    (1, 1500, 1500, 6, 6, 64, False, None, 0, False),
+    (1, 24, 1500, 6, 6, 64, False, None, 0, False),
+    (4, 1, 1500, 6, 6, 64, False, None, 0, False),
 ]
 
 
@@ -657,6 +668,7 @@ FUSED_CASES = [
     # the fused serve's shape: 575 recompute queries in a 1,024 bucket over
     # 2,080 valid rows of a 4,096-row buffer
     (1, 1024, 4096, 2080, 575, 32, 32, 128, None),
+    (1, 140, 384, 300, 140, 48, 1, 128, None),  # granite-34b: 48 query heads on 1
 ]
 
 
@@ -1130,6 +1142,105 @@ def test_reduced_olmoe_serves_on_card_as_on_cpu(cuda, mode):
         assert (got - want).abs().max().item() <= 1e-3
     assert {r.req_id: (r.action, r.tokens) for r in eng.records} == {
         r.req_id: (r.action, r.tokens) for r in cpu.records}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["dense", "paged", "unified"])
+def test_reduced_granite_serves_on_card_as_on_cpu(cuda, mode):
+    """The reduced granite-34b (4 query heads on one kv head, the GELU MLP;
+    f32) served on the card: fused, packed or chunked admissions and dense
+    or paged decode, every prefill call's logits within 1e-3 of the same
+    engine on the CPU, the same tokens and actions."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import lm
+
+    cfg = reduced_config(get_config("granite-34b"))
+    assert (cfg.n_kv_heads, cfg.mlp_type) == (1, "gelu")
+    params = lm.init(cfg, seed=0, device="cpu")
+    ec = {"dense": {}, "paged": dict(paged_decode=True),
+          "unified": dict(paged_decode=True, unified_step=True)}[mode]
+    eng, calls = _serve_recording(cfg, _to(params, cuda), cuda, **ec)
+    torch.cuda.synchronize()
+    cpu, cpu_calls = _serve_recording(cfg, params, "cpu", **ec)
+    assert [r.action for r in eng.records].count("fused") == 3
+    assert len(calls) == len(cpu_calls)
+    for got, want in zip(calls, cpu_calls):
+        assert (got - want).abs().max().item() <= 1e-3
+    assert {r.req_id: (r.action, r.tokens) for r in eng.records} == {
+        r.req_id: (r.action, r.tokens) for r in cpu.records}
+
+
+def _embeds_serve(arch, device, params, n_ctx=2, **ec_kw):
+    """Six requests over ``n_ctx`` embedding contexts (images of internvl2-1b,
+    audio frames of whisper-tiny) with ``AlwaysReusePlanner``; returns the
+    engine and every ``ModelApi.prefill`` call's logits."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.serving import AlwaysReusePlanner, EngineConfig, Request, ServingEngine
+
+    cfg = reduced_config(get_config(arch))
+    n_emb = cfg.encoder_seq_len if cfg.family == "encdec" else cfg.frontend_tokens
+    rng = np.random.default_rng(0)
+    contexts = [(list(map(int, rng.integers(0, 1000, n_emb))),
+                 (rng.standard_normal((1, n_emb, cfg.d_model)) * 0.5).astype(np.float32))
+                for _ in range(n_ctx)]
+    eng = ServingEngine(cfg, _to(params, device), device=device, planner=AlwaysReusePlanner(),
+                        engine_cfg=EngineConfig(max_slots=2, max_len=128, chunk_tokens=8,
+                                                **ec_kw))
+    calls = []
+    prefill = eng.api.prefill
+
+    def record(*args, **kw):
+        logits, state = prefill(*args, **kw)
+        calls.append(logits.float().cpu())
+        return logits, state
+
+    eng.api = eng.api._replace(prefill=record)
+    for i in range(6):
+        ctx, emb = contexts[i % n_ctx]
+        eng.submit(Request(req_id=i, context_tokens=ctx, embeds=emb, max_new_tokens=4,
+                           prompt_tokens=list(map(int, rng.integers(0, cfg.vocab, 8))),
+                           arrival_s=i * 0.01, expected_reuses=3))
+    eng.run()
+    return eng, calls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,ec", [("internvl2-1b", {}),
+                                     ("internvl2-1b", dict(paged_decode=True)),
+                                     ("whisper-tiny", {})], ids=["vlm", "vlm-paged", "encdec"])
+def test_reduced_embeds_archs_serve_on_card_as_on_cpu(cuda, arch, ec):
+    """The reduced internvl2-1b (image embeddings before the prompt) and
+    whisper-tiny (the encoder over 32 frames, cross-attention at every
+    decoder step) served on the card with reuse: every ``ModelApi.prefill``
+    call's logits within 1e-3 of the same engine on the CPU, the same
+    actions and tokens.  Whisper's launches: ``flash_attention`` for the
+    encoder's layers and each decoder layer's cross-attention, prefill and
+    decode alike, ``decode_attention`` for its self-attention at a step."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import registry
+
+    cfg = reduced_config(get_config(arch))
+    params = registry.get_model(cfg).init(cfg, seed=0, device="cpu")
+    before = (fk.flash_attention.launches, dk.decode_attention.launches)
+    eng, calls = _embeds_serve(arch, cuda, params, **ec)
+    torch.cuda.synchronize()
+    flash, decode = (fn.launches - b for fn, b in zip(
+        (fk.flash_attention, dk.decode_attention), before))
+    cpu, cpu_calls = _embeds_serve(arch, "cpu", params, **ec)
+    acts = [r.action for r in sorted(eng.records, key=lambda r: r.req_id)]
+    assert acts == ["recompute", "recompute", "load", "load", "load", "load"]
+    assert eng.batches == 0 and len(calls) == len(cpu_calls) == 6
+    for got, want in zip(calls, cpu_calls):
+        assert (got - want).abs().max().item() <= 1e-3
+    assert {r.req_id: (r.action, r.tokens) for r in eng.records} == {
+        r.req_id: (r.action, r.tokens) for r in cpu.records}
+    if cfg.family == "encdec":
+        n_dec, L = eng.decode_stats()["decode_steps"], cfg.n_layers
+        # the two recomputes encode (2 x n_enc), every prefill and decode
+        # step cross-attends once a decoder layer, every prefill
+        # self-attends once a decoder layer
+        assert flash == 2 * cfg.n_encoder_layers + 6 * 2 * L + n_dec * L
+        assert decode == n_dec * L > 0
 
 
 def _ring_serve(cfg, params, device):

@@ -46,7 +46,7 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.obs import Telemetry  # noqa: E402
 from repro_torch.serving import AlwaysReusePlanner, EngineConfig, Request, ServingEngine  # noqa: E402
 from repro_torch.serving import events as ev  # noqa: E402
-from test_torch_engine import _reference_perf_and_pricing, _setup  # noqa: E402
+from test_torch_engine import _reference_perf_and_pricing, _replay_on_both, _setup  # noqa: E402
 from test_torch_obs import _same_ledger  # noqa: E402
 
 torch.set_num_threads(1)
@@ -480,12 +480,21 @@ def test_unified_conservation_with_telemetry(llama):
 
 
 def test_unified_engine_refuses_embeds(llama):
-    """Embedding contexts take the per-request admission path, not ported:
-    the unified engine refuses them at submit instead of serving them."""
-    _, _, cfg, params = llama
-    eng = ServingEngine(cfg, params, device="cpu", engine_cfg=EngineConfig(
-        max_slots=2, max_len=128, paged_decode=True, unified_step=True))
-    req = Request(req_id=0, context_tokens=[1] * 8, prompt_tokens=[2] * 4, max_new_tokens=2,
-                  embeds=np.zeros((8, cfg.d_model), np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit(req)
+    """The unified step refuses an embedding context a place in its chunk
+    stream: the engine admits the request whole through the per-request path
+    (``_admit_single``), lands its rows in the pool and decodes it beside a
+    chunked text request, as the reference's engine does; the serve replays
+    the reference's (records, summary, events at 1e-9, tokens exact)."""
+    _, _, cfg, _ = llama
+    rng = np.random.default_rng(0)
+    embeds = (rng.standard_normal((1, 8, cfg.d_model)) * 0.02).astype(np.float32)
+    reqs = [dict(req_id=0, context_tokens=[1] * 8, prompt_tokens=[2] * 4, max_new_tokens=3,
+                 embeds=embeds),
+            dict(req_id=1, context_tokens=rng.integers(0, cfg.vocab, 40).tolist(),
+                 prompt_tokens=[3] * 4, max_new_tokens=3)]
+    eng, events = _replay_on_both(llama, reqs, "always", paged_decode=True, unified_step=True)
+    assert type(events[0]).__name__ == "RequestAdmitted" and events[0].req_id == 0
+    assert [type(e).__name__ for e in events[:4]] == [
+        "RequestAdmitted", "PlanChosen", "PrefillDone", "TokenEmitted"]
+    assert eng.unified_stats()["steps"] >= 1 and eng.decode_stats()["paged"]
+    assert eng._paged.pool.n_used == 0
