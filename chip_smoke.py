@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's nine CUDA kernels from ``src/repro_torch/kernels/csrc``
-with nvcc (one nvcc per source, all started together), then drives fifteen
-paths of the port, each with every launch counter zeroed just before it and
-read just after it:
+Builds the port's ten CUDA kernels from ``src/repro_torch/kernels/csrc``
+with nvcc (one nvcc per source, all started together), then drives the
+paths of the port below, each with every launch counter zeroed just before
+it and read just after it:
 
 1. dense serve phase — full-width, full-depth llama-7b in bf16 (random
    weights from a seeded generator) behind the port's ``ServingEngine``: the
@@ -299,6 +299,28 @@ read just after it:
    wide to tell two audios apart with random weights); the control,
    request 2's prompt after the other audio's cross K/V, outside it.
 
+19. training — qwen2-0.5b (the reference launcher's default arch; 24
+   layers, d_model 896, 14 heads on 2 kv heads of width 64, qkv bias, the
+   tied 151,936-row embedding) through ``training.train_step``: first at
+   full width cut to ``TRAIN_CUT`` layers in f32, one step's loss and
+   gradients on the card (the forward kernel with its ``lse`` and the
+   backward kernel, one launch each a layer) against the same step on the
+   CPU (their plain versions), within ``TRAIN_GRAD_RTOL``; then at full
+   width and depth in bf16, ``TRAIN_STEPS`` steps of ``token_batches`` at
+   ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens (token ids drawn from the first
+   ``TRAIN_DATA_VOCAB`` of the vocabulary, so that 30 steps can show
+   learning): every loss finite, the mean of the last three at least
+   ``TRAIN_LOSS_DROP`` below the mean of the first three, 24 forward and 24
+   backward launches a step and no other kernel; it logs the step wall
+   median, tokens/s, peak memory and the parameter count.  Last, a
+   ``ResilientLoop`` at ``TRAIN_CUT`` layers (bf16, checkpoints in the
+   reference's layout) preempted by its failure hook after its first
+   checkpoint and re-invoked ends with the parameters, moments and step of
+   an uninterrupted run, bit for bit, under
+   ``torch.use_deterministic_algorithms(True)`` (the cross-entropy's
+   ``gather`` backward is a ``scatter_add_`` on CUDA, which PyTorch counts
+   as nondeterministic).
+
 Then the kernel phase: each kernel is called on the inputs one of its
 launches on those paths received (first layer) and held against its plain
 PyTorch version: in bf16 at atol 1e-2, and cast to f32 (TF32 off) at the
@@ -356,6 +378,21 @@ equal.  Then the device time per call of the tile and combine of each
 prefill kernel, of each decode kernel and of the three bf16 ``ssd_chunked``
 kernels (``torch.profiler``), profiled after every wall and host timing,
 and the decode and SSD wrappers' host enqueue once more.
+The flash-attention backward (``flash_attention_bwd``, the training phase's
+new kernel) is held against its plain backward on the full model's first
+recorded backward launch (B 4, S 2,048, 14 heads on 2, hd 64, causal),
+on llama's heads (hd 128, G 1), on mixtral's G 6 with a window shorter
+than the sequence, and in f32 at a small shape: bf16 within ``BF16_ATOL``
+of max|·| (each side rounds its f32 sums to bf16: at most one ulp, 2^-7 of
+the value), f32 within ``F32_ATOL`` of max(1, max|·|); two launches give the
+same bits, the forward with ``lse`` gives the output bits of the forward
+without it and an ``lse`` within ``LSE_ATOL`` of the plain forward's (the
+same -inf rows; at the training shape the bf16 launch splits its kv tiles,
+so the combine writes it), and in f32 ``FlashAttentionFn`` on the card matches autograd
+of the plain forward.  It is timed beside its plain version and SDPA's
+forward and backward with an explicit boolean mask, and appended to the
+kernels line with the full run's launches, as is the forward at the
+training shape (``at`` "qwen2-0.5b training").
 
 Any failed check raises, so the script exits non-zero.  The line before the
 last is ``{"kernels": [...]}``; the last is the ``{"ok": true, ...}`` line.
@@ -369,6 +406,7 @@ import gc
 import io
 import json
 import math
+import os
 import pathlib
 import re
 import subprocess
@@ -391,9 +429,11 @@ from repro_torch.core import simulator  # noqa: E402
 from repro_torch.core.cost_model import s_storage_bytes  # noqa: E402
 from repro_torch.core.perf_model import V100_X4_HF, PerfModel  # noqa: E402
 from repro_torch.core.pricing import AWS_PAPER  # noqa: E402
+from repro_torch.data.synthetic import token_batches  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import chunked_prefill as cpk  # noqa: E402
 from repro_torch.kernels import decode_attention as dk  # noqa: E402
+from repro_torch.kernels import flash_backward as fbk  # noqa: E402
 from repro_torch.kernels import flash_prefill as fk  # noqa: E402
 from repro_torch.kernels import fused_prefill as fuk  # noqa: E402
 from repro_torch.kernels import kv_quant as kq  # noqa: E402
@@ -433,6 +473,11 @@ from repro_torch.serving.audit import (  # noqa: E402
 )
 from repro_torch.serving.metrics import summarize_events  # noqa: E402
 from repro_torch.serving.scheduler import HedgePolicy  # noqa: E402
+from repro_torch.training.checkpoint import latest_step  # noqa: E402
+from repro_torch.training.fault import LoopConfig, Preempted, ResilientLoop  # noqa: E402
+from repro_torch.training.optimizer import AdamW, cosine_schedule  # noqa: E402
+from repro_torch.training.train_step import make_train_step, value_and_grad  # noqa: E402
+from repro_torch.training.tree import tree_leaves, tree_map  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its operations over the peak
@@ -485,6 +530,10 @@ SSM_REBUILD_ATOL = 1e-5
 # 1,500 random frames, and the other audio's cross K/V moved the logits by
 # 0.1165 only.  This gate asks for the same bits.
 ENCDEC_LOAD_ATOL = 1e-5
+# The forward kernel's lse against the plain forward's, absolute: both sum
+# the same f32 products of the inputs (bf16 upcast exactly), in another
+# order and in base 2 (exp2f, log2f) in place of exp and log
+LSE_ATOL = 1e-4
 # The reference's SSD tolerance (tests/test_kernels.py), f32
 SSD_ATOL = 5e-5
 SEED = 0
@@ -516,7 +565,8 @@ COUNTERS = {"packed_flash_attention": pk.packed_flash_attention,
             "fused_flash_attention": fuk.fused_flash_attention,
             "kv_quant": kq.kv_quant,
             "kv_dequant": kq.kv_dequant,
-            "ssd_chunked": ssk.ssd_chunked}
+            "ssd_chunked": ssk.ssd_chunked,
+            "flash_attention_bwd": fbk.flash_attention_bwd}
 # the market phase: decode tokens per request (the phase's gates are its
 # purchase and first-token logits; few decode steps keep it short) and the
 # length of the adversary's context C
@@ -538,6 +588,25 @@ HYBRID_AT = "jamba-1.5-large-398b, 5-layer cut"
 # the prefix mix's plans on a stack with Mamba layers: loads, and B's
 # variant recomputed (SSM state is all or nothing: no partial reuse)
 SSM_ACTIONS = ["recompute", "recompute", "load", "load", "load", "recompute", "load", "load"]
+# the training phase: qwen2-0.5b at full width and depth in bf16, TRAIN_STEPS
+# steps of ``token_batches`` at TRAIN_BATCH x TRAIN_SEQ tokens whose ids come
+# from the first TRAIN_DATA_VOCAB of the 151,936 (over the whole vocabulary
+# the modular-bigram language is not learnable in 30 steps: the loss stays
+# at ~ln 151,936), AdamW at TRAIN_LR with a cosine schedule; the card-vs-CPU
+# step (f32, B TRAIN_CPU_BATCH x TRAIN_CPU_SEQ) and the preemption run at full
+# width cut to TRAIN_CUT layers
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_DATA_VOCAB = 4, 2048, 30, 1024
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 5
+TRAIN_CUT, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 2, 512
+# the loss's fall over the full run (mean of the first three steps less the
+# mean of the last three), predicted before the first run on the card
+# (PERF.md §6, the training entry)
+TRAIN_LOSS_DROP = 2.0
+# card vs CPU, f32: the loss relative to its value, each gradient relative
+# to its leaf's largest magnitude (the same sums in another order; the CPU
+# tests read at most 1.6e-6 against the JAX package at reduced width)
+TRAIN_GRAD_RTOL = 1e-4
 # the fused phase's RAG traffic: documents of DOC_LEN tokens, a 32-token
 # prompt per request, the reference's default chunk_tokens of 16, and
 # CacheBlend's default recompute fraction
@@ -3722,6 +3791,326 @@ def whisper_phase():
             runs["dense"]["flash_kinds"])
 
 
+# --------------------------------------------------------------------------- #
+# Training (qwen2-0.5b through training.train_step)
+# --------------------------------------------------------------------------- #
+def train_cfg(**cut):
+    return dataclasses.replace(get_config(TRAIN_ARCH), **cut)
+
+
+def grad_errors(got, want):
+    """Each leaf's largest |got - want| over its largest |want|."""
+    return [((g.float().cpu() - w.float()).abs().max() / w.float().abs().max().clamp_min(1e-30))
+            .item() for g, w in zip(tree_leaves(got), tree_leaves(want))]
+
+
+def train_card_vs_cpu():
+    """One train step's two halves (``value_and_grad``, then
+    ``AdamW.update``: ``make_train_step``) of qwen2-0.5b at full width cut
+    to ``TRAIN_CUT`` layers in f32, on the card and on the CPU from the same
+    weights and batch: the loss and every gradient within
+    ``TRAIN_GRAD_RTOL``.  The new parameters are logged, not gated: at step
+    1 the update is g / (|g| + eps), so a near-zero gradient of either sign
+    moves a weight by +-lr."""
+    cfg = train_cfg(n_layers=TRAIN_CUT, param_dtype="float32", dtype="float32")
+    cpu_params = lm.init(cfg, seed=SEED, device="cpu")
+    card_params = tree_map(lambda t: t.to(DEVICE), cpu_params)
+    batch = next(token_batches(dataclasses.replace(cfg, vocab=TRAIN_DATA_VOCAB),
+                               batch=TRAIN_CPU_BATCH, seq_len=TRAIN_CPU_SEQ, seed=SEED))
+    opt = AdamW(lr=TRAIN_LR, weight_decay=0.01)
+    zero_counts()
+    t0 = time.perf_counter()
+    (loss, _), grads = value_and_grad(card_params, cfg, batch)
+    new_card, state = opt.update(grads, opt.init(card_params), card_params)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    c = counts()
+    log(f"train step card vs cpu ({cfg.n_layers} layers at full width, f32, "
+        f"B {TRAIN_CPU_BATCH} x S {TRAIN_CPU_SEQ}): card launches {c}, card wall {card_s:.2f} s")
+    assert c["flash_attention"] == c["flash_attention_bwd"] == cfg.n_layers, c
+    assert sum(c.values()) == 2 * cfg.n_layers, c
+    t0 = time.perf_counter()
+    (cpu_loss, _), cpu_grads = value_and_grad(cpu_params, cfg, batch)
+    new_cpu, _ = opt.update(cpu_grads, opt.init(cpu_params), cpu_params)
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    errs = grad_errors(grads, cpu_grads)
+    moved = [(a.cpu() - b).abs().max().item() for a, b in zip(tree_leaves(new_card),
+                                                                tree_leaves(new_cpu))]
+    log(f"train step card vs cpu: loss {loss.item():.6f} / {cpu_loss.item():.6f} "
+        f"(rel {loss_err:.3e}); gradients: max rel err {max(errs):.3e}, median "
+        f"{sorted(errs)[len(errs) // 2]:.3e} over {len(errs)} leaves; new parameters: max "
+        f"|card - cpu| {max(moved):.3e} (lr {TRAIN_LR}; not gated); cpu wall {cpu_s:.2f} s; "
+        f"step {int(state.step)}")
+    assert loss_err <= TRAIN_GRAD_RTOL and max(errs) <= TRAIN_GRAD_RTOL, (loss_err, max(errs))
+
+
+class TrainRecorder:
+    """Keeps copies of the inputs of the training forward's first
+    ``flash_attention`` call (the first layer's) and of the first backward
+    (the last layer's: ``FlashAttentionFn``'s saved tensors and dO) while
+    installed.  It wraps ``ops.flash_attention`` and the backward of
+    ``ops.FlashAttentionFn``; the kernels' wrappers and counters are left as
+    they are."""
+
+    def __init__(self):
+        self.fwd = self.bwd = None
+        self._orig = (ops.flash_attention, ops.FlashAttentionFn.backward)
+
+    def __enter__(self):
+        flash, backward = self._orig
+
+        def record_fwd(*args, **kw):
+            if self.fwd is None:
+                self.fwd = keep([a.detach() for a in args], kw)
+            return flash(*args, **kw)
+
+        def record_bwd(ctx, dout):
+            if self.bwd is None:
+                q, k, v, out, lse, q_pos, kv_pos, kv_valid = ctx.saved_tensors
+                self.bwd = keep([t.detach() for t in (q, k, v, out, dout, lse)], dict(
+                    q_pos=q_pos, kv_pos=kv_pos, causal=ctx.causal, window=ctx.window,
+                    kv_valid=kv_valid))
+            return backward(ctx, dout)
+
+        ops.flash_attention = record_fwd
+        ops.FlashAttentionFn.backward = staticmethod(record_bwd)
+        return self
+
+    def __exit__(self, *exc):
+        ops.flash_attention = self._orig[0]
+        ops.FlashAttentionFn.backward = staticmethod(self._orig[1])
+
+
+def train_full():
+    """qwen2-0.5b at full width and depth in bf16: ``TRAIN_STEPS`` steps of
+    ``make_train_step``.  Returns the recorded forward and backward inputs
+    and the run's launches."""
+    cfg = get_config(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init(cfg, seed=SEED, device=DEVICE)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    opt = AdamW(lr=TRAIN_LR, weight_decay=0.01,
+                schedule=cosine_schedule(warmup=TRAIN_WARMUP, total=TRAIN_STEPS))
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    it = token_batches(dataclasses.replace(cfg, vocab=TRAIN_DATA_VOCAB), batch=TRAIN_BATCH,
+                       seq_len=TRAIN_SEQ, seed=SEED)
+    batches = [{k: torch.as_tensor(v, device=DEVICE) for k, v in next(it).items()}
+               for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    log(f"{TRAIN_ARCH} {cfg.param_dtype}: {n_params} params ({n_params / 1e9:.3f} B), AdamW state and "
+        f"{TRAIN_STEPS} batches set up in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses = [], []
+    zero_counts()
+    with TrainRecorder() as rec:
+        for i in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, metrics = step(params, state, batches[i])
+            losses.append(metrics["loss"].item())
+            walls.append(time.perf_counter() - t0)
+    c = counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = sorted(walls[1:])
+    median = steady[len(steady) // 2]
+    log(f"train {TRAIN_ARCH} full width and depth, bf16, B {TRAIN_BATCH} x S {TRAIN_SEQ}, "
+        f"{TRAIN_STEPS} steps: launches {c}")
+    log(f"train losses: {[round(x, 4) for x in losses]}")
+    drop = sum(losses[:3]) / 3 - sum(losses[-3:]) / 3
+    log(f"train step wall: first {walls[0] * 1e3:.1f} ms, median of the rest "
+        f"{median * 1e3:.1f} ms (min {steady[0] * 1e3:.1f}, max {steady[-1] * 1e3:.1f}); "
+        f"{tokens / median:.0f} tokens/s; peak memory {peak / 2**30:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}; {n_params} params; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, drop of the 3-step means {drop:.4f} "
+        f"(predicted >= {TRAIN_LOSS_DROP})")
+    assert all(math.isfinite(x) for x in losses), losses
+    assert c["flash_attention"] == c["flash_attention_bwd"] == cfg.n_layers * TRAIN_STEPS, c
+    assert sum(c.values()) == 2 * cfg.n_layers * TRAIN_STEPS, c
+    assert int(state.step) == TRAIN_STEPS
+    assert drop >= TRAIN_LOSS_DROP, (drop, losses)
+    assert rec.fwd is not None and rec.bwd is not None
+    del params, state, batches
+    release()
+    return rec.fwd, rec.bwd, c
+
+
+def train_resume(tmp: pathlib.Path):
+    """A ``ResilientLoop`` at ``TRAIN_CUT`` layers (bf16, checkpoints in the
+    reference's layout): preempted at step 6, after the step-4 checkpoint,
+    and re-invoked, it ends as an uninterrupted run does, bit for bit."""
+    cfg = train_cfg(n_layers=TRAIN_CUT)
+    params0 = lm.init(cfg, seed=SEED, device=DEVICE)
+    opt = AdamW(lr=TRAIN_LR, weight_decay=0.01, schedule=cosine_schedule(warmup=2, total=8))
+    step = make_train_step(cfg, opt)
+    it = token_batches(dataclasses.replace(cfg, vocab=TRAIN_DATA_VOCAB),
+                       batch=TRAIN_CPU_BATCH, seq_len=TRAIN_CPU_SEQ, seed=SEED + 1)
+    batches = [{k: torch.as_tensor(v, device=DEVICE) for k, v in next(it).items()}
+               for _ in range(8)]
+
+    def loop(path, **kw):
+        return ResilientLoop(step, lambda i: batches[i],
+                             LoopConfig(total_steps=8, ckpt_every=4, ckpt_dir=str(path)),
+                             model_cfg=cfg, **kw)
+
+    def bomb(i):
+        if i == 6:
+            raise Preempted("simulated preemption")
+
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        whole = loop(tmp / "whole").run(params0, opt.init(params0))
+        cut = loop(tmp / "preempted", failure_hook=bomb)
+        try:
+            cut.run(params0, opt.init(params0))
+            raise AssertionError("the failure hook did not preempt the loop")
+        except Preempted:
+            cut.ckpt.wait()
+        assert latest_step(tmp / "preempted") == 4
+        resumed = loop(tmp / "preempted").run(params0, opt.init(params0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+    same = [torch.equal(a, b) for a, b in zip(
+        tree_leaves((whole["params"], whole["opt_state"])),
+        tree_leaves((resumed["params"], resumed["opt_state"])))]
+    log(f"train resume ({cfg.n_layers} layers at full width, bf16; preempted at step 6, "
+        f"resumed from the step-4 checkpoint): {sum(same)}/{len(same)} leaves equal bit for "
+        f"bit, final loss {float(whole['metrics']['loss']):.4f} / "
+        f"{float(resumed['metrics']['loss']):.4f}, three runs {wall:.1f} s")
+    assert all(same) and int(resumed["opt_state"].step) == 8
+
+
+def training_phase():
+    """Phase 19 (see the module docstring).  Returns the full run's recorded
+    forward and backward inputs and its launches."""
+    t0 = time.perf_counter()
+    train_card_vs_cpu()
+    release()
+    fwd_inputs, bwd_inputs, c = train_full()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_resume(pathlib.Path(tmp))
+    release()
+    log(f"training phase wall: {time.perf_counter() - t0:.1f} s")
+    return fwd_inputs, bwd_inputs, c
+
+
+def check_flash_bwd(inputs, launches, label):
+    """Hold ``flash_attention_bwd`` against its plain backward on
+    ``inputs`` (``(q, k, v, out, dout, lse), kw``; see the module docstring
+    for the tolerances), hold the forward kernel's ``lse`` in ``inputs``
+    (at the training shape bf16 splits, so the combine wrote it) against
+    the plain forward's within ``LSE_ATOL`` with the same -inf rows, check
+    two launches' bits and the forward's bits with and without ``lse``,
+    and time it beside its plain version and
+    SDPA's forward and backward with an explicit boolean mask.  The bound
+    counts q, k, v, out, dout, lse and the positions read once and dq, dk,
+    dv written once, and the five products of 2·hd operations per kept
+    (query, key) pair and head (dP, and S recomputed, dQ, dK, dV).  Returns
+    the kernels line's entry."""
+    (q, k, v, out, dout, lse), kw = inputs
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    got = fbk.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    again = fbk.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    want = fbk.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+    fresh_lse = torch.empty_like(lse)
+    with_lse = fk.flash_attention(q, k, v, lse=fresh_lse, **kw)
+    without = fk.flash_attention(q, k, v, **kw)
+    _, plain_lse = fbk.flash_attention_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{label}: bits differ"
+    assert torch.equal(with_lse, without) and torch.equal(fresh_lse, lse), label
+    finite = torch.isfinite(plain_lse)
+    assert torch.equal(finite, torch.isfinite(lse)), f"{label}: lse's -inf rows differ"
+    lse_err = (lse[finite] - plain_lse[finite]).abs().max().item() if finite.any() else 0.0
+    assert lse_err <= LSE_ATOL, f"flash_attention lse {label}: {lse_err} > {LSE_ATOL}"
+    f32 = q.dtype == torch.float32
+    abs_errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, want)]
+    errs = [e / max(b.float().abs().max().item(), 1.0 if f32 else 1e-30)
+            for e, b in zip(abs_errs, want)]
+    tol = F32_ATOL if f32 else BF16_ATOL
+    assert max(errs) <= tol, f"flash_attention_bwd {label}: rel errs {errs} > {tol}"
+    ms = time_ms(lambda: fbk.flash_attention_bwd(q, k, v, out, dout, lse, **kw))
+    plain_ms = time_ms(lambda: fbk.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw),
+                       reps=3)
+    mask = fbk._mask(kw["q_pos"], kw["kv_pos"], kw.get("causal", True), kw.get("window"),
+                     kw.get("kv_valid"))
+    pairs = int(mask.sum())  # kept (query, key) pairs per head, over the batch
+    qt = q.transpose(1, 2).detach().requires_grad_(True)
+    kt, vt = (t.repeat_interleave(H // KV, -2).transpose(1, 2).detach().requires_grad_(True)
+              for t in (k, v))
+    dt = dout.transpose(1, 2)
+
+    def sdpa():
+        o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None])
+        torch.autograd.grad(o, (qt, kt, vt), dt)
+
+    lib = time_ms(sdpa)
+    b, by = bound_ms(nbytes(q, k, v, out, dout, lse, kw["q_pos"], kw["kv_pos"], *got),
+                     10.0 * hd * H * pairs, q.dtype)
+    log(f"kernel flash_attention_bwd {label} {str(q.dtype)[6:]} q{tuple(q.shape)} "
+        f"kv{tuple(k.shape)} window {kw.get('window')} kept_pairs/head={pairs}: rel errs "
+        f"(dq, dk, dv) {', '.join(f'{e:.3e}' for e in errs)} (abs "
+        f"{', '.join(f'{e:.3e}' for e in abs_errs)}; max|plain| "
+        f"{', '.join(f'{b.float().abs().max().item():.3e}' for b in want)}); the forward's lse "
+        f"max|kernel - plain| {lse_err:.3e} over {int(finite.sum())} finite rows "
+        f"({int((~finite).sum())} -inf rows in both); two launches and the forward "
+        f"with and without lse give the same bits; ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"sdpa_fwd_bwd_ms={lib:.4f} bound_ms={b:.4f} ({by})")
+    device_ms_later(f"flash_attention_bwd {label}",
+                    lambda: fbk.flash_attention_bwd(q, k, v, out, dout, lse, **kw),
+                    {"rowsum": "dot_kernel", "dK dV": "dkdv_kernel", "dQ": "dq_kernel"})
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_backward.cu",
+                replaces="src/repro/kernels/flash_prefill.py:91 (its gradient: no Pallas "
+                         "backward exists; JAX differentiates through the call)",
+                launches=launches, max_abs_err=max(abs_errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b, bound_by=by, library_ms=lib)
+
+
+def bwd_inputs(B, S, H, KV, hd, dtype, window=None, seed=0):
+    """Seeded training-shaped backward inputs on the card (queries and keys
+    at the same positions, causal), the forward run for ``out`` and ``lse``."""
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    q, dout = (torch.randn(B, S, H, hd, generator=g, device=DEVICE).to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, S, KV, hd, generator=g, device=DEVICE).to(dtype) for _ in range(2))
+    pos = torch.arange(S, device=DEVICE, dtype=torch.int32)[None].expand(B, S).contiguous()
+    kw = dict(q_pos=pos, kv_pos=pos, causal=True, window=window)
+    lse = torch.empty(B, S, H, dtype=torch.float32, device=DEVICE)
+    out = fk.flash_attention(q, k, v, lse=lse, **kw)
+    return (q, k, v, out, dout, lse), kw
+
+
+def check_flash_fn_f32(inputs):
+    """``FlashAttentionFn`` on the card (the forward and backward kernels)
+    against autograd of the plain forward, f32, within ``F32_ATOL`` of
+    max(1, max|·|)."""
+    (q, k, v, _, dout, _), kw = inputs
+    grads = []
+    for fn in (ops.flash_attention, fk.flash_attention_plain):
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = fn(*qkv, **kw)
+        grads.append(torch.autograd.grad(o, qkv, dout))
+    torch.cuda.synchronize()
+    errs = [((a - b).abs().max() / b.abs().max().clamp_min(1.0)).item()
+            for a, b in zip(*grads)]
+    log(f"FlashAttentionFn (kernels) vs autograd of the plain forward, f32 "
+        f"q{tuple(q.shape)}: rel errs (dq, dk, dv) {', '.join(f'{e:.3e}' for e in errs)}")
+    assert max(errs) <= F32_ATOL, errs
+
+
 def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3946,6 +4335,9 @@ def main() -> None:
     whisper_inputs, whisper_counts, whisper_flash = whisper_phase()
     log(f"whisper phase wall: {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- training: qwen2-0.5b's train steps through the backward kernel ----
+    train_fwd, train_bwd, train_counts = training_phase()
+
     # ---- kernel phase -----------------------------------------------------
     # the kernels line counts each kernel's launches on its llama path and
     # on the same path of nemo's, olmoe's, mixtral's, granite's, internvl's
@@ -4058,6 +4450,21 @@ def main() -> None:
         ("self-attention", check_decode(whisper_inputs["decode"],
                                         whisper_counts["dense"]["decode_attention"],
                                         "whisper")))]
+    # the training phase's (qwen2-0.5b, G 7, hd 64): the forward with its
+    # lse and the backward on the full run's first recorded launches, each
+    # with that run's launches; the backward also on llama's heads (G 1, hd
+    # 128), on mixtral's G 6 with a window shorter than the sequence and in
+    # f32, where FlashAttentionFn is held to autograd of the plain forward
+    kernels += [
+        dict(check_flash(train_fwd, train_counts["flash_attention"], "qwen2-0.5b training"),
+             at="qwen2-0.5b training"),
+        check_flash_bwd(train_bwd, train_counts["flash_attention_bwd"], "qwen2-0.5b training")]
+    check_flash_bwd(bwd_inputs(1, 2048, 32, 32, 128, torch.bfloat16), 0, "llama heads")
+    check_flash_bwd(bwd_inputs(1, 2048, 48, 8, 128, torch.bfloat16, window=1024), 0,
+                    "mixtral heads, window 1024")
+    f32_inputs = bwd_inputs(1, 512, 14, 2, 64, torch.float32)
+    check_flash_bwd(f32_inputs, 0, "f32")
+    check_flash_fn_f32(f32_inputs)
     check_wide_group()
     log_device_times()
     print(json.dumps({"kernels": kernels}))

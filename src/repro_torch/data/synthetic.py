@@ -1,16 +1,38 @@
-"""Synthetic context-sharing serving workloads (the paper's TriviaQA-like
-pattern: many requests share long contexts), drawn from numpy's seeded
-generator so the port and the reference get the same requests from the
-same seed."""
+"""Synthetic data: token streams for training and context-sharing serving
+workloads (the paper's TriviaQA-like pattern: many requests share long
+contexts), drawn from numpy's seeded generator so the port and the
+reference get the same batches and requests from the same seed."""
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Iterator, List, Optional
 
 import numpy as np
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.serving.request import Request
+
+
+def token_batches(
+    cfg: ArchConfig, *, batch: int, seq_len: int, seed: int = 0
+) -> Iterator[dict]:
+    """Infinite stream of LM training batches (numpy) with a learnable
+    structure (a noisy modular-bigram language, so loss demonstrably
+    falls); the reference's ``token_batches``, draw for draw."""
+    rng = np.random.default_rng(seed)
+    v = cfg.vocab
+    while True:
+        start = rng.integers(0, v, size=(batch, 1))
+        steps = rng.integers(1, 7, size=(batch, 1))
+        pos = np.arange(seq_len + 1)[None, :]
+        seq = (start + steps * pos) % v
+        noise = rng.random((batch, seq_len + 1)) < 0.05
+        seq = np.where(noise, rng.integers(0, v, size=seq.shape), seq)
+        yield {
+            "tokens": seq[:, :-1].astype(np.int32),
+            "labels": seq[:, 1:].astype(np.int32),
+            "mask": np.ones((batch, seq_len), np.float32),
+        }
 
 
 @dataclasses.dataclass

@@ -24,7 +24,8 @@ from typing import Dict, Iterable, List, Optional
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 KERNELS = ("packed_prefill", "decode_attention", "flash_prefill", "paged_decode",
-           "chunked_prefill", "fused_prefill", "kv_quant", "kv_dequant", "ssd_scan")
+           "chunked_prefill", "fused_prefill", "kv_quant", "kv_dequant", "ssd_scan",
+           "flash_backward")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -50,8 +51,8 @@ _SIGNATURES = {
     ),
     "flash_prefill": (
         "flash_attention_launch",
-        # q k v q_pos kv_pos kv_valid out part_acc part_ml
-        [_P] * 9
+        # q k v q_pos kv_pos kv_valid out part_acc part_ml lse
+        [_P] * 10
         # B Sq Skv H KV hd dtype causal has_window window
         + [_I] * 10 + [_F, _P],  # scale stream
     ),
@@ -83,6 +84,13 @@ _SIGNATURES = {
     # x dt A B C h0 (or null) y hT scratch (bf16; or null) | scratch floats
     # | B L H P G S chunk n_chunks dtype | stream
     "ssd_scan": ("ssd_chunked_launch", [_P] * 9 + [_L] + [_I] * 9 + [_P]),
+    "flash_backward": (
+        "flash_attention_bwd_launch",
+        # q k v out dout q_pos kv_pos kv_valid lse D dq dk dv
+        [_P] * 13
+        # B Sq Skv H KV hd dtype causal has_window window
+        + [_I] * 10 + [_F, _P],  # scale stream
+    ),
 }
 
 # the other C function of an attention library: the number of parts S the

@@ -84,7 +84,9 @@
 // hd] (paged: the pool [n_blocks * block, KV, hd]); q_pos, q_seg [B, Sq]
 // int32; kv_pos, kv_seg [B, Skv] int32; kv_valid [B, Skv] bool or null;
 // table [B, nb] int32; scratch part_ml [S, B, Sq, H] (m, l) f32 and
-// part_acc [S, B, Sq, H, hd] f32.
+// part_acc [S, B, Sq, H, hd] f32; lse [B, Sq, H] f32 or null (ROWS_DENSE:
+// the training forward keeps each row's log-sum-exp for the backward; the
+// store is added where the row is finalised and changes no other bit).
 #pragma once
 
 #include <climits>
@@ -152,6 +154,7 @@ struct Params {
   int nb, n_blocks, block;  // ROWS_PAGED
   int splits, part_tiles;
   int words;  // 32-bit words of a part's visited-tile mask
+  float* lse;  // ROWS_DENSE under training: [B, Sq, H] f32, or null (written nowhere)
 };
 
 template <int HD>
@@ -561,6 +564,10 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(const Params p) {
     if (qi >= p.Sq) continue;
     const size_t row = (size_t(b) * p.Sq + qi) * p.H + h;
     if (p.splits == 1) {
+      // the row's log-sum-exp of the scaled scores, natural log (-inf when
+      // it keeps no key): m is in the base-2 domain
+      if (p.lse != nullptr && qd == 0)
+        p.lse[row] = l > 0.f ? (m + log2f(l)) * 0.6931471805599453f : -INFINITY;
       // padding and queries that keep nothing have acc == 0: exact zeros
       const float ll = fmaxf(l, 1e-30f);
       bf16* o = p.out + row * hd;
@@ -628,6 +635,8 @@ __global__ void __launch_bounds__(256) combine_kernel(const Params p) {
     w[s] = l[s] > 0.f ? ex2(w[s] - mx) : 0.f;  // m_s -> w_s
     den += l[s] * w[s];
   }
+  if (p.lse != nullptr && lane == 0)  // as the S = 1 epilogue's, over the combined row
+    p.lse[row] = den > 0.f ? (mx + log2f(den)) * 0.6931471805599453f : -INFINITY;
   den = fmaxf(den, 1e-30f);
   if (p.hd % 4 == 0) {  // four columns a lane: 16-byte loads
     for (int d = 4 * lane; d < p.hd; d += 128) {

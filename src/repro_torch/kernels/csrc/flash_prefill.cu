@@ -28,7 +28,15 @@
 // Layouts (all contiguous): q, out [B, Sq, H, hd]; k, v [B, Skv, KV, hd];
 // q_pos [B, Sq] int32; kv_pos [B, Skv] int32; kv_valid [B, Skv] bool or
 // null; bf16 with S > 1: part_acc [S, B, Sq, H, hd] f32, part_ml [S, B, Sq,
-// H, 2] f32 (scratch, from the wrapper; null otherwise).
+// H, 2] f32 (scratch, from the wrapper; null otherwise); lse [B, Sq, H] f32
+// or null.
+//
+// Under training (kernels/ops.py's FlashAttentionFn) the launch also writes
+// each row's log-sum-exp of the scaled scores, lse = m + log l (-inf for a
+// row that every key masks), which flash_backward.cu's kernels recompute P
+// from.  The store is added where each tile finalises its rows (the S = 1
+// epilogue, the combine, the f32 tile's epilogue); a serving launch passes
+// null and runs the same arithmetic, so its output bits do not change.
 
 #include "flash_mma.cuh"
 #include "flash_tile.cuh"
@@ -46,9 +54,9 @@ extern "C" int flash_attention_splits(int Skv, int hd, int dtype) {
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       const int* q_pos, const int* kv_pos,
                                       const unsigned char* kv_valid, void* out, void* part_acc,
-                                      void* part_ml, int B, int Sq, int Skv, int H, int KV,
-                                      int hd, int dtype, int causal, int has_window, int window,
-                                      float scale, void* stream) {
+                                      void* part_ml, float* lse, int B, int Sq, int Skv, int H,
+                                      int KV, int hd, int dtype, int causal, int has_window,
+                                      int window, float scale, void* stream) {
   using namespace repro_torch;
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_BF16) {
@@ -73,11 +81,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     p.has_window = has_window;
     p.window = window;
     p.scale = scale;
+    p.lse = lse;
     return flash_mma::dispatch<flash_mma::ROWS_DENSE>(p, s);
   }
   if (dtype != DTYPE_F32) return int(cudaErrorInvalidValue);
-  const flash::Args a{q,     k,   v,  q_pos, kv_pos, nullptr, nullptr,    kv_valid,
-                      out,   B,   Sq, Skv,   H,      KV,      causal,     has_window,
-                      window, scale, s};
+  flash::Args a{q,     k,   v,  q_pos, kv_pos, nullptr, nullptr,    kv_valid,
+                out,   B,   Sq, Skv,   H,      KV,      causal,     has_window,
+                window, scale, s};
+  a.lse = lse;
   return flash::dispatch_as<float, flash::ROWS_DENSE>(hd, a);
 }

@@ -62,7 +62,9 @@
 // Layouts (all contiguous): q, out [B, Sq, H, hd]; k, v [B, Skv, KV, hd]
 // (paged: the pool [n_blocks * block, KV, hd]); q_pos [B, Sq] int32; kv_pos
 // [B, Skv] int32; q_seg [B, Sq], kv_seg [B, Skv] int32 (segmented only);
-// kv_valid [B, Skv] bool or null; table [B, nb] int32 (paged only).
+// kv_valid [B, Skv] bool or null; table [B, nb] int32 (paged only); lse
+// [B, Sq, H] f32 or null (dense only: the training forward's log-sum-exp of
+// each row, written beside the output row and nowhere else).
 // Grid (ceil(Sq / BQ), H, B), 256 threads.
 #pragma once
 
@@ -116,8 +118,9 @@ tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
             const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
             const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
             const unsigned char* __restrict__ kv_valid, const int* __restrict__ table,
-            T* __restrict__ out, int Sq, int Skv, int H, int KV, int hd_arg, int causal,
-            int has_window, int window, float scale, int nb, int n_blocks, int block) {
+            T* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int H, int KV,
+            int hd_arg, int causal, int has_window, int window, float scale, int nb,
+            int n_blocks, int block) {
   const int hd = FULL ? HD : hd_arg;
   static_assert(HD % 16 == 0, "the head_dim bucket must be a multiple of 16");
   constexpr bool SEG = SRC == ROWS_SEGMENTED;
@@ -369,6 +372,9 @@ tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   for (int i = 0; i < 4; ++i) {
     const int r = rg * 4 + i, qi = q0 + r;
     if (qi >= Sq) continue;
+    // the row's log-sum-exp of the scaled scores (-inf when it keeps no key)
+    if (lse != nullptr && cg == 0)
+      lse[(size_t(b) * Sq + qi) * H + h] = l_s[r] > 0.f ? m_s[r] + logf(l_s[r]) : -INFINITY;
     const float l = fmaxf(l_s[r], 1e-30f);
     T* o = out + ((size_t(b) * Sq + qi) * H + h) * hd + cg;
 #pragma unroll
@@ -390,6 +396,7 @@ struct Args {
   cudaStream_t stream;
   const int* table;  // ROWS_PAGED: [B, nb] pool block per sequence block
   int nb, n_blocks, block;
+  float* lse;  // ROWS_DENSE under training: [B, Sq, H] f32, or null
 };
 
 template <typename T, int HD, int SRC>
@@ -401,8 +408,8 @@ int launch(const Args& a, int hd) {
   dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
   kernel<<<grid, THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      a.q_pos, a.kv_pos, a.q_seg, a.kv_seg, a.kv_valid, a.table, static_cast<T*>(a.out), a.Sq,
-      a.Skv, a.H, a.KV, hd, a.causal, a.has_window, a.window, a.scale, a.nb, a.n_blocks,
+      a.q_pos, a.kv_pos, a.q_seg, a.kv_seg, a.kv_valid, a.table, static_cast<T*>(a.out), a.lse,
+      a.Sq, a.Skv, a.H, a.KV, hd, a.causal, a.has_window, a.window, a.scale, a.nb, a.n_blocks,
       a.block);
   return int(cudaGetLastError());
 }

@@ -54,9 +54,13 @@ def flash_attention(
     causal: bool = True,
     window: Optional[int] = None,
     kv_valid: Optional[torch.Tensor] = None,  # [B, Skv] bool
+    lse: Optional[torch.Tensor] = None,  # [B, Sq, H] f32, written when given
 ) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors; raises on anything it does
-    not take (there is no fallback)."""
+    not take (there is no fallback).  With ``lse`` the launch also writes
+    each row's log-sum-exp of the scaled scores there (-inf for a row that
+    every key masks): the training forward keeps it for the backward
+    (``flash_backward``).  The output's bits are the same either way."""
     require(q.is_cuda, NAME, "q must be a CUDA tensor")
     require(q.dim() == 4, NAME, f"q shape {tuple(q.shape)}")
     B, Sq, H, hd = q.shape
@@ -74,9 +78,15 @@ def flash_attention(
         require(kv_valid.dtype == torch.bool and kv_valid.shape == (B, Skv), NAME,
                 "kv_valid must be bool [B, Skv]")
         operands["kv_valid"] = kv_valid
+    if lse is not None:
+        require(lse.dtype == torch.float32 and lse.shape == (B, Sq, H), NAME,
+                "lse must be f32 [B, Sq, H]")
+        operands["lse"] = lse
     cuda_operands(NAME, q.device, **operands)
     out = torch.empty_like(q)
     if q.numel() == 0 or Skv == 0:
+        if lse is not None:
+            lse.fill_(-float("inf"))
         return out.zero_()
     launch = build.launcher("flash_prefill")
     # scratch holds the split partials until the launch is enqueued
@@ -86,8 +96,8 @@ def flash_attention(
         status = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
             None if kv_valid is None else kv_valid.data_ptr(), out.data_ptr(), part_acc,
-            part_ml, B, Sq, Skv, H, KV, hd, code, int(causal), int(window is not None),
-            int(window or 0), float(hd) ** -0.5, stream,
+            part_ml, None if lse is None else lse.data_ptr(), B, Sq, Skv, H, KV, hd, code,
+            int(causal), int(window is not None), int(window or 0), float(hd) ** -0.5, stream,
         )
     build.check(status, NAME)
     flash_attention.launches += 1

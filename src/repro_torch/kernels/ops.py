@@ -3,6 +3,12 @@
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to the kernel's
 plain version; there is no other switch and no size threshold (unlike the
 JAX package's ``ops.py``, whose reference path also serves ``Sq < 128``).
+
+``flash_attention`` is the one entry point with a gradient: under grad mode
+with an operand that requires grad it runs ``FlashAttentionFn``, whose
+backward is a kernel too (``flash_backward``).  Everywhere else (every
+serving path runs under ``torch.inference_mode()``) it launches what it
+launched before.
 """
 from __future__ import annotations
 
@@ -12,6 +18,7 @@ import torch
 
 from repro_torch.kernels import chunked_prefill as cpk
 from repro_torch.kernels import decode_attention as dk
+from repro_torch.kernels import flash_backward as fbk
 from repro_torch.kernels import flash_prefill as fk
 from repro_torch.kernels import fused_prefill as fuk
 from repro_torch.kernels import kv_quant as kq
@@ -21,13 +28,45 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as ssk
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with a gradient.  The forward runs the forward
+    kernel with its ``lse`` output (``flash_backward.flash_attention_fwd_plain``
+    on the CPU) and keeps q, k, v, the output, ``lse`` and the positions;
+    the backward runs ``flash_backward.flash_attention_bwd`` (its plain
+    version on the CPU).  The positions, flags and ``kv_valid`` get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, causal, window, kv_valid):
+        kw = dict(q_pos=q_pos, kv_pos=kv_pos, causal=causal, window=window, kv_valid=kv_valid)
+        if q.is_cuda:
+            lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+            out = fk.flash_attention(q, k, v, lse=lse, **kw)
+        else:
+            out, lse = fbk.flash_attention_fwd_plain(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out, lse, q_pos, kv_pos, kv_valid)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, q_pos, kv_pos, kv_valid = ctx.saved_tensors
+        fn = fbk.flash_attention_bwd if q.is_cuda else fbk.flash_attention_bwd_plain
+        dq, dk, dv = fn(q, k, v, out, dout.contiguous(), lse, q_pos=q_pos, kv_pos=kv_pos,
+                        causal=ctx.causal, window=ctx.window, kv_valid=kv_valid)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_pos: torch.Tensor,
     kv_pos: torch.Tensor, causal: bool = True, window: Optional[int] = None,
     kv_valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Position-masked GQA attention (see ``ref.attention_ref``): the
-    per-request prefill's attention."""
+    per-request prefill's attention, and the training forward's through
+    ``FlashAttentionFn`` when a gradient is wanted."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, q_pos, kv_pos, causal, window, kv_valid)
     fn = fk.flash_attention if q.is_cuda else fk.flash_attention_plain
     return fn(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=causal, window=window,
               kv_valid=kv_valid)

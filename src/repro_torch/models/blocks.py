@@ -5,8 +5,8 @@ A block is described by a static :class:`BlockKind`, as in the reference's
 ``models/blocks.py``: the dense and VLM (``("a", "mlp")``), MoE (``("a",
 "moe")``) and SSM (``("m", "none")``) kinds, and the hybrid family's mix of
 ``a`` and ``m`` mixers with MLP and MoE FFNs.  The MoE FFN's aux
-loss is a training term: the serving paths drop it, as the reference's
-``lm.py`` does.
+loss is a training term: ``forward`` (the training forward) returns it, and
+the serving paths drop it, as the reference's ``lm.py`` does.
 """
 from __future__ import annotations
 
@@ -83,13 +83,38 @@ def init_block_cache(cfg: ArchConfig, kind: BlockKind, n: int, batch: int, max_l
     return BlockCache(None, ssm.MambaState(*(t.expand(n, *t.shape).clone() for t in one)))
 
 
-def _apply_ffn(p: Params, cfg: ArchConfig, kind: BlockKind, x: torch.Tensor) -> torch.Tensor:
+def _ffn(p: Params, cfg: ArchConfig, kind: BlockKind,
+         x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The FFN's residual step and its aux loss (the MoE's load-balancing
+    term; 0 for an MLP or none), f32 scalar."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind.ffn == "none":
-        return x
+        return x, zero
     h = layers.apply_norm(p["norm2"], cfg, x)
     if kind.ffn == "moe":
-        return x + moe.apply_moe(p["ffn"], cfg, h)[0]
-    return x + layers.apply_mlp(p["ffn"], cfg, h)
+        out, aux = moe.apply_moe(p["ffn"], cfg, h)
+        return x + out, aux
+    return x + layers.apply_mlp(p["ffn"], cfg, h), zero
+
+
+def _apply_ffn(p: Params, cfg: ArchConfig, kind: BlockKind, x: torch.Tensor) -> torch.Tensor:
+    return _ffn(p, cfg, kind, x)[0]
+
+
+# --------------------------------------------------------------------------- #
+# Training forward (no cache)
+# --------------------------------------------------------------------------- #
+def forward(
+    p: Params, cfg: ArchConfig, kind: BlockKind, x: torch.Tensor,
+    positions: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One attention block over the call's own tokens, causally at
+    ``positions``, returning ``(x, aux)`` (the reference's
+    ``blocks.forward``).  A Mamba mixer's training waits for an SSD
+    backward kernel (``lm.forward`` refuses those stacks)."""
+    h = layers.apply_norm(p["norm1"], cfg, x)
+    x = x + attention.forward(p["attn"], cfg, h, positions=positions)
+    return _ffn(p, cfg, kind, x)
 
 
 def _write_state(dst: ssm.MambaState, src: ssm.MambaState) -> None:

@@ -4,6 +4,8 @@ chunked prefill, dense and paged decode.
 
 API:
   init(cfg, seed=0, device=None) -> params
+  forward(params, cfg, tokens [B, S], embeds=None) -> (logits [B, E + S, V], aux)
+  cross_entropy(logits, labels, mask=None) -> loss
   init_state(cfg, batch, max_len, device=None) -> LMState
   prefill(params, cfg, tokens [B, S], state, embeds=None) -> (last logits [B, V], LMState)
   prefill_packed(params, cfg, tokens, caches, **layout) -> (logits [n, V], caches)
@@ -34,6 +36,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks, layers
@@ -112,6 +115,73 @@ def init_state(cfg: ArchConfig, batch: int, max_len: int, device=None,
 
 
 # --------------------------------------------------------------------------- #
+# Training forward (no cache) and loss
+# --------------------------------------------------------------------------- #
+def forward(
+    params: Params, cfg: ArchConfig, tokens: Optional[torch.Tensor] = None, embeds=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward: every position attends causally over the
+    call's tokens (``embeds [B, E, D]`` first where given); returns the f32
+    logits ``[B, E + S, V]`` and the summed MoE aux loss (the reference's
+    ``lm.forward``).  Layers run in order over ``params["layers"]``, one
+    period at a time; with ``cfg.remat`` "dots" or "full" each period runs
+    under ``torch.utils.checkpoint`` and is recomputed in the backward.
+    The reference's "dots" keeps the matmul outputs and "full" keeps
+    nothing; here both keep only the period's input.  The math is the same
+    either way and only memory differs.
+
+    Stacks with Mamba layers (the SSM and hybrid families) need an SSD
+    backward kernel first and are refused here (queue item A10b); the
+    encoder-decoder's training forward, also A10b, would be ``encdec``'s
+    (``train_step.loss_fn`` refuses it)."""
+    kinds, _ = _layout(cfg)
+    if any(k.mixer != "a" for k in kinds):
+        raise ValueError(f"training {cfg.name} ({cfg.family}): a Mamba layer's backward is "
+                         "not ported yet (queue item A10b)")
+    x = _embed_inputs(params, cfg, tokens, embeds)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+
+    def period_fn(x, *layer_params):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp, kind in zip(layer_params, kinds):
+            x, a = blocks.forward(lp, cfg, kind, x, positions=positions)
+            aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    period = len(kinds)
+    for i in range(0, cfg.n_layers, period):
+        layer_params = params["layers"][i:i + period]
+        if cfg.remat == "none":
+            x, a = period_fn(x, *layer_params)
+        else:
+            x, a = torch.utils.checkpoint.checkpoint(period_fn, x, *layer_params,
+                                                     use_reentrant=False)
+        aux = aux + a
+    x = layers.apply_norm(params["final_norm"], cfg, x)
+    return layers.lm_logits(params["embed"], cfg, x), aux
+
+
+def cross_entropy(
+    logits: torch.Tensor,  # [B, S, V] (upcast to f32 here)
+    labels: torch.Tensor,  # [B, S] int
+    mask: Optional[torch.Tensor] = None,  # [B, S] float or bool
+) -> torch.Tensor:
+    """Mean next-token negative log-likelihood in f32: log-sum-exp minus the
+    label's logit, averaged over the positions ``mask`` keeps (all where
+    none is given; the reference's ``lm.cross_entropy``)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - label_logit
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+# --------------------------------------------------------------------------- #
 # Prefill (full when state.pos == 0; suffix when state.pos > 0)
 # --------------------------------------------------------------------------- #
 def _embed_inputs(params: Params, cfg: ArchConfig, tokens: Optional[torch.Tensor],
@@ -126,7 +196,7 @@ def _embed_inputs(params: Params, cfg: ArchConfig, tokens: Optional[torch.Tensor
     if tokens is not None:
         parts.append(layers.embed_tokens(params["embed"], cfg, tokens))
     if not parts:
-        raise ValueError("prefill needs tokens, embeds or both")
+        raise ValueError("the model needs tokens, embeds or both")
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 

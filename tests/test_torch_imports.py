@@ -36,14 +36,18 @@ def _port_sources():
 def test_no_jax_or_reference_imports():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.M)
     files = ([p for p in _port_sources() if p.suffix == ".py"] + [ROOT / "chip_smoke.py"]
-             + sorted((ROOT / "benchmarks").glob("torch_*.py")))
+             + sorted((ROOT / "benchmarks").glob("torch_*.py"))
+             + sorted((ROOT / "examples").glob("torch_*.py")))
+    assert any(p.name == "torch_train_100m.py" for p in files)
     assert any(p.name == "simulator.py" for p in files)
     names = {str(p.relative_to(PORT)) for p in files if PORT in p.parents}
     assert {"obs/__init__.py", "obs/registry.py", "obs/ledger.py", "obs/spans.py",
             "obs/telemetry.py", "obs/console.py", "serving/trace.py",
             "serving/audit.py", "market/__init__.py", "market/catalog.py",
             "market/market.py", "market/planner.py", "market/reputation.py",
-            "market/settlement.py", "models/moe.py"} <= names, names
+            "market/settlement.py", "models/moe.py", "kernels/flash_backward.py",
+            "training/optimizer.py", "training/train_step.py", "training/checkpoint.py",
+            "training/fault.py", "training/tree.py", "launch/train.py"} <= names, names
     hits = [f"{p}: {m.group(0).strip()}" for p in files for m in pattern.finditer(p.read_text())]
     assert not hits, hits
 
@@ -143,6 +147,40 @@ def test_port_imports_and_serves_with_jax_and_repro_blocked():
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("served")
     assert "served 4 requests" in out.stdout
+
+
+def test_port_trains_with_jax_and_repro_blocked(tmp_path):
+    """Training too: ``examples/torch_train_100m.py`` and the training
+    launcher on the CPU (a few steps, checkpoints in the reference's
+    format, a resume), with JAX and the reference blocked."""
+    script = textwrap.dedent(
+        f"""
+        import runpy, sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import torch
+        torch.set_num_threads(1)
+        example = runpy.run_path("examples/torch_train_100m.py")
+        out = example["main"](["--device", "cpu", "--steps", "4", "--batch", "2", "--seq",
+                               "16", "--ckpt-dir", "{tmp_path / 'example'}"])
+        assert out["completed"] == 4
+        from repro_torch.launch import train
+        argv = ["--device", "cpu", "--reduced", "--steps", "3", "--batch", "2", "--seq", "16",
+                "--ckpt-dir", "{tmp_path / 'launch'}", "--ckpt-every", "2"]
+        train.main(argv)
+        train.main(argv[:4] + ["5"] + argv[5:])  # resumes from step 3
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "finished at step 4" in out.stdout
+    assert "qwen2-0.5b-smoke: step 3 loss" in out.stdout
+    assert "qwen2-0.5b-smoke: step 5 loss" in out.stdout
 
 
 def test_port_runs_simulator_faults_and_latency_options_with_jax_and_repro_blocked():

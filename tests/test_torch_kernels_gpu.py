@@ -1813,3 +1813,149 @@ def test_cluster_rebalance_of_an_int8_entry_dequantises_on_card(cuda):
     assert [(e.content_key, e.from_replica, e.to_replica, e.nbytes) for e, _, _ in done] == \
         [(e.content_key, e.from_replica, e.to_replica, e.nbytes) for e, _, _ in copies(cpu)]
     assert {r.req_id: r.tokens for r in cl.records} == {r.req_id: r.tokens for r in cpu.records}
+
+
+# --------------------------------------------------------------------------- #
+# The flash-attention backward (training)
+# --------------------------------------------------------------------------- #
+# (B, Sq, H, KV, hd, causal, window, masked kv rows, kv_valid): the training
+# shapes (queries and keys the same positions), GQA, MQA, a window,
+# non-causal, head_dims off the buckets, rows masked by kv_pos < 0
+BWD_CASES = [
+    (2, 200, 14, 2, 64, True, None, False, False),  # qwen2-0.5b's heads
+    (1, 130, 4, 4, 128, True, None, False, False),  # llama's (G 1)
+    (2, 150, 12, 2, 128, True, 40, False, False),  # mixtral's G 6 with a window
+    (1, 96, 4, 1, 16, True, None, True, False),  # MQA, invalid rows
+    (2, 70, 6, 6, 64, False, None, False, True),  # whisper's encoder, kv_valid
+    (1, 64, 8, 2, 80, True, None, False, False),
+    (1, 33, 2, 1, 256, True, 10, False, False),
+    # past PART_TILES x 64 = 512 kv rows the bf16 forward splits its kv
+    # tiles and the combine writes lse: causal with invalid rows, and a
+    # window with kv_valid (parts whose every key a row masks)
+    (1, 700, 8, 2, 64, True, None, True, False),
+    (1, 600, 6, 1, 128, True, 200, False, True),
+]
+
+
+def _bwd_case(cuda, dt, B, Sq, H, KV, hd, causal, window, masked, valid, seed=0):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed + Sq * H + hd)
+    q, dout = (torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dt) for _ in range(2))
+    k, v = (torch.randn(B, Sq, KV, hd, generator=g, device=cuda).to(dt) for _ in range(2))
+    pos = torch.arange(Sq, device=cuda, dtype=torch.int32)[None].expand(B, Sq).contiguous()
+    kv_pos = pos.clone()
+    if masked:
+        kv_pos[:, 5:20] = -1
+    kv_valid = torch.rand(B, Sq, generator=g, device=cuda) > 0.3 if valid else None
+    kw = dict(q_pos=pos, kv_pos=kv_pos, causal=causal, window=window, kv_valid=kv_valid)
+    return q, k, v, dout, kw
+
+
+def _bwd_err(got, want):
+    """Largest |got - want| over max(1, max|want|), per gradient."""
+    return [((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1.0)).item()
+            for a, b in zip(got, want)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,H,KV,hd,causal,window,masked,valid", BWD_CASES)
+def test_flash_backward_matches_plain_on_card(cuda, dtype, B, Sq, H, KV, hd, causal, window,
+                                              masked, valid):
+    """dQ, dK and dV against the plain backward on the same inputs and the
+    kernel's lse: f32 within 2e-5 of max(1, max|·|) (the reference's atol;
+    sums in another order), bf16 within 1e-2 of it (each side rounds its f32
+    sums to bf16: at most one ulp, 2^-7 of the value)."""
+    from repro_torch.kernels import flash_backward as fbk
+
+    dt = getattr(torch, dtype)
+    q, k, v, dout, kw = _bwd_case(cuda, dt, B, Sq, H, KV, hd, causal, window, masked, valid)
+    lse = torch.empty(B, Sq, H, dtype=torch.float32, device=cuda)
+    out = fk.flash_attention(q, k, v, lse=lse, **kw)
+    _, plain_lse = fbk.flash_attention_fwd_plain(q, k, v, **kw)
+    finite = torch.isfinite(plain_lse)
+    assert torch.equal(finite, torch.isfinite(lse))
+    assert (lse[finite] - plain_lse[finite]).abs().max().item() <= 1e-4
+    got = fbk.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    want = fbk.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    tol = F32_ATOL if dtype == "float32" else BF16_ATOL
+    assert max(_bwd_err(got, want)) <= tol, _bwd_err(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_backward_gives_the_same_bits_twice_and_lse_keeps_the_output(cuda, dtype):
+    from repro_torch.kernels import flash_backward as fbk
+
+    q, k, v, dout, kw = _bwd_case(cuda, getattr(torch, dtype), *BWD_CASES[2])
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=cuda)
+    out = fk.flash_attention(q, k, v, lse=lse, **kw)
+    assert torch.equal(out, fk.flash_attention(q, k, v, **kw))
+    first = fbk.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    second = fbk.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_flash_fn_gradients_match_autograd_of_plain_forward_on_card(cuda):
+    """``FlashAttentionFn`` on the card (forward and backward kernels)
+    against autograd of the plain forward, f32."""
+    from repro_torch.kernels import ops
+
+    q, k, v, dout, kw = _bwd_case(cuda, torch.float32, *BWD_CASES[0])
+    grads = []
+    for fn in (ops.flash_attention, fk.flash_attention_plain):
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        (fn(*qkv, **kw) * dout).sum().backward()
+        grads.append([t.grad for t in qkv])
+    assert max(_bwd_err(*grads)) <= F32_ATOL, _bwd_err(*grads)
+
+
+@pytest.mark.gpu
+def test_flash_backward_counts_launches_and_refuses_what_it_cannot_run(cuda):
+    from repro_torch.kernels import flash_backward as fbk
+
+    q, k, v, dout, kw = _bwd_case(cuda, torch.bfloat16, *BWD_CASES[3])
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=cuda)
+    out = fk.flash_attention(q, k, v, lse=lse, **kw)
+    before = fbk.flash_attention_bwd.launches
+    fbk.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    assert fbk.flash_attention_bwd.launches == before + 1
+    with pytest.raises(ValueError, match="lse"):
+        fbk.flash_attention_bwd(q, k, v, out, dout, lse.to(torch.bfloat16), **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        fbk.flash_attention_bwd(*(t.cpu() for t in (q, k, v, out, dout, lse)),
+                                **{n: None if t is None or isinstance(t, (bool, int)) else
+                                   t.cpu() for n, t in kw.items()})
+    assert fbk.flash_attention_bwd.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_reduced_train_step_on_card_as_on_cpu(cuda):
+    """The loss and gradients of the reduced qwen2-0.5b (f32) on the card
+    (the forward and backward kernels, one launch each a layer) against the
+    same step on the CPU (their plain versions): the loss within 1e-5, each
+    gradient within 1e-5 of its largest magnitude.  (New parameters after
+    one Adam step are no yardstick: at step 1 the update is g / (|g| + eps),
+    so a near-zero gradient of either sign moves a weight by +-lr.)"""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import flash_backward as fbk
+    from repro_torch.models import lm
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.training.tree import tree_leaves, tree_map
+
+    cfg = reduced_config(get_config("qwen2-0.5b"))
+    params = lm.init(cfg, seed=0, device="cpu")
+    batch = next(token_batches(cfg, batch=2, seq_len=64, seed=0))
+    fwd, bwd = fk.flash_attention.launches, fbk.flash_attention_bwd.launches
+    (loss, _), grads = value_and_grad(tree_map(lambda t: t.to(cuda), params), cfg, batch)
+    torch.cuda.synchronize()
+    assert fk.flash_attention.launches - fwd == cfg.n_layers
+    assert fbk.flash_attention_bwd.launches - bwd == cfg.n_layers
+    (cpu_loss, _), cpu_grads = value_and_grad(params, cfg, batch)
+    assert abs(loss.item() - cpu_loss.item()) <= 1e-5
+    for g, w in zip(tree_leaves(grads), tree_leaves(cpu_grads)):
+        err = (g.cpu() - w).abs().max().item()
+        assert err <= 1e-5 * max(w.abs().max().item(), 1e-12), (err, w.abs().max().item())
