@@ -379,7 +379,8 @@ prefill kernel, of each decode kernel and of the three bf16 ``ssd_chunked``
 kernels (``torch.profiler``), profiled after every wall and host timing,
 and the decode and SSD wrappers' host enqueue once more.
 The flash-attention backward (``flash_attention_bwd``, the training phase's
-new kernel) is held against its plain backward on the full model's first
+kernel: bf16 on the tensor cores, f32 on the CUDA cores) is held against
+its plain backward on the full model's first
 recorded backward launch (B 4, S 2,048, 14 heads on 2, hd 64, causal),
 on llama's heads (hd 128, G 1), on mixtral's G 6 with a window shorter
 than the sequence, and in f32 at a small shape: bf16 within ``BF16_ATOL``
@@ -4068,9 +4069,13 @@ def check_flash_bwd(inputs, launches, label):
         f"({int((~finite).sum())} -inf rows in both); two launches and the forward "
         f"with and without lse give the same bits; ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"sdpa_fwd_bwd_ms={lib:.4f} bound_ms={b:.4f} ({by})")
+    # bf16 runs the tensor-core kernels (and the reduce of the per-head
+    # partials when G > 1), f32 the CUDA-core ones
     device_ms_later(f"flash_attention_bwd {label}",
                     lambda: fbk.flash_attention_bwd(q, k, v, out, dout, lse, **kw),
-                    {"rowsum": "dot_kernel", "dK dV": "dkdv_kernel", "dQ": "dq_kernel"})
+                    {"rowsum": "dot_kernel", "dK dV": "dkdv_kernel", "dQ": "dq_kernel"} if f32
+                    else {"rowsum": "dot_kernel", "dK dV": "dkdv_mma_kernel",
+                          "reduce": "dkdv_reduce_kernel", "dQ": "dq_mma_kernel"})
     return dict(name="flash_attention_bwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_backward.cu",
                 replaces="src/repro/kernels/flash_prefill.py:91 (its gradient: no Pallas "

@@ -86,8 +86,8 @@ _SIGNATURES = {
     "ssd_scan": ("ssd_chunked_launch", [_P] * 9 + [_L] + [_I] * 9 + [_P]),
     "flash_backward": (
         "flash_attention_bwd_launch",
-        # q k v out dout q_pos kv_pos kv_valid lse D dq dk dv
-        [_P] * 13
+        # q k v out dout q_pos kv_pos kv_valid lse D dq dk dv dk_part dv_part
+        [_P] * 15
         # B Sq Skv H KV hd dtype causal has_window window
         + [_I] * 10 + [_F, _P],  # scale stream
     ),

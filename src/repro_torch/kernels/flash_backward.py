@@ -10,7 +10,8 @@ no gradient, so the training forward (``ops.FlashAttentionFn``) runs the
 forward kernel with its ``lse`` output and this backward, and a CUDA tensor
 never falls back to plain PyTorch.  The kernel is
 ``csrc/flash_backward.cu`` (its header says what bounds it and how its
-design answers that); ``flash_attention_bwd_plain`` writes out the same
+design answers that): bf16 launches run on the tensor cores, f32 launches
+on the CUDA cores; ``flash_attention_bwd_plain`` writes out the same
 formulas in plain PyTorch, so that the CPU tests check the algorithm the
 kernel runs (not autograd of the plain forward).
 """
@@ -138,6 +139,12 @@ def flash_attention_bwd(
     if q.numel() == 0 or Skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     d = torch.empty(B, Sq, H, dtype=torch.float32, device=q.device)  # rowsum(dO·O)
+    # bf16 with G > 1: each query head's partial dK and dV, summed per kv
+    # head in head order by the kernel's reduce
+    parts = (None, None)
+    if q.dtype == torch.bfloat16 and H > KV:
+        parts = tuple(torch.empty(B, Skv, H, hd, dtype=torch.float32, device=q.device)
+                      for _ in range(2))
     launch = build.launcher("flash_backward")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -145,7 +152,8 @@ def flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             q_pos.data_ptr(), kv_pos.data_ptr(),
             None if kv_valid is None else kv_valid.data_ptr(), lse.data_ptr(), d.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, KV, hd, code,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *(None if p is None else p.data_ptr() for p in parts), B, Sq, Skv, H, KV, hd, code,
             int(causal), int(window is not None), int(window or 0), float(hd) ** -0.5, stream,
         )
     build.check(status, NAME)

@@ -1820,7 +1820,8 @@ def test_cluster_rebalance_of_an_int8_entry_dequantises_on_card(cuda):
 # --------------------------------------------------------------------------- #
 # (B, Sq, H, KV, hd, causal, window, masked kv rows, kv_valid): the training
 # shapes (queries and keys the same positions), GQA, MQA, a window,
-# non-causal, head_dims off the buckets, rows masked by kv_pos < 0
+# non-causal, head_dims off the buckets, rows masked by kv_pos < 0.  Sq may
+# be (Sq, Skv) with Sq < Skv: the queries are the last Sq positions.
 BWD_CASES = [
     (2, 200, 14, 2, 64, True, None, False, False),  # qwen2-0.5b's heads
     (1, 130, 4, 4, 128, True, None, False, False),  # llama's (G 1)
@@ -1834,19 +1835,27 @@ BWD_CASES = [
     # window with kv_valid (parts whose every key a row masks)
     (1, 700, 8, 2, 64, True, None, True, False),
     (1, 600, 6, 1, 128, True, 200, False, True),
+    # the bf16 dK/dV kernel's per-head partials and their reduce over 16
+    # kv tiles (qwen2-0.5b's G 7); a suffix of 300 queries after 400 earlier
+    # rows; granite's MQA (G 48) at hd 128
+    (1, 1000, 14, 2, 64, True, None, False, False),
+    (2, (300, 700), 8, 2, 64, True, None, False, False),
+    (1, 300, 48, 1, 128, True, None, False, False),
 ]
 
 
 def _bwd_case(cuda, dt, B, Sq, H, KV, hd, causal, window, masked, valid, seed=0):
+    Sq, Skv = Sq if isinstance(Sq, tuple) else (Sq, Sq)
     g = torch.Generator(device=cuda)
     g.manual_seed(seed + Sq * H + hd)
     q, dout = (torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dt) for _ in range(2))
-    k, v = (torch.randn(B, Sq, KV, hd, generator=g, device=cuda).to(dt) for _ in range(2))
-    pos = torch.arange(Sq, device=cuda, dtype=torch.int32)[None].expand(B, Sq).contiguous()
-    kv_pos = pos.clone()
+    k, v = (torch.randn(B, Skv, KV, hd, generator=g, device=cuda).to(dt) for _ in range(2))
+    kv_pos = torch.arange(Skv, device=cuda, dtype=torch.int32)[None].expand(B, Skv).contiguous()
+    pos = kv_pos[:, Skv - Sq:].contiguous()
+    kv_pos = kv_pos.clone()
     if masked:
         kv_pos[:, 5:20] = -1
-    kv_valid = torch.rand(B, Sq, generator=g, device=cuda) > 0.3 if valid else None
+    kv_valid = torch.rand(B, Skv, generator=g, device=cuda) > 0.3 if valid else None
     kw = dict(q_pos=pos, kv_pos=kv_pos, causal=causal, window=window, kv_valid=kv_valid)
     return q, k, v, dout, kw
 
@@ -1870,7 +1879,7 @@ def test_flash_backward_matches_plain_on_card(cuda, dtype, B, Sq, H, KV, hd, cau
 
     dt = getattr(torch, dtype)
     q, k, v, dout, kw = _bwd_case(cuda, dt, B, Sq, H, KV, hd, causal, window, masked, valid)
-    lse = torch.empty(B, Sq, H, dtype=torch.float32, device=cuda)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=cuda)
     out = fk.flash_attention(q, k, v, lse=lse, **kw)
     _, plain_lse = fbk.flash_attention_fwd_plain(q, k, v, **kw)
     finite = torch.isfinite(plain_lse)
@@ -1892,6 +1901,20 @@ def test_flash_backward_gives_the_same_bits_twice_and_lse_keeps_the_output(cuda,
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=cuda)
     out = fk.flash_attention(q, k, v, lse=lse, **kw)
     assert torch.equal(out, fk.flash_attention(q, k, v, **kw))
+    first = fbk.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    second = fbk.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_flash_backward_gives_the_same_bits_twice_over_many_kv_tiles(cuda):
+    """bf16 at qwen2-0.5b's G 7 over 16 kv tiles: the per-head partials and
+    their reduce run in a fixed order, so two launches give the same bits."""
+    from repro_torch.kernels import flash_backward as fbk
+
+    q, k, v, dout, kw = _bwd_case(cuda, torch.bfloat16, *BWD_CASES[9])
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=cuda)
+    out = fk.flash_attention(q, k, v, lse=lse, **kw)
     first = fbk.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
     second = fbk.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
