@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's ten CUDA kernels from ``src/repro_torch/kernels/csrc``
+Builds the port's eleven CUDA kernels from ``src/repro_torch/kernels/csrc``
 with nvcc (one nvcc per source, all started together), then drives the
 paths of the port below, each with every launch counter zeroed just before
 it and read just after it:
@@ -320,6 +320,26 @@ it and read just after it:
    ``torch.use_deterministic_algorithms(True)`` (the cross-entropy's
    ``gather`` backward is a ``scatter_add_`` on CUDA, which PyTorch counts
    as nondeterministic).
+20. training of the SSM, hybrid and encoder-decoder families — the Mamba
+   layers' scan gets its gradient through ``ops.SSDChunkedFn``: the forward
+   kernel, then ``ssd_chunked_bwd`` (``csrc/ssd_backward.cu``).  First one
+   f32 step of mamba2-1.3b at full width cut to ``TRAIN_CUT`` layers and
+   one of whisper-tiny whole, on the card and on the CPU (the plain
+   versions), loss and every gradient within ``TRAIN_GRAD_RTOL``; then
+   mamba2-1.3b at full width and depth in bf16, ``SSM_TRAIN_STEPS`` steps at
+   ``SSM_TRAIN_BATCH`` x ``SSM_TRAIN_SEQ`` (ids from the first
+   ``TRAIN_DATA_VOCAB``): every loss finite, the drop of the 3-step means at
+   least ``SSM_TRAIN_LOSS_DROP`` (predicted from a CPU rehearsal,
+   ``scripts/train_loss_rehearsal.py``), 48 forward and 48 backward SSD
+   launches a step and no other kernel, the step wall, tokens/s and peak
+   memory logged; a preempted ``ResilientLoop`` of mamba2 at ``TRAIN_CUT``
+   layers resuming bit for bit; one train step of jamba-1.5-large-398b at
+   full width cut to ``JAMBA_TRAIN_CUT`` (its first layer: Mamba and a
+   dense MLP, with the 65,536-row embedding; the bytes reckoned and logged
+   before the run), its loss finite and its parameters moved; and
+   ``WHISPER_TRAIN_STEPS`` steps of whisper-tiny at full width and depth
+   over ``frame_batches`` (random frames ``[B, 1,500, 384]``), the loss
+   falling.
 
 Then the kernel phase: each kernel is called on the inputs one of its
 launches on those paths received (first layer) and held against its plain
@@ -394,6 +414,20 @@ of the plain forward.  It is timed beside its plain version and SDPA's
 forward and backward with an explicit boolean mask, and appended to the
 kernels line with the full run's launches, as is the forward at the
 training shape (``at`` "qwen2-0.5b training").
+The SSD backward (``ssd_chunked_bwd``, phase 20's kernel) is held against
+its plain backward (``ssd_scan.ssd_chunked_bwd_plain``, f64, at the
+model's chunk of 256) on the full mamba2 run's first recorded backward
+launch (B 2, L 2,048, H 64, P 64, S 128, G 1), in bf16 and cast to
+f32, each with and without a seeded initial state and final-state
+gradient, and on the jamba step's recorded backward launch (B 1, L 2,048,
+H 128, P 128, S 16, G 1) in the same way: each
+output within ``SSD_BWD_BF16_RTOL`` (bf16 dx, dB, dC) or
+``SSD_BWD_F32_RTOL`` (every f32 output) of its largest magnitude, set
+before the first chip run from the kernel's arithmetic emulated on the CPU
+(``tests/test_torch_ssd_bwd_numerics.py``); two launches give the same
+bits.  It is timed beside its plain version and its bound (no PyTorch
+call computes the scan's gradient) and appended to the kernels line
+twice, each entry with its own run's launches.
 
 Any failed check raises, so the script exits non-zero.  The line before the
 last is ``{"kernels": [...]}``; the last is the ``{"ok": true, ...}`` line.
@@ -414,6 +448,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import torch
 
@@ -430,7 +465,7 @@ from repro_torch.core import simulator  # noqa: E402
 from repro_torch.core.cost_model import s_storage_bytes  # noqa: E402
 from repro_torch.core.perf_model import V100_X4_HF, PerfModel  # noqa: E402
 from repro_torch.core.pricing import AWS_PAPER  # noqa: E402
-from repro_torch.data.synthetic import token_batches  # noqa: E402
+from repro_torch.data.synthetic import frame_batches, token_batches  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import chunked_prefill as cpk  # noqa: E402
 from repro_torch.kernels import decode_attention as dk  # noqa: E402
@@ -441,6 +476,7 @@ from repro_torch.kernels import kv_quant as kq  # noqa: E402
 from repro_torch.kernels import packed_prefill as pk  # noqa: E402
 from repro_torch.kernels import paged_decode as pdk  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import ssd_backward as sbk  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssk  # noqa: E402
 from repro_torch.kvcache import compression, fusion, paged  # noqa: E402
 from repro_torch.kvcache.faults import FaultInjector, RetryPolicy, payload_checksum  # noqa: E402
@@ -448,7 +484,7 @@ from repro_torch.kvcache.hierarchy import TierSpec  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.market import Marketplace, MarketPlanner  # noqa: E402
 from repro_torch.models import lm, moe  # noqa: E402
-from repro_torch.models.registry import count_active_params, get_model  # noqa: E402
+from repro_torch.models.registry import count_active_params, count_params, get_model  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     AffinityRouter,
     AlwaysReusePlanner,
@@ -567,7 +603,8 @@ COUNTERS = {"packed_flash_attention": pk.packed_flash_attention,
             "kv_quant": kq.kv_quant,
             "kv_dequant": kq.kv_dequant,
             "ssd_chunked": ssk.ssd_chunked,
-            "flash_attention_bwd": fbk.flash_attention_bwd}
+            "flash_attention_bwd": fbk.flash_attention_bwd,
+            "ssd_chunked_bwd": sbk.ssd_chunked_bwd}
 # the market phase: decode tokens per request (the phase's gates are its
 # purchase and first-token logits; few decode steps keep it short) and the
 # length of the adversary's context C
@@ -608,6 +645,31 @@ TRAIN_LOSS_DROP = 2.0
 # to its leaf's largest magnitude (the same sums in another order; the CPU
 # tests read at most 1.6e-6 against the JAX package at reduced width)
 TRAIN_GRAD_RTOL = 1e-4
+# the SSM, hybrid and encoder-decoder training phase: mamba2-1.3b at full
+# width and depth in bf16, SSM_TRAIN_STEPS steps at SSM_TRAIN_BATCH x
+# SSM_TRAIN_SEQ (the data, optimizer and schedule of the qwen2-0.5b run; at
+# B 4 the forward ran out of the card's 79.18 GiB: a Mamba layer keeps ~1.8
+# GB of activations at 8,192 tokens, most of it the conv's f32 terms);
+# the loss's fall of the 3-step means predicted before the first run on the
+# card from a CPU rehearsal at full width cut to two layers
+# (scripts/train_loss_rehearsal.py; PERF.md §6, the SSM training entry);
+# jamba-1.5-large-398b cut to its first layer (Mamba, dense MLP) for one
+# step at JAMBA_TRAIN_BATCH x JAMBA_TRAIN_SEQ; whisper-tiny whole,
+# WHISPER_TRAIN_STEPS steps at WHISPER_TRAIN_BATCH x WHISPER_TRAIN_SEQ
+# decoder tokens over 1,500 frames
+SSM_TRAIN_ARCH = "mamba2-1.3b"
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 2, 2048, 20
+SSM_TRAIN_LOSS_DROP = 3.0
+JAMBA_TRAIN_CUT = dict(n_layers=1, hybrid_period=("m",))
+JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ = 1, 2048
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_STEPS = 4, 128, 8
+# the SSD backward against its plain version (f64), relative to each
+# output's largest magnitude, set before its first chip run from its
+# arithmetic emulated on the CPU (tests/test_torch_ssd_bwd_numerics.py,
+# which reads <= 1.6e-3 and <= 1.7e-5): a bf16 output (dx, dB, dC) within
+# one bf16 step at its largest magnitude, every f32 output within 1e-4
+SSD_BWD_BF16_RTOL = 2.0**-7
+SSD_BWD_F32_RTOL = 1e-4
 # the fused phase's RAG traffic: documents of DOC_LEN tokens, a 32-token
 # prompt per request, the reference's default chunk_tokens of 16, and
 # CacheBlend's default recompute fraction
@@ -3805,19 +3867,16 @@ def grad_errors(got, want):
             .item() for g, w in zip(tree_leaves(got), tree_leaves(want))]
 
 
-def train_card_vs_cpu():
+def train_card_vs_cpu(cfg, batch, expect):
     """One train step's two halves (``value_and_grad``, then
-    ``AdamW.update``: ``make_train_step``) of qwen2-0.5b at full width cut
-    to ``TRAIN_CUT`` layers in f32, on the card and on the CPU from the same
-    weights and batch: the loss and every gradient within
-    ``TRAIN_GRAD_RTOL``.  The new parameters are logged, not gated: at step
-    1 the update is g / (|g| + eps), so a near-zero gradient of either sign
-    moves a weight by +-lr."""
-    cfg = train_cfg(n_layers=TRAIN_CUT, param_dtype="float32", dtype="float32")
-    cpu_params = lm.init(cfg, seed=SEED, device="cpu")
+    ``AdamW.update``: ``make_train_step``) of ``cfg`` (f32), on the card and
+    on the CPU from the same weights and batch: the loss and every gradient
+    within ``TRAIN_GRAD_RTOL``, and the card's launches exactly ``expect``
+    (the kernels that launched, by name).  The new parameters are logged,
+    not gated: at step 1 the update is g / (|g| + eps), so a near-zero
+    gradient of either sign moves a weight by +-lr."""
+    cpu_params = get_model(cfg).init(cfg, seed=SEED, device="cpu")
     card_params = tree_map(lambda t: t.to(DEVICE), cpu_params)
-    batch = next(token_batches(dataclasses.replace(cfg, vocab=TRAIN_DATA_VOCAB),
-                               batch=TRAIN_CPU_BATCH, seq_len=TRAIN_CPU_SEQ, seed=SEED))
     opt = AdamW(lr=TRAIN_LR, weight_decay=0.01)
     zero_counts()
     t0 = time.perf_counter()
@@ -3826,10 +3885,10 @@ def train_card_vs_cpu():
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     c = counts()
-    log(f"train step card vs cpu ({cfg.n_layers} layers at full width, f32, "
-        f"B {TRAIN_CPU_BATCH} x S {TRAIN_CPU_SEQ}): card launches {c}, card wall {card_s:.2f} s")
-    assert c["flash_attention"] == c["flash_attention_bwd"] == cfg.n_layers, c
-    assert sum(c.values()) == 2 * cfg.n_layers, c
+    shape = " x ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items() if k != "mask")
+    log(f"train step card vs cpu ({cfg.name}, {cfg.n_layers} layers at full width, f32, "
+        f"{shape}): card launches {c}, card wall {card_s:.2f} s")
+    assert {k: v for k, v in c.items() if v} == expect, (c, expect)
     t0 = time.perf_counter()
     (cpu_loss, _), cpu_grads = value_and_grad(cpu_params, cfg, batch)
     new_cpu, _ = opt.update(cpu_grads, opt.init(cpu_params), cpu_params)
@@ -3838,7 +3897,7 @@ def train_card_vs_cpu():
     errs = grad_errors(grads, cpu_grads)
     moved = [(a.cpu() - b).abs().max().item() for a, b in zip(tree_leaves(new_card),
                                                                 tree_leaves(new_cpu))]
-    log(f"train step card vs cpu: loss {loss.item():.6f} / {cpu_loss.item():.6f} "
+    log(f"train step card vs cpu ({cfg.name}): loss {loss.item():.6f} / {cpu_loss.item():.6f} "
         f"(rel {loss_err:.3e}); gradients: max rel err {max(errs):.3e}, median "
         f"{sorted(errs)[len(errs) // 2]:.3e} over {len(errs)} leaves; new parameters: max "
         f"|card - cpu| {max(moved):.3e} (lr {TRAIN_LR}; not gated); cpu wall {cpu_s:.2f} s; "
@@ -3938,11 +3997,10 @@ def train_full():
     return rec.fwd, rec.bwd, c
 
 
-def train_resume(tmp: pathlib.Path):
-    """A ``ResilientLoop`` at ``TRAIN_CUT`` layers (bf16, checkpoints in the
-    reference's layout): preempted at step 6, after the step-4 checkpoint,
-    and re-invoked, it ends as an uninterrupted run does, bit for bit."""
-    cfg = train_cfg(n_layers=TRAIN_CUT)
+def train_resume(tmp: pathlib.Path, cfg):
+    """A ``ResilientLoop`` of ``cfg`` (bf16, checkpoints in the reference's
+    layout): preempted at step 6, after the step-4 checkpoint, and
+    re-invoked, it ends as an uninterrupted run does, bit for bit."""
     params0 = lm.init(cfg, seed=SEED, device=DEVICE)
     opt = AdamW(lr=TRAIN_LR, weight_decay=0.01, schedule=cosine_schedule(warmup=2, total=8))
     step = make_train_step(cfg, opt)
@@ -3985,7 +4043,7 @@ def train_resume(tmp: pathlib.Path):
     same = [torch.equal(a, b) for a, b in zip(
         tree_leaves((whole["params"], whole["opt_state"])),
         tree_leaves((resumed["params"], resumed["opt_state"])))]
-    log(f"train resume ({cfg.n_layers} layers at full width, bf16; preempted at step 6, "
+    log(f"train resume ({cfg.name}, {cfg.n_layers} layers at full width, bf16; preempted at step 6, "
         f"resumed from the step-4 checkpoint): {sum(same)}/{len(same)} leaves equal bit for "
         f"bit, final loss {float(whole['metrics']['loss']):.4f} / "
         f"{float(resumed['metrics']['loss']):.4f}, three runs {wall:.1f} s")
@@ -3996,11 +4054,15 @@ def training_phase():
     """Phase 19 (see the module docstring).  Returns the full run's recorded
     forward and backward inputs and its launches."""
     t0 = time.perf_counter()
-    train_card_vs_cpu()
+    cfg = train_cfg(n_layers=TRAIN_CUT, param_dtype="float32", dtype="float32")
+    batch = next(token_batches(dataclasses.replace(cfg, vocab=TRAIN_DATA_VOCAB),
+                               batch=TRAIN_CPU_BATCH, seq_len=TRAIN_CPU_SEQ, seed=SEED))
+    train_card_vs_cpu(cfg, batch, {"flash_attention": cfg.n_layers,
+                                   "flash_attention_bwd": cfg.n_layers})
     release()
     fwd_inputs, bwd_inputs, c = train_full()
     with tempfile.TemporaryDirectory() as tmp:
-        train_resume(pathlib.Path(tmp))
+        train_resume(pathlib.Path(tmp), train_cfg(n_layers=TRAIN_CUT))
     release()
     log(f"training phase wall: {time.perf_counter() - t0:.1f} s")
     return fwd_inputs, bwd_inputs, c
@@ -4114,6 +4176,302 @@ def check_flash_fn_f32(inputs):
     log(f"FlashAttentionFn (kernels) vs autograd of the plain forward, f32 "
         f"q{tuple(q.shape)}: rel errs (dq, dk, dv) {', '.join(f'{e:.3e}' for e in errs)}")
     assert max(errs) <= F32_ATOL, errs
+
+
+# --------------------------------------------------------------------------- #
+# Training the SSM, hybrid and encoder-decoder families (phase 20)
+# --------------------------------------------------------------------------- #
+class SSDRecorder:
+    """Keeps copies of the inputs of the first ``ops.SSDChunkedFn`` backward
+    (the last Mamba layer's: its saved tensors and dy) while installed; the
+    kernels' wrappers and counters are left as they are.  The saved tensors
+    are unpacked once and handed on, since under remat they unpack once."""
+
+    def __init__(self):
+        self.bwd = None
+        self._orig = ops.SSDChunkedFn.backward
+
+    def __enter__(self):
+        backward = self._orig
+
+        def record(ctx, dy, dhT):
+            saved = ctx.saved_tensors
+            if self.bwd is None:
+                dy_ = torch.zeros_like(saved[0]) if dy is None else dy
+                self.bwd = tuple(t.detach().clone() for t in (*saved[:5], dy_))
+            return backward(types.SimpleNamespace(saved_tensors=saved, chunk=ctx.chunk),
+                            dy, dhT)
+
+        ops.SSDChunkedFn.backward = staticmethod(record)
+        return self
+
+    def __exit__(self, *exc):
+        ops.SSDChunkedFn.backward = staticmethod(self._orig)
+
+
+def run_steps(cfg, batches, steps, warmup):
+    """``steps`` steps of ``make_train_step`` (AdamW at ``TRAIN_LR``, cosine
+    schedule) over ``batches`` from the arch's seeded weights on the card
+    (drawn here, so that only the stepped weights stay alive); returns the
+    losses, the walls (s), the launches, the final AdamW step and the
+    parameter count."""
+    params = get_model(cfg).init(cfg, seed=SEED, device=DEVICE)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    opt = AdamW(lr=TRAIN_LR, weight_decay=0.01,
+                schedule=cosine_schedule(warmup=warmup, total=steps))
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    walls, losses = [], []
+    zero_counts()
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batches[i])
+        losses.append(metrics["loss"].item())
+        walls.append(time.perf_counter() - t0)
+    return losses, walls, counts(), int(state.step), n_params
+
+
+def log_run(label, losses, walls, tokens, peak, n_params, predicted):
+    steady = sorted(walls[1:])
+    median = steady[len(steady) // 2]
+    drop = sum(losses[:3]) / 3 - sum(losses[-3:]) / 3
+    log(f"{label} losses: {[round(x, 4) for x in losses]}")
+    log(f"{label} step wall: first {walls[0] * 1e3:.1f} ms, median of the rest "
+        f"{median * 1e3:.1f} ms (min {steady[0] * 1e3:.1f}, max {steady[-1] * 1e3:.1f}); "
+        f"{tokens / median:.0f} tokens/s; peak memory {peak / 2**30:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}; {n_params} params; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, drop of the 3-step means {drop:.4f} "
+        f"(predicted {predicted})")
+    assert all(math.isfinite(x) for x in losses), losses
+    return drop
+
+
+def train_ssm_full():
+    """mamba2-1.3b at full width and depth in bf16: ``SSM_TRAIN_STEPS``
+    steps.  Returns the first recorded SSD backward's inputs and the run's
+    launches."""
+    cfg = get_config(SSM_TRAIN_ARCH)
+    it = token_batches(dataclasses.replace(cfg, vocab=TRAIN_DATA_VOCAB), batch=SSM_TRAIN_BATCH,
+                       seq_len=SSM_TRAIN_SEQ, seed=SEED)
+    batches = [{k: torch.as_tensor(v, device=DEVICE) for k, v in next(it).items()}
+               for _ in range(SSM_TRAIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    with SSDRecorder() as rec:
+        losses, walls, c, n_steps, n_params = run_steps(cfg, batches, SSM_TRAIN_STEPS,
+                                                        TRAIN_WARMUP)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train {SSM_TRAIN_ARCH} full width and depth, bf16, B {SSM_TRAIN_BATCH} x S "
+        f"{SSM_TRAIN_SEQ}, {SSM_TRAIN_STEPS} steps: launches {c}")
+    drop = log_run(f"train {SSM_TRAIN_ARCH}", losses, walls, SSM_TRAIN_BATCH * SSM_TRAIN_SEQ,
+                   peak, n_params, f">= {SSM_TRAIN_LOSS_DROP}")
+    n = cfg.n_layers * SSM_TRAIN_STEPS
+    assert {k: v for k, v in c.items() if v} == {"ssd_chunked": n, "ssd_chunked_bwd": n}, c
+    assert n_steps == SSM_TRAIN_STEPS
+    assert drop >= SSM_TRAIN_LOSS_DROP, (drop, losses)
+    assert rec.bwd is not None
+    del batches
+    release()
+    return rec.bwd, c
+
+
+def train_jamba_step():
+    """One train step of jamba-1.5-large-398b at full width cut to
+    ``JAMBA_TRAIN_CUT``, its bytes reckoned first: the loss finite; one SSD
+    backward launch and one forward launch, two under the config's remat
+    ("dots": the period's forward runs again in the backward); every leaf's
+    first moment nonzero (its gradient arrived) and every leaf moved but a
+    bf16 leaf that an update of ``TRAIN_LR`` cannot move (below half a bf16
+    step at its smallest magnitude: the norm scales at 1.0).  Returns the
+    recorded SSD backward's inputs and the launches."""
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b"), **JAMBA_TRAIN_CUT)
+    n = count_params(cfg)
+    d_in = cfg.ssm.d_inner(cfg.d_model)
+    tokens = JAMBA_TRAIN_BATCH * JAMBA_TRAIN_SEQ
+    log(f"train jamba-1.5-large-398b cut to {cfg.n_layers} layer ({cfg.hybrid_period}), bf16, "
+        f"B {JAMBA_TRAIN_BATCH} x S {JAMBA_TRAIN_SEQ}: {n} params; reckoned bf16 weights "
+        f"{2 * n / 2**30:.2f} GiB + bf16 gradients {2 * n / 2**30:.2f} + f32 moments "
+        f"{8 * n / 2**30:.2f} = {12 * n / 2**30:.2f} GiB, plus the step's weights before it "
+        f"{2 * n / 2**30:.2f} GiB and ~{tokens * (cfg.vocab * 12 + d_in * 64) / 2**30:.2f} GiB "
+        f"of activations (f32 logits and their gradient, the Mamba layer's f32 conv terms)")
+    params = lm.init(cfg, seed=SEED, device=DEVICE)
+    before = [t.clone() for t in tree_leaves(params)]
+    batch = next(token_batches(dataclasses.replace(cfg, vocab=TRAIN_DATA_VOCAB),
+                               batch=JAMBA_TRAIN_BATCH, seq_len=JAMBA_TRAIN_SEQ, seed=SEED))
+    opt = AdamW(lr=TRAIN_LR, weight_decay=0.01)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with SSDRecorder() as rec:
+        params, state, metrics = make_train_step(cfg, opt)(params, state, batch)
+        loss = metrics["loss"].item()
+    wall = time.perf_counter() - t0
+    c = counts()
+    leaves = tree_leaves(params)
+    moved = [not torch.equal(a, b) for a, b in zip(before, leaves)]
+    stuck = [t.dtype == torch.bfloat16 and TRAIN_LR < 2.0**-9 * t.float().abs().min().item()
+             for t in leaves]
+    fed = [bool(m.any()) for m in tree_leaves(state.m)]
+    log(f"train jamba step: loss {loss:.4f}, wall {wall * 1e3:.1f} ms, launches {c}, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {sum(moved)}/{len(moved)} "
+        f"parameter leaves moved, {sum(stuck)} bf16 leaves an update of {TRAIN_LR} cannot move; "
+        f"{sum(fed)}/{len(fed)} leaves with a nonzero first moment")
+    assert math.isfinite(loss) and all(fed), (loss, fed)
+    assert all(m or s for m, s in zip(moved, stuck)), (moved, stuck)
+    fwd = 1 if cfg.remat == "none" else 2
+    assert {k: v for k, v in c.items() if v} == {"ssd_chunked": fwd, "ssd_chunked_bwd": 1}, c
+    assert rec.bwd is not None
+    del params, state, before
+    release()
+    return rec.bwd, c
+
+
+def train_whisper():
+    """whisper-tiny at full width and depth in bf16: ``WHISPER_TRAIN_STEPS``
+    steps over ``frame_batches``, the loss falling (the mean of the last
+    three below the mean of the first three)."""
+    cfg = get_config("whisper-tiny")
+    it = frame_batches(dataclasses.replace(cfg, vocab=TRAIN_DATA_VOCAB),
+                       batch=WHISPER_TRAIN_BATCH, seq_len=WHISPER_TRAIN_SEQ, seed=SEED)
+    batches = [{k: torch.as_tensor(v, device=DEVICE) for k, v in next(it).items()}
+               for _ in range(WHISPER_TRAIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, c, n_steps, n_params = run_steps(cfg, batches, WHISPER_TRAIN_STEPS, 2)
+    log(f"train whisper-tiny full width and depth, bf16, B {WHISPER_TRAIN_BATCH} x "
+        f"{cfg.encoder_seq_len} frames x {WHISPER_TRAIN_SEQ} decoder tokens, "
+        f"{WHISPER_TRAIN_STEPS} steps: launches {c}")
+    drop = log_run("train whisper-tiny", losses, walls, WHISPER_TRAIN_BATCH * WHISPER_TRAIN_SEQ,
+                   torch.cuda.max_memory_allocated(), n_params, "> 0")
+    n = (cfg.n_encoder_layers + 2 * cfg.n_layers) * WHISPER_TRAIN_STEPS
+    assert {k: v for k, v in c.items() if v} == {"flash_attention": n,
+                                                  "flash_attention_bwd": n}, c
+    assert n_steps == WHISPER_TRAIN_STEPS and drop > 0, (drop, losses)
+    del batches
+    release()
+
+
+def ssm_training_phase():
+    """Phase 20 (see the module docstring).  Returns the full mamba2 run's
+    first recorded SSD backward inputs and launches, and the jamba step's
+    recorded SSD backward inputs and launches."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(SSM_TRAIN_ARCH), n_layers=TRAIN_CUT,
+                              param_dtype="float32", dtype="float32")
+    batch = next(token_batches(dataclasses.replace(cfg, vocab=TRAIN_DATA_VOCAB),
+                               batch=TRAIN_CPU_BATCH, seq_len=TRAIN_CPU_SEQ, seed=SEED))
+    train_card_vs_cpu(cfg, batch, {"ssd_chunked": cfg.n_layers,
+                                   "ssd_chunked_bwd": cfg.n_layers})
+    release()
+    cfg = dataclasses.replace(get_config("whisper-tiny"), param_dtype="float32",
+                              dtype="float32")
+    batch = next(frame_batches(dataclasses.replace(cfg, vocab=TRAIN_DATA_VOCAB),
+                               batch=TRAIN_CPU_BATCH, seq_len=WHISPER_TRAIN_SEQ, seed=SEED))
+    n = cfg.n_encoder_layers + 2 * cfg.n_layers
+    train_card_vs_cpu(cfg, batch, {"flash_attention": n, "flash_attention_bwd": n})
+    release()
+    bwd_inputs, c = train_ssm_full()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_resume(pathlib.Path(tmp), dataclasses.replace(get_config(SSM_TRAIN_ARCH),
+                                                            n_layers=TRAIN_CUT))
+    release()
+    jamba_bwd, jamba = train_jamba_step()
+    train_whisper()
+    log(f"SSM, hybrid and encoder-decoder training phase wall: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return bwd_inputs, c, jamba_bwd, jamba
+
+
+# the SSD backward's kernels, by phase (csrc/ssd_backward.cu; the chunk
+# states are the forward's chunk_state_kernel in bf16, chunk_state_f32 in f32)
+SSD_BWD_KERNELS = {"chunk states": "chunk_state", "state pass": "state_pass_kernel",
+                   "local dh": "dlocal_kernel", "reverse pass": "reverse_pass_kernel",
+                   "chunk grads": "chunk_grad_kernel", "dB dC": "dbdc_kernel",
+                   "dA": "dA_reduce_kernel"}
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+
+
+def ssd_bwd_states(B, H, P, S, seed=1):
+    """A seeded initial state and final-state gradient ``[B, H, P, S]`` f32."""
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    return tuple(torch.randn(B, H, P, S, generator=g, device=DEVICE) for _ in range(2))
+
+
+def check_ssd_bwd(inputs, launches, label):
+    """Hold ``ssd_chunked_bwd`` against ``ssd_chunked_bwd_plain`` (f64, at
+    the model's chunk of 256) on ``inputs`` (x, dt, A, B, C, dy) in bf16
+    and cast to f32, each without and with a seeded initial state and
+    final-state gradient: every output within ``SSD_BWD_BF16_RTOL`` (bf16
+    dx, dB, dC) or ``SSD_BWD_F32_RTOL`` of its largest magnitude, and two
+    launches giving the same bits.  Times the kernel and its plain version
+    without the states.  The bound counts x, dt, A, B, C, dy read once and
+    dx, d dt, dA, dB, dC written once, and the operations of the chunked
+    backward at the kernel's chunk (``ssk.CHUNK``) at the inputs' peak: per
+    chunk of n tokens the causal half (n(n+1)/2 pairs) of C·Bᵀ once per
+    group and of dY·Xᵀ, Mᵀ dY, dM B and dMᵀ C per head, and five [P, S]
+    products a token and head (the rebuilt state, the local dh term, dh_out
+    B, dY h_in, X dh_out; dy_t·y_off_t needs no sixth, being C_t·(e_t
+    dy_tᵀ h_in), the dC term's own product).  Queues the bf16 launch's device time per kernel.  Returns the
+    kernel's entry of the ``{"kernels": [...]}`` line, from the bf16 run
+    without the states."""
+    x, dt, A, Bm, Cm, dy = inputs
+    Bsz, L, H, P = x.shape
+    G, S = Bm.shape[2], Bm.shape[3]
+    states = ssd_bwd_states(Bsz, H, P, S)
+    entry = None
+    for dtype in (torch.bfloat16, torch.float32):
+        xx, bb, cc, dd = (t.to(dtype) for t in (x, Bm, Cm, dy))
+        for h0, dhT in ((None, None), states):
+            got = sbk.ssd_chunked_bwd(xx, dt, A, bb, cc, dd, dhT, initial_state=h0)
+            again = sbk.ssd_chunked_bwd(xx, dt, A, bb, cc, dd, dhT, initial_state=h0)
+            want = ssk.ssd_chunked_bwd_plain(xx, dt, A, bb, cc, dd, dhT, chunk=256,
+                                             initial_state=h0)
+            torch.cuda.synchronize()
+            assert all(a is b or torch.equal(a, b) for a, b in zip(got, again)), (
+                f"ssd_chunked_bwd {label}: two launches differ")
+            errs, abs_err = [], 0.0
+            for name, g, w in zip(SSD_BWD_NAMES, got, want):
+                if w is None:
+                    continue
+                diff = (g.float() - w.float()).abs().max().item()
+                abs_err = max(abs_err, diff)
+                err = diff / w.float().abs().max().item()
+                tol = (SSD_BWD_BF16_RTOL if dtype == torch.bfloat16 and name in ("dx", "dB", "dC")
+                       else SSD_BWD_F32_RTOL)
+                errs.append(f"{name} {err:.3e} (gate {tol:.3e})")
+                assert err <= tol, (label, dtype, h0 is not None, name, err, tol)
+            del want, again
+            note = ""
+            if h0 is None:
+                call = functools.partial(sbk.ssd_chunked_bwd, xx, dt, A, bb, cc, dd)
+                ms = time_ms(call, reps=5)
+                plain_ms = time_ms(lambda: ssk.ssd_chunked_bwd_plain(xx, dt, A, bb, cc, dd,
+                                                                    chunk=256), reps=2)
+                ns = [min(ssk.CHUNK, L - t) for t in range(0, L, ssk.CHUNK)]
+                tri = sum(n * (n + 1) // 2 for n in ns)
+                flops = 2.0 * Bsz * (G * tri * S + H * tri * (2 * P + 2 * S) + 5 * H * L * P * S)
+                b, by = bound_ms(nbytes(xx, dt, A, bb, cc, dd, *got), flops, dtype)
+                note = (f"; ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b:.4f} ({by}); no "
+                        f"single library call")
+                if dtype == torch.bfloat16:
+                    device_ms_later(f"ssd_chunked_bwd {label} bf16", call, SSD_BWD_KERNELS,
+                                    reps=5)
+                    entry = dict(name="ssd_chunked_bwd", route="cuda",
+                                 source="src/repro_torch/kernels/csrc/ssd_backward.cu",
+                                 replaces="src/repro/kernels/ssd_scan.py:91 (its gradient: no "
+                                          "Pallas backward exists; JAX differentiates through "
+                                          "the scan)",
+                                 launches=launches, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                                 library_ms=None)
+            log(f"kernel ssd_chunked_bwd {label} {str(dtype)[6:]} x{tuple(x.shape)} G {G} S {S} "
+                f"initial state and dhT {h0 is not None}: rel errs {', '.join(errs)}; two "
+                f"launches give the same bits{note}")
+            del got
+            torch.cuda.empty_cache()
+    log(f"ssd_chunked_bwd ptxas: {ptxas_notes('ssd_backward', '|'.join(SSD_BWD_KERNELS.values()))}")
+    return entry
 
 
 def main() -> None:
@@ -4343,6 +4701,9 @@ def main() -> None:
     # ---- training: qwen2-0.5b's train steps through the backward kernel ----
     train_fwd, train_bwd, train_counts = training_phase()
 
+    # ---- training: mamba2-1.3b, jamba and whisper through the SSD backward --
+    ssm_bwd, ssm_train_counts, jamba_bwd, jamba_train_counts = ssm_training_phase()
+
     # ---- kernel phase -----------------------------------------------------
     # the kernels line counts each kernel's launches on its llama path and
     # on the same path of nemo's, olmoe's, mixtral's, granite's, internvl's
@@ -4471,6 +4832,13 @@ def main() -> None:
     check_flash_bwd(f32_inputs, 0, "f32")
     check_flash_fn_f32(f32_inputs)
     check_wide_group()
+    # the SSD backward on the full mamba2 run's recorded launch and on the
+    # jamba step's, each with its launches there
+    kernels += [
+        check_ssd_bwd(ssm_bwd, ssm_train_counts["ssd_chunked_bwd"], "mamba2-1.3b training"),
+        dict(check_ssd_bwd(jamba_bwd, jamba_train_counts["ssd_chunked_bwd"],
+                           "jamba-1.5-large-398b training"),
+             at="jamba-1.5-large-398b training, 1-layer cut, B 1 x L 2,048")]
     log_device_times()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

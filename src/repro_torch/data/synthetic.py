@@ -35,6 +35,24 @@ def token_batches(
         }
 
 
+def frame_batches(
+    cfg: ArchConfig, *, batch: int, seq_len: int, seed: int = 0
+) -> Iterator[dict]:
+    """Infinite stream of encoder-decoder training batches: ``token_batches``'
+    draws from ``seed`` as decoder tokens and labels, each batch with
+    standard-normal stub frames ``[batch, encoder_seq_len, d_model]`` (f32)
+    from a second generator, so the tokens are ``token_batches``' own."""
+    frames = np.random.default_rng([seed, 1])
+    for b in token_batches(cfg, batch=batch, seq_len=seq_len, seed=seed):
+        yield {
+            "frames": frames.standard_normal(
+                (batch, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32),
+            "dec_tokens": b["tokens"],
+            "labels": b["labels"],
+            "mask": b["mask"],
+        }
+
+
 @dataclasses.dataclass
 class WorkloadSpec:
     """The paper's evaluation workload (§3): n_contexts contexts, each reused

@@ -25,7 +25,9 @@ from typing import Dict, Iterable, List, Optional
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 KERNELS = ("packed_prefill", "decode_attention", "flash_prefill", "paged_decode",
            "chunked_prefill", "fused_prefill", "kv_quant", "kv_dequant", "ssd_scan",
-           "flash_backward")
+           "flash_backward", "ssd_backward")
+# the other sources a kernel's .cu includes (every .cuh counts for all)
+INCLUDES = {"ssd_backward": ("ssd_scan.cu",)}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -91,6 +93,9 @@ _SIGNATURES = {
         # B Sq Skv H KV hd dtype causal has_window window
         + [_I] * 10 + [_F, _P],  # scale stream
     ),
+    # x dt A B C h0 dy dhT (or null) dx ddt dA dB dC dh0 scratch | scratch
+    # floats | B L H P G S n_chunks dtype | stream
+    "ssd_backward": ("ssd_chunked_bwd_launch", [_P] * 15 + [_L] + [_I] * 8 + [_P]),
 }
 
 # the other C function of an attention library: the number of parts S the
@@ -125,7 +130,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    deps = [CSRC / dep for dep in INCLUDES.get(name, ())]
+    for src in sorted(CSRC.glob("*.cuh")) + deps + [CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"

@@ -4,11 +4,12 @@ A CUDA tensor goes to the hand-written kernel, a CPU tensor to the kernel's
 plain version; there is no other switch and no size threshold (unlike the
 JAX package's ``ops.py``, whose reference path also serves ``Sq < 128``).
 
-``flash_attention`` is the one entry point with a gradient: under grad mode
-with an operand that requires grad it runs ``FlashAttentionFn``, whose
-backward is a kernel too (``flash_backward``).  Everywhere else (every
-serving path runs under ``torch.inference_mode()``) it launches what it
-launched before.
+``flash_attention`` and ``ssd_chunked`` are the entry points with a
+gradient: under grad mode with an operand that requires grad they run
+``FlashAttentionFn`` and ``SSDChunkedFn``, whose backwards are kernels too
+(``flash_backward``, ``ssd_backward``).  Everywhere else (every serving path
+runs under ``torch.inference_mode()``) they launch what they launched
+before.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.kernels import kv_quant as kq
 from repro_torch.kernels import packed_prefill as pk
 from repro_torch.kernels import paged_decode as pdk
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_backward as sbk
 from repro_torch.kernels import ssd_scan as ssk
 
 
@@ -145,13 +147,48 @@ def kv_dequant(
     return (kq.kv_dequant if q.is_cuda else kq.kv_dequant_plain)(q, scale, dtype)
 
 
+class SSDChunkedFn(torch.autograd.Function):
+    """``ssd_chunked`` with a gradient.  The forward runs the scan (the
+    kernel on the card, ``ssd_scan.ssd_chunked_plain`` on the CPU) and keeps
+    its inputs; the backward runs ``ssd_backward.ssd_chunked_bwd`` (on the
+    CPU ``ssd_scan.ssd_chunked_bwd_plain`` at the forward's chunk) with the
+    gradients of y and of the final state (None where the caller used
+    neither)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_, C, chunk, initial_state):
+        fn = ssk.ssd_chunked if x.is_cuda else ssk.ssd_chunked_plain
+        y, hT = fn(x, dt, A, B_, C, chunk=chunk, initial_state=initial_state)
+        ctx.save_for_backward(x, dt, A, B_, C, initial_state)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        x, dt, A, B_, C, h0 = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dhT = None if dhT is None else dhT.contiguous()
+        if x.is_cuda:
+            grads = sbk.ssd_chunked_bwd(x, dt, A, B_, C, dy, dhT, initial_state=h0)
+        else:
+            grads = ssk.ssd_chunked_bwd_plain(x, dt, A, B_, C, dy, dhT, chunk=ctx.chunk,
+                                              initial_state=h0)
+        dx, ddt, dA, dB, dC, dh0 = grads
+        return dx, ddt, dA, dB, dC, None, dh0
+
+
 def ssd_chunked(
     x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Tensor, C: torch.Tensor,
     *, chunk: int = 256, initial_state: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Mamba2 SSD chunked scan: ``(y [B,L,H,P], final state [B,H,P,S]
     f32)``, exact against the sequential ``ref.ssd_scan_ref`` (see
-    ``ssd_scan.ssd_chunked_plain``)."""
+    ``ssd_scan.ssd_chunked_plain``); through ``SSDChunkedFn`` when a
+    gradient is wanted."""
+    operands = (x, dt, A, B_, C, initial_state)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in operands):
+        return SSDChunkedFn.apply(x, dt, A, B_, C, chunk, initial_state)
     fn = ssk.ssd_chunked if x.is_cuda else ssk.ssd_chunked_plain
     return fn(x, dt, A, B_, C, chunk=chunk, initial_state=initial_state)
 

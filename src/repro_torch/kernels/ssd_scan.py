@@ -116,6 +116,126 @@ def ssd_chunked_plain(
     return y.to(x.dtype), h
 
 
+def ssd_chunked_bwd_plain(
+    x: torch.Tensor,  # [B, L, H, P]
+    dt: torch.Tensor,  # [B, L, H]
+    A: torch.Tensor,  # [H]
+    B_: torch.Tensor,  # [B, L, G, S]
+    C: torch.Tensor,  # [B, L, G, S]
+    dy: torch.Tensor,  # [B, L, H, P] the gradient of y
+    dhT: Optional[torch.Tensor] = None,  # [B, H, P, S] the gradient of the final state
+    *,
+    chunk: int = 256,
+    initial_state: Optional[torch.Tensor] = None,  # [B, H, P, S]
+    precision: torch.dtype = torch.float64,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           Optional[torch.Tensor]]:
+    """``(dx, ddt, dA, dB, dC, dh0)`` of ``ssd_chunked_plain`` from the chunk
+    equations in ``precision`` (f64), written out (not autograd): per
+    (batch, head) and chunk, with ``L[t,s] = exp(cum_t - cum_s)`` (s <=
+    t), ``M = (C Bᵀ) ⊙ L ⊙ dt_s``, ``dM = dY Xᵀ``, ``e_t = exp(cum_t)`` and
+    ``w_s = exp(cum_last - cum_s)``:
+
+      dh_in = exp(cum_last) dh_out + Σ_t e_t dy_t ⊗ C_t   (in reverse chunk
+              order from dhT, or zero; dh0 is the first chunk's dh_in)
+      dx_s  = dt_s [Σ_t (C_t·B_s) L[t,s] dy_t + w_s dh_out B_s]
+      dC_t  = Σ_s L[t,s] dt_s (dy_t·x_s) B_s + e_t dy_tᵀ h_in
+      dB_s  = dt_s [Σ_t L[t,s] (dy_t·x_s) C_t + w_s dh_outᵀ x_s]
+      d dt_s (direct) = the two sums of dx_s dotted with x_s, over dt_s
+
+    and ``cum`` collects ``rowsum(W) - colsum(W)`` (``W = dM ⊙ M``), ``dy_t
+    · y_off_t`` and, with ``u_s = w_s dt_s x_s·(dh_out B_s)``, ``Σ_s u_s +
+    exp(cum_last) <dh_out, h_in>`` at the chunk's last token and ``-u_s``
+    at token s; ``da`` is its reverse cumsum in the chunk, ``d dt += da
+    A_h`` and ``dA_h = Σ da ⊙ dt``.  dB and dC sum over each group's heads.
+    dx, dB and dC come in the inputs' dtype, ddt, dA and dh0 in f32; dh0
+    is None without an ``initial_state``.  f64 by default because ``d dt`` sums terms
+    that largely cancel (``rowsum(W) - colsum(W)``, then a reverse cumsum):
+    in f32 this version alone moved a reduced jamba's ``in_proj_dt``
+    gradient by ~5e-6 of its largest value, half the port's gradient
+    tolerance against the JAX package.  ``precision=torch.float32`` at the
+    kernel's chunk is the CUDA kernel's own arithmetic (every product in
+    f32), which its numerics test takes."""
+    Bsz, L, H, P = x.shape
+    G, S = B_.shape[2], B_.shape[3]
+    rep = H // G
+
+    pad = (-L) % chunk
+    if pad:  # dt = 0 and dy = 0 on padding: it adds nothing either way
+        x, dy = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, dy))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        B_, C = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (B_, C))
+    Lp = L + pad
+    nc = Lp // chunk
+
+    xf = x.to(precision).reshape(Bsz, nc, chunk, H, P)
+    dyf = dy.to(precision).reshape(Bsz, nc, chunk, H, P)
+    dtf = dt.to(precision).reshape(Bsz, nc, chunk, H)
+    Bf = B_.to(precision).repeat_interleave(rep, dim=2).reshape(Bsz, nc, chunk, H, S)
+    Cf = C.to(precision).repeat_interleave(rep, dim=2).reshape(Bsz, nc, chunk, H, S)
+    Af = A.to(precision)
+
+    cum = torch.cumsum(dtf * Af, dim=2)  # [B,nc,Q,H]
+    ct = cum.permute(0, 1, 3, 2)  # [B,nc,H,Q]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    decay = torch.exp((ct[..., :, None] - ct[..., None, :]).masked_fill(~tri, float("-inf")))
+    e = torch.exp(cum)  # [B,nc,Q,H]
+    w = torch.exp(cum[:, :, -1:] - cum)  # [B,nc,Q,H]
+    last = torch.exp(ct[..., -1])  # [B,nc,H]
+
+    # the states before each chunk (the forward's recurrence) ...
+    states = torch.einsum("bnqhp,bnqhs->bnhps", xf * (dtf * w)[..., None], Bf)
+    h = (torch.zeros((Bsz, H, P, S), dtype=precision, device=x.device)
+         if initial_state is None else initial_state.to(precision))
+    h_in = []
+    for n in range(nc):
+        h_in.append(h)
+        h = h * last[:, n, :, None, None] + states[:, n]
+    h_in = torch.stack(h_in, dim=1)  # [B,nc,H,P,S]
+    # ... and the gradients of the states after them, in reverse chunk order
+    local = torch.einsum("bnqhp,bnqhs->bnhps", dyf * e[..., None], Cf)
+    g = (torch.zeros((Bsz, H, P, S), dtype=precision, device=x.device)
+         if dhT is None else dhT.to(precision))
+    dh_out = [None] * nc
+    for n in reversed(range(nc)):
+        dh_out[n] = g
+        g = g * last[:, n, :, None, None] + local[:, n]
+    dh_out = torch.stack(dh_out, dim=1)  # [B,nc,H,P,S]
+
+    CBL = torch.einsum("bnthk,bnshk->bnhts", Cf, Bf) * decay  # (C_t·B_s) L[t,s]
+    dM = torch.einsum("bnthp,bnshp->bnhts", dyf, xf)  # dy_t·x_s
+    dML = dM * decay
+    dts = dtf.permute(0, 1, 3, 2)  # [B,nc,H,Q]
+    Z = torch.einsum("bnshk,bnhpk->bnshp", Bf, dh_out)  # dh_out B_s
+    dx = dtf[..., None] * (torch.einsum("bnhts,bnthp->bnshp", CBL, dyf) + w[..., None] * Z)
+    dC = (torch.einsum("bnhts,bnshk->bnthk", dML * dts[..., None, :], Bf)
+          + e[..., None] * torch.einsum("bnthp,bnhpk->bnthk", dyf, h_in))
+    dB = dtf[..., None] * (torch.einsum("bnhts,bnthk->bnshk", dML, Cf)
+                           + w[..., None] * torch.einsum("bnshp,bnhpk->bnshk", xf, dh_out))
+
+    v = w * (xf * Z).sum(-1)  # [B,nc,Q,H]: x_s·(w_s dh_out B_s)
+    q = (CBL * dM).sum(-2)  # [B,nc,H,Q]: Σ_t (C_t·B_s) L[t,s] (dy_t·x_s)
+    W = CBL * dM * dts[..., None, :]  # dM ⊙ M
+    y_off = e[..., None] * torch.einsum("bnthk,bnhpk->bnthp", Cf, h_in)
+    u = dts * v.permute(0, 1, 3, 2)  # [B,nc,H,Q]
+    dcum = W.sum(-1) - W.sum(-2) + (dyf * y_off).sum(-1).permute(0, 1, 3, 2) - u
+    dcum[..., -1] += u.sum(-1) + last * (dh_out * h_in).sum((-1, -2))
+    da = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))  # [B,nc,H,Q]
+    ddt = q + v.permute(0, 1, 3, 2) + da * Af[:, None]
+    dA = (da * dts).sum((0, 1, 3))
+
+    def tokens(t):  # [B,nc,Q,H,...] -> [B,L,H,...]
+        return t.reshape(Bsz, Lp, *t.shape[3:])[:, :L]
+
+    def grouped(t):  # [B,nc,Q,H,S] -> [B,L,G,S], summed over each group's heads
+        return tokens(t.reshape(Bsz, nc, chunk, G, rep, S).sum(4))
+
+    dh0 = None if initial_state is None else g
+    return (tokens(dx).to(x.dtype), tokens(ddt.permute(0, 1, 3, 2)).float().contiguous(),
+            dA.float(), grouped(dB).to(B_.dtype), grouped(dC).to(C.dtype),
+            None if dh0 is None else dh0.float())
+
+
 def ssd_chunked(
     x: torch.Tensor,
     dt: torch.Tensor,

@@ -4,9 +4,10 @@ checkpoints in the reference's format, straggler tracking).
 
 The reference's flags, less the mesh (distribution is queue item A11), and
 ``--device`` (the card unless ``--device cpu``).  Weights are random, drawn
-from a seeded generator (``lm.init(cfg, seed=0)``); the batches are
-``token_batches``' from seed 0, the reference's.  Stacks with Mamba layers
-and the encoder-decoder are not trainable yet (queue item A10b).
+from a seeded generator (``init(cfg, seed=0)`` of the arch's model); the
+batches are ``token_batches``' from seed 0, the reference's, and for the
+encoder-decoder ``frame_batches``' (the same tokens as decoder tokens, with
+random frames).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --steps 50 --batch 8 --seq 128 --reduced --device cpu
@@ -19,8 +20,8 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.configs import CONFIGS, get_config, reduced_config
-from repro_torch.data.synthetic import token_batches
-from repro_torch.models import lm
+from repro_torch.data.synthetic import frame_batches, token_batches
+from repro_torch.models import registry
 from repro_torch.models.common import resolve_device
 from repro_torch.training.fault import LoopConfig, ResilientLoop
 from repro_torch.training.optimizer import AdamW, cosine_schedule
@@ -54,9 +55,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         if args.accum == 1
         else make_grad_accum_step(cfg, opt, args.accum)
     )
-    params = lm.init(cfg, seed=0, device=device)
+    params = registry.get_model(cfg).init(cfg, seed=0, device=device)
 
-    it = token_batches(cfg, batch=args.batch, seq_len=args.seq, seed=0)
+    batches = frame_batches if cfg.family == "encdec" else token_batches
+    it = batches(cfg, batch=args.batch, seq_len=args.seq, seed=0)
     cache = {}
 
     def batch_fn(i):

@@ -108,12 +108,14 @@ def forward(
     p: Params, cfg: ArchConfig, kind: BlockKind, x: torch.Tensor,
     positions: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One attention block over the call's own tokens, causally at
-    ``positions``, returning ``(x, aux)`` (the reference's
-    ``blocks.forward``).  A Mamba mixer's training waits for an SSD
-    backward kernel (``lm.forward`` refuses those stacks)."""
+    """One block over the call's own tokens (attention causally at
+    ``positions``, or the Mamba mixer from a zero state), returning ``(x,
+    aux)`` (the reference's ``blocks.forward``)."""
     h = layers.apply_norm(p["norm1"], cfg, x)
-    x = x + attention.forward(p["attn"], cfg, h, positions=positions)
+    if kind.mixer == "a":
+        x = x + attention.forward(p["attn"], cfg, h, positions=positions)
+    else:
+        x = x + ssm.forward(p["mamba"], cfg, h)[0]
     return _ffn(p, cfg, kind, x)
 
 

@@ -9,9 +9,9 @@ The reusable context state is the decoder's cross-attention K/V of one
 audio context (``build_cross_kv``, every decoder layer's); the decoder's
 self-attention K/V belong to the request's prompt.
 
-API (the reference's ``models/encdec.py`` without its training
-``forward``):
+API (the reference's ``models/encdec.py``):
   init(cfg, seed=0, device=None) -> params
+  forward(params, cfg, frames [B, S_enc, D], dec_tokens [B, S]) -> (logits [B, S, V], aux 0)
   init_state(cfg, batch, max_len, device=None, dtype=None) -> EncDecState
   encode(params, cfg, frames [B, S_enc, D]) -> encoder output [B, S_enc, D]
   build_cross_kv(params, cfg, enc_out) -> KVCache [n_dec, B, S_enc, KV, hd]
@@ -146,6 +146,29 @@ def _cross_and_mlp(lp: Params, cfg: ArchConfig, x: torch.Tensor, ckv: KVCache) -
     x = x + attention.cross_attend(lp["cross_attn"], cfg, h, ckv)
     h = layers.apply_norm(lp["norm2"], cfg, x)
     return x + layers.apply_mlp(lp["mlp"], cfg, h)
+
+
+def forward(
+    params: Params, cfg: ArchConfig, frames, dec_tokens: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward: encode ``frames``, then decode ``dec_tokens``
+    causally from position 0 (self-attention, cross-attention over the
+    encoder output and the MLP at every layer, each pre-norm).  Returns the
+    f32 logits ``[B, S, V]`` and an aux loss of 0 (the reference's
+    ``encdec.forward``).  Both attentions get their gradient through
+    ``ops.FlashAttentionFn``."""
+    enc_out = encode(params, cfg, frames)
+    dec_tokens = torch.as_tensor(dec_tokens, device=enc_out.device)
+    B = dec_tokens.shape[0]
+    x = _dec_embed(params, cfg, dec_tokens,
+                   torch.zeros(B, dtype=torch.int32, device=enc_out.device))
+    for lp in params["decoder"]:
+        h = layers.apply_norm(lp["norm1"], cfg, x)
+        x = x + attention.forward(lp["self_attn"], cfg, h, causal=True)
+        x = _cross_and_mlp(lp, cfg, x, attention.cross_kv(lp["cross_attn"], cfg, enc_out))
+    x = layers.apply_norm(params["dec_norm"], cfg, x)
+    return (layers.lm_logits(params["embed"], cfg, x),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def prefill(

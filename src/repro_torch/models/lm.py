@@ -128,16 +128,11 @@ def forward(
     under ``torch.utils.checkpoint`` and is recomputed in the backward.
     The reference's "dots" keeps the matmul outputs and "full" keeps
     nothing; here both keep only the period's input.  The math is the same
-    either way and only memory differs.
-
-    Stacks with Mamba layers (the SSM and hybrid families) need an SSD
-    backward kernel first and are refused here (queue item A10b); the
-    encoder-decoder's training forward, also A10b, would be ``encdec``'s
-    (``train_step.loss_fn`` refuses it)."""
+    either way and only memory differs.  A Mamba layer's scan gets its
+    gradient through ``ops.SSDChunkedFn``, an attention layer's through
+    ``ops.FlashAttentionFn``; the encoder-decoder's training forward is
+    ``encdec.forward``."""
     kinds, _ = _layout(cfg)
-    if any(k.mixer != "a" for k in kinds):
-        raise ValueError(f"training {cfg.name} ({cfg.family}): a Mamba layer's backward is "
-                         "not ported yet (queue item A10b)")
     x = _embed_inputs(params, cfg, tokens, embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)

@@ -2,10 +2,10 @@
 
 The reference's ``training/train_step.py``.  The batch's keys select the
 forward: ``tokens`` (with ``embeds`` before them for a VLM), ``labels`` and
-an optional ``mask``; its values may be tensors or arrays and land on the
+an optional ``mask``, or for the encoder-decoder ``frames`` and
+``dec_tokens``; its values may be tensors or arrays and land on the
 parameters' device.  The MoE aux (load-balancing) loss is folded in with a
-coefficient of 0.01, normalised by the layer count.  The encoder-decoder,
-SSM and hybrid families wait for queue item A10b.
+coefficient of 0.01, normalised by the layer count.
 
 Gradients come from ``torch.autograd.grad`` on detached copies of the
 parameters that require grad, so a step leaves its inputs as they were, as
@@ -18,7 +18,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.training.optimizer import AdamState, AdamW
 from repro_torch.training.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -31,11 +31,11 @@ def _on(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 def loss_fn(params: Any, cfg: ArchConfig,
             batch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    if cfg.family == "encdec":
-        raise ValueError(f"training {cfg.name} (encdec): the encoder-decoder's training "
-                         "forward is not ported yet (queue item A10b)")
     batch = _on(batch, params["embed"]["table"].device)
-    logits, aux = lm.forward(params, cfg, batch["tokens"], embeds=batch.get("embeds"))
+    if cfg.family == "encdec":
+        logits, aux = encdec.forward(params, cfg, batch["frames"], batch["dec_tokens"])
+    else:
+        logits, aux = lm.forward(params, cfg, batch["tokens"], embeds=batch.get("embeds"))
     ce = lm.cross_entropy(logits, batch["labels"], batch.get("mask"))
     loss = ce + AUX_COEF * aux / max(cfg.n_layers, 1)
     return loss, {"ce": ce, "aux": aux}

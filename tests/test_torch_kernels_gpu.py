@@ -27,7 +27,12 @@ kernels at granite-34b's 48 query heads on one kv head, and the flash
 kernel non-causal at whisper-tiny's (hd 64, 1,500 rows; one query row and
 1,500).  The reduced mamba2-1.3b, olmoe-1b-7b, jamba-1.5-large-398b,
 granite-34b, internvl2-1b and whisper-tiny are served on the card against
-the same engine on the CPU.
+the same engine on the CPU.  The SSD backward is held to its plain (f64)
+backward within 2^-7 of each bf16 output's largest magnitude and 1e-4 of
+each f32 output's, tolerances set from its arithmetic emulated on the CPU
+(``tests/test_torch_ssd_bwd_numerics.py``); the reduced mamba2-1.3b,
+jamba-1.5-large-398b and whisper-tiny train a step on the card as on the
+CPU.
 """
 import os
 import pathlib
@@ -1982,3 +1987,157 @@ def test_reduced_train_step_on_card_as_on_cpu(cuda):
     for g, w in zip(tree_leaves(grads), tree_leaves(cpu_grads)):
         err = (g.cpu() - w).abs().max().item()
         assert err <= 1e-5 * max(w.abs().max().item(), 1e-12), (err, w.abs().max().item())
+
+
+# --------------------------------------------------------------------------- #
+# The SSD scan's backward
+# --------------------------------------------------------------------------- #
+# Relative to each output's largest magnitude, set before the kernel first
+# ran on the card from its arithmetic emulated on the CPU
+# (tests/test_torch_ssd_bwd_numerics.py): an output in bf16 (dx, dB, dC of a
+# bf16 launch) within one bf16 step at its largest magnitude, every f32
+# output within 1e-4
+SSD_BWD_BF16_RTOL = 2.0**-7
+SSD_BWD_F32_RTOL = 1e-4
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+SSD_BWD_CASES = [
+    # (B, L, H, P, G, S, with an initial state and dhT)
+    (2, 300, 4, 64, 2, 128, True),
+    (1, 2048, 8, 64, 1, 128, False),  # mamba2-1.3b's heads, 16 chunks
+    (1, 1000, 4, 128, 1, 16, True),  # jamba-1.5-large-398b's heads
+    (1, 37, 3, 20, 3, 24, True),  # one padded chunk, odd widths, one head a group
+    (2, 129, 2, 256, 1, 256, False),  # the widest P and S, a one-token last chunk
+]
+
+
+def _ssd_bwd_case(cuda, dtype, B, L, H, P, G, S, states, seed=0):
+    """Seeded operands at the model's scales (dt = softplus(N(0, 1) - 2), A
+    from -1 to -16, the rest unit normal)."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed)
+    x = torch.randn(B, L, H, P, generator=g, device=cuda).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(B, L, H, generator=g, device=cuda) - 2)
+    A = -torch.linspace(1.0, 16.0, H, device=cuda)
+    Bm, Cm = (torch.randn(B, L, G, S, generator=g, device=cuda).to(dtype) for _ in range(2))
+    dy = torch.randn(B, L, H, P, generator=g, device=cuda).to(dtype)
+    h0 = torch.randn(B, H, P, S, generator=g, device=cuda) if states else None
+    dhT = torch.randn(B, H, P, S, generator=g, device=cuda) if states else None
+    return (x, dt, A, Bm, Cm, dy, dhT), h0
+
+
+def _ssd_bwd_errs(got, want, dtype):
+    """Each output's max |got - want| over its max |want|, and its gate."""
+    out = []
+    for name, g, w in zip(SSD_BWD_NAMES, got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        err = (g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+        tol = (SSD_BWD_BF16_RTOL if dtype == torch.bfloat16 and name in ("dx", "dB", "dC")
+               else SSD_BWD_F32_RTOL)
+        out.append((name, err, tol))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,H,P,G,S,states", SSD_BWD_CASES)
+def test_ssd_backward_matches_plain_on_card(cuda, dtype, B, L, H, P, G, S, states):
+    from repro_torch.kernels import ssd_backward as sbk
+
+    dt = getattr(torch, dtype)
+    ins, h0 = _ssd_bwd_case(cuda, dt, B, L, H, P, G, S, states, seed=L + P)
+    got = sbk.ssd_chunked_bwd(*ins, initial_state=h0)
+    want = ssk.ssd_chunked_bwd_plain(*ins, chunk=256, initial_state=h0)
+    errs = _ssd_bwd_errs(got, want, dt)
+    assert all(err <= tol for _, err, tol in errs), errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_backward_gives_the_same_bits_twice(cuda, dtype):
+    """No atomics: the group's heads are summed in head order and each
+    head's dA terms in (batch, chunk) order."""
+    from repro_torch.kernels import ssd_backward as sbk
+
+    ins, h0 = _ssd_bwd_case(cuda, getattr(torch, dtype), *SSD_BWD_CASES[0])
+    first = sbk.ssd_chunked_bwd(*ins, initial_state=h0)
+    second = sbk.ssd_chunked_bwd(*ins, initial_state=h0)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_ssd_backward_counts_launches_and_refuses_what_it_cannot_run(cuda):
+    from repro_torch.kernels import ssd_backward as sbk
+
+    (x, dt, A, Bm, Cm, dy, dhT), h0 = _ssd_bwd_case(cuda, torch.bfloat16, *SSD_BWD_CASES[3])
+    before = sbk.ssd_chunked_bwd.launches
+    sbk.ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, dhT, initial_state=h0)
+    assert sbk.ssd_chunked_bwd.launches == before + 1
+    with pytest.raises(ValueError, match="dy"):
+        sbk.ssd_chunked_bwd(x, dt, A, Bm, Cm, dy.float(), dhT, initial_state=h0)
+    with pytest.raises(ValueError, match="dhT"):
+        sbk.ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, dhT[:, :1].contiguous(), initial_state=h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        sbk.ssd_chunked_bwd(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, Bm, Cm, dy)
+    with pytest.raises(ValueError, match="multiple"):
+        sbk.ssd_chunked_bwd(x[:, :, :2].contiguous(), dt[:, :, :2].contiguous(), A[:2], Bm, Cm,
+                            dy[:, :, :2].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        sbk.ssd_chunked_bwd(*(t.cpu() for t in (x, dt, A, Bm, Cm, dy)))
+    assert sbk.ssd_chunked_bwd.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_ssd_fn_gradients_match_autograd_of_plain_forward_on_card(cuda):
+    """``SSDChunkedFn`` on the card (the forward and backward kernels)
+    against autograd of the plain forward, f32, both outputs carrying the
+    loss."""
+    from repro_torch.kernels import ops
+
+    (x, dt, A, Bm, Cm, dy, dhT), h0 = _ssd_bwd_case(cuda, torch.float32, *SSD_BWD_CASES[0])
+    grads = []
+    for fn in (ops.ssd_chunked, ssk.ssd_chunked_plain):
+        leaves = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm, h0)]
+        y, hT = fn(*leaves[:5], chunk=256, initial_state=leaves[5])
+        grads.append(torch.autograd.grad((y * dy).sum() + (hT * dhT).sum(), leaves))
+    errs = _ssd_bwd_errs(grads[0], grads[1], torch.float32)
+    assert all(err <= tol for _, err, tol in errs), errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b", "whisper-tiny"])
+def test_reduced_family_train_step_on_card_as_on_cpu(cuda, arch):
+    """The loss and gradients of the reduced SSM, hybrid and encoder-decoder
+    archs (f32) on the card (the SSD and flash kernels, forward and backward,
+    one launch each a layer of their kind) against the same step on the CPU
+    (their plain versions): the loss within 1e-5, each gradient within 1e-4
+    of its largest magnitude (the SSD backward's f32 tolerance)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.synthetic import frame_batches, token_batches
+    from repro_torch.kernels import flash_backward as fbk
+    from repro_torch.kernels import ssd_backward as sbk
+    from repro_torch.models import registry
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.training.tree import tree_leaves, tree_map
+
+    cfg = reduced_config(get_config(arch))
+    params = registry.get_model(cfg).init(cfg, seed=0, device="cpu")
+    batches = frame_batches if cfg.family == "encdec" else token_batches
+    batch = next(batches(cfg, batch=2, seq_len=64, seed=0))
+    kernels = (ssk.ssd_chunked, sbk.ssd_chunked_bwd, fk.flash_attention, fbk.flash_attention_bwd)
+    before = [k.launches for k in kernels]
+    (loss, _), grads = value_and_grad(tree_map(lambda t: t.to(cuda), params), cfg, batch)
+    torch.cuda.synchronize()
+    ssd, ssd_bwd, flash, flash_bwd = (k.launches - b for k, b in zip(kernels, before))
+    n_ssd = 0 if cfg.ssm is None else cfg.n_ssm_layers
+    n_attn = (cfg.n_encoder_layers + 2 * cfg.n_layers if cfg.family == "encdec"
+              else cfg.n_attn_layers)
+    assert (ssd, ssd_bwd, flash, flash_bwd) == (n_ssd, n_ssd, n_attn, n_attn)
+    (cpu_loss, _), cpu_grads = value_and_grad(params, cfg, batch)
+    assert abs(loss.item() - cpu_loss.item()) <= 1e-5 * abs(cpu_loss.item())
+    for g, w in zip(tree_leaves(grads), tree_leaves(cpu_grads)):
+        err = (g.cpu() - w).abs().max().item()
+        assert err <= SSD_BWD_F32_RTOL * max(w.abs().max().item(), 1e-12), (
+            err, w.abs().max().item())
