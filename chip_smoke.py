@@ -4270,6 +4270,10 @@ def train_ssm_full():
     assert n_steps == SSM_TRAIN_STEPS
     assert drop >= SSM_TRAIN_LOSS_DROP, (drop, losses)
     assert rec.bwd is not None
+    x, B_ = rec.bwd[0], rec.bwd[3]
+    log(f"train {SSM_TRAIN_ARCH}: the SSD backward's scratch "
+        f"{4 * sbk.scratch_floats(*x.shape, *B_.shape[2:], x.dtype) / 2**30:.3f} GiB a launch "
+        f"({str(x.dtype)[6:]}, x{tuple(x.shape)}, G {B_.shape[2]}, S {B_.shape[3]})")
     del batches
     release()
     return rec.bwd, c
@@ -4383,12 +4387,15 @@ def ssm_training_phase():
     return bwd_inputs, c, jamba_bwd, jamba
 
 
-# the SSD backward's kernels, by phase (csrc/ssd_backward.cu; the chunk
-# states are the forward's chunk_state_kernel in bf16, chunk_state_f32 in f32)
-SSD_BWD_KERNELS = {"chunk states": "chunk_state", "state pass": "state_pass_kernel",
-                   "local dh": "dlocal_kernel", "reverse pass": "reverse_pass_kernel",
-                   "chunk grads": "chunk_grad_kernel", "dB dC": "dbdc_kernel",
-                   "dA": "dA_reduce_kernel"}
+# the SSD backward's bf16 kernels, by phase (csrc/ssd_backward.cu; the chunk
+# states and the local dh terms are the forward's chunk_state_kernel)
+SSD_BWD_KERNELS = {"chunk states": "chunk_state_kernel<false>",
+                   "state pass": "state_pass_kernel", "local dh": "chunk_state_kernel<true>",
+                   "reverse pass": "reverse_pass_kernel", "x grads": "x_grad_kernel",
+                   "dB dC": "bc_grad_kernel", "d dt": "dt_grad_kernel",
+                   "dB dC reduce": "bc_reduce_kernel", "dA": "dA_reduce_kernel"}
+# ... as a pattern of the compiler's report, which names templates mangled
+SSD_BWD_PTXAS = "|".join(dict.fromkeys(v.split("<")[0] for v in SSD_BWD_KERNELS.values()))
 SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dh0")
 
 
@@ -4470,7 +4477,7 @@ def check_ssd_bwd(inputs, launches, label):
                 f"launches give the same bits{note}")
             del got
             torch.cuda.empty_cache()
-    log(f"ssd_chunked_bwd ptxas: {ptxas_notes('ssd_backward', '|'.join(SSD_BWD_KERNELS.values()))}")
+    log(f"ssd_chunked_bwd ptxas: {ptxas_notes('ssd_backward', SSD_BWD_PTXAS)}")
     return entry
 
 

@@ -29,59 +29,96 @@
 // chunk; five [P, S] products a token and head: the rebuilt state, the local
 // dh term, dh_out B, dY h_in and X dh_out; dy_t·y_off_t needs no sixth, as
 // it equals C_t·(e_t dy_tᵀ h_in), the dC term's product): ~0.035 ms at the
-// bf16 tensor-core peak, ~0.52 ms at the f32 CUDA-core peak.  This kernel
-// still forms y_off itself (one more [P, S] product a token).  This first
-// version runs every product on the CUDA cores in f32 (both dtypes), which
-// keeps it simple and exact to f32 rounding; its own chunk products come to
-// ~12.6 M multiply-adds a (batch, head, chunk).
-// A tensor-core version is later work (ROADMAP queue B).
+// bf16 tensor-core peak, ~0.52 ms at the f32 CUDA-core peak.
 //
-// Kernels, in stream order (no atomics, so two launches give the same bits):
+// The first version ran every product on the CUDA cores in f32 (an f32
+// launch still does: below), 3.62-3.67 ms at that shape, 105x the bound: 64
+// x 64 tiles on 256 threads whose operands came one widened scalar at a
+// time, the masked, decayed M and dM written to ~268 MB of f32 scratch and
+// read back for dx, dB and dC, a sixth product for y_off, and dB/dC blocks
+// (chunk, row tile, column tile, group) that each walked all of a group's
+// heads: 256 blocks at G 1, 64 at jamba's heads.
+//
+// A bf16 launch runs every chunk product on the tensor cores (mma.sync
+// m16n8k16, bf16 in, f32 accumulate, operands through ldmatrix from shared
+// tiles that arrive by cp.async), with the fragment layouts of the
+// forward's chunk_output_kernel.  x, dy, B and C are bf16, so C Bᵀ and dY
+// Xᵀ are exact products summed in f32.  The f32 operands enter as two bf16
+// parts, hi = bf16(v) and lo = bf16(v - hi) (~2^-17 |v|): the masked,
+// decayed scores (the A operand of dx's, dB's and dC's products, taken from
+// the score accumulators in registers) and the states h_in, dh_out (split
+// once per block into shared tiles of both parts, read by ldmatrix).  Two
+// parts, not the forward's three: tests/test_torch_ssd_bwd_numerics.py
+// redoes this arithmetic on the CPU and holds it within half of the card's
+// gates (bf16 dx, dB, dC within 2^-7 of max|·|, every f32 output within
+// 1e-4); one part for the scores moves dx, dB and dC past that half, one
+// for the states moves d dt (whose terms cancel) past it ten times over.
+// The local dh term runs through the forward's chunk_state_kernel with
+// three parts.  M and dM never leave the chip: each kernel recomputes the
+// scores it needs (C Bᵀ and dY Xᵀ cost 2·CHUNK²·(S + P)/2 operations a chunk
+// and head, far less than the 268 MB they replace).  The sixth product is
+// gone: the dB/dC blocks, which form dy_tᵀ h_in for dC anyway, also take
+// its dot with C_t.  At the training shape the launch reads 0.82 ms on the
+// H100 (PERF.md row 11): the scores' 16 x 16 blocks, their two-part
+// products and the loads between them keep it at ~23x the bound.
+//
+// Kernels of a bf16 launch, in stream order (no atomics, so two launches
+// give the same bits):
 //
 //  1. The states before each chunk, rebuilt rather than saved by the
 //     forward (saving would hold B x H x chunks x P x S16 f32 a layer, ~134
-//     MB at the training shape, through the whole forward): bf16 runs the
-//     forward's own chunk_state_kernel (tensor cores) and state_pass_kernel
-//     (ssd_scan.cu, included below); f32 runs chunk_state_f32 (CUDA cores)
-//     and the same state pass.
-//  2. dlocal_kernel, grid (chunks x P tiles x S tiles, H, B): each chunk's
-//     Σ_t e_t dy_t ⊗ C_t into a second [P, S16] scratch per chunk.
+//     MB at the training shape, through the whole forward): the forward's
+//     own chunk_state_kernel and state_pass_kernel (ssd_scan.cu, included
+//     below).
+//  2. chunk_state_kernel<LOCAL>: each chunk's Σ_t e_t dy_t ⊗ C_t, and the
+//     chunk's cum and dt for the kernels below.
 //  3. reverse_pass_kernel, grid (P·S16 / 256, H, B): elementwise in reverse
 //     chunk order from dhT (or zero), replacing each chunk's local term by
 //     its dh_out in place and writing dh0, the first chunk's dh_in.
-//  4. chunk_grad_kernel, grid (chunks, H, B): the chunk's C Bᵀ and dY Xᵀ by
-//     64 x 64 tiles at or below the diagonal, with M's and dM's masked,
-//     decayed values written to scratch (the dx and dB/dC products read them
-//     back), rowsum/colsum of W and the direct d dt sum reduced in smem in
-//     tile order; then y_off's dot with dy, dx (its two products) and
-//     x·(dh_out B); then <dh_out, h_in>, the chunk's dcum, its reverse
-//     cumsum (one warp), d dt and the chunk's dA term.
-//  5. dbdc_kernel, grid (chunks x 2 row tiles x S tiles x {dB, dC}, G, B):
-//     one block walks its group's heads in head order, so dB and dC need no
-//     per-head partials and no atomics.  The other choice, f32 per-head
-//     partials [B, L, H, S] and a reduce (as flash_backward.cu's dK/dV), would
-//     write and read 2 x 134 MB at mamba2's training shape (G 1, 64 heads);
-//     walking the heads costs nothing but parallelism, and the grid still
-//     holds 256 blocks there (jamba's H 128, P 128, S 16, G 1 at B 2 x
-//     2,048: 64).
-//  6. dA_reduce_kernel: each head's chunk terms summed in (batch, chunk)
+//  4. x_grad_kernel, grid (chunks x 2 row blocks of 64 tokens s x P tiles
+//     of 64, H, B), 4 warps of 16 rows: dh_out B_s (the P tile's dh_out split
+//     in shared memory first), then per 64-token column tile at or after the
+//     row block, (C Bᵀ)ᵀ (and, in the first P tile's blocks, (dY Xᵀ)ᵀ) by
+//     16 x 16 blocks at or above the diagonal, M'ᵀ = (C Bᵀ)ᵀ ⊙ L in
+//     registers and dx += M'ᵀ dY; writes dx, and the d dt terms q_s = Σ_t
+//     M'[t,s] dM[t,s], v_s (per P tile), W's row sums (per row block) and
+//     <dh_out, h_in> (per P tile) to the scratch.
+//  5. bc_grad_kernel, grid (chunks x S tiles of 64, G x slices of HEADS
+//     heads, B), 8 warps: a block walks its slice's heads in order; warp w
+//     takes rows [16 w, 16 w + 16) of the chunk both as dB's tokens s (score
+//     blocks of t >= s: 8 - w) and as dC's tokens t (blocks of s <= t: w +
+//     1), nine a warp whatever w; per head the init terms (dB: X dh_out, dC:
+//     dY h_in, the states split in shared memory once for the block) and the
+//     scores ((dY Xᵀ)ᵀ ⊙ L ⊙ dt_s and dY Xᵀ ⊙ L ⊙ dt_s) times the tiles of C
+//     and B, summed into registers; writes the slice's partial f32 sums,
+//     and dy_t·y_off_t per (head, S tile).  Slices give dB and dC the
+//     parallelism of H / G / HEADS heads at small G (a chunk and batch row
+//     get 2 S tiles x 8 slices at mamba2's training shape, 1 x 16 at
+//     jamba's) with no atomics and no per-head partials; at S 16 a tile is
+//     one 16-column pair.
+//  6. dt_grad_kernel, grid (chunks, H, B), one warp: the chunk's dcum from
+//     the terms, its reverse cumsum, d dt and the dA term.
+//  7. bc_reduce_kernel: dB and dC, the slices summed in slice order.
+//  8. dA_reduce_kernel: each head's chunk terms summed in (batch, chunk)
 //     order.
 //
-// Every product is a 64 x 64 output tile on 256 threads (4 x 4 outputs a
-// thread) over k-steps of 16 staged in shared memory, the next step's
-// operands loaded into registers while the current one is multiplied; the
-// operands come through small loaders that widen bf16 to f32 and fold in
-// the per-token factors (dt, e, w), zero past the valid tokens and widths.
-// chunk_grad_kernel and dbdc_kernel are held to 128 registers (two blocks
-// an SM; left alone they took 222 and 177, one block an SM): at mamba2's
-// heads, B 2 x 2,048, the launch fell from 5.04 to 3.62 ms with the same
-// bits (a few bytes of spills), at jamba's it moved from 7.38 to 7.53.
+// An f32 launch keeps the first version's CUDA-core kernels and their bits
+// (chunk_state_f32, dlocal_kernel, reverse_pass_kernel, chunk_grad_kernel,
+// dbdc_kernel, dA_reduce_kernel): every product a 64 x 64 output tile on
+// 256 threads (4 x 4 outputs a thread) over k-steps of 16 staged in shared
+// memory, M and dM through the scratch, dB and dC blocks walking all of a
+// group's heads.  chunk_grad_kernel and dbdc_kernel are held to 128
+// registers (two blocks an SM).
 //
 // Scratch (f32, allocated by the wrapper, its size a function of the shapes
-// alone; n = chunks, S16 = S rounded up to 16): states [B, H, n, P, S16],
-// decay [B, H, n], dstates [B, H, n, P, S16], M [B, H, n, CHUNK, CHUNK], dM
-// [B, H, n, CHUNK, CHUNK], e and w [B, H, n, 2, CHUNK], the dA terms [H, B,
-// n]: ~0.40 GB at mamba2's training shape, freed after the launch.
+// and the dtype alone; n = chunks, S16 = S rounded up to 16, P16 = P rounded
+// up to 16).  bf16: states [B, H, n, P, S16], dstates [B, H, n, P, S16], cum
+// and dt [B, H, n, 2, CHUNK], the d dt terms [B, H, n, 4 + P16/64 + S16/64,
+// CHUNK], the slices' dB and dC partials [slices, B, L, G, S] each, decay [B,
+// H, n], the dA terms [H, B, n]: 0.176 GB at mamba2's training shape (8
+// slices).  f32: states, decay, dstates, M [B, H, n, CHUNK, CHUNK], dM
+// [B, H, n, CHUNK, CHUNK], e and w [B, H, n, 2, CHUNK], the dA terms: 0.405
+// GB there.  Freed after the launch.
 //
 // Layouts (all contiguous): x, dy, dx [B, L, H, P] and Bm, Cm, dB, dC [B, L,
 // G, S] f32 or bf16 (one type); dt, ddt [B, L, H], A, dA [H], h0, dhT, dh0
@@ -93,6 +130,10 @@
 namespace repro_torch {
 namespace ssd_bwd {
 namespace {
+
+// --------------------------------------------------------------------------
+// f32: the CUDA-core kernels
+// --------------------------------------------------------------------------
 
 using ssd::CHUNK;
 using ssd::chunk_cumsum;
@@ -191,10 +232,13 @@ struct Args {
   float *ddt, *dA, *dh0;
   float *states, *decay, *dstates, *M, *dM, *ew, *dA_part;
   int Bsz, L, H, P, G, S, S16, nc;
+  // bf16 only: cum and dt, the d dt terms, the slices' dB and dC partials
+  float *cd, *terms, *bpart, *cpart;
+  int P16, PB, KT, nsl, n_terms;
+  int x_vec, dy_vec, bc_vec;  // rows of x / dy / B and C are 16-byte aligned
 };
 
 // ---- 1 (f32). chunk states: states_c[p][s] = Σ_t x_t[p] w_t dt_t B_t[s] -----
-template <typename T>
 __global__ void __launch_bounds__(THREADS) chunk_state_f32(const Args a) {
   __shared__ __align__(16) Stage st;
   __shared__ float cum[CHUNK], dts[CHUNK], wt[CHUNK];
@@ -212,8 +256,8 @@ __global__ void __launch_bounds__(THREADS) chunk_state_f32(const Args a) {
   const long long bh = (long long)b * a.H + h;
   if (p0 == 0 && s0 == 0 && tid == 0) a.decay[bh * a.nc + c] = expf(last);
   __syncthreads();
-  const T* x = static_cast<const T*>(a.x);
-  const T* Bm = static_cast<const T*>(a.Bm);
+  const float* x = static_cast<const float*>(a.x);
+  const float* Bm = static_cast<const float*>(a.Bm);
   float acc[4][4];
   zero(acc);
   tile_product<false, false>(
@@ -239,8 +283,7 @@ __global__ void __launch_bounds__(THREADS) chunk_state_f32(const Args a) {
     }
 }
 
-// ---- 2. each chunk's local dh_in term: Σ_t e_t dy_t ⊗ C_t --------------------
-template <typename T>
+// ---- 2 (f32). each chunk's local dh_in term: Σ_t e_t dy_t ⊗ C_t --------------
 __global__ void __launch_bounds__(THREADS) dlocal_kernel(const Args a) {
   __shared__ __align__(16) Stage st;
   __shared__ float cum[CHUNK], dts[CHUNK], et[CHUNK];
@@ -255,8 +298,8 @@ __global__ void __launch_bounds__(THREADS) dlocal_kernel(const Args a) {
   __syncthreads();
   for (int t = tid; t < CHUNK; t += THREADS) et[t] = expf(cum[t]);
   __syncthreads();
-  const T* dy = static_cast<const T*>(a.dy);
-  const T* Cm = static_cast<const T*>(a.Cm);
+  const float* dy = static_cast<const float*>(a.dy);
+  const float* Cm = static_cast<const float*>(a.Cm);
   float acc[4][4];
   zero(acc);
   tile_product<false, false>(
@@ -282,7 +325,7 @@ __global__ void __launch_bounds__(THREADS) dlocal_kernel(const Args a) {
     }
 }
 
-// ---- 3. the reverse state pass: dh_out_c in place of the local terms ---------
+// ---- 3 (both). the reverse state pass: dh_out_c in place of the local terms --
 __global__ void __launch_bounds__(PASS_THREADS) reverse_pass_kernel(const Args a) {
   const long long ps = (long long)a.P * a.S16;
   const int i = blockIdx.x * PASS_THREADS + threadIdx.x;  // element [p][k] of [P, S16]
@@ -307,8 +350,7 @@ __global__ void __launch_bounds__(PASS_THREADS) reverse_pass_kernel(const Args a
   if (k < a.S) a.dh0[(bh * a.P + p) * a.S + k] = g;
 }
 
-// ---- 4. a chunk's gradients of x, dt and its dA term ------------------------
-template <typename T>
+// ---- 4 (f32). a chunk's gradients of x, dt and its dA term ------------------
 __global__ void __launch_bounds__(THREADS, 2) chunk_grad_kernel(const Args a) {
   __shared__ __align__(16) Stage st;
   __shared__ float cum[CHUNK], dts[CHUNK], et[CHUNK], wt[CHUNK];
@@ -333,10 +375,10 @@ __global__ void __launch_bounds__(THREADS, 2) chunk_grad_kernel(const Args a) {
   }
   __syncthreads();
 
-  const T* x = static_cast<const T*>(a.x);
-  const T* dy = static_cast<const T*>(a.dy);
-  const T* Bm = static_cast<const T*>(a.Bm);
-  const T* Cm = static_cast<const T*>(a.Cm);
+  const float* x = static_cast<const float*>(a.x);
+  const float* dy = static_cast<const float*>(a.dy);
+  const float* Bm = static_cast<const float*>(a.Bm);
+  const float* Cm = static_cast<const float*>(a.Cm);
   auto xat = [&](int t, int p) {  // x of token t of the chunk, column p (t < n, p < P)
     return to_float(x[((long long)(b * a.L + c0 + t) * a.H + h) * a.P + p]);
   };
@@ -442,7 +484,7 @@ __global__ void __launch_bounds__(THREADS, 2) chunk_grad_kernel(const Args a) {
   __syncthreads();  // M and dM are written (global, read back by this block)
 
   // ---- dx = dt_s (Mᵀ dY + w_s B dh_outᵀ), and x_s · (w_s dh_out B_s) ------
-  T* dx = static_cast<T*>(a.dx);
+  float* dx = static_cast<float*>(a.dx);
   for (int j = 0; j < RT; ++j) {
     if (j * TILE >= n) break;
     for (int pb = 0; pb < PB; ++pb) {
@@ -470,7 +512,7 @@ __global__ void __launch_bounds__(THREADS, 2) chunk_grad_kernel(const Args a) {
           if (s < n && p < a.P) {
             const float zv = wt[s] * z[ii][jj];
             dx[((long long)(b * a.L + c0 + s) * a.H + h) * a.P + p] =
-                from_float<T>(dts[s] * (acc[ii][jj] + zv));
+                (dts[s] * (acc[ii][jj] + zv));
             d += xat(s, p) * zv;
           }
         }
@@ -534,8 +576,7 @@ __global__ void __launch_bounds__(THREADS, 2) chunk_grad_kernel(const Args a) {
   }
 }
 
-// ---- 5. dB and dC, summed over the group's heads in head order --------------
-template <typename T>
+// ---- 5 (f32). dB and dC, summed over the group's heads in head order --------
 __global__ void __launch_bounds__(THREADS, 2) dbdc_kernel(const Args a) {
   __shared__ __align__(16) Stage st;
   __shared__ float dts[CHUNK], et[CHUNK], wt[CHUNK];
@@ -546,10 +587,10 @@ __global__ void __launch_bounds__(THREADS, 2) dbdc_kernel(const Args a) {
   const int g = blockIdx.y, b = blockIdx.z, rep = a.H / a.G;
   const int c0 = c * CHUNK, n = min(CHUNK, a.L - c0), k0 = kb * TILE, r0 = i * TILE;
   if (r0 >= n) return;
-  const T* x = static_cast<const T*>(a.x);
-  const T* dy = static_cast<const T*>(a.dy);
-  const T* Bm = static_cast<const T*>(a.Bm);
-  const T* Cm = static_cast<const T*>(a.Cm);
+  const float* x = static_cast<const float*>(a.x);
+  const float* dy = static_cast<const float*>(a.dy);
+  const float* Bm = static_cast<const float*>(a.Bm);
+  const float* Cm = static_cast<const float*>(a.Cm);
   float acc[4][4];
   zero(acc);
   for (int hh = 0; hh < rep; ++hh) {
@@ -565,7 +606,7 @@ __global__ void __launch_bounds__(THREADS, 2) dbdc_kernel(const Args a) {
     const float* M = a.dM + bhc * CHUNK * CHUNK;  // dM ⊙ L
     const float* hin = a.states + bhc * a.P * a.S16;
     const float* dhout = a.dstates + bhc * a.P * a.S16;
-    auto gcol = [&](const T* m, int t, int cc) {  // B or C of token t, column k0 + cc
+    auto gcol = [&](const float* m, int t, int cc) {  // B or C of token t, column k0 + cc
       return k0 + cc < a.S ? to_float(m[((long long)(b * a.L + c0 + t) * a.G + g) * a.S + k0 + cc])
                            : 0.f;
     };
@@ -603,18 +644,18 @@ __global__ void __launch_bounds__(THREADS, 2) dbdc_kernel(const Args a) {
           st);
     }
   }
-  T* out = static_cast<T*>(which == 0 ? a.dC : a.dB);
+  float* out = static_cast<float*>(which == 0 ? a.dC : a.dB);
 #pragma unroll
   for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int t = r0 + 4 * ty + ii, k = k0 + 4 * tx + jj;
       if (t < n && k < a.S)
-        out[((long long)(b * a.L + c0 + t) * a.G + g) * a.S + k] = from_float<T>(acc[ii][jj]);
+        out[((long long)(b * a.L + c0 + t) * a.G + g) * a.S + k] = (acc[ii][jj]);
     }
 }
 
-// ---- 6. dA_h = Σ over (batch, chunk) of the chunks' terms, in order ---------
+// ---- dA_h = Σ over (batch, chunk) of the chunks' terms, in order (both dtypes)
 __global__ void dA_reduce_kernel(const Args a) {
   const int h = blockIdx.x * blockDim.x + threadIdx.x;
   if (h >= a.H) return;
@@ -624,19 +665,746 @@ __global__ void dA_reduce_kernel(const Args a) {
   a.dA[h] = s;
 }
 
-template <typename T>
-int launch_rest(const Args& a, cudaStream_t stream) {
+// 2-6 of an f32 launch
+int launch_f32(const Args& a, cudaStream_t stream) {
   const int PB = (a.P + TILE - 1) / TILE, KB = (a.S16 + TILE - 1) / TILE;
   cudaError_t err;
-  dlocal_kernel<T><<<dim3(a.nc * PB * KB, a.H, a.Bsz), THREADS, 0, stream>>>(a);
+  dlocal_kernel<<<dim3(a.nc * PB * KB, a.H, a.Bsz), THREADS, 0, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
   const long long ps = (long long)a.P * a.S16;
   reverse_pass_kernel<<<dim3(unsigned((ps + PASS_THREADS - 1) / PASS_THREADS), a.H, a.Bsz),
                         PASS_THREADS, 0, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-  chunk_grad_kernel<T><<<dim3(a.nc, a.H, a.Bsz), THREADS, 0, stream>>>(a);
+  chunk_grad_kernel<<<dim3(a.nc, a.H, a.Bsz), THREADS, 0, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-  dbdc_kernel<T><<<dim3(a.nc * RT * KB * 2, a.G, a.Bsz), THREADS, 0, stream>>>(a);
+  dbdc_kernel<<<dim3(a.nc * RT * KB * 2, a.G, a.Bsz), THREADS, 0, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+  dA_reduce_kernel<<<(a.H + 127) / 128, 128, 0, stream>>>(a);
+  return int(cudaGetLastError());
+}
+
+
+// --------------------------------------------------------------------------
+// bf16: the chunk products on the tensor cores
+// --------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+using ssd::load_tile;
+using ssd::PW;    // columns of P an x_grad_kernel block owns (64)
+using ssd::ROWS;  // tokens of a row block or column tile (64)
+constexpr int KW = 64;           // columns of S a bc_grad_kernel block owns
+constexpr int IC = 32;           // ... of which its init term takes at a time
+constexpr int PC = 64;           // rows of P of the state tile it splits at a time
+constexpr int BB = 4;            // ... its float4 loads in flight a thread
+constexpr int HEADS = 8;         // heads of a slice (ssd_backward.SLICE_HEADS)
+constexpr int XG_THREADS = 128;  // x_grad_kernel: 4 warps of 16 rows
+constexpr int BC_THREADS = 256;  // bc_grad_kernel: 8 warps of 16 rows
+constexpr float LOG2E = 1.4426950408889634f;
+// the d dt terms of a (batch, head, chunk), CHUNK floats each: W's row sums
+// from row blocks 0 and 1, q, <dh_out, h_in> per P tile (in its first PB
+// floats), then v per P tile, then dy·y_off per S tile
+constexpr int T_ROWW = 0, T_Q = 2, T_HD = 3, T_V = 4;
+
+// The A operand (16 x 16) of a score block held as two 16 x 8 accumulators,
+// in two bf16 parts (rows r and r + 8 of the accumulators are a[0]/a[2] and
+// a[1]/a[3] of the fragment)
+struct Split2 {
+  uint32_t hi[4], lo[4];
+};
+__device__ __forceinline__ void score_operand(const float (&m)[2][4], Split2& a) {
+  split_bf16(m[0][0], m[0][1], a.hi[0], a.lo[0]);
+  split_bf16(m[0][2], m[0][3], a.hi[1], a.lo[1]);
+  split_bf16(m[1][0], m[1][1], a.hi[2], a.lo[2]);
+  split_bf16(m[1][2], m[1][3], a.hi[3], a.lo[3]);
+}
+
+// acc[2 d2 + (0, 1)] += A · (the two n-tiles of pair d2), both parts; the
+// mma's issued back to back go to different accumulators
+__device__ __forceinline__ void mma_parts(float (&a0)[4], float (&a1)[4], const Split2& a,
+                                          const uint32_t (&bv)[4]) {
+  mma_bf16(a0, a.hi, bv[0], bv[1]);
+  mma_bf16(a1, a.hi, bv[2], bv[3]);
+  mma_bf16(a0, a.lo, bv[0], bv[1]);
+  mma_bf16(a1, a.lo, bv[2], bv[3]);
+}
+
+// v in two bf16 parts at hi[0..3] and lo[0..3] (8-byte aligned)
+__device__ __forceinline__ void store_parts(float4 v, bf16* hi, bf16* lo) {
+  uint2 h, l;
+  split_bf16(v.x, v.y, h.x, l.x);
+  split_bf16(v.z, v.w, h.y, l.y);
+  *reinterpret_cast<uint2*>(hi) = h;
+  *reinterpret_cast<uint2*>(lo) = l;
+}
+
+// Rows [0, CHUNK) of a chunk's matrix into `dst` as two load_tile calls;
+// zeros past `rows` rows (row 0 of src is always a valid address)
+template <int THREADS_>
+__device__ __forceinline__ void load_chunk(bf16* dst, int ld, const bf16* src, long long stride,
+                                           int rows, int cols, int width, bool vec, int tid) {
+  load_tile<THREADS_>(dst, ld, src, stride, rows, cols, width, vec, tid);
+  load_tile<THREADS_>(dst + ROWS * ld, ld, rows > ROWS ? src + ROWS * stride : src, stride,
+                      rows - ROWS, cols, width, vec, tid);
+}
+
+// x_grad_kernel: B and x of the row block, then the C and dy tiles of the
+// tokens t or (before them) the P tile's dh_out in two parts, then cum, dt
+// and the warps' column sums
+__host__ __device__ inline size_t xg_union_bytes(int S16, int P16) {
+  const int lds = S16 + 8, ldx = P16 + 8;
+  return sizeof(bf16) * size_t(ROWS) * (lds + ldx > 2 * lds ? lds + ldx : 2 * lds);
+}
+__host__ inline size_t xg_smem_bytes(int S16, int P16) {
+  return sizeof(bf16) * size_t(ROWS) * (S16 + 8 + P16 + 8) + xg_union_bytes(S16, P16) +
+         sizeof(float) * (2 * CHUNK + (XG_THREADS / 32) * ROWS);
+}
+// bc_grad_kernel: the tiles of C and B [CHUNK][kw + 8] each, the two states'
+// tiles in two parts [2][2][PC][kw + 8], then a head's stage: x, dy
+// [CHUNK][P16 + 8], cum, dt.  One stage: at the models' shapes a second
+// would leave one block an SM, and a layout that let the next head's stage
+// share the states' room measured slower (PERF.md).
+__host__ __device__ inline size_t bc_fixed_bytes(int kw) {
+  return sizeof(bf16) * size_t(2 * CHUNK + 4 * PC) * (kw + 8);
+}
+__host__ inline size_t bc_smem_bytes(int P16, int kw) {
+  return bc_fixed_bytes(kw) + sizeof(bf16) * size_t(2 * CHUNK) * (P16 + 8) +
+         sizeof(float) * 2 * CHUNK;
+}
+
+// ---- 4. dx and the d dt terms of a row block's tokens s ---------------------
+__global__ void __launch_bounds__(XG_THREADS) x_grad_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lds = a.S16 + 8, ldx = a.P16 + 8;
+  bf16* Bs = reinterpret_cast<bf16*>(smem);  // [ROWS][lds]: B of the row block's tokens s
+  bf16* Xs = Bs + ROWS * lds;                // [ROWS][ldx]: x of the tokens s
+  bf16* Cs = Xs + ROWS * ldx;                // [ROWS][lds]: C of a column tile's tokens t
+  bf16* Ys = Cs + ROWS * lds;                // [ROWS][ldx]: dy of the tokens t
+  bf16* Hs = Cs;  // [2][PW][lds]: before the tiles, the P tile's dh_out in two parts
+  float* cum = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(Cs) +
+                                        xg_union_bytes(a.S16, a.P16));  // [CHUNK]
+  float* dts = cum + CHUNK;                                // [CHUNK]
+  float* red = dts + CHUNK;  // [warps][ROWS]: each warp's column sums of W
+
+  constexpr int RB = CHUNK / ROWS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, q2 = 2 * (lane & 3);
+  const int c = blockIdx.x / (RB * a.PB), j = blockIdx.x / a.PB % RB, pb = blockIdx.x % a.PB;
+  const int h = blockIdx.y, b = blockIdx.z, g = h / (a.H / a.G);
+  const int c0 = c * CHUNK, s0 = j * ROWS, p0 = pb * PW;
+  if (c0 + s0 >= a.L) return;
+  const int n = min(CHUNK, a.L - c0);  // valid tokens of the chunk
+  const int dpairs = min(PW, a.P16 - p0) / 16;
+  const bool first = pb == 0;  // the first P tile's blocks also take dY Xᵀ and the d dt sums
+  const long long bhc = ((long long)b * a.H + h) * a.nc + c;
+  const long long xs = (long long)a.H * a.P, bs = (long long)a.G * a.S;
+  const bf16* x0 = static_cast<const bf16*>(a.x) + ((long long)(b * a.L + c0) * a.H + h) * a.P;
+  const bf16* dy0 = static_cast<const bf16*>(a.dy) + ((long long)(b * a.L + c0) * a.H + h) * a.P;
+  const bf16* b0 = static_cast<const bf16*>(a.Bm) + ((long long)(b * a.L + c0) * a.G + g) * a.S;
+  const bf16* cc0 = static_cast<const bf16*>(a.Cm) + ((long long)(b * a.L + c0) * a.G + g) * a.S;
+  load_tile<XG_THREADS>(Bs, lds, b0 + s0 * bs, bs, n - s0, a.S, a.S16, a.bc_vec, tid);
+  load_tile<XG_THREADS>(Xs, ldx, x0 + s0 * xs, xs, n - s0, a.P, a.P16, a.x_vec, tid);
+  for (int i = tid; i < CHUNK / 2; i += XG_THREADS)  // cum and dt (chunk_state_kernel<true>'s)
+    cp_async16(smem_u32(cum + 4 * i), a.cd + bhc * 2 * CHUNK + 4 * i, 16);
+  cp_commit();
+  const int ra = 16 * warp + (lane >> 2), rb = ra + 8;  // this thread's rows of the row block
+  const int sa = s0 + ra, sb = s0 + rb;                 // ... as tokens of the chunk
+  const uint32_t row_bytes = lds * sizeof(bf16), xrow_bytes = ldx * sizeof(bf16);
+  // ldmatrix lane addresses: B and x rows of the warp as A; C and dy rows t
+  // as B ([n][k] rows); dy as B transposed ([k][n] rows, the P tile's columns)
+  const uint32_t bA = smem_u32(Bs + (16 * warp + (lane & 15)) * lds + (lane >> 4) * 8);
+  const uint32_t xA = smem_u32(Xs + (16 * warp + (lane & 15)) * ldx + (lane >> 4) * 8);
+  const uint32_t cB = smem_u32(Cs) + ((lane >> 4) * 8 + (lane & 7)) * row_bytes + ((lane >> 3) & 1) * 16;
+  const uint32_t yB = smem_u32(Ys) + ((lane >> 4) * 8 + (lane & 7)) * xrow_bytes + ((lane >> 3) & 1) * 16;
+  const uint32_t yT = smem_u32(Ys + (((lane >> 3) & 1) * 8 + (lane & 7)) * ldx + (lane >> 4) * 8 + p0);
+
+  // ---- the P tile's rows of dh_out in two parts (zero past P), split once
+  // for the block (XB float4 loads in flight a thread); the first row
+  // block also sums <dh_out, h_in> over them
+  {
+    constexpr int XB = 8;
+    const float* dh = a.dstates + (bhc * a.P + p0) * a.S16;
+    const float* hin = a.states + (bhc * a.P + p0) * a.S16;
+    const int q4 = a.S16 / 4, rows = min(PW, a.P - p0);
+    float hd = 0.f;
+    for (int i0 = 0; i0 < PW * q4; i0 += XB * XG_THREADS) {
+      float4 v[XB], u[XB];
+#pragma unroll
+      for (int e = 0; e < XB; ++e) {
+        const int i = i0 + e * XG_THREADS + tid, r = i / q4, k = 4 * (i % q4);
+        const bool ok = i < PW * q4 && r < rows;
+        v[e] = ok ? __ldg(reinterpret_cast<const float4*>(dh + (long long)r * a.S16 + k))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+        u[e] = ok && j == 0 ? __ldg(reinterpret_cast<const float4*>(hin + (long long)r * a.S16 + k))
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int e = 0; e < XB; ++e) {
+        const int i = i0 + e * XG_THREADS + tid, r = i / q4, k = 4 * (i % q4);
+        if (i >= PW * q4) break;
+        hd += v[e].x * u[e].x + v[e].y * u[e].y + v[e].z * u[e].z + v[e].w * u[e].w;
+        store_parts(v[e], Hs + r * lds + k, Hs + (PW + r) * lds + k);
+      }
+    }
+    if (j == 0) {
+      hd = warp_sum(hd);
+      if (lane == 0) red[warp] = hd;
+    }
+    cp_wait<0>();  // B, x, cum and dt have landed
+    __syncthreads();
+    if (j == 0 && tid == 0) {
+      float t = 0.f;
+      for (int w = 0; w < XG_THREADS / 32; ++w) t += red[w];
+      a.terms[(bhc * a.n_terms + T_HD) * CHUNK + pb] = t;
+    }
+  }
+  // ---- Z = B_s dh_outᵀ over the P tile
+  float acc[PW / 8][4] = {};
+  {
+    const uint32_t hB = smem_u32(Hs) + ((lane >> 4) * 8 + (lane & 7)) * row_bytes + ((lane >> 3) & 1) * 16;
+    const uint32_t lo = PW * row_bytes;  // the lo part's offset
+    for (int kk = 0; kk < a.S16 / 16; ++kk) {
+      uint32_t ar[4];
+      ldsm_x4(ar, bA + kk * 32);
+#pragma unroll
+      for (int d2 = 0; d2 < PW / 16; ++d2) {
+        if (d2 >= dpairs) break;
+        uint32_t bh[4], bl[4];
+        ldsm_x4(bh, hB + d2 * 16 * row_bytes + kk * 32);
+        ldsm_x4(bl, hB + lo + d2 * 16 * row_bytes + kk * 32);
+        mma_bf16(acc[2 * d2], ar, bh[0], bh[1]);
+        mma_bf16(acc[2 * d2 + 1], ar, bh[2], bh[3]);
+        mma_bf16(acc[2 * d2], ar, bl[0], bl[1]);
+        mma_bf16(acc[2 * d2 + 1], ar, bl[2], bl[3]);
+      }
+    }
+  }
+  // ---- v_s = w_s x_s·Z_s over the tile (the tiles' sums added later); then
+  // w_s Z_s starts dx's sum
+  const float last = cum[CHUNK - 1];
+  const float cum_a = cum[sa], cum_b = cum[sb], dta = dts[sa], dtb = dts[sb];
+  {
+    const float wa = expf(last - cum_a), wb = expf(last - cum_b);
+    float va = 0.f, vb = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < PW / 8; ++nt) {
+      if (nt >= 2 * dpairs) break;
+      const int col = p0 + 8 * nt + q2;
+      const float2 xa = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Xs + ra * ldx + col));
+      const float2 xb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Xs + rb * ldx + col));
+      va += xa.x * acc[nt][0] + xa.y * acc[nt][1];
+      vb += xb.x * acc[nt][2] + xb.y * acc[nt][3];
+      acc[nt][0] *= wa;
+      acc[nt][1] *= wa;
+      acc[nt][2] *= wb;
+      acc[nt][3] *= wb;
+    }
+    va += __shfl_xor_sync(ALL, va, 1);
+    va += __shfl_xor_sync(ALL, va, 2);
+    vb += __shfl_xor_sync(ALL, vb, 1);
+    vb += __shfl_xor_sync(ALL, vb, 2);
+    float* v = a.terms + (bhc * a.n_terms + T_V + pb) * CHUNK;
+    if ((lane & 3) == 0) {
+      v[sa] = wa * va;
+      v[sb] = wb * vb;
+    }
+  }
+  __syncthreads();  // every warp is done with Hs before the tiles are loaded over it
+
+  // ---- per column tile of tokens t at or after the row block: the scores by
+  // 16 x 16 blocks at or above the diagonal, dx += M'ᵀ dY
+  float qa = 0.f, qb = 0.f;
+  for (int i = j; i < CHUNK / ROWS; ++i) {
+    const int t0 = i * ROWS;
+    if (t0 >= n) break;
+    load_tile<XG_THREADS>(Cs, lds, cc0 + t0 * bs, bs, n - t0, a.S, a.S16, a.bc_vec, tid);
+    load_tile<XG_THREADS>(Ys, ldx, dy0 + t0 * xs, xs, n - t0, a.P, a.P16, a.dy_vec, tid);
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+    for (int kt = 0; kt < ROWS / 16; ++kt) {
+      float rw[2][2] = {};  // W's column sums over this thread's two rows
+      if (i > j || kt >= warp) {
+        float cb[2][4] = {}, dm[2][4] = {};  // (C Bᵀ)ᵀ, (dY Xᵀ)ᵀ: rows s, tokens t
+        {  // over even and odd k-steps in two sums: two chains of mma's in flight
+          float c2[2][4] = {};
+          for (int kk = 0; kk < a.S16 / 16; kk += 2) {
+            uint32_t ar[4], bk[4], ar2[4], bk2[4];
+            ldsm_x4(ar, bA + kk * 32);
+            ldsm_x4(bk, cB + kt * 16 * row_bytes + kk * 32);
+            const bool two = kk + 1 < a.S16 / 16;
+            if (two) {
+              ldsm_x4(ar2, bA + (kk + 1) * 32);
+              ldsm_x4(bk2, cB + kt * 16 * row_bytes + (kk + 1) * 32);
+            }
+            mma_bf16(cb[0], ar, bk[0], bk[1]);
+            mma_bf16(cb[1], ar, bk[2], bk[3]);
+            if (two) {
+              mma_bf16(c2[0], ar2, bk2[0], bk2[1]);
+              mma_bf16(c2[1], ar2, bk2[2], bk2[3]);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) cb[u][e] += c2[u][e];
+        }
+        if (first)
+          for (int kk = 0; kk < a.P16 / 16; ++kk) {
+            uint32_t ar[4], bk[4];
+            ldsm_x4(ar, xA + kk * 32);
+            ldsm_x4(bk, yB + kt * 16 * xrow_bytes + kk * 32);
+            mma_bf16(dm[0], ar, bk[0], bk[1]);
+            mma_bf16(dm[1], ar, bk[2], bk[3]);
+          }
+        // M'ᵀ[s,t] = (C_t·B_s) L[t,s] for s <= t < n (masked before the exp;
+        // the difference taken before it is scaled to base 2)
+        float m[2][4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int t = t0 + 16 * kt + 8 * u + q2 + (e & 1), s = e < 2 ? sa : sb;
+            const float l = t >= s && t < n ? ex2((cum[t] - (e < 2 ? cum_a : cum_b)) * LOG2E) : 0.f;
+            m[u][e] = cb[u][e] * l;
+            const float qv = m[u][e] * dm[u][e];
+            if (e < 2)
+              qa += qv;
+            else
+              qb += qv;
+            rw[u][e & 1] += qv * (e < 2 ? dta : dtb);
+          }
+        Split2 ms;
+        score_operand(m, ms);
+#pragma unroll
+        for (int d2 = 0; d2 < PW / 16; ++d2) {
+          if (d2 >= dpairs) break;
+          uint32_t bv[4];
+          ldsm_x4_t(bv, yT + kt * 16 * xrow_bytes + d2 * 32);
+          mma_parts(acc[2 * d2], acc[2 * d2 + 1], ms, bv);
+        }
+      }
+      if (first) {
+        // over the warp's 16 rows: the lanes of one lane & 3 share columns
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float v = rw[u][e];
+            v += __shfl_xor_sync(ALL, v, 4);
+            v += __shfl_xor_sync(ALL, v, 8);
+            v += __shfl_xor_sync(ALL, v, 16);
+            if (lane < 4) red[warp * ROWS + 16 * kt + 8 * u + q2 + e] = v;
+          }
+      }
+    }
+    if (first) {
+      __syncthreads();
+      if (tid < ROWS) {
+        float v = 0.f;
+        for (int w = 0; w < XG_THREADS / 32; ++w) v += red[w * ROWS + tid];
+        a.terms[(bhc * a.n_terms + T_ROWW + j) * CHUNK + t0 + tid] = v;
+      }
+    }
+    __syncthreads();  // every warp is done with the tile before it is refilled
+  }
+  if (first) {
+    qa += __shfl_xor_sync(ALL, qa, 1);
+    qa += __shfl_xor_sync(ALL, qa, 2);
+    qb += __shfl_xor_sync(ALL, qb, 1);
+    qb += __shfl_xor_sync(ALL, qb, 2);
+    float* q = a.terms + (bhc * a.n_terms + T_Q) * CHUNK;
+    if ((lane & 3) == 0) {
+      q[sa] = qa;
+      q[sb] = qb;
+    }
+  }
+
+  // ---- dx_s = dt_s (w_s Z_s + Σ_t M'[t,s] dy_t), rows sa and sb, columns
+  // p0 + 8 nt + q2 (+ 1)
+  bf16* dx = static_cast<bf16*>(a.dx);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int s = half ? sb : sa;
+    if (s >= n) continue;
+    const float d = half ? dtb : dta;
+    bf16* xr = dx + ((long long)(b * a.L + c0 + s) * a.H + h) * a.P;
+#pragma unroll
+    for (int nt = 0; nt < PW / 8; ++nt) {
+      if (nt >= 2 * dpairs) break;
+      const int p = p0 + 8 * nt + q2;
+      const float v0 = d * acc[nt][2 * half], v1 = d * acc[nt][2 * half + 1];
+      if (a.P % 2 == 0) {
+        if (p < a.P) *reinterpret_cast<__nv_bfloat162*>(xr + p) = __floats2bfloat162_rn(v0, v1);
+      } else {
+        if (p < a.P) xr[p] = __float2bfloat16(v0);
+        if (p + 1 < a.P) xr[p + 1] = __float2bfloat16(v1);
+      }
+    }
+  }
+}
+
+// ---- 5. one S tile of dB and dC over a slice of a group's heads ------------
+
+// The init term of one output for the warp's rows, PC rows of P at a time: T
+// = R state[p0:p0 + pr, tile] (the state's parts at hT, lo bytes apart), IC
+// columns at a time; acc += f_row T.  YO (dC) also sums T's dot with C's
+// tile (Gc) into ya, yb.
+template <bool YO>
+__device__ __forceinline__ void init_term(float (&acc)[KW / 8][4], uint32_t rA, uint32_t hT,
+                                          uint32_t lo, uint32_t row_bytes, int p0, int pr,
+                                          int kpairs, float fa, float fb, const bf16* Gc, int ldk,
+                                          int ra, int rb, int q2, float& ya, float& yb) {
+#pragma unroll
+  for (int ic = 0; ic < KW / IC; ++ic) {
+    if (ic * IC >= 16 * kpairs) break;
+    float tmp[IC / 8][4] = {};
+    for (int kk = 0; kk < pr / 16; ++kk) {
+      uint32_t ar[4];
+      ldsm_x4(ar, rA + (p0 / 16 + kk) * 32);
+#pragma unroll
+      for (int d2 = 0; d2 < IC / 16; ++d2) {
+        if (ic * IC / 16 + d2 >= kpairs) break;
+        uint32_t bh[4], bl[4];
+        const uint32_t at = hT + kk * 16 * row_bytes + (ic * IC / 16 + d2) * 32;
+        ldsm_x4_t(bh, at);
+        ldsm_x4_t(bl, at + lo);
+        mma_bf16(tmp[2 * d2], ar, bh[0], bh[1]);
+        mma_bf16(tmp[2 * d2 + 1], ar, bh[2], bh[3]);
+        mma_bf16(tmp[2 * d2], ar, bl[0], bl[1]);
+        mma_bf16(tmp[2 * d2 + 1], ar, bl[2], bl[3]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < IC / 8; ++i) {
+      const int nt = ic * IC / 8 + i;
+      if (nt >= 2 * kpairs) break;
+      acc[nt][0] += fa * tmp[i][0];
+      acc[nt][1] += fa * tmp[i][1];
+      acc[nt][2] += fb * tmp[i][2];
+      acc[nt][3] += fb * tmp[i][3];
+      if (YO) {
+        const int col = 8 * nt + q2;
+        const float2 ca = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Gc + ra * ldk + col));
+        const float2 cb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Gc + rb * ldk + col));
+        ya += ca.x * tmp[i][0] + ca.y * tmp[i][1];
+        yb += cb.x * tmp[i][2] + cb.y * tmp[i][3];
+      }
+    }
+  }
+}
+
+// Score blocks of 16 x 16 on the causal side of the warp's rows, times a
+// tile: dB (rows s; blocks of tokens t >= s) acc += ((dY Xᵀ)ᵀ ⊙ L ⊙ dt_s) C,
+// dC (rows t; blocks of s <= t) acc += (dY Xᵀ ⊙ L ⊙ dt_s) B.  rA: the rows'
+// A operand (dB x, dC dy), qB: the other side as B, gT: the tile (C or B)
+// as B transposed.
+template <bool DB>
+__device__ __forceinline__ void score_products(float (&acc)[KW / 8][4], uint32_t rA, uint32_t qB,
+                                               uint32_t gT, uint32_t xrow_bytes,
+                                               uint32_t row_bytes, int ksteps, int kpairs,
+                                               const float* cum, const float* dts, int warp,
+                                               int ra, int rb, int q2, int n) {
+  const float cum_a = cum[ra], cum_b = cum[rb], dt_a = dts[ra], dt_b = dts[rb];
+  for (int blk = DB ? warp : 0; blk < (DB ? CHUNK / 16 : warp + 1); ++blk) {
+    if (16 * blk >= n) break;
+    float sc[2][4] = {};
+    for (int kk = 0; kk < ksteps; ++kk) {
+      uint32_t ar[4], bk[4];
+      ldsm_x4(ar, rA + kk * 32);
+      ldsm_x4(bk, qB + blk * 16 * xrow_bytes + kk * 32);
+      mma_bf16(sc[0], ar, bk[0], bk[1]);
+      mma_bf16(sc[1], ar, bk[2], bk[3]);
+    }
+    float m[2][4];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int col = 16 * blk + 8 * u + q2;
+      const float2 cc = *reinterpret_cast<const float2*>(cum + col);
+      const float2 dc = *reinterpret_cast<const float2*>(dts + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e < 2 ? ra : rb, cl = col + (e & 1);
+        const float cr = e < 2 ? cum_a : cum_b, ccl = e & 1 ? cc.y : cc.x;
+        // dB: s = r, t = cl; dC: t = r, s = cl
+        const bool keep = DB ? r <= cl && cl < n : cl <= r && r < n;
+        const float l = keep ? ex2((DB ? ccl - cr : cr - ccl) * LOG2E) : 0.f;
+        m[u][e] = sc[u][e] * l * (DB ? (e < 2 ? dt_a : dt_b) : (e & 1 ? dc.y : dc.x));
+      }
+    }
+    Split2 ms;
+    score_operand(m, ms);
+#pragma unroll
+    for (int d2 = 0; d2 < KW / 16; ++d2) {
+      if (d2 >= kpairs) break;
+      uint32_t bv[4];
+      ldsm_x4_t(bv, gT + blk * 16 * row_bytes + d2 * 32);
+      mma_parts(acc[2 * d2], acc[2 * d2 + 1], ms, bv);
+    }
+  }
+}
+
+// Grid (chunks x S tiles, G x slices, B), 8 warps: warp w takes rows [16 w,
+// 16 w + 16) of the chunk as dB's tokens s (score blocks w..7) and as dC's
+// tokens t (blocks 0..w), nine blocks a warp.
+__global__ void __launch_bounds__(BC_THREADS, 2) bc_grad_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, q2 = 2 * (lane & 3);
+  const int c = blockIdx.x / a.KT, kt = blockIdx.x % a.KT;
+  const int g = blockIdx.y / a.nsl, sl = blockIdx.y % a.nsl, b = blockIdx.z;
+  const int rep = a.H / a.G, h_lo = g * rep + sl * HEADS, h_hi = min(h_lo + HEADS, g * rep + rep);
+  const int c0 = c * CHUNK, n = min(CHUNK, a.L - c0);
+  const int k0 = kt * KW, kw = min(KW, a.S16 - k0), kpairs = kw / 16;
+  const int ldk = kw + 8, ldx = a.P16 + 8;
+  bf16* Gc = reinterpret_cast<bf16*>(smem);  // [CHUNK][ldk]: C's tile (dB's product, y_off)
+  bf16* Gb = Gc + CHUNK * ldk;               // [CHUNK][ldk]: B's tile (dC's product)
+  bf16* Hd = Gb + CHUNK * ldk;   // [2][PC][ldk]: PC rows of dh_out's tile in two parts
+  bf16* Hh = Hd + 2 * PC * ldk;  // [2][PC][ldk]: ... of h_in's
+  bf16* Xs = reinterpret_cast<bf16*>(smem + bc_fixed_bytes(kw));  // [CHUNK][ldx]: the head's x
+  bf16* Ys = Xs + CHUNK * ldx;                                       // [CHUNK][ldx]: its dy
+  float* cum = reinterpret_cast<float*>(Ys + CHUNK * ldx);           // [CHUNK]: its cum, dt
+  const float* dts = cum + CHUNK;
+  const long long xs = (long long)a.H * a.P, bs = (long long)a.G * a.S;
+  const long long tok0 = (long long)b * a.L + c0;
+  load_chunk<BC_THREADS>(Gc, ldk, static_cast<const bf16*>(a.Cm) + (tok0 * a.G + g) * a.S + k0, bs,
+                         n, a.S - k0, kw, a.bc_vec, tid);
+  load_chunk<BC_THREADS>(Gb, ldk, static_cast<const bf16*>(a.Bm) + (tok0 * a.G + g) * a.S + k0, bs,
+                         n, a.S - k0, kw, a.bc_vec, tid);
+  auto load_head = [&](int h) {
+    load_chunk<BC_THREADS>(Xs, ldx, static_cast<const bf16*>(a.x) + (tok0 * a.H + h) * a.P, xs, n,
+                           a.P, a.P16, a.x_vec, tid);
+    load_chunk<BC_THREADS>(Ys, ldx, static_cast<const bf16*>(a.dy) + (tok0 * a.H + h) * a.P, xs,
+                           n, a.P, a.P16, a.dy_vec, tid);
+    const float* src = a.cd + (((long long)b * a.H + h) * a.nc + c) * 2 * CHUNK;
+    for (int i = tid; i < CHUNK / 2; i += BC_THREADS) cp_async16(smem_u32(cum + 4 * i), src + 4 * i, 16);
+    cp_commit();
+  };
+  load_head(h_lo);
+
+  float accb[KW / 8][4] = {}, accc[KW / 8][4] = {};  // the slice's dB (rows s), dC (rows t)
+  const int ra = 16 * warp + (lane >> 2), rb = ra + 8;  // this thread's rows of the chunk
+  const bool live = 16 * warp < n;                       // the warp has valid rows
+  const uint32_t row_bytes = ldk * sizeof(bf16), xrow_bytes = ldx * sizeof(bf16);
+  // B transposed ([k][n] rows): the tiles of C and B (tokens by columns) and
+  // the states' tiles (rows of P by columns)
+  const uint32_t lane_t = ((((lane >> 3) & 1) * 8 + (lane & 7)) * ldk + (lane >> 4) * 8) * 2;
+  const uint32_t cT = smem_u32(Gc) + lane_t, bT = smem_u32(Gb) + lane_t;
+  const uint32_t dT = smem_u32(Hd) + lane_t, hT = smem_u32(Hh) + lane_t;
+  const uint32_t lo = PC * row_bytes;  // the lo part's offset
+  // the warp's rows of x and dy as A; x and dy as B ([n][k] rows)
+  const uint32_t xA = smem_u32(Xs + (16 * warp + (lane & 15)) * ldx + (lane >> 4) * 8);
+  const uint32_t yA = smem_u32(Ys + (16 * warp + (lane & 15)) * ldx + (lane >> 4) * 8);
+  const uint32_t lane_b = ((lane >> 4) * 8 + (lane & 7)) * xrow_bytes + ((lane >> 3) & 1) * 16;
+  const uint32_t xB = smem_u32(Xs) + lane_b, yB = smem_u32(Ys) + lane_b;
+  for (int h = h_lo; h < h_hi; ++h) {
+    cp_wait<0>();  // this head's stage has landed
+    __syncthreads();
+    const long long bhc = ((long long)b * a.H + h) * a.nc + c;
+    const float last = cum[CHUNK - 1];
+    // the init terms' row factors: dB dt_s w_s, dC e_t
+    const float fba = dts[ra] * expf(last - cum[ra]), fbb = dts[rb] * expf(last - cum[rb]);
+    const float fca = expf(cum[ra]), fcb = expf(cum[rb]);
+
+    // ---- the init terms X dh_out (dB) and dY h_in (dC), PC rows of the states
+    // at a time split in two parts once for the block (BB float4 loads in
+    // flight a thread); dC also takes dy_t·y_off_t = e_t C_t·(dy_tᵀ h_in)
+    const float* sd = a.dstates + bhc * a.P * a.S16 + k0;
+    const float* sh = a.states + bhc * a.P * a.S16 + k0;
+    float ya = 0.f, yb = 0.f, unused = 0.f;
+    for (int p0 = 0; p0 < a.P16; p0 += PC) {
+      const int pr = min(PC, a.P16 - p0), q4 = kw / 4, per = pr * q4;
+      if (p0 > 0) __syncthreads();  // every warp is done with the previous rows
+      for (int i0 = 0; i0 < 2 * per; i0 += BB * BC_THREADS) {
+        float4 v[BB];
+#pragma unroll
+        for (int e = 0; e < BB; ++e) {
+          const int i = i0 + e * BC_THREADS + tid, hh = i >= per, j = i - hh * per;
+          const int r = j / q4, k = 4 * (j % q4);
+          v[e] = i < 2 * per && p0 + r < a.P
+                     ? __ldg(reinterpret_cast<const float4*>((hh ? sh : sd) +
+                                                             (long long)(p0 + r) * a.S16 + k))
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int e = 0; e < BB; ++e) {
+          const int i = i0 + e * BC_THREADS + tid, hh = i >= per, j = i - hh * per;
+          const int r = j / q4, k = 4 * (j % q4);
+          if (i >= 2 * per) break;
+          bf16* hp = hh ? Hh : Hd;
+          store_parts(v[e], hp + r * ldk + k, hp + (PC + r) * ldk + k);
+        }
+      }
+      __syncthreads();
+      if (!live) continue;
+      init_term<false>(accb, xA, dT, lo, row_bytes, p0, pr, kpairs, fba, fbb, Gc, ldk, ra, rb, q2,
+                       unused, unused);
+      init_term<true>(accc, yA, hT, lo, row_bytes, p0, pr, kpairs, fca, fcb, Gc, ldk, ra, rb, q2,
+                      ya, yb);
+    }
+    if (live) {
+      ya += __shfl_xor_sync(ALL, ya, 1);
+      ya += __shfl_xor_sync(ALL, ya, 2);
+      yb += __shfl_xor_sync(ALL, yb, 1);
+      yb += __shfl_xor_sync(ALL, yb, 2);
+      float* yo = a.terms + (bhc * a.n_terms + T_V + a.PB + kt) * CHUNK;
+      if ((lane & 3) == 0) {
+        yo[ra] = fca * ya;
+        yo[rb] = fcb * yb;
+      }
+      score_products<true>(accb, xA, yB, cT, xrow_bytes, row_bytes, a.P16 / 16, kpairs, cum, dts,
+                           warp, ra, rb, q2, n);
+      score_products<false>(accc, yA, xB, bT, xrow_bytes, row_bytes, a.P16 / 16, kpairs, cum, dts,
+                            warp, ra, rb, q2, n);
+    }
+    __syncthreads();  // every warp is done with the stage before it is refilled
+    if (h + 1 < h_hi) load_head(h + 1);
+  }
+
+  // the slice's partial sums [slice, B, L, G, S], rows < n, columns < S
+  if (!live) return;
+  const long long base = ((long long)(sl * a.Bsz + b) * a.L + c0) * bs + g * a.S + k0;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? rb : ra;
+    if (r >= n) continue;
+#pragma unroll
+    for (int nt = 0; nt < KW / 8; ++nt) {
+      if (nt >= 2 * kpairs) break;
+      const int col = 8 * nt + q2;
+      const long long o = base + r * bs + col;
+      if (k0 + col < a.S) {
+        a.bpart[o] = accb[nt][2 * half];
+        a.cpart[o] = accc[nt][2 * half];
+      }
+      if (k0 + col + 1 < a.S) {
+        a.bpart[o + 1] = accb[nt][2 * half + 1];
+        a.cpart[o + 1] = accc[nt][2 * half + 1];
+      }
+    }
+  }
+}
+
+// ---- 6. a chunk's d dt and its dA term from the terms ------------------------
+__global__ void __launch_bounds__(32) dt_grad_kernel(const Args a) {
+  const int lane = threadIdx.x;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int n = min(CHUNK, a.L - c * CHUNK);
+  const long long bhc = ((long long)b * a.H + h) * a.nc + c;
+  const float* tm = a.terms + bhc * a.n_terms * CHUNK;
+  float tot = 0.f;  // <dh_out, h_in>
+  for (int pb = 0; pb < a.PB; ++pb) tot += tm[T_HD * CHUNK + pb];
+  const float* cum = a.cd + bhc * 2 * CHUNK;
+  const float* dts = cum + CHUNK;
+  constexpr int E = CHUNK / 32;
+  float q[E], v[E], dc[E], dt[E];
+  float usum = 0.f;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int t = E * lane + e;
+    dt[e] = dts[t];
+    q[e] = v[e] = dc[e] = 0.f;
+    if (t < n) {
+      q[e] = tm[T_Q * CHUNK + t];
+      for (int pb = 0; pb < a.PB; ++pb) v[e] += tm[(T_V + pb) * CHUNK + t];
+      float yo = 0.f;
+      for (int k = 0; k < a.KT; ++k) yo += tm[(T_V + a.PB + k) * CHUNK + t];
+      float rw = tm[T_ROWW * CHUNK + t];
+      if (t >= ROWS) rw += tm[(T_ROWW + 1) * CHUNK + t];
+      const float u = dt[e] * v[e];
+      dc[e] = rw - dt[e] * q[e] + yo - u;  // W's column sum at t is dt_t q_t
+      usum += u;
+    }
+  }
+  usum = warp_sum(usum);
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+    if (E * lane + e == n - 1) dc[e] += usum + expf(cum[CHUNK - 1]) * tot;
+  // da_t = Σ_{t' >= t} dcum_t': the lane's own suffix, then the lanes above
+  float run[E], s = 0.f;
+#pragma unroll
+  for (int e = E - 1; e >= 0; --e) {
+    s += dc[e];
+    run[e] = s;
+  }
+  float scan = s;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float dn = __shfl_down_sync(ALL, scan, o);
+    if (lane + o < 32) scan += dn;
+  }
+  const float dn = __shfl_down_sync(ALL, scan, 1);
+  const float after = lane < 31 ? dn : 0.f;
+  const float Ah = a.A[h];
+  float da_dt = 0.f;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int t = E * lane + e;
+    const float da = after + run[e];
+    if (t < n) a.ddt[(long long)(b * a.L + c * CHUNK + t) * a.H + h] = q[e] + v[e] + da * Ah;
+    da_dt += da * dt[e];
+  }
+  da_dt = warp_sum(da_dt);
+  if (lane == 0) a.dA_part[((long long)h * a.Bsz + b) * a.nc + c] = da_dt;
+}
+
+// ---- 7. dB and dC: the slices' partial sums in slice order -------------------
+__global__ void __launch_bounds__(256) bc_reduce_kernel(const Args a) {
+  const long long N = (long long)a.Bsz * a.L * a.G * a.S;
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= N) return;
+  float sb = 0.f, sc = 0.f;
+  for (int sl = 0; sl < a.nsl; ++sl) {
+    sb += a.bpart[sl * N + i];
+    sc += a.cpart[sl * N + i];
+  }
+  static_cast<bf16*>(a.dB)[i] = __float2bfloat16(sb);
+  static_cast<bf16*>(a.dC)[i] = __float2bfloat16(sc);
+}
+
+int launch_bf16(const Args& a, cudaStream_t stream) {
+  // 2. each chunk's local dh term: the chunk-state product over dy and C
+  ssd::Args f;
+  f.x = static_cast<const bf16*>(a.dy);
+  f.Bm = static_cast<const bf16*>(a.Cm);
+  f.Cm = nullptr;
+  f.dt = a.dt;
+  f.A = a.A;
+  f.h0 = nullptr;
+  f.y = nullptr;
+  f.hT = nullptr;
+  f.states = a.dstates;
+  f.decay = a.cd;  // LOCAL writes each chunk's cum and dt there
+  f.L = a.L;
+  f.H = a.H;
+  f.P = a.P;
+  f.G = a.G;
+  f.S = a.S;
+  f.S16 = a.S16;
+  f.nc = a.nc;
+  f.x_vec = a.dy_vec;
+  f.bc_vec = a.bc_vec;
+  const size_t s1 = ssd::state_smem_bytes(), s4 = xg_smem_bytes(a.S16, a.P16),
+               s5 = bc_smem_bytes(a.P16, min(KW, a.S16));
+  cudaError_t err = allow_smem(ssd::chunk_state_kernel<true>, s1);
+  if (err == cudaSuccess) err = allow_smem(x_grad_kernel, s4);
+  if (err == cudaSuccess) err = allow_smem(bc_grad_kernel, s5);
+  if (err != cudaSuccess) return int(err);
+  const int FPB = (a.P + ssd::PW - 1) / ssd::PW, FSB = (a.S16 + ssd::SW - 1) / ssd::SW;
+  ssd::chunk_state_kernel<true><<<dim3(a.nc * FPB * FSB, a.H, a.Bsz), ssd::STATE_THREADS, s1,
+                                   stream>>>(f);
+  if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+  // 3. the reverse state pass
+  const long long ps = (long long)a.P * a.S16;
+  reverse_pass_kernel<<<dim3(unsigned((ps + PASS_THREADS - 1) / PASS_THREADS), a.H, a.Bsz),
+                        PASS_THREADS, 0, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+  // 4-8
+  x_grad_kernel<<<dim3(a.nc * (CHUNK / ROWS) * a.PB, a.H, a.Bsz), XG_THREADS, s4, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+  bc_grad_kernel<<<dim3(a.nc * a.KT, a.G * a.nsl, a.Bsz), BC_THREADS, s5, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+  dt_grad_kernel<<<dim3(a.nc, a.H, a.Bsz), 32, 0, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+  const long long N = (long long)a.Bsz * a.L * a.G * a.S;
+  bc_reduce_kernel<<<unsigned((N + 255) / 256), 256, 0, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
   dA_reduce_kernel<<<(a.H + 127) / 128, 128, 0, stream>>>(a);
   return int(cudaGetLastError());
@@ -647,7 +1415,7 @@ int launch_rest(const Args& a, cudaStream_t stream) {
 }  // namespace repro_torch
 
 // h0 and dhT may be null (zero).  The scratch holds scratch_floats floats
-// (ssd_backward.scratch_floats: the layout in the header) for n_chunks =
+// (ssd_backward.scratch_floats: the layouts in the header) for n_chunks =
 // ceil(L / ssd::CHUNK); a launch whose counts differ is refused.  dh0 is
 // written whether or not h0 is given.
 extern "C" int ssd_chunked_bwd_launch(const void* x, const void* dt, const void* A,
@@ -657,17 +1425,22 @@ extern "C" int ssd_chunked_bwd_launch(const void* x, const void* dt, const void*
                                       long long scratch_floats, int Bsz, int L, int H, int P,
                                       int G, int S, int n_chunks, int dtype, void* stream) {
   using namespace repro_torch;
+  using ssd_bwd::CHUNK;
   if (Bsz <= 0 || L <= 0 || H <= 0 || G <= 0 || H % G != 0 || P <= 0 || P > 256 || S <= 0 ||
       S > 256 || H > 65535 || Bsz > 65535 || scratch == nullptr)
     return int(cudaErrorInvalidValue);
   if (dtype != DTYPE_F32 && dtype != DTYPE_BF16) return int(cudaErrorInvalidValue);
-  const int nc = (L + ssd::CHUNK - 1) / ssd::CHUNK, S16 = (S + 15) / 16 * 16;
-  const long long bhn = (long long)Bsz * H * nc, ce = bhn * P * S16,
-                  qq = bhn * ssd::CHUNK * ssd::CHUNK;
-  if (n_chunks != nc || scratch_floats != 2 * ce + 2 * qq + bhn * (2 * ssd::CHUNK + 2))
-    return int(cudaErrorInvalidValue);
+  const bool bf = dtype == DTYPE_BF16;
+  const int nc = (L + CHUNK - 1) / CHUNK, S16 = (S + 15) / 16 * 16, P16 = (P + 15) / 16 * 16;
+  const int PB = (P16 + ssd_bwd::PW - 1) / ssd_bwd::PW, KT = (S16 + ssd_bwd::KW - 1) / ssd_bwd::KW;
+  const int nsl = (H / G + ssd_bwd::HEADS - 1) / ssd_bwd::HEADS, n_terms = 4 + PB + KT;
+  const long long bhn = (long long)Bsz * H * nc, ce = bhn * P * S16, qq = bhn * CHUNK * CHUNK,
+                  bc = (long long)nsl * Bsz * L * G * S;
+  const long long want = bf ? 2 * ce + bhn * (2 + (2 + n_terms) * CHUNK) + 2 * bc
+                            : 2 * ce + 2 * qq + bhn * (2 * CHUNK + 2);
+  if (n_chunks != nc || scratch_floats != want) return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ssd_bwd::Args a;
+  ssd_bwd::Args a = {};
   a.x = x;
   a.Bm = Bm;
   a.Cm = Cm;
@@ -683,13 +1456,24 @@ extern "C" int ssd_chunked_bwd_launch(const void* x, const void* dt, const void*
   a.dA = static_cast<float*>(dA);
   a.dh0 = static_cast<float*>(dh0);
   float* f = static_cast<float*>(scratch);
-  a.states = f;
-  a.decay = a.states + ce;
-  a.dstates = a.decay + bhn;
-  a.M = a.dstates + ce;
-  a.dM = a.M + qq;
-  a.ew = a.dM + qq;
-  a.dA_part = a.ew + bhn * 2 * ssd::CHUNK;
+  if (bf) {
+    a.states = f;
+    a.dstates = a.states + ce;
+    a.cd = a.dstates + ce;
+    a.terms = a.cd + bhn * 2 * CHUNK;
+    a.bpart = a.terms + bhn * n_terms * CHUNK;
+    a.cpart = a.bpart + bc;
+    a.decay = a.cpart + bc;
+    a.dA_part = a.decay + bhn;
+  } else {
+    a.states = f;
+    a.decay = a.states + ce;
+    a.dstates = a.decay + bhn;
+    a.M = a.dstates + ce;
+    a.dM = a.M + qq;
+    a.ew = a.dM + qq;
+    a.dA_part = a.ew + bhn * 2 * CHUNK;
+  }
   a.Bsz = Bsz;
   a.L = L;
   a.H = H;
@@ -698,13 +1482,22 @@ extern "C" int ssd_chunked_bwd_launch(const void* x, const void* dt, const void*
   a.S = S;
   a.S16 = S16;
   a.nc = nc;
+  a.P16 = P16;
+  a.PB = PB;
+  a.KT = KT;
+  a.nsl = nsl;
+  a.n_terms = n_terms;
+  a.x_vec = P % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  a.dy_vec = P % 8 == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0;
+  a.bc_vec = S % 8 == 0 && reinterpret_cast<uintptr_t>(Bm) % 16 == 0 &&
+             reinterpret_cast<uintptr_t>(Cm) % 16 == 0;
 
   // 1. the states before each chunk; the state pass's final state goes to
   // dh0, which the reverse pass overwrites later in stream order
-  const int PB = (P + ssd_bwd::TILE - 1) / ssd_bwd::TILE;
-  const int KB = (S16 + ssd_bwd::TILE - 1) / ssd_bwd::TILE;
+  const int PBT = (P + ssd_bwd::TILE - 1) / ssd_bwd::TILE;
+  const int KBT = (S16 + ssd_bwd::TILE - 1) / ssd_bwd::TILE;
   cudaError_t err;
-  if (dtype == DTYPE_BF16) {
+  if (bf) {
     ssd::Args f1;
     f1.x = static_cast<const __nv_bfloat16*>(x);
     f1.Bm = static_cast<const __nv_bfloat16*>(Bm);
@@ -723,15 +1516,15 @@ extern "C" int ssd_chunked_bwd_launch(const void* x, const void* dt, const void*
     f1.S = S;
     f1.S16 = S16;
     f1.nc = nc;
-    f1.x_vec = P % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-    f1.bc_vec = S % 8 == 0 && reinterpret_cast<uintptr_t>(Bm) % 16 == 0 &&
-                reinterpret_cast<uintptr_t>(Cm) % 16 == 0;
+    f1.x_vec = a.x_vec;
+    f1.bc_vec = a.bc_vec;
     const size_t s1 = ssd::state_smem_bytes();
-    if ((err = allow_smem(ssd::chunk_state_kernel, s1)) != cudaSuccess) return int(err);
+    if ((err = allow_smem(ssd::chunk_state_kernel<false>, s1)) != cudaSuccess) return int(err);
     const int FPB = (P + ssd::PW - 1) / ssd::PW, FSB = (S16 + ssd::SW - 1) / ssd::SW;
-    ssd::chunk_state_kernel<<<dim3(nc * FPB * FSB, H, Bsz), ssd::STATE_THREADS, s1, s>>>(f1);
+    ssd::chunk_state_kernel<false>
+        <<<dim3(nc * FPB * FSB, H, Bsz), ssd::STATE_THREADS, s1, s>>>(f1);
   } else {
-    ssd_bwd::chunk_state_f32<float><<<dim3(nc * PB * KB, H, Bsz), ssd_bwd::THREADS, 0, s>>>(a);
+    ssd_bwd::chunk_state_f32<<<dim3(nc * PBT * KBT, H, Bsz), ssd_bwd::THREADS, 0, s>>>(a);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
   const long long ps = (long long)P * S16;
@@ -740,6 +1533,5 @@ extern "C" int ssd_chunked_bwd_launch(const void* x, const void* dt, const void*
                            ssd::PASS_THREADS, 0, s>>>(a.states, a.decay, a.h0, a.dh0, H, P, S,
                                                       S16, nc);
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-  return dtype == DTYPE_BF16 ? ssd_bwd::launch_rest<__nv_bfloat16>(a, s)
-                             : ssd_bwd::launch_rest<float>(a, s);
+  return bf ? ssd_bwd::launch_bf16(a, s) : ssd_bwd::launch_f32(a, s);
 }

@@ -446,6 +446,11 @@ __device__ __forceinline__ void scale_split3(uint32_t xs, float2 w, Split3& a, i
 }
 
 // ---- 1. chunk states: states_c[p][s] = Σ_t x_t[p] w_t B_t[s] --------------
+// LOCAL (the backward, ssd_backward.cu): the same product with the weight
+// e_t = exp(cum_t) in place of w_t, over the operands the caller puts in x
+// (dy), Bm (C) and states (its local dh terms); in place of the decay it
+// writes the chunk's cum and dt to decay as [B, H, nc, 2, CHUNK].
+template <bool LOCAL>
 __global__ void __launch_bounds__(STATE_THREADS) chunk_state_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Xs = reinterpret_cast<bf16*>(smem);  // [STAGES][ROWS][LDP]: x, tokens by columns of P
@@ -477,8 +482,16 @@ __global__ void __launch_bounds__(STATE_THREADS) chunk_state_kernel(const Args a
     chunk_cumsum(a.dt + (long long)(b * a.L + c0) * a.H + h, a.H, n, a.A[h], cum, dts, lane);
   __syncthreads();
   const float last = cum[CHUNK - 1];  // padding adds 0: the chunk's total
-  for (int t = tid; t < CHUNK; t += STATE_THREADS) w[t] = expf(last - cum[t]) * dts[t];
-  if (pb == 0 && sb == 0 && tid == 0) a.decay[(long long)(b * a.H + h) * a.nc + c] = expf(last);
+  for (int t = tid; t < CHUNK; t += STATE_THREADS)
+    w[t] = LOCAL ? expf(cum[t]) : expf(last - cum[t]) * dts[t];
+  if (!LOCAL && pb == 0 && sb == 0 && tid == 0)
+    a.decay[(long long)(b * a.H + h) * a.nc + c] = expf(last);
+  if (LOCAL && pb == 0 && sb == 0)
+    for (int t = tid; t < CHUNK; t += STATE_THREADS) {
+      float* cd = a.decay + ((long long)(b * a.H + h) * a.nc + c) * 2 * CHUNK;
+      cd[t] = cum[t];
+      cd[CHUNK + t] = dts[t];
+    }
 
   // warp: rows [16 warp, 16 warp + 16) of the block's P columns by all its S
   // columns (16 n-tiles of 8); X ⊙ w is the A operand (X read transposed)
@@ -778,11 +791,11 @@ __global__ void __launch_bounds__(OUTPUT_THREADS) chunk_output_kernel(const Args
 
 int launch_bf16(const Args& a, int Bsz, cudaStream_t stream) {
   const size_t s1 = state_smem_bytes(), s3 = output_smem_bytes(a.S16);
-  cudaError_t err = allow_smem(chunk_state_kernel, s1);
+  cudaError_t err = allow_smem(chunk_state_kernel<false>, s1);
   if (err == cudaSuccess) err = allow_smem(chunk_output_kernel, s3);
   if (err != cudaSuccess) return int(err);
   const int PB = (a.P + PW - 1) / PW, SB = (a.S16 + SW - 1) / SW;
-  chunk_state_kernel<<<dim3(a.nc * PB * SB, a.H, Bsz), STATE_THREADS, s1, stream>>>(a);
+  chunk_state_kernel<false><<<dim3(a.nc * PB * SB, a.H, Bsz), STATE_THREADS, s1, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
   const long long ps = (long long)a.P * a.S16;
   state_pass_kernel<<<dim3(unsigned((ps + PASS_THREADS - 1) / PASS_THREADS), a.H, Bsz),

@@ -8,10 +8,12 @@ the training forward (``ops.SSDChunkedFn``) runs it and then this backward,
 and a CUDA tensor never falls back to plain PyTorch.  The kernel is
 ``csrc/ssd_backward.cu`` (its header says what bounds it and how its design
 answers that): it rebuilds the states before each chunk of
-``ssd_scan.CHUNK`` tokens, runs the reverse state pass and the chunk
-gradient products through a scratch of ``scratch_floats`` floats, with no
-atomics.  Its plain version is ``ssd_scan.ssd_chunked_bwd_plain``, the same
-equations in plain PyTorch.
+``ssd_scan.CHUNK`` tokens and runs the reverse state pass, then the chunk
+gradient products, through a scratch of ``scratch_floats`` floats, with no
+atomics.  In bf16 the products run on the tensor cores and dB, dC are
+summed over slices of ``SLICE_HEADS`` heads, then over the slices; in f32
+they run on the CUDA cores.  Its plain version is
+``ssd_scan.ssd_chunked_bwd_plain``, the same equations in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -26,15 +28,27 @@ from repro_torch.kernels.ssd_scan import CHUNK, chunk_count
 NAME = "ssd_chunked_bwd"
 
 
-def scratch_floats(Bsz: int, L: int, H: int, P: int, S: int) -> int:
-    """The f32 scratch of a launch (``csrc/ssd_backward.cu``'s layout): per
+# heads of a slice of a group: the bf16 kernel sums dB and dC over each
+# slice's heads in order, then over the slices (csrc/ssd_backward.cu's HEADS)
+SLICE_HEADS = 8
+
+
+def scratch_floats(Bsz: int, L: int, H: int, P: int, G: int, S: int, dtype: torch.dtype) -> int:
+    """The f32 scratch of a launch (``csrc/ssd_backward.cu``'s layouts): per
     (batch, head, chunk) the state before the chunk and the gradient of the
-    state after it, ``[P, S16]`` each, the chunk's decay, its masked,
-    decayed ``C Bᵀ`` and ``dY Xᵀ`` (``[CHUNK, CHUNK]`` each), its ``e`` and
-    ``w`` vectors and its dA term."""
+    state after it, ``[P, S16]`` each, the chunk's decay and its dA term;
+    then in bf16 the chunk's cum and dt and its d dt terms (``4 + P16/64 +
+    S16/64`` vectors of ``CHUNK``), and the slices' f32 partial dB and dC
+    (``[slices, B, L, G, S]`` each); in f32 the chunk's masked, decayed
+    ``C Bᵀ`` and ``dY Xᵀ`` (``[CHUNK, CHUNK]`` each) and its ``e`` and ``w``
+    vectors."""
     s16 = -(-S // 16) * 16
     bhn = Bsz * H * chunk_count(L)
-    return bhn * (2 * P * s16 + 2 * CHUNK * CHUNK + 2 * CHUNK + 2)
+    if dtype == torch.float32:
+        return bhn * (2 * P * s16 + 2 * CHUNK * CHUNK + 2 * CHUNK + 2)
+    terms = 4 + -(-P // 64) + -(-s16 // 64)
+    slices = -(-(H // G) // SLICE_HEADS)
+    return bhn * (2 * P * s16 + 2 + (2 + terms) * CHUNK) + 2 * slices * Bsz * L * G * S
 
 
 def ssd_chunked_bwd(
@@ -85,7 +99,7 @@ def ssd_chunked_bwd(
     ddt = torch.empty_like(dt)
     dA = torch.empty_like(A)
     dh0 = torch.empty((Bsz, H, P, S), dtype=torch.float32, device=x.device)
-    floats = scratch_floats(Bsz, L, H, P, S)
+    floats = scratch_floats(Bsz, L, H, P, G, S, x.dtype)
     # held until the launch is enqueued; the caching allocator then reuses
     # its memory only in stream order
     scratch = torch.empty(floats, dtype=torch.float32, device=x.device)

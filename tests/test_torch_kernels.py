@@ -326,6 +326,39 @@ def test_ssd_chunk_is_the_kernels_constant():
     assert f"constexpr int CHUNK = {ssk.CHUNK};" in src
 
 
+@pytest.mark.parametrize("B,L,H,P,G,S", [(2, 2048, 64, 64, 1, 128), (1, 2048, 128, 128, 1, 16),
+                                         (1, 37, 3, 20, 3, 24), (2, 129, 12, 256, 2, 256)])
+def test_ssd_backward_scratch_depends_on_the_shapes_alone(B, L, H, P, G, S):
+    """The SSD backward's scratch (``csrc/ssd_backward.cu``'s layouts), a
+    function of the shapes and the dtype alone: f32 keeps each chunk's M and
+    dM; bf16 holds the two states, cum and dt, the d dt terms and the
+    slices' dB and dC partials, and no [CHUNK, CHUNK] matrix."""
+    from repro_torch.kernels import ssd_backward as sbk
+
+    n = ssk.chunk_count(L)
+    s16 = -(-S // 16) * 16
+    bhn = B * H * n
+    states = 2 * bhn * P * s16
+    slices = -(-(H // G) // sbk.SLICE_HEADS)
+    terms = 4 + -(-P // 64) + -(-s16 // 64)
+    assert sbk.scratch_floats(B, L, H, P, G, S, torch.float32) == (
+        states + bhn * (2 * ssk.CHUNK * ssk.CHUNK + 2 * ssk.CHUNK + 2))
+    assert sbk.scratch_floats(B, L, H, P, G, S, torch.bfloat16) == (
+        states + bhn * (2 + (2 + terms) * ssk.CHUNK) + 2 * slices * B * L * G * S)
+
+
+def test_ssd_backward_tiles_are_the_kernels_constants():
+    """The wrapper sizes the backward's scratch from ``SLICE_HEADS`` and the
+    64-wide P and S tiles; the bf16 kernels split at their own HEADS, PW and
+    KW, and the launcher refuses a scratch size off its own count."""
+    from repro_torch.kernels import ssd_backward as sbk
+
+    src = (build.CSRC / "ssd_backward.cu").read_text()
+    assert f"constexpr int HEADS = {sbk.SLICE_HEADS};" in src
+    assert "constexpr int KW = 64;" in src
+    assert "constexpr int PW = 64;" in (build.CSRC / "ssd_scan.cu").read_text()
+
+
 def test_library_name_tracks_sources():
     """Each kernel builds into its own library whose name carries a hash of
     its sources and flags, under the gitignored build directory."""

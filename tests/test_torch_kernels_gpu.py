@@ -2089,6 +2089,89 @@ def test_ssd_backward_counts_launches_and_refuses_what_it_cannot_run(cuda):
     assert sbk.ssd_chunked_bwd.launches == before + 1
 
 
+# The bf16 launches' edges: head counts that the slices of
+# ssd_backward.SLICE_HEADS heads do not divide, G 2 over a padded last chunk,
+# jamba's P 128 and S 16 over two slices, fewer tokens than a row block
+SSD_BWD_EDGE_CASES = [
+    (1, 300, 12, 64, 1, 128, True),  # 12 heads a group: slices of 8 and 4
+    (2, 333, 20, 32, 2, 64, False),  # G 2, 10 heads a group, a last chunk of 77 tokens
+    (1, 600, 16, 128, 1, 16, True),  # jamba's P and S, two slices
+    (2, 50, 9, 64, 1, 128, True),  # L < 64; slices of 8 and 1
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,H,P,G,S,states", SSD_BWD_EDGE_CASES)
+def test_ssd_backward_matches_plain_on_card_at_slice_edges(cuda, dtype, B, L, H, P, G, S,
+                                                           states):
+    from repro_torch.kernels import ssd_backward as sbk
+
+    dt = getattr(torch, dtype)
+    ins, h0 = _ssd_bwd_case(cuda, dt, B, L, H, P, G, S, states, seed=L + P)
+    got = sbk.ssd_chunked_bwd(*ins, initial_state=h0)
+    want = ssk.ssd_chunked_bwd_plain(*ins, chunk=256, initial_state=h0)
+    errs = _ssd_bwd_errs(got, want, dt)
+    assert all(err <= tol for _, err, tol in errs), errs
+
+
+@pytest.mark.gpu
+def test_ssd_backward_bf16_gives_the_same_bits_twice_over_slices(cuda):
+    """Three slices of a group's 24 heads: each slice's heads summed in head
+    order, the slices in slice order."""
+    from repro_torch.kernels import ssd_backward as sbk
+
+    ins, h0 = _ssd_bwd_case(cuda, torch.bfloat16, 1, 512, 24, 64, 1, 128, True)
+    first = sbk.ssd_chunked_bwd(*ins, initial_state=h0)
+    second = sbk.ssd_chunked_bwd(*ins, initial_state=h0)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _ssd_bwd_numpy_case(cuda, B, L, H, P, G, S, seed):
+    """f32 operands, an initial state and dhT made with numpy (the same bits
+    whatever torch's generators do), on the card."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+
+    x, z = normal(B, L, H, P), normal(B, L, H)
+    dt = np.log1p(np.exp(z - np.float32(2))).astype(np.float32)
+    A = -np.linspace(1.0, 16.0, H, dtype=np.float32)
+    Bm, Cm, dy = normal(B, L, G, S), normal(B, L, G, S), normal(B, L, H, P)
+    h0, dhT = normal(B, H, P, S), normal(B, H, P, S)
+    ins = [torch.from_numpy(t).to(cuda) for t in (x, dt, A, Bm, Cm, dy, dhT)]
+    return ins, torch.from_numpy(h0).to(cuda)
+
+
+def _digest(tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+# sha256 (first 16 hex digits) of (dx, ddt, dA, dB, dC, dh0) of an f32
+# launch on these inputs, recorded on an H100 from the CUDA-core kernels
+# before the bf16 launches moved to the tensor cores: f32 launches keep them
+SSD_BWD_F32_DIGESTS = {
+    (2, 300, 4, 64, 2, 128, 0): "29b54c78e31ac825",
+    (1, 200, 3, 20, 3, 24, 1): "62640628e2daabfb",
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SSD_BWD_F32_DIGESTS))
+def test_ssd_backward_f32_keeps_the_cuda_core_bits(cuda, case):
+    from repro_torch.kernels import ssd_backward as sbk
+
+    ins, h0 = _ssd_bwd_numpy_case(cuda, *case)
+    got = sbk.ssd_chunked_bwd(*ins, initial_state=h0)
+    assert _digest(got) == SSD_BWD_F32_DIGESTS[case]
+
+
 @pytest.mark.gpu
 def test_ssd_fn_gradients_match_autograd_of_plain_forward_on_card(cuda):
     """``SSDChunkedFn`` on the card (the forward and backward kernels)
