@@ -340,6 +340,28 @@ it and read just after it:
    ``WHISPER_TRAIN_STEPS`` steps of whisper-tiny at full width and depth
    over ``frame_batches`` (random frames ``[B, 1,500, 384]``), the loss
    falling.
+21. distribution — ``make_host_mesh(data=1, model=1)`` on the card: a
+   single-rank NCCL group and its (data, model) ``DeviceMesh``.  On it,
+   qwen2-0.5b at full width cut to ``TRAIN_CUT`` layers in bf16 trains
+   ``DIST_STEPS`` steps through ``make_sharded_train_step`` (the whole
+   batch's loss from all-reduced NLL sums, all-reduced gradients, the ZeRO-1
+   update) and through ``make_train_step`` from the same weights, under
+   ``torch.use_deterministic_algorithms(True)``: parameters, moments and
+   losses equal bit for bit.  Then the KV-length-sharded attention at
+   llama-7b's width (32 heads of 128, bf16): ``DIST_Q`` queries at positions
+   ``DIST_KV - DIST_Q`` to ``DIST_KV - 1`` over ``DIST_KV`` rows, split into
+   ``DIST_SHARDS`` shards as a 4-way model axis splits them: one flash
+   launch with ``lse`` a shard (``ops.flash_pieces``) and one merge
+   (``ops.combine_pieces``), held within ``BF16_ATOL`` of one unsharded
+   launch, causal, with a window of ``DIST_WINDOW`` (whole shards empty for
+   every row) and at the decode shape (``DIST_DECODE_B`` sequences, one
+   query each, also against ``decode_attention``); through the one-rank
+   NCCL group ``ops.flash_attention(..., kv_group=g)`` and
+   ``ops.decode_attention(..., kv_group=g)`` give the unsharded launch's
+   bits.  The walls of the sharded launches and merge and of the unsharded
+   launch are logged side by side.  Last, ``compressed_pmean`` over the
+   group on the cut model's gradients: every leaf within its scale (max|g|
+   / 127) of the gradient.
 
 Then the kernel phase: each kernel is called on the inputs one of its
 launches on those paths received (first layer) and held against its plain
@@ -427,7 +449,9 @@ before the first chip run from the kernel's arithmetic emulated on the CPU
 (``tests/test_torch_ssd_bwd_numerics.py``); two launches give the same
 bits.  It is timed beside its plain version and its bound (no PyTorch
 call computes the scan's gradient) and appended to the kernels line
-twice, each entry with its own run's launches.
+twice, each entry with its own run's launches.  The flash kernel is held
+against its plain version on the last KV shard's launch of phase 21 and
+appended with ``at`` naming the sharded route and that phase's launches.
 
 Any failed check raises, so the script exits non-zero.  The line before the
 last is ``{"kernels": [...]}``; the last is the ``{"ok": true, ...}`` line.
@@ -451,6 +475,7 @@ import time
 import types
 
 import torch
+import torch.distributed as dist
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device; this script runs on the GPU only")
@@ -482,6 +507,7 @@ from repro_torch.kvcache import compression, fusion, paged  # noqa: E402
 from repro_torch.kvcache.faults import FaultInjector, RetryPolicy, payload_checksum  # noqa: E402
 from repro_torch.kvcache.hierarchy import TierSpec  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch.mesh import host_mesh  # noqa: E402
 from repro_torch.market import Marketplace, MarketPlanner  # noqa: E402
 from repro_torch.models import lm, moe  # noqa: E402
 from repro_torch.models.registry import count_active_params, count_params, get_model  # noqa: E402
@@ -511,9 +537,14 @@ from repro_torch.serving.audit import (  # noqa: E402
 from repro_torch.serving.metrics import summarize_events  # noqa: E402
 from repro_torch.serving.scheduler import HedgePolicy  # noqa: E402
 from repro_torch.training.checkpoint import latest_step  # noqa: E402
+from repro_torch.training.compression import compressed_pmean  # noqa: E402
 from repro_torch.training.fault import LoopConfig, Preempted, ResilientLoop  # noqa: E402
 from repro_torch.training.optimizer import AdamW, cosine_schedule  # noqa: E402
-from repro_torch.training.train_step import make_train_step, value_and_grad  # noqa: E402
+from repro_torch.training.train_step import (  # noqa: E402
+    make_sharded_train_step,
+    make_train_step,
+    value_and_grad,
+)
 from repro_torch.training.tree import tree_leaves, tree_map  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
@@ -670,6 +701,11 @@ WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_STEPS = 4, 128, 8
 # one bf16 step at its largest magnitude, every f32 output within 1e-4
 SSD_BWD_BF16_RTOL = 2.0**-7
 SSD_BWD_F32_RTOL = 1e-4
+# the distribution phase: DIST_STEPS steps of the sharded and the plain
+# step; the KV-sharded attention's DIST_Q queries at the end of DIST_KV rows
+# in DIST_SHARDS shards, a window of DIST_WINDOW and DIST_DECODE_B decode
+# sequences
+DIST_STEPS, DIST_SHARDS, DIST_Q, DIST_KV, DIST_WINDOW, DIST_DECODE_B = 3, 4, 2032, 4096, 1024, 4
 # the fused phase's RAG traffic: documents of DOC_LEN tokens, a 32-token
 # prompt per request, the reference's default chunk_tokens of 16, and
 # CacheBlend's default recompute fraction
@@ -3997,6 +4033,25 @@ def train_full():
     return rec.fwd, rec.bwd, c
 
 
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` for the block (the
+    cross-entropy's ``gather`` backward is a ``scatter_add_`` on CUDA, which
+    PyTorch counts as nondeterministic), with the cuBLAS workspace setting
+    it needs; both restored after."""
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+
+
 def train_resume(tmp: pathlib.Path, cfg):
     """A ``ResilientLoop`` of ``cfg`` (bf16, checkpoints in the reference's
     layout): preempted at step 6, after the step-4 checkpoint, and
@@ -4018,10 +4073,7 @@ def train_resume(tmp: pathlib.Path, cfg):
         if i == 6:
             raise Preempted("simulated preemption")
 
-    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.use_deterministic_algorithms(True)
-    try:
+    with deterministic():
         t0 = time.perf_counter()
         whole = loop(tmp / "whole").run(params0, opt.init(params0))
         cut = loop(tmp / "preempted", failure_hook=bomb)
@@ -4034,12 +4086,6 @@ def train_resume(tmp: pathlib.Path, cfg):
         resumed = loop(tmp / "preempted").run(params0, opt.init(params0))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        torch.use_deterministic_algorithms(False)
-        if cublas is None:
-            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
-        else:
-            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
     same = [torch.equal(a, b) for a, b in zip(
         tree_leaves((whole["params"], whole["opt_state"])),
         tree_leaves((resumed["params"], resumed["opt_state"])))]
@@ -4389,6 +4435,147 @@ def ssm_training_phase():
 
 # the SSD backward's bf16 kernels, by phase (csrc/ssd_backward.cu; the chunk
 # states and the local dh terms are the forward's chunk_state_kernel)
+def sharded_training(mesh):
+    """Phase 21 (b): ``DIST_STEPS`` steps of ``make_sharded_train_step`` on
+    ``mesh`` and of ``make_train_step``, from the same weights and batches,
+    equal bit for bit.  Returns the sharded run's launches and its first
+    batch's gradients."""
+    cfg = train_cfg(n_layers=TRAIN_CUT)
+    params0 = lm.init(cfg, seed=SEED, device=DEVICE)
+    opt = AdamW(lr=TRAIN_LR, weight_decay=0.01,
+                schedule=cosine_schedule(warmup=1, total=DIST_STEPS))
+    it = token_batches(dataclasses.replace(cfg, vocab=TRAIN_DATA_VOCAB),
+                       batch=TRAIN_CPU_BATCH, seq_len=TRAIN_CPU_SEQ, seed=SEED + 2)
+    batches = [{k: torch.as_tensor(v, device=DEVICE) for k, v in next(it).items()}
+               for _ in range(DIST_STEPS)]
+    sharded = make_sharded_train_step(cfg, opt, mesh)
+    plain = make_train_step(cfg, opt)
+    with deterministic():
+        zero_counts()
+        t0 = time.perf_counter()
+        p1, s1, l1 = params0, sharded.init(params0), []
+        for b in batches:
+            p1, s1, m = sharded(p1, s1, b)
+            l1.append(m["loss"].item())
+        c = counts()
+        wall = time.perf_counter() - t0
+        p2, s2, l2 = params0, opt.init(params0), []
+        for b in batches:
+            p2, s2, m = plain(p2, s2, b)
+            l2.append(m["loss"].item())
+        (_, _), grads = value_and_grad(p1, cfg, batches[0])
+    same = [torch.equal(a, b) for a, b in zip(tree_leaves((p1, sharded.gather_state(s1))),
+                                              tree_leaves((p2, s2)))]
+    log(f"distribution: sharded train step ({cfg.name}, {cfg.n_layers} layers at full width, "
+        f"bf16, B {TRAIN_CPU_BATCH} x S {TRAIN_CPU_SEQ}, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+        f", {dist.get_backend()}): {DIST_STEPS} steps in {wall:.2f} s, launches {c}; losses "
+        f"{l1} / plain {l2}; {sum(same)}/{len(same)} leaves (parameters and moments) equal "
+        f"bit for bit")
+    assert all(same) and l1 == l2, (same, l1, l2)
+    assert c["flash_attention"] == c["flash_attention_bwd"] == cfg.n_layers * DIST_STEPS, c
+    assert sum(c.values()) == 2 * cfg.n_layers * DIST_STEPS, c
+    return c, grads
+
+
+def sharded_attention(group):
+    """Phase 21 (c): the KV-length-sharded attention at llama-7b's width.
+    Returns the launches of the sharded route and the last shard's flash
+    launch inputs (for the kernel phase)."""
+    cfg = get_config("llama-7b")
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+
+    def positions(B, lo, hi):
+        return torch.arange(lo, hi, dtype=torch.int32, device=DEVICE)[None].expand(B, -1)
+
+    rows = DIST_KV // DIST_SHARDS
+    cases = {}
+    for label, B, n_q, window in (("prefill", 1, DIST_Q, None),
+                                  (f"prefill, window {DIST_WINDOW}", 1, DIST_Q, DIST_WINDOW),
+                                  ("decode", DIST_DECODE_B, 1, None)):
+        q, k, v = randn(B, n_q, H, hd), randn(B, DIST_KV, KV, hd), randn(B, DIST_KV, KV, hd)
+        kw = dict(q_pos=positions(B, DIST_KV - n_q, DIST_KV).contiguous(),
+                  kv_pos=positions(B, 0, DIST_KV).contiguous(), window=window)
+        cases[label] = (q, k, v, kw)
+
+    def shards(q, k, v, kw):
+        return [((q, k[:, i * rows:(i + 1) * rows].contiguous(),
+                  v[:, i * rows:(i + 1) * rows].contiguous()),
+                 dict(kw, kv_pos=kw["kv_pos"][:, i * rows:(i + 1) * rows].contiguous()))
+                for i in range(DIST_SHARDS)]
+
+    def sharded_run(q, k, v, kw):
+        pieces = [ops.flash_pieces(*t, causal=True, **skw) for t, skw in shards(q, k, v, kw)]
+        return ops.combine_pieces([o for o, _ in pieces], [lse for _, lse in pieces])
+
+    def group_run(label, q, k, v, kw):
+        if label == "decode":
+            return ops.decode_attention(q, k, v, kv_group=group, **kw)
+        return ops.flash_attention(q, k, v, causal=True, kv_group=group, **kw)
+
+    # the driven path: each case's shards and merge, and the one-rank group
+    zero_counts()
+    got = {label: (sharded_run(*c), group_run(label, *c)) for label, c in cases.items()}
+    torch.cuda.synchronize()
+    c = counts()
+    assert c["flash_attention"] == (DIST_SHARDS + 1) * len(cases), c
+    assert sum(c.values()) == c["flash_attention"], c
+    # against one unsharded launch of the same kernel (and, at the decode
+    # shape, the decode kernel); walls of both routes
+    for label, (q, k, v, kw) in cases.items():
+        want = fk.flash_attention(q, k, v, causal=True, **kw)
+        sharded, one_rank = got[label]
+        err = (sharded.float() - want.float()).abs().max().item()
+        line = (f"distribution: KV-sharded attention ({label}; q{tuple(q.shape)} over "
+                f"{DIST_KV} rows in {DIST_SHARDS} shards of {rows}, bf16): max|sharded - "
+                f"unsharded| {err:.3e} (atol {BF16_ATOL}); one-rank group equal bit for bit "
+                f"{torch.equal(one_rank, want)}")
+        assert err <= BF16_ATOL, (label, err)
+        assert torch.equal(one_rank, want), label
+        if label == "decode":
+            dec = dk.decode_attention(q, k, v, **kw)
+            derr = (sharded.float() - dec.float()).abs().max().item()
+            line += f"; max|sharded - decode_attention| {derr:.3e}"
+            assert derr <= BF16_ATOL, derr
+        sharded_ms = time_ms(lambda: sharded_run(q, k, v, kw))
+        one_ms = time_ms(lambda: fk.flash_attention(q, k, v, causal=True, **kw))
+        log(f"{line}; wall ms: {DIST_SHARDS} sharded launches + merge {sharded_ms:.4f}, one "
+            f"unsharded launch {one_ms:.4f}")
+    (q, k, v, kw) = cases["prefill"]
+    last = shards(q, k, v, kw)[-1]
+    return c, ([t.clone() for t in last[0]], dict(last[1], causal=True))
+
+
+def distribution_phase():
+    """Phase 21 (see the module docstring).  Returns its launches and the
+    last KV shard's flash inputs."""
+    t0 = time.perf_counter()
+    with host_mesh(1, 1, device="cuda") as mesh:
+        assert dist.get_backend() == "nccl", dist.get_backend()
+        group = mesh.get_group("data")
+        log(f"distribution: host mesh {mesh} over {dist.get_backend()}, world size "
+            f"{dist.get_world_size()}, set up in {time.perf_counter() - t0:.1f} s")
+        train_counts, grads = sharded_training(mesh)
+        release()
+        attn_counts, shard_inputs = sharded_attention(group)
+        ratios = []
+        for g in tree_leaves(grads):
+            scale = g.float().abs().max().item() / 127.0
+            err = (compressed_pmean(g, group).float() - g.float()).abs().max().item()
+            ratios.append(err / max(scale, 1e-30))
+        log(f"distribution: compressed_pmean over the one-rank group on {len(ratios)} gradient "
+            f"leaves: max err / scale {max(ratios):.4f} (median "
+            f"{sorted(ratios)[len(ratios) // 2]:.4f}; gate 1)")
+        assert max(ratios) <= 1.0, max(ratios)
+    assert not dist.is_initialized()
+    release()
+    log(f"distribution phase wall: {time.perf_counter() - t0:.1f} s")
+    return {k: train_counts[k] + attn_counts[k] for k in train_counts}, shard_inputs
+
+
 SSD_BWD_KERNELS = {"chunk states": "chunk_state_kernel<false>",
                    "state pass": "state_pass_kernel", "local dh": "chunk_state_kernel<true>",
                    "reverse pass": "reverse_pass_kernel", "x grads": "x_grad_kernel",
@@ -4711,6 +4898,9 @@ def main() -> None:
     # ---- training: mamba2-1.3b, jamba and whisper through the SSD backward --
     ssm_bwd, ssm_train_counts, jamba_bwd, jamba_train_counts = ssm_training_phase()
 
+    # ---- distribution: the host mesh, the sharded step, KV-sharded attention --
+    dist_counts, dist_shard = distribution_phase()
+
     # ---- kernel phase -----------------------------------------------------
     # the kernels line counts each kernel's launches on its llama path and
     # on the same path of nemo's, olmoe's, mixtral's, granite's, internvl's
@@ -4831,7 +5021,8 @@ def main() -> None:
     kernels += [
         dict(check_flash(train_fwd, train_counts["flash_attention"], "qwen2-0.5b training"),
              at="qwen2-0.5b training"),
-        check_flash_bwd(train_bwd, train_counts["flash_attention_bwd"], "qwen2-0.5b training")]
+        check_flash_bwd(train_bwd, train_counts["flash_attention_bwd"]
+                        + dist_counts["flash_attention_bwd"], "qwen2-0.5b training")]
     check_flash_bwd(bwd_inputs(1, 2048, 32, 32, 128, torch.bfloat16), 0, "llama heads")
     check_flash_bwd(bwd_inputs(1, 2048, 48, 8, 128, torch.bfloat16, window=1024), 0,
                     "mixtral heads, window 1024")
@@ -4846,6 +5037,11 @@ def main() -> None:
         dict(check_ssd_bwd(jamba_bwd, jamba_train_counts["ssd_chunked_bwd"],
                            "jamba-1.5-large-398b training"),
              at="jamba-1.5-large-398b training, 1-layer cut, B 1 x L 2,048")]
+    # the distribution phase's: the last KV shard's launch, with the
+    # phase's launches (the sharded training's forwards and the shards')
+    kernels.append(dict(check_flash(dist_shard, dist_counts["flash_attention"],
+                                    "llama-7b KV shard"),
+                        at=f"llama-7b, KV-sharded over {DIST_SHARDS} shards (phase 21)"))
     log_device_times()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,11 @@ family, ``mixtral-8x22b`` the MoE family with sliding-window attention over
 a ring-buffer cache, and ``jamba-1.5-large-398b`` the hybrid family (Mamba,
 attention and MoE layers in one 8-layer period); ``internvl2-1b`` is the
 VLM family (image embeddings before the text) and ``whisper-tiny`` the
-encoder-decoder family (LayerNorm, GELU, cross-attention)."""
+encoder-decoder family (LayerNorm, GELU, cross-attention).
+
+``ASSIGNED`` holds the ten architectures of the reference's assigned matrix
+(its dry-run rows), ``EXTRA`` the paper's own model; ``CONFIGS`` is both.
+``SHAPES`` and ``cell_is_runnable`` give the matrix's input shapes."""
 from __future__ import annotations
 
 import dataclasses
@@ -27,13 +31,18 @@ from repro_torch.configs import (
     qwen2_1_5b,
     whisper_tiny,
 )
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import SHAPES, ArchConfig, ShapeSpec, cell_is_runnable  # noqa: F401
 
-CONFIGS: Dict[str, ArchConfig] = {
+# the ten assigned architectures (the dry-run matrix's rows)
+ASSIGNED: Dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (llama_7b, qwen2_1_5b, qwen2_0_5b, mistral_nemo_12b, mamba2_1_3b, olmoe_1b_7b,
-              mixtral_8x22b, jamba_1_5_large_398b, granite_34b, internvl2_1b, whisper_tiny)
+    for m in (granite_34b, mistral_nemo_12b, qwen2_1_5b, qwen2_0_5b, whisper_tiny,
+              internvl2_1b, jamba_1_5_large_398b, olmoe_1b_7b, mixtral_8x22b, mamba2_1_3b)
 }
+# not part of the assigned matrix: the paper's own model
+EXTRA: Dict[str, ArchConfig] = {llama_7b.CONFIG.name: llama_7b.CONFIG}
+
+CONFIGS: Dict[str, ArchConfig] = {**ASSIGNED, **EXTRA}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -15,7 +15,7 @@ Design notes
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 VOCAB_PAD_MULTIPLE = 128
 
@@ -188,3 +188,34 @@ class ArchConfig:
         return self.n_ssm_layers * (ssd + conv) * dtype_bytes
 
 
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input shape."""
+
+    name: str
+    kind: str  # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}
+
+
+def cell_is_runnable(cfg: ArchConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether (arch x shape) is a runnable cell of the matrix, and why not
+    if not: ``long_500k`` needs sub-quadratic context handling, so a pure
+    full-attention arch skips it; SSM, hybrid and sliding-window archs run
+    it (the reference's rule)."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, (
+            f"{cfg.name} is a pure full-attention arch: a 524288-token dense KV "
+            "decode is quadratic-cost/unbounded-KV"
+        )
+    return True, ""

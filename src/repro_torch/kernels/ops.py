@@ -10,12 +10,20 @@ gradient: under grad mode with an operand that requires grad they run
 (``flash_backward``, ``ssd_backward``).  Everywhere else (every serving path
 runs under ``torch.inference_mode()``) they launch what they launched
 before.
+
+``flash_attention`` and ``decode_attention`` with ``kv_group`` take the
+KV-length-sharded route (the reference's ``_kv_sharded_attention``): each
+rank of the group holds its own rows of the cache, runs the flash kernel
+with its ``lse`` output over them (``flash_pieces``), and the ranks merge
+the pieces with two all-reduces of statistics and one of the output
+(``_combine``).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import chunked_prefill as cpk
 from repro_torch.kernels import decode_attention as dk
@@ -62,12 +70,21 @@ class FlashAttentionFn(torch.autograd.Function):
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_pos: torch.Tensor,
     kv_pos: torch.Tensor, causal: bool = True, window: Optional[int] = None,
-    kv_valid: Optional[torch.Tensor] = None,
+    kv_valid: Optional[torch.Tensor] = None, kv_group: Any = None,
 ) -> torch.Tensor:
     """Position-masked GQA attention (see ``ref.attention_ref``): the
     per-request prefill's attention, and the training forward's through
-    ``FlashAttentionFn`` when a gradient is wanted."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    ``FlashAttentionFn`` when a gradient is wanted.  With ``kv_group`` (a
+    process group) ``k``, ``v``, ``kv_pos`` and ``kv_valid`` are this rank's
+    shard of the kv rows and every rank of the group gets the attention
+    over all of them (no gradient on that route)."""
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    if kv_group is not None:
+        if grad:
+            raise ValueError("flash_attention: the KV-sharded route has no gradient")
+        return _kv_sharded(q, k, v, kv_group, q_pos=q_pos, kv_pos=kv_pos, causal=causal,
+                           window=window, kv_valid=kv_valid)
+    if grad:
         return FlashAttentionFn.apply(q, k, v, q_pos, kv_pos, causal, window, kv_valid)
     fn = fk.flash_attention if q.is_cuda else fk.flash_attention_plain
     return fn(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=causal, window=window,
@@ -89,12 +106,74 @@ def packed_attention(
 def decode_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_pos: torch.Tensor,
     kv_pos: torch.Tensor, window: Optional[int] = None,
-    kv_valid: Optional[torch.Tensor] = None,
+    kv_valid: Optional[torch.Tensor] = None, kv_group: Any = None,
 ) -> torch.Tensor:
     """One query token per sequence against the dense cache (see
-    ``ref.attention_ref``)."""
+    ``ref.attention_ref``).  With ``kv_group`` the cache is length-sharded
+    over the group, as in ``flash_attention``, and each rank's rows go
+    through the flash kernel (one query row a sequence), as the reference's
+    sharded decode runs its flash pieces."""
+    if kv_group is not None:
+        return _kv_sharded(q, k, v, kv_group, q_pos=q_pos, kv_pos=kv_pos, causal=True,
+                           window=window, kv_valid=kv_valid)
     fn = dk.decode_attention if q.is_cuda else dk.decode_attention_plain
     return fn(q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=window, kv_valid=kv_valid)
+
+
+# --------------------------------------------------------------------------- #
+# KV-length-sharded attention
+# --------------------------------------------------------------------------- #
+def flash_pieces(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_pos: torch.Tensor,
+    kv_pos: torch.Tensor, causal: bool = True, window: Optional[int] = None,
+    kv_valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention over one shard of the kv rows and each row's log-sum-exp
+    of its scaled scores, ``(out [B, Sq, H, hd], lse [B, Sq, H] f32)``, -inf
+    where the shard keeps no key for the row (its output is 0 there): the
+    flash kernel with its ``lse`` on a CUDA tensor, the plain forward on a
+    CPU one."""
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, causal=causal, window=window, kv_valid=kv_valid)
+    if q.is_cuda:
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        return fk.flash_attention(q, k, v, lse=lse, **kw), lse
+    return fbk.flash_attention_fwd_plain(q, k, v, **kw)
+
+
+def _combine(out: torch.Tensor, lse: torch.Tensor, all_max: Callable, all_sum: Callable
+             ) -> torch.Tensor:
+    """The pieces' merge in f32: lse* = logsumexp over shards of lse_i (a
+    max, then a sum), o = sum over shards of o_i exp(lse_i - lse*).  A shard
+    that keeps no key for a row (lse_i = -inf) weighs 0 there; a row that
+    keeps none anywhere gets 0, as the reference's ``o / max(l, 1e-30)``.
+    ``all_max`` and ``all_sum`` reduce over the shards.  With one shard the
+    weight is exactly 1, so the merge returns the piece's own values."""
+    m = all_max(lse)
+    m = torch.where(torch.isinf(m), 0.0, m)  # -inf only where every shard is empty
+    s = all_sum(torch.exp(lse - m))
+    w = torch.where(s > 0, torch.exp(lse - (m + torch.log(s))), 0.0)
+    return all_sum(out.float() * w[..., None])
+
+
+def combine_pieces(outs: Sequence[torch.Tensor], lses: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``flash_pieces`` of every shard, in one process, merged into the
+    attention over all the rows (cast to the pieces' dtype)."""
+    merged = _combine(torch.stack(list(outs)), torch.stack(list(lses)),
+                      lambda t: t.amax(0), lambda t: t.sum(0))
+    return merged.to(outs[0].dtype)
+
+
+def _kv_sharded(q, k, v, group, **kw) -> torch.Tensor:
+    out, lse = flash_pieces(q, k, v, **kw)
+
+    def reduce(op):
+        def fn(t):
+            t = t.clone()
+            dist.all_reduce(t, op=op, group=group)
+            return t
+        return fn
+
+    return _combine(out, lse, reduce(dist.ReduceOp.MAX), reduce(dist.ReduceOp.SUM)).to(q.dtype)
 
 
 def paged_decode(

@@ -43,7 +43,17 @@ def resolve_device(device=None) -> torch.device:
 # --------------------------------------------------------------------------- #
 # Parameter initialisation
 # --------------------------------------------------------------------------- #
-def dense_init(gen: torch.Generator, shape: Sequence[int], dtype, device,
+def seeded_generator(seed: int, device: torch.device) -> Optional[torch.Generator]:
+    """A generator on ``device`` seeded with ``seed``; None on ``meta``,
+    where tensors have shapes and no values, so there is nothing to draw."""
+    if device.type == "meta":
+        return None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+def dense_init(gen: Optional[torch.Generator], shape: Sequence[int], dtype, device,
                fan_in: Optional[int] = None) -> torch.Tensor:
     """Lecun-normal init (stddev = 1/sqrt(fan_in)); fan_in defaults to the
     first dimension."""
@@ -53,7 +63,7 @@ def dense_init(gen: torch.Generator, shape: Sequence[int], dtype, device,
     return x.mul_(std).to(dtype)
 
 
-def embed_init(gen: torch.Generator, shape: Sequence[int], dtype, device) -> torch.Tensor:
+def embed_init(gen: Optional[torch.Generator], shape: Sequence[int], dtype, device) -> torch.Tensor:
     x = torch.randn(tuple(shape), generator=gen, device=device, dtype=torch.float32)
     return x.mul_(0.02).to(dtype)
 

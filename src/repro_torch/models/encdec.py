@@ -12,7 +12,7 @@ self-attention K/V belong to the request's prompt.
 API (the reference's ``models/encdec.py``):
   init(cfg, seed=0, device=None) -> params
   forward(params, cfg, frames [B, S_enc, D], dec_tokens [B, S]) -> (logits [B, S, V], aux 0)
-  init_state(cfg, batch, max_len, device=None, dtype=None) -> EncDecState
+  init_state(cfg, batch, max_len, device=None, dtype=None, enc_len=None) -> EncDecState
   encode(params, cfg, frames [B, S_enc, D]) -> encoder output [B, S_enc, D]
   build_cross_kv(params, cfg, enc_out) -> KVCache [n_dec, B, S_enc, KV, hd]
   prefill(params, cfg, tokens [B, S], state, embeds=None) -> (last logits [B, V], state)
@@ -31,7 +31,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, common, layers
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import Params, embed_init, resolve_device, resolve_dtype
 
@@ -51,10 +51,10 @@ def _layer(c: KVCache, i: int) -> KVCache:
 # --------------------------------------------------------------------------- #
 def init(cfg: ArchConfig, seed: int = 0, device=None) -> Params:
     """Random weights drawn from a ``torch.Generator`` seeded with ``seed``,
-    on ``device`` (the card unless the caller asks for the CPU)."""
+    on ``device`` (the card unless the caller asks for the CPU; on
+    ``"meta"``, shapes and dtypes only, as ``lm.init``)."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = common.seeded_generator(seed, device)
     pdtype = resolve_dtype(cfg.param_dtype)
 
     def enc_layer():
@@ -82,10 +82,12 @@ def init(cfg: ArchConfig, seed: int = 0, device=None) -> Params:
 
 
 def init_state(cfg: ArchConfig, batch: int, max_len: int, device=None,
-               dtype=None) -> EncDecState:
-    """Zero self-attention K/V of ``max_len`` rows and cross K/V of the
-    config's ``encoder_seq_len`` rows per slot."""
+               dtype=None, enc_len=None) -> EncDecState:
+    """Zero self-attention K/V of ``max_len`` rows and cross K/V of
+    ``enc_len`` rows per slot (the config's ``encoder_seq_len`` unless
+    given)."""
     device = resolve_device(device)
+    enc_len = cfg.encoder_seq_len if enc_len is None else enc_len
     dtype = dtype or resolve_dtype(cfg.dtype)
     n, kv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
 
@@ -94,7 +96,7 @@ def init_state(cfg: ArchConfig, batch: int, max_len: int, device=None,
 
     return EncDecState(pos=torch.zeros(batch, dtype=torch.int32, device=device),
                        self_kv=KVCache(z(max_len), z(max_len)),
-                       cross_kv=KVCache(z(cfg.encoder_seq_len), z(cfg.encoder_seq_len)))
+                       cross_kv=KVCache(z(enc_len), z(enc_len)))
 
 
 # --------------------------------------------------------------------------- #

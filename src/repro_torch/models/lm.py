@@ -6,6 +6,7 @@ API:
   init(cfg, seed=0, device=None) -> params
   forward(params, cfg, tokens [B, S], embeds=None) -> (logits [B, E + S, V], aux)
   cross_entropy(logits, labels, mask=None) -> loss
+  nll_sums(logits, labels, mask=None) -> (nll sum, count)
   init_state(cfg, batch, max_len, device=None) -> LMState
   prefill(params, cfg, tokens [B, S], state, embeds=None) -> (last logits [B, V], LMState)
   prefill_packed(params, cfg, tokens, caches, **layout) -> (logits [n, V], caches)
@@ -39,7 +40,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import blocks, layers
+from repro_torch.models import blocks, common, layers
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import Params, resolve_device, resolve_dtype
 from repro_torch.models.ssm import MambaState
@@ -89,11 +90,12 @@ def _block_cache(c: blocks.BlockCache, i: int) -> blocks.BlockCache:
 # --------------------------------------------------------------------------- #
 def init(cfg: ArchConfig, seed: int = 0, device=None) -> Params:
     """Random weights drawn from a ``torch.Generator`` seeded with ``seed``,
-    on ``device`` (the card unless the caller asks for the CPU)."""
+    on ``device`` (the card unless the caller asks for the CPU).  On
+    ``"meta"`` nothing is drawn or allocated: the tree's shapes and dtypes
+    only (the sharding specs of a full-size arch)."""
     kinds, _ = _layout(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = common.seeded_generator(seed, device)
     return {
         "embed": layers.init_embedding(gen, cfg, device),
         "layers": [blocks.init_block(gen, cfg, kinds[i % len(kinds)], device)
@@ -166,14 +168,31 @@ def cross_entropy(
     """Mean next-token negative log-likelihood in f32: log-sum-exp minus the
     label's logit, averaged over the positions ``mask`` keeps (all where
     none is given; the reference's ``lm.cross_entropy``)."""
+    if mask is None:
+        return _nll(logits, labels).mean()
+    total, count = nll_sums(logits, labels, mask)
+    return total / count.clamp_min(1.0)
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     label_logit = logits.gather(-1, labels.long()[..., None])[..., 0]
-    nll = lse - label_logit
+    return lse - label_logit
+
+
+def nll_sums(
+    logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``cross_entropy``'s numerator and denominator, f32 scalars: the
+    masked negative log-likelihood's sum and the mask's (the positions'
+    count where no mask is given).  A data-parallel step sums both over its
+    ranks before it divides, so its loss is the whole batch's."""
+    nll = _nll(logits, labels)
     if mask is None:
-        return nll.mean()
+        return nll.sum(), torch.tensor(float(nll.numel()), device=nll.device)
     mask = mask.float()
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return (nll * mask).sum(), mask.sum()
 
 
 # --------------------------------------------------------------------------- #

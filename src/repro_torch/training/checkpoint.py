@@ -21,9 +21,10 @@ Guarantees (the reference's):
   * atomicity — writes go to ``step_X.tmp-<pid>`` then ``os.replace`` to the
     final name; a crash mid-write never corrupts the latest checkpoint;
   * auto-resume — ``latest_step``/``restore`` pick the newest COMPLETE step;
-  * bounded retention — ``keep`` newest checkpoints survive.
-Restoring under another mesh (the reference's elastic reshape) waits for
-distribution (queue item A11).
+  * bounded retention — ``keep`` newest checkpoints survive;
+  * elastic reshape — leaves are stored unsharded, so a checkpoint restores
+    under any mesh: ``fault.ResilientLoop`` under a mesh gathers the
+    ZeRO-1 moment slices before a save and re-slices them after a restore.
 """
 from __future__ import annotations
 

@@ -15,6 +15,12 @@ after a step whose loss lies on the card (the reference's
 pair goes to disk in the reference's layout (``models.convert``, and
 ``adam_to_jax`` / ``adam_from_jax`` here for the optimizer state), so a
 checkpoint either package's loop writes resumes in the other's.
+
+Under a mesh (a ``train_step.ShardedTrainStep``) the loop checkpoints
+elastically, as the reference's unsharded layout allows: before a save the
+ranks gather their ZeRO-1 moment slices, rank 0 of the ``data`` group
+writes, and the ranks meet at a barrier before they read; a restore re-slices
+the moments by the step's ``opt_specs``, whatever ``data`` size wrote them.
 """
 from __future__ import annotations
 
@@ -24,12 +30,14 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import convert
 from repro_torch.models.common import resolve_device
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training.optimizer import AdamState
+from repro_torch.training.train_step import ShardedTrainStep
 
 
 class Preempted(RuntimeError):
@@ -81,8 +89,12 @@ class ResilientLoop:
         self.ckpt = ckpt.AsyncCheckpointer(cfg.ckpt_dir, keep=cfg.keep)
         self.stragglers = 0
         self._ema_s: Optional[float] = None
+        self.sharded = step_fn if isinstance(step_fn, ShardedTrainStep) else None
+        self.writes = self.sharded is None or self.sharded.rank == 0
 
     def _to_disk(self, params: Any, opt_state: Any) -> Any:
+        if self.sharded is not None:
+            opt_state = self.sharded.gather_state(opt_state)
         if self.model_cfg is None:
             return params, opt_state
         return (convert.to_jax_params(self.model_cfg, params),
@@ -95,13 +107,20 @@ class ResilientLoop:
             p = convert.from_jax_params(self.model_cfg, p, device=table.device,
                                         dtype=table.dtype)
             o = adam_from_jax(self.model_cfg, o, device=table.device)
+        if self.sharded is not None:
+            o = self.sharded.shard_state(o)
         return p, o, start
+
+    def _barrier(self) -> None:
+        if self.sharded is not None:
+            dist.barrier(group=self.sharded.group)
 
     def run(self, params: Any, opt_state: Any) -> Dict[str, Any]:
         """Run (or resume) to total_steps.  On entry, restores the newest
         complete checkpoint if one exists — making restart-after-preemption
         a plain re-invocation."""
         start = 0
+        self._barrier()  # every earlier write is published
         if ckpt.latest_step(self.cfg.ckpt_dir) is not None:
             params, opt_state, start = self._restore(params, opt_state)
         metrics = {}
@@ -126,8 +145,11 @@ class ResilientLoop:
 
             done = step + 1
             if done % self.cfg.ckpt_every == 0 or done == self.cfg.total_steps:
-                self.ckpt.save(done, self._to_disk(params, opt_state))
+                tree = self._to_disk(params, opt_state)
+                if self.writes:
+                    self.ckpt.save(done, tree)
         self.ckpt.wait()
+        self._barrier()
         return {
             "params": params,
             "opt_state": opt_state,

@@ -10,16 +10,25 @@ coefficient of 0.01, normalised by the layer count.
 Gradients come from ``torch.autograd.grad`` on detached copies of the
 parameters that require grad, so a step leaves its inputs as they were, as
 the reference's pure step does.
+
+``make_sharded_train_step`` is the data-parallel step over a mesh's
+``data`` axis, the counterpart of the reference's ``jax.jit(step,
+in_shardings=...)``: every rank holds the full parameters and runs its
+shard of the batch (``sharding.data_specs``), the loss is the whole
+batch's, the gradients are summed over the ranks and the update is
+``AdamW.update_zero1`` (moments sliced by ``opt_specs``).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import encdec, lm
-from repro_torch.training.optimizer import AdamState, AdamW
+from repro_torch.distributed import sharding
+from repro_torch.models import encdec, lm, registry
+from repro_torch.training.optimizer import AdamState, AdamW, Zero1, opt_specs
 from repro_torch.training.tree import tree_leaves, tree_map, tree_unflatten
 
 AUX_COEF = 0.01
@@ -29,28 +38,39 @@ def _on(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+def _forward(params: Any, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
+    """(logits, aux) of the family's training forward."""
+    if cfg.family == "encdec":
+        return encdec.forward(params, cfg, batch["frames"], batch["dec_tokens"])
+    return lm.forward(params, cfg, batch["tokens"], embeds=batch.get("embeds"))
+
+
 def loss_fn(params: Any, cfg: ArchConfig,
             batch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     batch = _on(batch, params["embed"]["table"].device)
-    if cfg.family == "encdec":
-        logits, aux = encdec.forward(params, cfg, batch["frames"], batch["dec_tokens"])
-    else:
-        logits, aux = lm.forward(params, cfg, batch["tokens"], embeds=batch.get("embeds"))
+    logits, aux = _forward(params, cfg, batch)
     ce = lm.cross_entropy(logits, batch["labels"], batch.get("mask"))
     loss = ce + AUX_COEF * aux / max(cfg.n_layers, 1)
     return loss, {"ce": ce, "aux": aux}
 
 
+def _grads(params: Any, objective) -> Tuple[Any, Any]:
+    """``objective(params)`` -> (loss, parts), and the gradients of its
+    loss in the parameters' tree and dtypes (zeros where a parameter took
+    no part), from detached copies that require grad."""
+    live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss, parts = objective(tree_unflatten(params, live))
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(live, grads)]
+    return (loss.detach(), parts), tree_unflatten(params, grads)
+
+
 def value_and_grad(params: Any, cfg: ArchConfig, batch: Dict[str, Any]):
     """``((loss, parts), grads)`` of ``loss_fn``: grads in the parameters'
     tree and dtypes (zeros where a parameter took no part)."""
-    live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    with torch.enable_grad():
-        loss, parts = loss_fn(tree_unflatten(params, live), cfg, batch)
-        grads = torch.autograd.grad(loss, live, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(live, grads)]
-    parts = {k: v.detach() for k, v in parts.items()}
-    return (loss.detach(), parts), tree_unflatten(params, grads)
+    (loss, parts), grads = _grads(params, lambda p: loss_fn(p, cfg, batch))
+    return (loss, {k: v.detach() for k, v in parts.items()}), grads
 
 
 def make_train_step(cfg: ArchConfig, opt: AdamW):
@@ -86,3 +106,92 @@ def make_grad_accum_step(cfg: ArchConfig, opt: AdamW, accum: int):
         return params, opt_state, {"loss": l_acc / accum, "step": opt_state.step}
 
     return step
+
+
+class ShardedTrainStep:
+    """``step(params, opt_state, batch) -> (params, opt_state, metrics)``
+    over a mesh's ``data`` axis (see the module docstring); ``opt_state``
+    holds this rank's moment slices (``init``, ``shard_state``), and
+    ``gather_state`` gives the full state (a collective: every rank calls
+    it).
+
+    The loss is ``lm.cross_entropy`` of the whole batch: each rank's masked
+    NLL sum and mask count are summed over the ranks before the division,
+    and each rank differentiates its own sum over the global count, so the
+    summed gradients are the whole batch's.  The MoE load-balancing loss is
+    each rank's own tokens' and the ranks' mean (ROADMAP C12: the
+    reference's is the global batch's).  A batch the ranks do not divide is
+    run whole on every rank, with no sum.  With one rank on ``data`` this
+    is ``make_train_step``'s arithmetic, bit for bit."""
+
+    def __init__(self, cfg: ArchConfig, opt: AdamW, mesh: Any):
+        axes = sharding.mesh_axes(mesh)
+        if axes.get(sharding.MODEL, 1) > 1:
+            raise ValueError(f"make_sharded_train_step: model axis of size {axes['model']}; "
+                             "tensor-parallel execution is ROADMAP item A11d")
+        if axes.get(sharding.POD, 1) > 1:
+            raise ValueError(f"make_sharded_train_step: pod axis of size {axes['pod']}; only "
+                             "the data axis runs data parallel")
+        self.cfg, self.opt, self.mesh = cfg, opt, mesh
+        self.group = mesh.get_group(sharding.DATA)
+        self.ranks = dist.get_world_size(self.group)
+        self.rank = dist.get_rank(self.group)
+        shapes = registry.get_model(cfg).init(cfg, device="meta")
+        self.param_specs = sharding.param_specs(cfg, shapes, mesh)
+        self.opt_specs = opt_specs(self.param_specs, shapes, mesh)
+        self.zero = Zero1(self.opt_specs.m, mesh)
+
+    def init(self, params: Any) -> AdamState:
+        return self.shard_state(self.opt.init(params))
+
+    def shard_state(self, state: AdamState) -> AdamState:
+        return AdamState(step=state.step, m=self.zero.shard(state.m), v=self.zero.shard(state.v))
+
+    def gather_state(self, state: AdamState) -> AdamState:
+        return AdamState(step=state.step, m=self.zero.gather(state.m),
+                         v=self.zero.gather(state.v))
+
+    def _all_sum(self, t: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(t, group=self.group)
+        return t
+
+    def _local(self, batch: Dict[str, torch.Tensor]):
+        """This rank's rows of every batch leaf, or None where the batch
+        stays whole."""
+        n = next(iter(batch.values())).shape[0]
+        specs = sharding.data_specs(self.cfg, batch, n, self.mesh)
+        if self.ranks == 1 or any(spec[0] is None for spec in specs.values()):
+            return None
+        rows = n // self.ranks
+        return {k: v[self.rank * rows:(self.rank + 1) * rows] for k, v in batch.items()}
+
+    def __call__(self, params: Any, opt_state: AdamState, batch: Dict[str, Any]):
+        cfg = self.cfg
+        batch = _on(batch, params["embed"]["table"].device)
+        local = self._local(batch)
+        if local is None and self.ranks > 1:  # every rank runs the whole batch
+            (loss, parts), grads = value_and_grad(params, cfg, batch)
+        else:
+            local = batch if local is None else local
+
+            def objective(p):
+                logits, aux = _forward(p, cfg, local)
+                total, n = lm.nll_sums(logits, local["labels"], local.get("mask"))
+                count = self._all_sum(n).clamp_min(1.0)
+                share = total / count + AUX_COEF * aux / (max(cfg.n_layers, 1) * self.ranks)
+                return share, {"total": total.detach(), "count": count, "aux": aux.detach()}
+
+            (_, parts), grads = _grads(params, objective)
+            grads = tree_map(self._all_sum, grads)
+            ce = self._all_sum(parts["total"]) / parts["count"]
+            aux = self._all_sum(parts["aux"]) / self.ranks
+            loss = ce + AUX_COEF * aux / max(cfg.n_layers, 1)
+            parts = {"ce": ce, "aux": aux}
+        params, opt_state = self.opt.update_zero1(grads, opt_state, params, self.zero)
+        return params, opt_state, {"loss": loss, **parts, "step": opt_state.step}
+
+
+def make_sharded_train_step(cfg: ArchConfig, opt: AdamW, mesh: Any) -> ShardedTrainStep:
+    """The data-parallel train step over ``mesh`` (a ``DeviceMesh`` with
+    ``data`` and ``model`` dims; ``model`` must have size 1)."""
+    return ShardedTrainStep(cfg, opt, mesh)

@@ -47,7 +47,9 @@ def test_no_jax_or_reference_imports():
             "market/market.py", "market/planner.py", "market/reputation.py",
             "market/settlement.py", "models/moe.py", "kernels/flash_backward.py",
             "training/optimizer.py", "training/train_step.py", "training/checkpoint.py",
-            "training/fault.py", "training/tree.py", "launch/train.py"} <= names, names
+            "training/fault.py", "training/tree.py", "launch/train.py",
+            "distributed/sharding.py", "launch/mesh.py", "configs/shapes.py",
+            "training/compression.py"} <= names, names
     hits = [f"{p}: {m.group(0).strip()}" for p in files for m in pattern.finditer(p.read_text())]
     assert not hits, hits
 
@@ -181,6 +183,61 @@ def test_port_trains_with_jax_and_repro_blocked(tmp_path):
     assert "finished at step 4" in out.stdout
     assert "qwen2-0.5b-smoke: step 3 loss" in out.stdout
     assert "qwen2-0.5b-smoke: step 5 loss" in out.stdout
+
+
+def test_port_trains_data_parallel_with_jax_and_repro_blocked():
+    """Distribution too: cell shapes and specs of a full-size arch on
+    ``meta``, a single-rank gloo host mesh, two steps through
+    ``make_sharded_train_step``, the KV-sharded attention and the int8
+    all-reduce over its group, with JAX and the reference blocked."""
+    script = textwrap.dedent(
+        """
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import torch
+        torch.set_num_threads(1)
+        from repro_torch.configs import SHAPES, get_config, reduced_config
+        from repro_torch.configs.shapes import input_specs
+        from repro_torch.data.synthetic import token_batches
+        from repro_torch.distributed import sharding
+        from repro_torch.kernels import ops
+        from repro_torch.launch.mesh import host_mesh
+        from repro_torch.models import lm
+        from repro_torch.training.compression import compressed_pmean
+        from repro_torch.training.optimizer import AdamW
+        from repro_torch.training.train_step import make_sharded_train_step
+        full = get_config("llama-7b")
+        cell = input_specs(full, SHAPES["decode_32k"])
+        cfg = reduced_config(full)
+        params = lm.init(cfg, seed=0, device="cpu")
+        it = token_batches(cfg, batch=4, seq_len=16, seed=0)
+        with host_mesh(1, 1, device="cpu") as mesh:
+            specs = sharding.data_specs(full, cell.batch, 128, mesh, kv_shard=True)
+            assert specs["state"].caches[0].attn.k == (None, "data", "model", None, None)
+            jamba = get_config("jamba-1.5-large-398b")
+            sharding.param_specs(jamba, lm.init(jamba, device="meta"), mesh)
+            step = make_sharded_train_step(cfg, AdamW(lr=1e-3), mesh)
+            state = step.init(params)
+            for _ in range(2):
+                params, state, m = step(params, state, next(it))
+            group = mesh.get_group("data")
+            q = torch.randn(1, 4, 4, 16)
+            kv = torch.randn(1, 8, 4, 16)
+            pos = torch.arange(8, dtype=torch.int32)[None]
+            out = ops.flash_attention(q, kv, kv, q_pos=pos[:, 4:], kv_pos=pos, kv_group=group)
+            g = compressed_pmean(torch.randn(8, 8), group)
+        print("trained", int(state.step), float(m["loss"]), tuple(out.shape), tuple(g.shape))
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("trained 2 ")
 
 
 def test_port_runs_simulator_faults_and_latency_options_with_jax_and_repro_blocked():

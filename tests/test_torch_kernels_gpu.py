@@ -32,7 +32,10 @@ backward within 2^-7 of each bf16 output's largest magnitude and 1e-4 of
 each f32 output's, tolerances set from its arithmetic emulated on the CPU
 (``tests/test_torch_ssd_bwd_numerics.py``); the reduced mamba2-1.3b,
 jamba-1.5-large-398b and whisper-tiny train a step on the card as on the
-CPU.
+CPU.  The KV-length-sharded route (four shards, one flash launch with
+``lse`` each, and their merge) is held to one unsharded launch, and over a
+single-rank NCCL group it and the data-parallel train step give the
+unsharded launch's and the plain step's bits.
 """
 import os
 import pathlib
@@ -2224,3 +2227,115 @@ def test_reduced_family_train_step_on_card_as_on_cpu(cuda, arch):
         err = (g.cpu() - w).abs().max().item()
         assert err <= SSD_BWD_F32_RTOL * max(w.abs().max().item(), 1e-12), (
             err, w.abs().max().item())
+
+
+# --------------------------------------------------------------------------- #
+# Distribution: the KV-length-sharded route through the flash kernel, and
+# the data-parallel step over a single-rank NCCL mesh
+# --------------------------------------------------------------------------- #
+def _kv_shard_case(cuda, dt, B, Sq, Skv=256, H=8, KV=2, hd=64, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dt) for shape in (
+        (B, Sq, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd)))
+    q_pos = torch.arange(Skv - Sq, Skv, dtype=torch.int32, device=cuda)[None].expand(B, -1)
+    kv_pos = torch.arange(Skv, dtype=torch.int32, device=cuda)[None].expand(B, -1)
+    return q, k, v, q_pos.contiguous(), kv_pos.contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [("float32", F32_ATOL), ("bfloat16", BF16_ATOL)])
+@pytest.mark.parametrize("B,Sq,window", [(1, 48, None), (1, 48, 40), (3, 1, None), (3, 1, 40)])
+def test_kv_sharded_pieces_match_one_launch_on_card(cuda, dtype, atol, B, Sq, window):
+    """Four shards of the kv rows, one flash launch with ``lse`` each
+    (``ops.flash_pieces``) and their merge (``ops.combine_pieces``), against
+    one unsharded launch of the same kernel: within the dtype's atol, with
+    a window that leaves the first shard no key of any row (its ``lse``
+    -inf everywhere, weight 0)."""
+    from repro_torch.kernels import ops
+
+    dt = getattr(torch, dtype)
+    q, k, v, q_pos, kv_pos = _kv_shard_case(cuda, dt, B, Sq)
+    rows = k.shape[1] // 4
+    before = fk.flash_attention.launches
+    pieces = [ops.flash_pieces(q, k[:, i * rows:(i + 1) * rows].contiguous(),
+                               v[:, i * rows:(i + 1) * rows].contiguous(), q_pos=q_pos,
+                               kv_pos=kv_pos[:, i * rows:(i + 1) * rows].contiguous(),
+                               window=window) for i in range(4)]
+    assert fk.flash_attention.launches - before == 4
+    got = ops.combine_pieces([o for o, _ in pieces], [lse for _, lse in pieces])
+    want = fk.flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dt
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= atol, err
+    if window is not None:
+        assert torch.isinf(pieces[0][1]).all() and not pieces[0][0].float().abs().any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kv_sharded_route_over_one_nccl_rank_gives_the_unsharded_bits(cuda, dtype):
+    """Through a single-rank NCCL group (``make_host_mesh`` on the card) the
+    merge's weight is exactly 1: ``ops.flash_attention`` and
+    ``ops.decode_attention`` with ``kv_group`` give the unsharded launch's
+    bits."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import host_mesh
+
+    dt = getattr(torch, dtype)
+    with host_mesh(1, 1, device="cuda") as mesh:
+        assert dist.get_backend() == "nccl"
+        group = mesh.get_group("data")
+        for B, Sq in ((1, 48), (3, 1)):
+            q, k, v, q_pos, kv_pos = _kv_shard_case(cuda, dt, B, Sq, seed=B)
+            want = fk.flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos)
+            route = ops.decode_attention if Sq == 1 else ops.flash_attention
+            got = route(q, k, v, q_pos=q_pos, kv_pos=kv_pos, kv_group=group)
+            assert torch.equal(got, want), (B, Sq)
+    assert not dist.is_initialized()
+
+
+@pytest.mark.gpu
+def test_sharded_train_step_on_card_gives_the_plain_steps_bits(cuda):
+    """The reduced qwen2-0.5b (f32) on the card: two steps of
+    ``make_sharded_train_step`` over a single-rank NCCL mesh and of
+    ``make_train_step`` from the same weights, under deterministic
+    algorithms, give the same parameters, moments and losses, bit for bit."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.models import lm
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_step import make_sharded_train_step, make_train_step
+    from repro_torch.training.tree import tree_leaves
+
+    cfg = reduced_config(get_config("qwen2-0.5b"))
+    params = lm.init(cfg, seed=0, device=cuda)
+    it = token_batches(cfg, batch=4, seq_len=64, seed=0)
+    batches = [{k: torch.as_tensor(v, device=cuda) for k, v in next(it).items()}
+               for _ in range(2)]
+    opt = AdamW(lr=1e-3, weight_decay=0.01)
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        with host_mesh(1, 1, device="cuda") as mesh:
+            step = make_sharded_train_step(cfg, opt, mesh)
+            p1, s1 = params, step.init(params)
+            p2, s2 = params, opt.init(params)
+            plain = make_train_step(cfg, opt)
+            for b in batches:
+                p1, s1, m1 = step(p1, s1, b)
+                p2, s2, m2 = plain(p2, s2, b)
+                assert torch.equal(m1["loss"], m2["loss"])
+            s1 = step.gather_state(s1)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+    for a, b in zip(tree_leaves((p1, s1)), tree_leaves((p2, s2))):
+        assert torch.equal(a, b)

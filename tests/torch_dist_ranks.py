@@ -1,0 +1,258 @@
+"""Ranks of a gloo group for the port's distribution tests on the CPU.
+
+``spawn(case, world, workdir, inputs)`` starts ``world`` processes of this
+file, one per rank, joined in a gloo process group through a ``FileStore``
+in ``workdir``; each runs ``CASES[case]`` on the inputs the test pickled
+there and pickles what it saw for the test to check.  The ranks import
+torch and ``repro_torch`` only (no JAX): the test computes the reference's
+side in its own process.
+
+    python tests/torch_dist_ranks.py CASE RANK WORLD WORKDIR
+"""
+from __future__ import annotations
+
+import os
+import pathlib
+import pickle
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def spawn(case: str, world: int, workdir: pathlib.Path, inputs: dict, timeout: float = 300):
+    """Run ``case`` on ``world`` ranks; returns each rank's output, by rank.
+    Raises with the ranks' error output if any rank fails or the group
+    outlives ``timeout`` seconds (every rank is killed then)."""
+    workdir = pathlib.Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    with open(workdir / "inputs.pkl", "wb") as f:
+        pickle.dump(inputs, f)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, __file__, case, str(r), str(world), str(workdir)],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+    assert not failed, f"ranks {failed} failed:\n" + "\n".join(logs)
+    outs = []
+    for r in range(world):
+        with open(workdir / f"out_{r}.pkl", "rb") as f:
+            outs.append(pickle.load(f))
+    return outs
+
+
+# --------------------------------------------------------------------------- #
+# Cases (run in the rank processes)
+# --------------------------------------------------------------------------- #
+def _np(tree):
+    """Tensors in a nested dict / list / tuple as numpy."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _np(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(_np(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().numpy()
+    return tree
+
+
+def _shard_rows(t, rank: int, n: int):
+    """Rank ``rank`` of ``n``'s equal part of the kv rows (dim 1) of ``t``."""
+    rows = t.shape[1] // n
+    return t[:, rank * rows:(rank + 1) * rows]
+
+
+def case_collectives(rank: int, world: int, inputs: dict) -> dict:
+    """``compressed_pmean`` on groups of 1, 2 and 4 ranks and through
+    ``make_compressed_grad_sync`` over a (pod 2, data 2) mesh; the
+    KV-sharded ``flash_attention`` and ``decode_attention`` on groups of 1,
+    2 and 4 ranks, each rank holding its part of the kv rows."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels import ops
+    from repro_torch.training.compression import compressed_pmean, make_compressed_grad_sync
+
+    out = {}
+    groups = {n: dist.new_group(list(range(n))) for n in (1, 2, 4)}
+    for n, group in groups.items():
+        if rank < n:
+            x = torch.from_numpy(inputs["grads"][rank])
+            out[("pmean", n)] = compressed_pmean(x, group).numpy()
+
+    mesh = init_device_mesh("cpu", (2, 2, 1), mesh_dim_names=("pod", "data", "model"))
+    tree = {"w": torch.from_numpy(inputs["grads"][rank]), "b": [torch.from_numpy(
+        inputs["grads"][rank][0])]}
+    out["sync"] = _np(make_compressed_grad_sync(mesh)(tree))
+    out["pod_ranks"] = dist.get_process_group_ranks(mesh.get_group("pod"))
+    flat = init_device_mesh("cpu", (4, 1), mesh_dim_names=("data", "model"))
+    out["no_pod_is_identity"] = make_compressed_grad_sync(flat)(tree) is tree
+
+    for n in (1, 2, 4):
+        if rank >= n:
+            continue
+        for name, case in inputs["attention"].items():
+            q, k, v, q_pos, kv_pos = (torch.from_numpy(case[x]) for x in
+                                      ("q", "k", "v", "q_pos", "kv_pos"))
+            kw = dict(q_pos=q_pos, kv_pos=_shard_rows(kv_pos, rank, n), window=case["window"],
+                      kv_group=groups[n])
+            k, v = _shard_rows(k, rank, n), _shard_rows(v, rank, n)
+            if case["decode"]:
+                got = ops.decode_attention(q, k, v, **kw)
+            else:
+                got = ops.flash_attention(q, k, v, causal=case["causal"], **kw)
+            out[("attention", n, name)] = got.numpy()
+    return out
+
+
+def _train_setup(inputs: dict, arch: str):
+    import torch
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import convert
+    from repro_torch.training.optimizer import AdamW
+
+    cfg = reduced_config(get_config(arch))
+    params = convert.from_jax_params(cfg, inputs["params"][arch], device="cpu")
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()} for b in inputs["batches"][arch]]
+    return cfg, params, batches, AdamW(**inputs["adamw"])
+
+
+def case_train(rank: int, world: int, inputs: dict) -> dict:
+    """The data-parallel step on every arch of ``inputs["params"]`` (its
+    losses, parameters and gathered moments after each batch), and the
+    ZeRO-1 update against the unsharded one on given gradients."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.models import convert
+    from repro_torch.training.fault import adam_to_jax
+    from repro_torch.training.optimizer import AdamState
+    from repro_torch.training.train_step import make_sharded_train_step
+    from repro_torch.training.tree import tree_leaves, tree_map
+
+    mesh = init_device_mesh("cpu", (world, 1), mesh_dim_names=("data", "model"))
+    out = {}
+    for arch in inputs["params"]:
+        cfg, params, batches, opt = _train_setup(inputs, arch)
+        step = make_sharded_train_step(cfg, opt, mesh)
+        state = step.init(params)
+        metrics = []
+        for b in batches:
+            params, state, m = step(params, state, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+        out[arch] = dict(metrics=metrics, params=convert.to_jax_params(cfg, params),
+                         opt=adam_to_jax(cfg, step.gather_state(state)),
+                         local_m=_np(state.m))
+
+    # ZeRO-1 on the same full gradients, moments and parameters as the
+    # unsharded update
+    cfg, params, _, opt = _train_setup(inputs, inputs["zero1_arch"])
+    step = make_sharded_train_step(cfg, opt, mesh)
+    gen = torch.Generator().manual_seed(5)
+
+    def draw(t):
+        return torch.randn(t.shape, generator=gen, dtype=torch.float32)
+
+    grads = tree_map(draw, params)
+    full = AdamState(step=torch.tensor(3, dtype=torch.int32), m=tree_map(draw, params),
+                     v=tree_map(lambda t: draw(t).square(), params))
+    want_p, want_s = opt.update(grads, full, params)
+    got_p, got_s = opt.update_zero1(grads, step.shard_state(full), params, step.zero)
+    gathered = step.gather_state(got_s)
+    leaves = lambda *trees: [t for tree in trees for t in tree_leaves(tree)]  # noqa: E731
+    out["zero1"] = dict(
+        equal=[torch.equal(a, b) for a, b in zip(leaves(got_p, gathered.m, gathered.v),
+                                                 leaves(want_p, want_s.m, want_s.v))],
+        sliced=sum(a.shape != b.shape for a, b in zip(leaves(got_s.m), leaves(want_s.m))),
+        local_equal=all(torch.equal(a, b) for a, b in zip(
+            leaves(got_s.m), leaves(step.zero.shard(want_s.m)))),
+        step=int(got_s.step))
+    return out
+
+
+def case_checkpoint(rank: int, world: int, inputs: dict) -> dict:
+    """``ResilientLoop`` over the data-parallel step: resume a checkpoint
+    another data size wrote (its moments re-sliced), train on and write
+    one; and a preempted loop resuming bit for bit."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.models import convert
+    from repro_torch.training.fault import LoopConfig, Preempted, ResilientLoop, adam_to_jax
+    from repro_torch.training.train_step import make_sharded_train_step
+    from repro_torch.training.tree import tree_leaves
+
+    mesh = init_device_mesh("cpu", (world, 1), mesh_dim_names=("data", "model"))
+    arch = inputs["arch"]
+    cfg, params0, batches, opt = _train_setup(inputs, arch)
+    step = make_sharded_train_step(cfg, opt, mesh)
+    workdir = pathlib.Path(inputs["dir"])
+
+    def loop(path, total, **kw):
+        return ResilientLoop(step, lambda i: batches[i],
+                             LoopConfig(total_steps=total, ckpt_every=2, ckpt_dir=str(path)),
+                             model_cfg=cfg, **kw)
+
+    out = {}
+    restored = loop(workdir / "elastic", inputs["resume_at"]).run(params0, step.init(params0))
+    out["restored_m"] = _np(restored["opt_state"].m)
+    after = loop(workdir / "elastic", len(batches)).run(params0, step.init(params0))
+    out["after"] = dict(params=convert.to_jax_params(cfg, after["params"]),
+                        opt=adam_to_jax(cfg, step.gather_state(after["opt_state"])),
+                        loss=float(after["metrics"]["loss"]))
+
+    def bomb(i):
+        if i == 3:
+            raise Preempted("simulated preemption")
+
+    whole = loop(workdir / "whole", len(batches)).run(params0, step.init(params0))
+    cut = loop(workdir / "preempted", len(batches), failure_hook=bomb)
+    try:
+        cut.run(params0, step.init(params0))
+        out["preempted"] = False
+    except Preempted:
+        out["preempted"] = True
+        cut.ckpt.wait()
+    resumed = loop(workdir / "preempted", len(batches)).run(params0, step.init(params0))
+    out["resume_equal"] = [torch.equal(a, b) for a, b in zip(
+        tree_leaves((whole["params"], whole["opt_state"])),
+        tree_leaves((resumed["params"], resumed["opt_state"])))]
+    return out
+
+
+CASES = {"collectives": case_collectives, "train": case_train, "checkpoint": case_checkpoint}
+
+
+def main(argv) -> None:
+    case, rank, world, workdir = argv[0], int(argv[1]), int(argv[2]), pathlib.Path(argv[3])
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    with open(workdir / "inputs.pkl", "rb") as f:
+        inputs = pickle.load(f)
+    dist.init_process_group("gloo", store=dist.FileStore(str(workdir / "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        out = CASES[case](rank, world, inputs)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(workdir / f"out_{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
