@@ -7,10 +7,14 @@ with nvcc (one nvcc per source, all started together), then drives the
 paths of the port below, each with every launch counter zeroed just before
 it and read just after it:
 
-1. dense serve phase — full-width, full-depth llama-7b in bf16 (random
-   weights from a seeded generator) behind the port's ``ServingEngine``: the
-   default ``EngineConfig`` but ``max_slots=4, max_len=4096``, H100
-   ``PerfModel`` and prices, ``CostAwarePlanner``.  Two ~2,000-token
+1. dense serve phase — llama-7b at full width cut to ``LLAMA_DEPTH`` (16)
+   of its 32 layers in bf16 (random weights from a seeded generator) behind
+   the port's ``ServingEngine``: the default ``EngineConfig`` but
+   ``max_slots=4, max_len=4096, cost_arch="llama-7b"`` (every plan and
+   modelled time is the whole model's, while the host store moves half its
+   bytes and bills storage on them), H100 ``PerfModel`` and prices,
+   ``CostAwarePlanner``.
+   Phases 1-10 serve this cut.  Two ~2,000-token
    contexts arrive in four waves of two requests: the first recomputes and
    writes back, the second loads, the third loads one context and partially
    reuses a variant of the other, the fourth loads one context twice.  The
@@ -19,7 +23,7 @@ it and read just after it:
 2. paged serve phase — the same traffic through ``EngineConfig(
    paged_decode=True, kv_block=128)``, after the dense engines are dropped:
    the same actions, first-token logits and every decode step's logits as
-   the dense run, bit for bit, 32 paged-decode launches per decode step and
+   the dense run, bit for bit, 16 paged-decode launches per decode step and
    no dense-decode launch; the fourth wave's two loads share the stored
    context's full pool blocks.  Then one copy-on-write split, built by hand
    (engine traffic never needs one: the shared blocks lie below every
@@ -27,13 +31,13 @@ it and read just after it:
 3. unified serve phase — the same traffic through ``EngineConfig(
    paged_decode=True, unified_step=True, kv_block=128)``: every step is one
    launch over the pool that mixes decode rows with 128-token prefill
-   chunks (32 chunked-prefill launches per mixed step, none of the packed
+   chunks (16 chunked-prefill launches per mixed step, none of the packed
    kernel), or a paged decode step when no chunk is ready.  The same
    actions as the paged run, first-token logits within ``LOGIT_ATOL`` of
    it, and its tokens, but where a request's tokens first part, the paged
    run's logits there must be a near-tie (top two within ``LOGIT_ATOL``).
 4. per-request prefill phase — ``ModelApi.prefill`` of each request's
-   context and prompt into a fresh batch-1 state (32 flash launches per
+   context and prompt into a fresh batch-1 state (16 flash launches per
    call), held against the engine's first-token logits of the recompute
    run; then one load request's stored context inserted into a fresh slot
    and its prompt suffix-prefilled after it (twice), held against the reuse
@@ -43,7 +47,7 @@ it and read just after it:
    asks twice with the documents permuted, once with one document
    swapped for a fresh one) behind ``BlendPlanner(recompute_frac=0.16,
    always=True)`` and ``fusion_enabled=True``, served with dense decode,
-   with paged decode (32 fused-prefill launches per fused admission, the
+   with paged decode (16 fused-prefill launches per fused admission, the
    reused rows of each launch's buffer equal before and after it), and
    with the unified step (the fused streams land through the chunked
    kernel, no fused launch), each fused serve's first-token logits within
@@ -69,7 +73,7 @@ it and read just after it:
    loads rebuilt as one packed launch over the stored int8 rows give the
    served logits, and the control, the same rebuild with every scale
    doubled, lands outside ``COMPRESSED_LOGIT_ATOL``.
-7. fault and latency-hiding phase — the prefix mix again on the full
+7. fault and latency-hiding phase — the prefix mix again on the cut
    llama, under faults, then under the latency-hiding options.  A faulted
    serve with dense decode (``FaultInjector(seed=7,
    fail_rate=0.4, corrupt_rate=0.2)``, ``RetryPolicy(max_attempts=2,
@@ -95,7 +99,7 @@ it and read just after it:
    serve's step wall times on the
    card are logged beside the modelled ones.  Then one Fig. 2(a) row from
    the port's simulator (host code), printed, not gated.
-8. cluster phase — the prefix mix through ``ServingCluster`` on the full
+8. cluster phase — the prefix mix through ``ServingCluster`` on the cut
    llama (dense decode, ``CostAwarePlanner``, H100 prices and
    ``PerfModel``), the replicas' steps timed on the card beside the
    modelled ones.  One replica behind ``AffinityRouter`` on the dense
@@ -129,7 +133,7 @@ it and read just after it:
    telemetry's own host ms per step (``on_events`` and the trace write)
    and each step's card wall beside the dense serve's.
 10. market phase — four tenants of one ``Marketplace(verify_rate=1.0,
-   seed=0)`` on the full llama (dense decode, H100 ``PerfModel`` and
+   seed=0)`` on the cut llama (dense decode, H100 ``PerfModel`` and
    prices), each behind ``MarketPlanner(AlwaysReusePlanner())``, with
    ``MARKET_NEW_TOKENS`` decode tokens a request.  Seller ``s`` recomputes
    the prefix mix's contexts A, B and B's variant and writes them back;
@@ -362,6 +366,32 @@ it and read just after it:
    launch are logged side by side.  Last, ``compressed_pmean`` over the
    group on the cut model's gradients: every leaf within its scale (max|g|
    / 127) of the gradient.
+22. dry run — (a) ``repro_torch.launch.dryrun.run_cell`` on a one-card
+   mesh (a fake process group of one rank, ``meta`` tensors) for three
+   qwen2-0.5b cells cut only in global batch (``DRYRUN_CELLS``:
+   ``train_4k`` at 2, ``decode_32k`` at 8, ``prefill_32k`` at 1), then the
+   same steps for real on the card in bf16 at full width and depth
+   (``make_train_step`` with AdamW; ``lm.decode`` over a full cache of
+   32,768 rows; ``lm.prefill`` of 32,768 tokens): each step's wall and
+   ``torch.cuda.max_memory_allocated()`` (after ``reset_peak_memory_stats``)
+   logged beside the record's ``argument_bytes + temp_bytes`` and its
+   roofline time; every step runs with finite outputs, and a cell the
+   record says fits in 80 GB runs without running out of memory.  (b) The
+   models' KV-length-sharded decode: llama-7b at full width cut to
+   ``KVDEC_DEPTH`` layers (a B 4 cache of 32,768 rows is 2.1 GB a layer:
+   the whole depth's 68.7 GB beside its 13.5 GB of weights does not fit),
+   its key projections ``KVDEC_KEY_SCALE`` times the init's (each step's
+   own row carries weight against the random rows), ``KVDEC_STEPS`` greedy
+   steps at B ``KVDEC_B`` over a seeded random cache whose last
+   ``KVDEC_STEPS`` rows the steps write, unsharded (``decode`` launches)
+   and then, from the same cache, through ``lm.decode(..., kv_group=g)`` on
+   the one-rank NCCL group of ``host_mesh`` (each layer a flash launch with
+   ``lse`` through ``ops.flash_pieces`` and the merge), fed the unsharded
+   run's tokens: logits within ``LOGIT_ATOL`` of the unsharded ones each
+   step, argmax tokens equal wherever the unsharded top-two gap exceeds the
+   logits' difference; walls per step of both.  The control, the sharded
+   steps again with every row's position one later (each step's newest row
+   masked), lands outside ``LOGIT_ATOL``.
 
 Then the kernel phase: each kernel is called on the inputs one of its
 launches on those paths received (first layer) and held against its plain
@@ -486,6 +516,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import SHAPES  # noqa: E402
 from repro_torch.core import simulator  # noqa: E402
 from repro_torch.core.cost_model import s_storage_bytes  # noqa: E402
 from repro_torch.core.perf_model import V100_X4_HF, PerfModel  # noqa: E402
@@ -506,6 +537,7 @@ from repro_torch.kernels import ssd_scan as ssk  # noqa: E402
 from repro_torch.kvcache import compression, fusion, paged  # noqa: E402
 from repro_torch.kvcache.faults import FaultInjector, RetryPolicy, payload_checksum  # noqa: E402
 from repro_torch.kvcache.hierarchy import TierSpec  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch.mesh import host_mesh  # noqa: E402
 from repro_torch.market import Marketplace, MarketPlanner  # noqa: E402
@@ -622,6 +654,13 @@ GOSSIP_INTERVAL_S = 0.5
 CLUSTER_EVENTS = (ev.RequestRouted, ev.ReplicaRebalanced, ev.ReplicaCrashed)
 
 SERVE = dict(max_slots=4, max_len=4096)
+# the llama serves (phases 1-10): llama-7b at full width cut to LLAMA_DEPTH
+# of its 32 layers, planned and timed as the whole model (``priced``; the
+# storage fee follows the bytes stored): the host store's
+# copies of each context's K/V (0.52 GB a 2,000-token context at 16 layers,
+# 1.05 at 32) set most of those phases' walls
+LLAMA_DEPTH = 16
+LLAMA = dataclasses.replace(get_config("llama-7b"), n_layers=LLAMA_DEPTH)
 CTX_LEN, PROMPT_LEN, NEW_TOKENS = 2000, 32, 16
 VARIANT_SHARED = 1600  # leading tokens the variant of context B shares with it
 # the launch counter of each kernel, by the name the JSON line gives it
@@ -706,6 +745,20 @@ SSD_BWD_F32_RTOL = 1e-4
 # in DIST_SHARDS shards, a window of DIST_WINDOW and DIST_DECODE_B decode
 # sequences
 DIST_STEPS, DIST_SHARDS, DIST_Q, DIST_KV, DIST_WINDOW, DIST_DECODE_B = 3, 4, 2032, 4096, 1024, 4
+# the dry-run phase: qwen2-0.5b cells cut only in global batch (shape, batch),
+# and the KV-length-sharded decode of llama-7b cut to KVDEC_DEPTH layers:
+# KVDEC_STEPS steps at B KVDEC_B over a cache of KVDEC_LEN rows, its key
+# projections KVDEC_KEY_SCALE times the init's, so that a step's own K row
+# (scores ~N(0, scale^2)) carries weight against the KVDEC_LEN random rows
+# (~N(0, 1)) and a row written or masked wrong moves the logits.  Read on
+# the card at scales 1 / 2 / 3 / 4 / 16 / 64 (PERF.md, PR 40): sharded vs
+# unsharded 0.1198 / 0.1297 / 0.1269 / 0.1930 / 2.13 / 3.33, the control
+# 0.1518 / 2.06 / 5.44 / 5.79 / 7.39 / 6.55; past 4 the scaled keys amplify
+# the routes' bf16 differences from layer to layer
+DRYRUN_ARCH = "qwen2-0.5b"
+DRYRUN_CELLS = (("train_4k", 2), ("decode_32k", 8), ("prefill_32k", 1))
+KVDEC_B, KVDEC_LEN, KVDEC_STEPS, KVDEC_DEPTH = 4, 32768, 8, 16
+KVDEC_KEY_SCALE = 3.0
 # the fused phase's RAG traffic: documents of DOC_LEN tokens, a 32-token
 # prompt per request, the reference's default chunk_tokens of 16, and
 # CacheBlend's default recompute fraction
@@ -977,9 +1030,11 @@ class Recorder:
         return self._decoded(self._orig[2][2], args, kw)
 
     def _decoded(self, fn, args, kw):
-        # the first layer of the first wave's last decode step
+        # the first layer of the first wave's last decode step (the kernel
+        # takes the entry point's arguments but its process group, None
+        # on a serve: the unsharded launch)
         if self._calls["decode"] == self.n_attn * (NEW_TOKENS - 2):
-            self.decode_inputs = keep(args, kw)
+            self.decode_inputs = keep(args, {k: v for k, v in kw.items() if k != "kv_group"})
         self._calls["decode"] += 1
         return fn(*args, **kw)
 
@@ -1050,6 +1105,13 @@ def of_type(events, cls, req_ids=None):
     return [e for e in events if isinstance(e, cls) and (req_ids is None or e.req_id in req_ids)]
 
 
+def priced(cfg) -> dict:
+    """The engine settings that model a serve of ``cfg``: the cut llama's
+    plans and times as the whole llama-7b's (``cost_arch``), every other
+    model as itself."""
+    return {"cost_arch": "llama-7b"} if cfg == LLAMA else {}
+
+
 def serve(cfg, params, *, reuse: bool = True, planner=None, make_traffic=traffic,
           setup=None, telemetry=None, market=None, **ec_kw):
     """Serve the traffic once; returns (engine, records by id, recorder,
@@ -1063,7 +1125,8 @@ def serve(cfg, params, *, reuse: bool = True, planner=None, make_traffic=traffic
     ``telemetry`` is the engine's ``obs.Telemetry`` and ``market`` its
     ``MarketSession`` (both off by default)."""
     eng = ServingEngine(
-        cfg, params, engine_cfg=EngineConfig(**{**SERVE, "reuse_enabled": reuse, **ec_kw}),
+        cfg, params, engine_cfg=EngineConfig(**{**SERVE, **priced(cfg), "reuse_enabled": reuse,
+                                                **ec_kw}),
         planner=planner or CostAwarePlanner(), device=DEVICE, telemetry=telemetry,
         market=market,
     )
@@ -2251,7 +2314,7 @@ def serve_cluster(cfg, params, n_replicas, router, *, setup=None, cc_kw=None,
     ``trace`` (a ``TraceWriter``) are the cluster's, off by default."""
     cl = ServingCluster(
         cfg, params, cluster_cfg=ClusterConfig(n_replicas=n_replicas, **(cc_kw or {})),
-        engine_cfg=EngineConfig(**SERVE, **ec_kw), router=router,
+        engine_cfg=EngineConfig(**SERVE, **priced(cfg), **ec_kw), router=router,
         planner_factory=CostAwarePlanner, device=DEVICE, telemetry=telemetry, trace=trace,
     )
     if setup is not None:
@@ -2402,7 +2465,7 @@ def check_cluster_telemetry(label, cl, tel, trace):
 
 
 def cluster_phase(cfg, params, dense, card, tmp):
-    """Three cluster serves of the prefix mix on the full llama (dense
+    """Three cluster serves of the prefix mix on the cut llama (dense
     decode), held to the dense serve ``dense`` = (records by request, each
     request's per-token logits, launch counts, summary).  ``card`` is the
     card's name and power limit, as nvidia-smi gives them; the traces of
@@ -2718,7 +2781,7 @@ def spot_check_witness(api, cfg, params, sample, art, honest):
 
 
 def market_phase(cfg, params, card):
-    """Two sellers and two buyers of one ``Marketplace`` on the full llama,
+    """Two sellers and two buyers of one ``Marketplace`` on the cut llama,
     and a unified-step seller outside it (see the module docstring, phase
     10).  Returns the first layer's inputs of the honest purchase's spot
     check and the ``flash_attention`` launches of that serve."""
@@ -4576,6 +4639,225 @@ def distribution_phase():
     return {k: train_counts[k] + attn_counts[k] for k in train_counts}, shard_inputs
 
 
+def dryrun_cells():
+    """Phase 22 (a): each cut cell's dry-run record on a one-card mesh and
+    the same step run on the card.  Returns the phase's launches."""
+    assert not dist.is_initialized()
+    cfg = get_config(DRYRUN_ARCH)
+    records = {}
+    for shape_name, gb in DRYRUN_CELLS:
+        shape = dataclasses.replace(SHAPES[shape_name], global_batch=gb)
+        rec = dryrun.run_cell(DRYRUN_ARCH, shape_name, False, None, shape=shape,
+                              mesh_shape=((1, 1), ("data", "model")))
+        assert rec["ok"], rec.get("traceback")
+        records[shape_name] = (shape, rec)
+    log(f"dry run: {DRYRUN_ARCH} cells on a one-rank fake group, cut only in global batch "
+        f"({', '.join(f'{n} {SHAPES[n].global_batch} -> {b}' for n, b in DRYRUN_CELLS)})")
+    params = lm.init(cfg, seed=SEED, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
+    total = {name: 0 for name in COUNTERS}
+
+    def ids(*shape):
+        return torch.randint(0, cfg.vocab, shape, generator=gen, device=DEVICE,
+                             dtype=torch.int32)
+
+    def measure(shape_name, shape, rec):
+        """The cell's step on the card (its tensors die with the call)."""
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "train":
+            opt = AdamW(lr=TRAIN_LR)
+            step, state = make_train_step(cfg, opt), opt.init(params)
+            batch = {"tokens": ids(B, S), "labels": ids(B, S),
+                     "mask": torch.ones(B, S, device=DEVICE)}
+
+            def run():
+                p, _, m = step(params, state, batch)
+                return [m["loss"]] + list(tree_leaves(p))[:2]
+        elif shape.kind == "decode":
+            st = lm.init_state(cfg, B, S, device=DEVICE)
+            st = lm.LMState(pos=torch.full((B,), S - 1, dtype=torch.int32, device=DEVICE),
+                            caches=st.caches)
+            tok = ids(B, 1)
+
+            def run():
+                with torch.inference_mode():
+                    return [lm.decode(params, cfg, tok, st)[0]]
+        else:
+            st = lm.init_state(cfg, B, S, device=DEVICE)
+            tok = ids(B, S)
+
+            def run():
+                with torch.inference_mode():
+                    return [lm.prefill(params, cfg, tok, st)[0]]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        outs = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = counts()
+        peak = torch.cuda.max_memory_allocated()
+        assert all(torch.isfinite(o.float()).all() for o in outs), shape_name
+        del outs
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        m = rec["memory"]
+        predicted = m["argument_bytes"] + m["temp_bytes"]
+        roof = max(rec["flops"] / PEAK_FLOPS[torch.bfloat16],
+                   rec["bytes_accessed"] / HBM_BYTES_PER_S)
+        log(f"dry run {DRYRUN_ARCH} {shape_name} (B {B} x S {S}): record argument_bytes "
+            f"{m['argument_bytes'] / 2**30:.3f} GiB + temp_bytes {m['temp_bytes'] / 2**30:.3f} "
+            f"GiB = {predicted / 2**30:.3f} GiB (fits 80 GB: {predicted <= 80e9}), flops "
+            f"{rec['flops']:.4e}, bytes {rec['bytes_accessed']:.4e}, roofline ms "
+            f"{roof * 1e3:.3f}, traced in {rec['trace_s']:.1f} s; on the card: allocated "
+            f"before {before / 2**30:.3f} GiB, max_memory_allocated {peak / 2**30:.3f} GiB "
+            f"(above the allocated before: {(peak - before) / 2**30:.3f} GiB), predicted / "
+            f"measured bytes {predicted / peak:.4f}; wall ms first {wall * 1e3:.1f}, second "
+            f"{wall2 * 1e3:.1f}; launches {c}")
+        return c
+
+    for shape_name, (shape, rec) in records.items():
+        release()
+        c = measure(shape_name, shape, rec)
+        for k in total:
+            total[k] += c[k]
+        release()
+    del params
+    release()
+    return total
+
+
+def kv_sharded_decode(key_scale: float = KVDEC_KEY_SCALE):
+    """Phase 22 (b): llama-7b's KV-length-sharded decode through the
+    models' route on a one-rank NCCL group, against the unsharded decode
+    from the same cache, and the control: the sharded steps with every
+    row's position one later, so each step's newest row drops out of
+    attention, which must land outside the gate.  Returns the phase's
+    launches and the recorded inputs of the last layer's flash and decode
+    launches."""
+    cfg = dataclasses.replace(get_config("llama-7b"), n_layers=KVDEC_DEPTH)
+    params = lm.init(cfg, seed=SEED, device=DEVICE)
+    for lp in params["layers"]:
+        lp["attn"]["wk"].mul_(key_scale)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+    state = lm.init_state(cfg, KVDEC_B, KVDEC_LEN, device=DEVICE)
+    pos0 = KVDEC_LEN - KVDEC_STEPS
+    for c in state.caches:
+        for t in c.attn:
+            for i in range(t.shape[0]):
+                t[i].copy_(torch.randn(t[i].shape, generator=gen, device=DEVICE))
+    saved = [tuple(t[:, :, pos0:].clone() for t in c.attn) for c in state.caches]
+
+    def restore():
+        for c, kv in zip(state.caches, saved):
+            for t, rows in zip(c.attn, kv):
+                t[:, :, pos0:].copy_(rows)
+
+    pos = torch.full((KVDEC_B,), pos0, dtype=torch.int32, device=DEVICE)
+    # the last call's inputs of each route's launch (the kernels' own
+    # wrappers keep their counters: the entry points above them are wrapped)
+    recorded = {}
+    pieces, decode = ops.flash_pieces, ops.decode_attention
+
+    def keep_last(name, fn):
+        def call(*args, **kw):
+            recorded[name] = (args, {k: v for k, v in kw.items() if k != "kv_group"})
+            return fn(*args, **kw)
+        return call
+
+    def steps(group, toks=None):
+        st = lm.LMState(pos=pos.clone(), caches=state.caches)
+        if group is not None:
+            st = lm.shard_state(st, group)
+        tok = torch.randint(0, cfg.vocab, (KVDEC_B, 1), generator=torch.Generator(
+            device=DEVICE).manual_seed(SEED + 24), device=DEVICE, dtype=torch.int32)
+        logits, tokens, walls = [], [tok], []
+        with torch.inference_mode():
+            for i in range(KVDEC_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, st = lm.decode(params, cfg, tokens[-1] if toks is None else toks[i], st,
+                                   kv_group=group)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                logits.append(lg.float())
+                tokens.append(lg.argmax(-1)[:, None].to(torch.int32))
+        return logits, tokens, walls
+
+    zero_counts()
+    ops.decode_attention = keep_last("decode", decode)
+    try:
+        want, want_tokens, want_walls = steps(None)
+    finally:
+        ops.decode_attention = decode
+    plain_counts = counts()
+    restore()
+    t0 = time.perf_counter()
+    with host_mesh(1, 1, device="cuda") as mesh:
+        group = mesh.get_group("model")
+        zero_counts()
+        ops.flash_pieces = keep_last("flash", pieces)
+        try:
+            got, got_tokens, got_walls = steps(group, want_tokens)
+        finally:
+            ops.flash_pieces = pieces
+        shard_counts = counts()
+        restore()
+
+        def shifted(q, k, v, *, kv_pos, **kw):
+            return pieces(q, k, v, kv_pos=torch.where(kv_pos >= 0, kv_pos + 1, kv_pos), **kw)
+        ops.flash_pieces = shifted
+        try:
+            control, _, _ = steps(group, want_tokens)
+        finally:
+            ops.flash_pieces = pieces
+    assert not dist.is_initialized()
+    n = KVDEC_DEPTH * KVDEC_STEPS
+    assert plain_counts["decode_attention"] == n and sum(plain_counts.values()) == n, plain_counts
+    assert shard_counts["flash_attention"] == n and sum(shard_counts.values()) == n, shard_counts
+    worst, parted = 0.0, []
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.isfinite(a).all()
+        for r in range(KVDEC_B):
+            diff = (a[r] - b[r]).abs().max().item()
+            worst = max(worst, diff)
+            if int(a[r].argmax()) != int(b[r].argmax()):
+                gap = top2_gap(b[r])
+                parted.append((i, r, round(gap, 4), round(diff, 4)))
+                assert gap <= diff, (i, r, gap, diff)
+    missed = max((a - b).abs().max().item() for a, b in zip(control, want))
+    log(f"kv-sharded decode: llama-7b cut to {KVDEC_DEPTH} layers, bf16, keys x{key_scale:g}, "
+        f"B {KVDEC_B} over {KVDEC_LEN} rows (seeded random cache, steps at {pos0}.."
+        f"{KVDEC_LEN - 1}), one-rank NCCL group (host mesh set up and run in "
+        f"{time.perf_counter() - t0:.1f} s): max|sharded - unsharded logits| {worst:.4f} over "
+        f"{KVDEC_STEPS} steps (atol {LOGIT_ATOL}); the control (positions one later, each "
+        f"step's newest row masked) {missed:.4f}, which must exceed it; argmax parted at "
+        f"(step, row, top-two gap, diff) {parted}; step wall ms sharded "
+        f"{[round(w, 2) for w in got_walls]} / unsharded {[round(w, 2) for w in want_walls]}; "
+        f"launches sharded {shard_counts}, unsharded {plain_counts}")
+    assert worst <= LOGIT_ATOL < missed, (worst, missed)
+    inputs = {k: keep(list(args), kw) for k, (args, kw) in recorded.items()}
+    total = {k: plain_counts[k] + shard_counts[k] for k in plain_counts}
+    del params, state, saved, recorded, control
+    release()
+    return total, shard_counts, plain_counts, inputs
+
+
+def dryrun_phase():
+    """Phase 22 (see the module docstring).  Returns its launches, (b)'s
+    by route, and (b)'s recorded last-layer inputs."""
+    t0 = time.perf_counter()
+    cell_counts = dryrun_cells()
+    kv_total, kv_shard, kv_plain, kv_inputs = kv_sharded_decode()
+    log(f"dry-run phase wall: {time.perf_counter() - t0:.1f} s; launches: cells {cell_counts}, "
+        f"kv-sharded decode {kv_total}")
+    return cell_counts, kv_shard, kv_plain, kv_inputs
+
+
 SSD_BWD_KERNELS = {"chunk states": "chunk_state_kernel<false>",
                    "state pass": "state_pass_kernel", "local dh": "chunk_state_kernel<true>",
                    "reverse pass": "reverse_pass_kernel", "x grads": "x_grad_kernel",
@@ -4683,12 +4965,13 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- dense serve phase ------------------------------------------------
-    cfg = get_config("llama-7b")
+    cfg = LLAMA
     t0 = time.perf_counter()
     params = lm.init(cfg, seed=SEED, device=DEVICE)
     torch.cuda.synchronize()
-    log(f"llama-7b bf16: {sum(p.numel() for p in _leaves(params)) / 1e9:.2f} B params "
-        f"drawn in {time.perf_counter() - t0:.1f} s")
+    log(f"llama-7b cut to {cfg.n_layers} layers, bf16, priced as the whole model: "
+        f"{sum(p.numel() for p in _leaves(params)) / 1e9:.2f} B params drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     zero_counts()
     eng, recs, rec, steps, writebacks = serve(cfg, params)
@@ -4901,6 +5184,9 @@ def main() -> None:
     # ---- distribution: the host mesh, the sharded step, KV-sharded attention --
     dist_counts, dist_shard = distribution_phase()
 
+    # ---- dry run: records against real steps, the models' KV-sharded decode --
+    dry_counts, kv_shard_counts, kv_plain_counts, kv_inputs = dryrun_phase()
+
     # ---- kernel phase -----------------------------------------------------
     # the kernels line counts each kernel's launches on its llama path and
     # on the same path of nemo's, olmoe's, mixtral's, granite's, internvl's
@@ -5042,6 +5328,18 @@ def main() -> None:
     kernels.append(dict(check_flash(dist_shard, dist_counts["flash_attention"],
                                     "llama-7b KV shard"),
                         at=f"llama-7b, KV-sharded over {DIST_SHARDS} shards (phase 21)"))
+    # the dry-run phase's: the KV-sharded decode's last flash launch (one
+    # query row over the cache, with lse) and the unsharded decode's, each
+    # with its route's launches
+    kernels += [
+        dict(check_flash(kv_inputs["flash"], kv_shard_counts["flash_attention"],
+                         "llama-7b KV-sharded decode"),
+             at=f"llama-7b, {KVDEC_DEPTH} layers, KV-sharded decode over {KVDEC_LEN} rows "
+                "(phase 22)"),
+        dict(check_decode(kv_inputs["decode"], kv_plain_counts["decode_attention"],
+                          "llama-7b 32k decode"),
+             at=f"llama-7b, {KVDEC_DEPTH} layers, decode over {KVDEC_LEN} rows (phase 22)")]
+    log(f"dry-run phase cells' launches (qwen2-0.5b): {dry_counts}")
     log_device_times()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -198,13 +198,17 @@ class ShapeSpec:
     kind: str  # "train" | "prefill" | "decode"
     seq_len: int
     global_batch: int
+    # the KV caches length-sharded over the mesh's ``model`` axis, attention
+    # through the KV-sharded route (the reference's layout for its
+    # long-context cells, under ``REPRO_ATTN_KV_SHARD=1``)
+    kv_shard: bool = False
 
 
 SHAPES: Dict[str, ShapeSpec] = {
     "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
     "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
     "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
-    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1, kv_shard=True),
 }
 
 

@@ -17,7 +17,6 @@ kernel runs (not autograd of the plain forward).
 """
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import torch
@@ -54,17 +53,23 @@ def flash_attention_fwd_plain(
     kv_pos: torch.Tensor, causal: bool = True, window: Optional[int] = None,
     kv_valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward's output (``ref.attention_ref``'s bits) and each row's
+    """The forward's output (``ref.attention_plain``'s bits) and each row's
     log-sum-exp of the scaled scores ``lse [B, Sq, H]`` f32, -inf for a row
-    that every key masks: what the forward kernel writes under training."""
-    out = ref.attention_ref(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=causal,
-                            window=window, kv_valid=kv_valid)
-    B, Sq, H, hd = q.shape
-    KV = k.shape[2]
-    mask = _mask(q_pos, kv_pos, causal, window, kv_valid)[:, None, None]
-    scores = torch.einsum("bqkgd,bskd->bkgqs", _grouped(q, KV), k.float()) / math.sqrt(hd)
-    lse = torch.logsumexp(scores.masked_fill(~mask, -math.inf), dim=-1)  # [B, KV, G, Sq]
-    return out, lse.permute(0, 3, 1, 2).reshape(B, Sq, H).contiguous()
+    that every key masks: what the forward kernel writes under training,
+    both from one score product, in the query chunks of ``ref.q_chunks``
+    (no whole ``Sq x Skv`` scores at large shapes)."""
+    B, Sq, H, _ = q.shape
+    outs, lses = [], []
+    for c in ref.q_chunks(Sq, k.shape[1]):
+        mask = _mask(q_pos[:, c], kv_pos, causal, window, kv_valid)
+        out, lse = ref._masked_attention_lse(q[:, c], k, v, mask, with_lse=True)
+        outs.append(out)
+        lses.append(lse.permute(0, 3, 1, 2).reshape(B, -1, H))  # [B, KV, G, c] -> [B, c, H]
+
+    def cat(parts):
+        return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+
+    return cat(outs), cat(lses).contiguous()
 
 
 def flash_attention_bwd_plain(
@@ -76,22 +81,28 @@ def flash_attention_bwd_plain(
     """``(dq, dk, dv)`` from the kernel's formulas in f32: P = exp(S·scale -
     lse) on kept pairs, D = rowsum(dO·O), dS = P·(dO Vᵀ - D)·scale, dQ = dS
     K, dK = dSᵀ Q, dV = Pᵀ dO, with dK and dV summed over each kv head's
-    query heads; cast to the inputs' dtype."""
-    hd = q.shape[-1]
+    query heads; cast to the inputs' dtype.  Query chunks as
+    ``ref.q_chunks`` gives them, dK and dV summed over the chunks in f32."""
     KV = k.shape[2]
-    scale = hd ** -0.5
-    kept = _mask(q_pos, kv_pos, causal, window, kv_valid)[:, None, None]  # [B, 1, 1, Sq, Skv]
-    qg, dog = _grouped(q, KV), _grouped(dout, KV)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
-    row_lse = _per_row(lse, KV)
-    row_lse = torch.where(torch.isfinite(row_lse), row_lse, torch.zeros_like(row_lse))
-    p = torch.where(kept, torch.exp(s * scale - row_lse), torch.zeros_like(s))
-    d = _per_row((dout.float() * out.float()).sum(-1), KV)
-    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v.float())
-    ds = p * (dp - d) * scale
-    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()).reshape(q.shape)
-    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg)
-    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    scale = q.shape[-1] ** -0.5
+    kf, vf = k.float(), v.float()
+    dqs, dk, dv = [], None, None
+    for c in ref.q_chunks(q.shape[1], k.shape[1]):
+        kept = _mask(q_pos[:, c], kv_pos, causal, window, kv_valid)[:, None, None]
+        qg, dog = _grouped(q[:, c], KV), _grouped(dout[:, c], KV)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kf)
+        row_lse = _per_row(lse[:, c], KV)
+        row_lse = torch.where(torch.isfinite(row_lse), row_lse, torch.zeros_like(row_lse))
+        p = torch.where(kept, torch.exp(s * scale - row_lse), torch.zeros_like(s))
+        d = _per_row((dout[:, c].float() * out[:, c].float()).sum(-1), KV)
+        dp = torch.einsum("bqkgd,bskd->bkgqs", dog, vf)
+        ds = p * (dp - d) * scale
+        dqs.append(torch.einsum("bkgqs,bskd->bqkgd", ds, kf).reshape(q[:, c].shape))
+        dk_c = torch.einsum("bkgqs,bqkgd->bskd", ds, qg)
+        dv_c = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+        dk = dk_c if dk is None else dk + dk_c
+        dv = dv_c if dv is None else dv + dv_c
+    dq = torch.cat(dqs, dim=1) if len(dqs) > 1 else dqs[0]
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

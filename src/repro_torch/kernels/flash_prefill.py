@@ -31,8 +31,9 @@ def flash_attention_plain(
     kv_pos: torch.Tensor, causal: bool = True, window: Optional[int] = None,
     kv_valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The kernel's function in plain PyTorch (``ref.attention_ref``)."""
-    return ref.attention_ref(
+    """The kernel's function in plain PyTorch (``ref.attention_plain``:
+    ``ref.attention_ref``, q-chunked at large ``Sq * Skv``)."""
+    return ref.attention_plain(
         q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=causal, window=window,
         kv_valid=kv_valid,
     )

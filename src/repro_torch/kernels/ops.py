@@ -1,8 +1,12 @@
 """Kernel entry points of the port, dispatched by the tensors' device.
 
-A CUDA tensor goes to the hand-written kernel, a CPU tensor to the kernel's
-plain version; there is no other switch and no size threshold (unlike the
-JAX package's ``ops.py``, whose reference path also serves ``Sq < 128``).
+A CUDA tensor goes to the hand-written kernel, a CPU (or ``meta``) tensor
+to the kernel's plain version; there is no other switch and no size
+threshold between them (unlike the JAX package's ``ops.py``, whose
+reference path also serves ``Sq < 128``).  Inside the plain flash paths
+(forward, forward with ``lse``, backward) the reference's
+``CHUNKED_THRESHOLD`` picks query chunks (``ref.q_chunks``), so no
+``Sq x Skv`` score tensor is held whole, on the CPU or in the dry run.
 
 ``flash_attention`` and ``ssd_chunked`` are the entry points with a
 gradient: under grad mode with an operand that requires grad they run

@@ -26,18 +26,29 @@ def _masked_attention(
     v: torch.Tensor,
     mask: torch.Tensor,  # [B, Sq, Skv] bool
 ) -> torch.Tensor:
+    return _masked_attention_lse(q, k, v, mask)[0]
+
+
+def _masked_attention_lse(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+    with_lse: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``_masked_attention``'s output and, with ``with_lse``, each row's
+    log-sum-exp of the scaled scores ``[B, KV, G, Sq]`` f32 (-inf where
+    every key is masked), from the one score product."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
     qg = q.reshape(B, Sq, KV, G, hd).float()
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(hd)
     m = mask[:, None, None]  # [B, 1, 1, Sq, Skv]
+    lse = torch.logsumexp(scores.masked_fill(~m, -math.inf), dim=-1) if with_lse else None
     scores = torch.where(m, scores, torch.full_like(scores, NEG_INF))
     scores = scores - scores.amax(dim=-1, keepdim=True)
     w = torch.where(m, torch.exp(scores), torch.zeros_like(scores))
     w = w / w.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
-    return out.reshape(B, Sq, H, hd).to(q.dtype)
+    return out.reshape(B, Sq, H, hd).to(q.dtype), lse
 
 
 def _position_mask(
@@ -71,6 +82,62 @@ def attention_ref(
     if kv_valid is not None:
         mask = mask & kv_valid.bool()[:, None, :]
     return _masked_attention(q, k, v, mask)
+
+
+# The plain path's peak-memory guard (the reference's ``ops.py``
+# ``CHUNKED_THRESHOLD``): attention of ``Sq * Skv`` at or above it runs in
+# query chunks, so no ``Sq x Skv`` score tensor is ever held whole, as the
+# kernels hold none.
+CHUNKED_THRESHOLD = 2048 * 8192
+Q_CHUNK = 512
+
+
+def q_chunks(sq: int, skv: int):
+    """The query slices the plain path runs ``Sq x Skv`` attention in: one
+    slice below ``CHUNKED_THRESHOLD``, slices of ``Q_CHUNK`` rows (the last
+    one shorter) at or above it."""
+    if sq * skv < CHUNKED_THRESHOLD:
+        return [slice(0, sq)]
+    return [slice(i, min(i + Q_CHUNK, sq)) for i in range(0, sq, Q_CHUNK)]
+
+
+def attention_ref_chunked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    q_pos: torch.Tensor,
+    kv_pos: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    kv_valid: Optional[torch.Tensor] = None,
+    q_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """``attention_ref`` over ``q_chunk`` (default ``Q_CHUNK``) queries at a
+    time: the same values, with ``O(q_chunk * Skv)`` scores held at once.
+    The counterpart of the reference's ``attention_ref_chunked`` (which pads
+    the last chunk where this one runs it short), held against it by the
+    tests; the plain path itself slices by ``q_chunks``."""
+    q_chunk = q_chunk or Q_CHUNK
+    kw = dict(kv_pos=kv_pos, causal=causal, window=window, kv_valid=kv_valid)
+    outs = [attention_ref(q[:, i:i + q_chunk], k, v, q_pos=q_pos[:, i:i + q_chunk], **kw)
+            for i in range(0, q.shape[1], q_chunk)]
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+
+def attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_pos: torch.Tensor,
+    kv_pos: torch.Tensor, causal: bool = True, window: Optional[int] = None,
+    kv_valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The flash kernel's plain path: ``attention_ref`` over each query
+    slice of ``q_chunks`` (one slice below ``CHUNKED_THRESHOLD``: the
+    reference's ``ops.flash_attention`` choice, on every device), as the
+    plain forward and backward of ``flash_backward`` slice them."""
+    kw = dict(kv_pos=kv_pos, causal=causal, window=window, kv_valid=kv_valid)
+    outs = [attention_ref(q[:, c], k, v, q_pos=q_pos[:, c], **kw)
+            for c in q_chunks(q.shape[1], k.shape[1])]
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 
 def packed_attention_ref(

@@ -30,6 +30,18 @@ arrays, every mode writes the new rows into the cache tensors in place: the
 dense cache of a full-width model is gigabytes, and a copy per layer per
 step would double it.
 
+With ``kv_group`` (a process group over the mesh's ``model`` axis)
+``prefill`` and ``decode`` run KV-length-sharded, the reference's route
+under ``REPRO_ATTN_KV_SHARD=1``: each rank holds rows ``[r L/m, (r+1) L/m)``
+of every cache (``sharding.state_specs(kv_shard=True)``; ``shard_rows``
+cuts them), writes only the new rows it owns, and attends over its own rows
+through ``ops.flash_attention`` / ``ops.decode_attention(kv_group=...)``,
+whose merge gives every rank the attention over all ``L`` rows.  The
+activations stay whole on every rank.  Where the attended rows do not
+divide over the group (a ring prefill's ``[ring ++ new]``), the ring's
+shards are gathered and attention runs unsharded, as the reference's
+``_mesh_axes_for_kv_shard`` returns None there.
+
 Sliding-window archs keep ``L_cache = min(max_len, window)`` rows.  When
 ``L_cache == window`` the slotted cache is a ring: position ``p`` lives in
 row ``p % window`` and ``_ring_positions`` says which position each row
@@ -39,9 +51,10 @@ the reference: the engine packs only when ``window >= max_len``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
@@ -130,6 +143,91 @@ def _ring_write(cache: torch.Tensor, positions: torch.Tensor, new: torch.Tensor)
 
 
 # --------------------------------------------------------------------------- #
+# The KV-length-sharded layout
+# --------------------------------------------------------------------------- #
+def shard_rows(t: torch.Tensor, group: Any, dim: int = 1) -> torch.Tensor:
+    """This rank's rows of a cache ``t`` along ``dim`` (the length) under
+    the KV-length-sharded layout: the ``r``-th of ``m`` equal parts for
+    rank ``r`` of ``group``, a view.  The length must divide."""
+    m, r = dist.get_world_size(group), dist.get_rank(group)
+    n = t.shape[dim]
+    if n % m:
+        raise ValueError(f"shard_rows: {n} rows do not divide over {m} ranks")
+    return t.narrow(dim, r * (n // m), n // m)
+
+
+def _shard_origin(cache: torch.Tensor, group: Any):
+    """(m ranks, this rank r, its n local rows): it holds global rows
+    ``[r n, (r+1) n)`` of ``m n``; with no group, one rank holds them all."""
+    if group is None:
+        return 1, 0, cache.shape[1]
+    return dist.get_world_size(group), dist.get_rank(group), cache.shape[1]
+
+
+def _gather_rows(t: torch.Tensor, group: Any) -> torch.Tensor:
+    """Every rank's rows of ``t [B, n, ...]`` in rank order (an
+    all-gather)."""
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim=1)
+
+
+def _land_rows(cache: torch.Tensor, src: torch.Tensor, new: torch.Tensor,
+               valid: torch.Tensor) -> None:
+    """Row ``i`` of ``cache [B, n, ...]`` takes ``new[b, src[b, i]]`` where
+    ``valid[b, i]``, in place: every local row written once, so no two
+    writes meet in one row (a scatter of the rows another rank owns would
+    need a row to drop them in)."""
+    S = new.shape[1]
+    idx = src.clamp(0, S - 1).long()
+    rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
+    cache.copy_(torch.where(valid[..., None, None], new[rows, idx], cache))
+
+
+def _prefill_sharded(p, cfg, q, k_new, v_new, cache, offset, positions, group):
+    """``prefill``'s attention and cache writes on this rank's rows."""
+    B, S = positions.shape
+    m, r, n = _shard_origin(cache.k, group)
+    L, first = n * m, r * n
+    g = first + torch.arange(n, dtype=torch.int32, device=q.device)[None]  # [1, n] global rows
+    if _ring(cfg, L):
+        end = offset + S  # [B, 1]
+        # the position each local ring row holds after the call: the last new
+        # token landing there, if any
+        last = end - 1 - torch.remainder(end - 1 - g, L)
+        old_pos = _ring_positions(offset[:, 0], L, B)[:, first:first + n]
+        if S % m == 0:  # (L + S) rows divide: each rank attends its ring rows ++ S / m new
+            c = S // m
+            j = slice(r * c, (r + 1) * c)
+            o = ops.flash_attention(
+                q.contiguous(), torch.cat([cache.k, k_new[:, j]], dim=1),
+                torch.cat([cache.v, v_new[:, j]], dim=1), q_pos=positions.contiguous(),
+                kv_pos=torch.cat([old_pos, positions[:, j]], dim=1).contiguous(),
+                causal=True, window=cfg.sliding_window, kv_group=group)
+        else:  # the reference's unsharded route: the whole ring on every rank
+            k_ring, v_ring = (_gather_rows(t, group) for t in (cache.k, cache.v))
+            o = ops.flash_attention(
+                q.contiguous(), torch.cat([k_ring, k_new], dim=1),
+                torch.cat([v_ring, v_new], dim=1), q_pos=positions.contiguous(),
+                kv_pos=torch.cat([_ring_positions(offset[:, 0], L, B), positions],
+                                 dim=1).contiguous(),
+                causal=True, window=cfg.sliding_window)
+        src = last - offset
+        _land_rows(cache.k, src, k_new, src >= 0)
+        _land_rows(cache.v, src, v_new, src >= 0)
+        return _out(p, o)
+    src = g - offset  # [B, n]: the new token landing on each local row
+    valid = (src >= 0) & (src < S)
+    _land_rows(cache.k, src, k_new, valid)
+    _land_rows(cache.v, src, v_new, valid)
+    kv_pos = torch.where(g < offset + S, g, -1).to(torch.int32)
+    o = ops.flash_attention(
+        q.contiguous(), cache.k, cache.v, q_pos=positions, kv_pos=kv_pos.contiguous(),
+        causal=True, window=cfg.sliding_window, kv_group=group)
+    return _out(p, o)
+
+
+# --------------------------------------------------------------------------- #
 # Forward over the call's own tokens (no cache)
 # --------------------------------------------------------------------------- #
 def forward(
@@ -164,11 +262,13 @@ def prefill(
     p: Params,
     cfg: ArchConfig,
     x: torch.Tensor,  # [B, S, D] — the new (non-reused) tokens
-    cache: KVCache,  # [B, L, KV, hd], written in place
+    cache: KVCache,  # [B, L, KV, hd], written in place (this rank's rows with kv_group)
     offset: torch.Tensor,  # [B] int32 — tokens already in the cache
+    kv_group: Any = None,
 ) -> torch.Tensor:
     """Write the new tokens' K/V at rows ``[offset, offset+S)`` and attend
-    every row below ``offset+S`` causally at absolute positions.
+    every row below ``offset+S`` causally at absolute positions (with
+    ``kv_group``, KV-length-sharded: see the module docstring).
 
     On a ring (``_ring``) a query early in the call needs rows that later
     tokens of the same call overwrite, so attention runs over ``[the ring
@@ -183,6 +283,8 @@ def prefill(
     if cfg.rope_theta is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    if kv_group is not None:
+        return _prefill_sharded(p, cfg, q, k_new, v_new, cache, offset, positions, kv_group)
     if _ring(cfg, L):
         # the concatenations copy the ring before any of its rows is written
         k_all = torch.cat([cache.k, k_new], dim=1)
@@ -289,32 +391,39 @@ def decode(
     p: Params,
     cfg: ArchConfig,
     x: torch.Tensor,  # [B, 1, D]
-    cache: KVCache,  # [B, L, KV, hd], written in place
+    cache: KVCache,  # [B, L, KV, hd], written in place (this rank's rows with kv_group)
     pos: torch.Tensor,  # [B] int32 — position of this token (== cached length)
+    kv_group: Any = None,
 ) -> torch.Tensor:
     """One token per sequence: its K/V row lands at row ``pos`` (on a ring,
     ``pos % window``), then it attends every row the cache holds at or
-    below ``pos``, by position (on a ring, ``_ring_positions(pos + 1)``)."""
+    below ``pos``, by position (on a ring, ``_ring_positions(pos + 1)``);
+    with ``kv_group``, KV-length-sharded (see the module docstring): the
+    rank that owns the new row writes it, and every other rank rewrites
+    that sequence's row with its own values."""
     B = x.shape[0]
-    L = cache.k.shape[1]
     q, k_new, v_new = _qkv(p, cfg, x)
     positions = pos[:, None].to(torch.int32).contiguous()  # [B, 1]
     if cfg.rope_theta is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k_new = apply_rope(k_new, positions, cfg.rope_theta)
-    rows = torch.arange(B, device=x.device)
+    m, r, n = _shard_origin(cache.k, kv_group)
+    L, first = n * m, r * n
     ring = _ring(cfg, L)
-    slots = (pos % L if ring else pos).long()
-    cache.k[rows, slots] = k_new[:, 0]
-    cache.v[rows, slots] = v_new[:, 0]
+    local = (pos % L if ring else pos).to(torch.int32) - first
+    owned = ((local >= 0) & (local < n))[:, None, None]
+    rows = torch.arange(B, device=x.device)
+    idx = local.clamp(0, n - 1).long()
+    for c, new in ((cache.k, k_new), (cache.v, v_new)):
+        c[rows, idx] = torch.where(owned, new[:, 0], c[rows, idx])
     if ring:
-        kv_pos = _ring_positions(pos + 1, L, B)
+        kv_pos = _ring_positions(pos + 1, L, B)[:, first:first + n]
     else:
-        idx = torch.arange(L, dtype=torch.int32, device=x.device)[None]
-        kv_pos = torch.where(idx <= positions, idx, -1).to(torch.int32)
+        g = first + torch.arange(n, dtype=torch.int32, device=x.device)[None]
+        kv_pos = torch.where(g <= positions, g, -1).to(torch.int32)
     o = ops.decode_attention(
-        q.contiguous(), cache.k, cache.v, q_pos=positions, kv_pos=kv_pos,
-        window=cfg.sliding_window,
+        q.contiguous(), cache.k, cache.v, q_pos=positions, kv_pos=kv_pos.contiguous(),
+        window=cfg.sliding_window, kv_group=kv_group,
     )
     return _out(p, o)
 

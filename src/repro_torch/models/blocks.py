@@ -10,7 +10,7 @@ the serving paths drop it, as the reference's ``lm.py`` does.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -127,14 +127,14 @@ def _write_state(dst: ssm.MambaState, src: ssm.MambaState) -> None:
 
 def prefill(
     p: Params, cfg: ArchConfig, kind: BlockKind, x: torch.Tensor, cache: BlockCache,
-    offset: torch.Tensor,
+    offset: torch.Tensor, kv_group: Any = None,
 ) -> torch.Tensor:
     """Full or suffix prefill of one block: ``attention.prefill`` writes the
-    new K/V rows, or the mamba mixer's new state replaces the layer's, in
-    place."""
+    new K/V rows (KV-length-sharded with ``kv_group``), or the mamba mixer's
+    new state replaces the layer's, in place."""
     h = layers.apply_norm(p["norm1"], cfg, x)
     if kind.mixer == "a":
-        x = x + attention.prefill(p["attn"], cfg, h, cache.attn, offset)
+        x = x + attention.prefill(p["attn"], cfg, h, cache.attn, offset, kv_group=kv_group)
     else:
         out, st = ssm.forward(p["mamba"], cfg, h, state=cache.mamba)
         _write_state(cache.mamba, st)
@@ -144,11 +144,11 @@ def prefill(
 
 def decode(
     p: Params, cfg: ArchConfig, kind: BlockKind, x: torch.Tensor, cache: BlockCache,
-    pos: torch.Tensor,
+    pos: torch.Tensor, kv_group: Any = None,
 ) -> torch.Tensor:
     h = layers.apply_norm(p["norm1"], cfg, x)
     if kind.mixer == "a":
-        x = x + attention.decode(p["attn"], cfg, h, cache.attn, pos)
+        x = x + attention.decode(p["attn"], cfg, h, cache.attn, pos, kv_group=kv_group)
     else:
         out, st = ssm.decode(p["mamba"], cfg, h, cache.mamba)
         _write_state(cache.mamba, st)

@@ -13,6 +13,7 @@ API:
   prefill_fused(params, cfg, tokens, caches, q_pos=, q_rows=, kv_pos=, last_idx=)
       -> (logits [1, V], caches)
   decode(params, cfg, tokens [B, 1], state) -> (logits [B, V], LMState)
+  shard_state(state, group) -> this rank's LMState under the KV-length-sharded layout
   decode_paged(params, cfg, tokens [B, 1], caches, block_table=, pos=, block=)
       -> (logits [B, V], caches)
   prefill_chunked(params, cfg, tokens [B, C], caches, block_table=, q_pos=,
@@ -34,13 +35,14 @@ stacks (SSM state mixes along the sequence).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import blocks, common, layers
+from repro_torch.models import attention, blocks, common, layers
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import Params, resolve_device, resolve_dtype
 from repro_torch.models.ssm import MambaState
@@ -114,6 +116,27 @@ def init_state(cfg: ArchConfig, batch: int, max_len: int, device=None,
         caches=tuple(blocks.init_block_cache(cfg, k, n_periods, batch, max_len, device, dtype)
                      for k in kinds),
     )
+
+
+def shard_state(state: LMState, group: Any) -> Optional[LMState]:
+    """This rank's share of ``state`` under the KV-length-sharded layout
+    (``sharding.state_specs(kv_shard=True)``): every attention cache cut to
+    its rows by ``attention.shard_rows`` (views, so writes land in
+    ``state``), the Mamba states whole.  None where a cache's length does
+    not divide over ``group``: the reference's unsharded route, which runs
+    on the whole state."""
+    m = torch.distributed.get_world_size(group)
+    attn = [c.attn for c in state.caches if c.attn is not None]
+    if any(a.k.shape[2] % m for a in attn):
+        return None
+
+    def cut(c: blocks.BlockCache) -> blocks.BlockCache:
+        if c.attn is None:
+            return c
+        return blocks.BlockCache(KVCache(*(attention.shard_rows(t, group, dim=2)
+                                           for t in c.attn)), None)
+
+    return LMState(pos=state.pos, caches=tuple(cut(c) for c in state.caches))
 
 
 # --------------------------------------------------------------------------- #
@@ -216,17 +239,20 @@ def _embed_inputs(params: Params, cfg: ArchConfig, tokens: Optional[torch.Tensor
 
 def prefill(
     params: Params, cfg: ArchConfig, tokens: Optional[torch.Tensor], state: LMState,
-    embeds=None,
+    embeds=None, kv_group: Any = None,
 ) -> Tuple[torch.Tensor, LMState]:
     """Prefill ``tokens`` [B, S] after the ``state.pos`` tokens already in
     the caches (written in place), with ``embeds [B, E, D]`` before them
     where given (positions ``pos .. pos + E - 1``); returns the last
-    position's logits [B, V] and the state with ``pos + E + S``."""
+    position's logits [B, V] and the state with ``pos + E + S``.  With
+    ``kv_group`` (the ``model`` axis's process group) ``state`` is this
+    rank's share (``shard_state``) and attention runs KV-length-sharded."""
     kinds, _ = _layout(cfg)
     x = _embed_inputs(params, cfg, tokens, embeds)
     S = x.shape[1]
     for lp, kind, j, i in _layers(params, kinds):
-        x = blocks.prefill(lp, cfg, kind, x, _block_cache(state.caches[j], i), state.pos)
+        x = blocks.prefill(lp, cfg, kind, x, _block_cache(state.caches[j], i), state.pos,
+                           kv_group=kv_group)
     x = layers.apply_norm(params["final_norm"], cfg, x[:, -1:])
     logits = layers.lm_logits(params["embed"], cfg, x)[:, 0]
     return logits, LMState(pos=state.pos + S, caches=state.caches)
@@ -302,13 +328,16 @@ def prefill_fused(
 # Decode (one token per sequence)
 # --------------------------------------------------------------------------- #
 def decode(
-    params: Params, cfg: ArchConfig, tokens: torch.Tensor, state: LMState
+    params: Params, cfg: ArchConfig, tokens: torch.Tensor, state: LMState,
+    kv_group: Any = None,
 ) -> Tuple[torch.Tensor, LMState]:
-    """One token for every slot; the caches are updated in place."""
+    """One token for every slot; the caches are updated in place.  With
+    ``kv_group``, KV-length-sharded as in ``prefill``."""
     kinds, _ = _layout(cfg)
     x = layers.embed_tokens(params["embed"], cfg, tokens)
     for lp, kind, j, i in _layers(params, kinds):
-        x = blocks.decode(lp, cfg, kind, x, _block_cache(state.caches[j], i), state.pos)
+        x = blocks.decode(lp, cfg, kind, x, _block_cache(state.caches[j], i), state.pos,
+                          kv_group=kv_group)
     x = layers.apply_norm(params["final_norm"], cfg, x)
     logits = layers.lm_logits(params["embed"], cfg, x)[:, 0]
     return logits, LMState(pos=state.pos + 1, caches=state.caches)

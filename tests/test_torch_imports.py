@@ -49,7 +49,10 @@ def test_no_jax_or_reference_imports():
             "training/optimizer.py", "training/train_step.py", "training/checkpoint.py",
             "training/fault.py", "training/tree.py", "launch/train.py",
             "distributed/sharding.py", "launch/mesh.py", "configs/shapes.py",
-            "training/compression.py"} <= names, names
+            "training/compression.py", "launch/dryrun.py", "models/attention.py",
+            "models/lm.py", "models/blocks.py", "kernels/ref.py",
+            "kernels/flash_backward.py", "kernels/flash_prefill.py"} <= names, names
+    assert any(p.name == "torch_roofline.py" for p in files)
     hits = [f"{p}: {m.group(0).strip()}" for p in files for m in pattern.finditer(p.read_text())]
     assert not hits, hits
 
@@ -99,6 +102,40 @@ def test_port_serves_mamba2_with_jax_and_repro_blocked():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert "served 4 requests" in out.stdout and "mamba2-1.3b-smoke" in out.stdout
+
+
+def test_port_dry_runs_with_jax_and_repro_blocked(tmp_path):
+    """The dry run and its roofline with JAX and the reference blocked: a
+    cut ``long_500k`` cell of jamba on the production mesh's fake group
+    (the KV-length-sharded decode) and its roofline terms."""
+    script = textwrap.dedent(
+        f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import dataclasses
+        from pathlib import Path
+        from repro_torch.configs import get_config
+        from repro_torch.launch import dryrun
+        sys.path.insert(0, {str(ROOT)!r})
+        from benchmarks import torch_roofline
+        cfg = dataclasses.replace(get_config("jamba-1.5-large-398b"), n_layers=8)
+        rec = dryrun.run_cell("jamba-1.5-large-398b", "long_500k", False, Path({str(tmp_path)!r}),
+                              cfg=cfg)
+        assert rec["ok"] and rec["kv_shard"] and rec["collectives"]["all-reduce"] > 0, rec
+        cells = torch_roofline.load_all("pod16x16", Path({str(tmp_path)!r}))
+        assert len(cells) == 1 and cells[0]["memory_s"] > 0, cells
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("dry run ok")
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "dry run ok" in out.stdout
 
 
 def test_port_imports_and_serves_with_jax_and_repro_blocked():

@@ -35,7 +35,10 @@ jamba-1.5-large-398b and whisper-tiny train a step on the card as on the
 CPU.  The KV-length-sharded route (four shards, one flash launch with
 ``lse`` each, and their merge) is held to one unsharded launch, and over a
 single-rank NCCL group it and the data-parallel train step give the
-unsharded launch's and the plain step's bits.
+unsharded launch's and the plain step's bits; the models' KV-sharded
+prefill and decode over that group are held to the unsharded ones, and a
+dry-run record's argument and temporary bytes to the same step on the
+card.
 """
 import os
 import pathlib
@@ -2339,3 +2342,85 @@ def test_sharded_train_step_on_card_gives_the_plain_steps_bits(cuda):
             os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
     for a, b in zip(tree_leaves((p1, s1)), tree_leaves((p2, s2))):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_models_kv_sharded_route_over_one_nccl_rank_on_card(cuda):
+    """The models' KV-length-sharded route (``lm.prefill`` / ``lm.decode``
+    with ``kv_group``) of reduced jamba (f32) over a single-rank NCCL group:
+    the prefill gives the unsharded prefill's bits (the flash kernel with
+    ``lse``, a merge weight of exactly 1), and four decode steps, each a
+    flash launch with ``lse`` where the unsharded step launches
+    ``decode_attention``, stay within 1e-4 of its logits (two kernels'
+    f32 sums in another order, through 8 layers) with the same tokens."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.models import lm
+
+    cfg = reduced_config(get_config("jamba-1.5-large-398b"))
+    params = lm.init(cfg, seed=0, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 24), generator=torch.Generator().manual_seed(0),
+                         dtype=torch.int32).to(cuda)
+
+    def run(group):
+        state = lm.init_state(cfg, 2, 64, device=cuda)
+        if group is not None:
+            state = lm.shard_state(state, group)
+        out = []
+        with torch.inference_mode():
+            lg, state = lm.prefill(params, cfg, toks, state, kv_group=group)
+            out.append(lg)
+            for _ in range(4):
+                lg, state = lm.decode(params, cfg, lg.argmax(-1)[:, None].to(torch.int32),
+                                      state, kv_group=group)
+                out.append(lg)
+        return out
+
+    want = run(None)
+    with host_mesh(1, 1, device="cuda") as mesh:
+        assert dist.get_backend() == "nccl"
+        got = run(mesh.get_group("model"))
+    assert not dist.is_initialized()
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        assert (a - b).abs().max().item() <= 1e-4
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
+
+
+@pytest.mark.gpu
+def test_dryrun_record_beside_the_step_on_card(cuda):
+    """A reduced qwen2-0.5b decode cell: ``dryrun.run_cell`` on a one-rank
+    fake group (``meta``), and the same step on the card: its outputs are
+    finite, the record's ``argument_bytes`` are the card step's argument
+    bytes exactly (parameters, tokens and the state), and the card's peak
+    lies within the record's ``argument_bytes + temp_bytes`` and twice it."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+    from repro_torch.training.tree import tree_leaves
+
+    cfg = dataclasses.replace(reduced_config(get_config("qwen2-0.5b")), vocab=4096)
+    shape = ShapeSpec("decode_small", "decode", 2048, 4)
+    rec = dryrun.run_cell("qwen2-0.5b", shape.name, False, None, cfg=cfg, shape=shape,
+                          mesh_shape=((1, 1), ("data", "model")))
+    assert rec["ok"], rec.get("traceback")
+    params = lm.init(cfg, seed=0, device=cuda)
+    state = lm.init_state(cfg, 4, 2048, device=cuda)
+    tok = torch.zeros((4, 1), dtype=torch.int32, device=cuda)
+    args = sum(t.numel() * t.element_size() for t in tree_leaves((params, tok, state)))
+    assert rec["memory"]["argument_bytes"] == args
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.inference_mode():
+        lg, _ = lm.decode(params, cfg, tok, state)
+    torch.cuda.synchronize()
+    assert torch.isfinite(lg).all()
+    used = torch.cuda.max_memory_allocated() - base + args
+    predicted = rec["memory"]["argument_bytes"] + rec["memory"]["temp_bytes"]
+    assert args <= used <= 2 * predicted, (used, predicted)

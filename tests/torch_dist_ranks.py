@@ -232,7 +232,127 @@ def case_checkpoint(rank: int, world: int, inputs: dict) -> dict:
     return out
 
 
-CASES = {"collectives": case_collectives, "train": case_train, "checkpoint": case_checkpoint}
+def case_kv_shard_model(rank: int, world: int, inputs: dict) -> dict:
+    """The models' KV-length-sharded prefill and greedy decode on groups of
+    2 and 4 ranks (every rank holding its rows of each cache through
+    ``lm.shard_state``): each scenario of ``inputs["scenarios"]``' logits
+    per step, its tokens, and whether it took the sharded route."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import convert, lm
+
+    groups = {n: dist.new_group(list(range(n))) for n in (2, 4)}
+    gathers = []
+    all_gather = dist.all_gather
+
+    def counted(*args, **kw):  # the ring's unsharded route gathers its shards
+        gathers.append(1)
+        return all_gather(*args, **kw)
+
+    dist.all_gather = counted
+    out = {}
+    for name, sc in inputs["scenarios"].items():
+        cfg = reduced_config(get_config(sc["arch"]))
+        params = convert.from_jax_params(cfg, inputs["params"][sc["arch"]], device="cpu")
+        for n in sc["ranks"]:
+            if rank >= n:
+                continue
+            full = lm.init_state(cfg, sc["batch"], sc["max_len"], device="cpu")
+            state = lm.shard_state(full, groups[n])
+            group = None if state is None else groups[n]
+            state = full if state is None else state
+            logits = []
+            gathers.clear()
+            with torch.inference_mode():
+                for part in sc["prompts"]:
+                    lg, state = lm.prefill(params, cfg, torch.from_numpy(part), state,
+                                           kv_group=group)
+                    logits.append(lg.numpy())
+                tok = lg.argmax(-1)[:, None].to(torch.int32)
+                tokens = [tok.numpy()]
+                for _ in range(sc["steps"]):
+                    lg, state = lm.decode(params, cfg, tok, state, kv_group=group)
+                    logits.append(lg.numpy())
+                    tok = lg.argmax(-1)[:, None].to(torch.int32)
+                    tokens.append(tok.numpy())
+            out[(name, n)] = dict(logits=logits, tokens=tokens, sharded=group is not None,
+                                  gathers=len(gathers))
+    dist.all_gather = all_gather
+    return out
+
+
+def case_dryrun_collectives(rank: int, world: int, inputs: dict) -> dict:
+    """The bytes the real steps' collectives move, counted by wrapping
+    ``dist.all_reduce`` and the functional all-gathers DTensor calls (each
+    call's output bytes): a data-parallel train step on a (data 2, model 1)
+    mesh, and a KV-length-sharded decode on a (data 1, model 2) mesh."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import lm
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_step import make_sharded_train_step
+
+    seen = {}
+    wrapped = {}
+
+    def count(kind, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            t = args[0] if kind == "all-reduce" else out
+            seen[kind] = seen.get(kind, 0) + t.numel() * t.element_size()
+            return out
+        return call
+
+    def wrap():
+        wrapped.update(all_reduce=dist.all_reduce, all_gather_single=funcol.all_gather_single,
+                       all_gather_tensor=funcol.all_gather_tensor)
+        dist.all_reduce = count("all-reduce", dist.all_reduce)
+        funcol.all_gather_single = count("all-gather", funcol.all_gather_single)
+        funcol.all_gather_tensor = count("all-gather", funcol.all_gather_tensor)
+
+    def unwrap():
+        dist.all_reduce = wrapped["all_reduce"]
+        funcol.all_gather_single = wrapped["all_gather_single"]
+        funcol.all_gather_tensor = wrapped["all_gather_tensor"]
+
+    out = {}
+    cfg = reduced_config(get_config(inputs["train_arch"]))
+    params = lm.init(cfg, seed=0, device="cpu")
+    mesh = init_device_mesh("cpu", (world, 1), mesh_dim_names=("data", "model"))
+    step = make_sharded_train_step(cfg, AdamW(lr=1e-4), mesh)
+    state = step.init(params)
+    batch = {k: torch.from_numpy(v) for k, v in inputs["train_batch"].items()}
+    wrap()
+    try:
+        step(params, state, batch)
+    finally:
+        unwrap()
+    out["train"], seen = dict(seen), {}
+
+    cfg = reduced_config(get_config(inputs["decode_arch"]))
+    params = lm.init(cfg, seed=0, device="cpu")
+    mesh = init_device_mesh("cpu", (1, world), mesh_dim_names=("data", "model"))
+    group = mesh.get_group("model")
+    full = lm.init_state(cfg, 1, inputs["decode_len"], device="cpu")
+    local = lm.shard_state(full, group)
+    wrap()
+    try:
+        with torch.inference_mode():
+            lm.decode(params, cfg, torch.zeros((1, 1), dtype=torch.int32), local, kv_group=group)
+    finally:
+        unwrap()
+    out["decode"] = dict(seen)
+    return out
+
+
+CASES = {"collectives": case_collectives, "train": case_train, "checkpoint": case_checkpoint,
+         "kv_shard_model": case_kv_shard_model, "dryrun_collectives": case_dryrun_collectives}
 
 
 def main(argv) -> None:
