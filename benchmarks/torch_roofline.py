@@ -15,8 +15,12 @@ prefill and decode, ``registry.count_active_params``), the usefulness ratio
 ``model_flops / (flops x devices)`` and the roofline fraction
 ``(model_flops / devices / peak) / dominant term``.  No depth calibration:
 the port's records count every layer (see the dry run's docstring).  The
-collective term covers only what the port runs: a record's null pod and
-tensor-parallel entries (ROADMAP A11d) add nothing.
+collective term covers only what the port runs, every collective in the
+record's ``total``: the model and pod groups' bytes of a dense ``dp`` arch's
+train cell are part of it (``model_tensor_parallel`` and
+``pod_gradient_sync`` break them out); a record's null entries (the other
+families' train cells, tensor-parallel prefill and decode: ROADMAP A11d-2
+and tensor-parallel serving) add nothing.
 
     PYTHONPATH=src python -m benchmarks.torch_roofline [--mesh pod16x16] [--dir DIR]
 """

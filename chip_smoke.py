@@ -348,8 +348,9 @@ it and read just after it:
    single-rank NCCL group and its (data, model) ``DeviceMesh``.  On it,
    qwen2-0.5b at full width cut to ``TRAIN_CUT`` layers in bf16 trains
    ``DIST_STEPS`` steps through ``make_sharded_train_step`` (the whole
-   batch's loss from all-reduced NLL sums, all-reduced gradients, the ZeRO-1
-   update) and through ``make_train_step`` from the same weights, under
+   batch's loss from NLL sums, the ZeRO-1 update; one batch rank sums
+   nothing over the batch axes) and through ``make_train_step`` from the
+   same weights, under
    ``torch.use_deterministic_algorithms(True)``: parameters, moments and
    losses equal bit for bit.  Then the KV-length-sharded attention at
    llama-7b's width (32 heads of 128, bf16): ``DIST_Q`` queries at positions
@@ -392,6 +393,31 @@ it and read just after it:
    logits' difference; walls per step of both.  The control, the sharded
    steps again with every row's position one later (each step's newest row
    masked), lands outside ``LOGIT_ATOL``.
+23. tensor parallelism — qwen2-0.5b at full width cut to ``TRAIN_CUT``
+   layers in bf16, ``TP_STEPS`` steps at B ``TP_BATCH`` x ``TP_SEQ`` under
+   ``torch.use_deterministic_algorithms(True)``.  (a) On the one-rank NCCL
+   ``host_mesh(1, 1)``, ``make_sharded_train_step`` takes the model group
+   down (``attention._forward_tp`` a layer, the vocab-sharded
+   ``lm._nll_sharded`` a step, each call counted) and is held against
+   ``make_train_step`` from the same weights: parameters, moments and
+   losses equal bit for bit.  (b) Two processes of this script
+   (``--tp-rank``) on the card, joined in a gloo group (NCCL refuses two
+   ranks on one device) with their own ``(data 1, model 2)`` mesh: layout
+   (a), each rank's 7 query heads on its kv head through the flash kernel
+   with ``lse`` and its backward; (c) four at ``(data 1, model 4)``, layout
+   (c) (14 and 2 heads do not divide 4: ``q``, ``k``, ``v`` gathered on
+   head_dim).  Each is held against (a)'s ``make_train_step`` run: the
+   loss within ``TP_LOSS_ATOL``, the parameters gathered from the ranks'
+   shards within ``tp_param_bound`` (the furthest AdamW moves a weight:
+   it cannot see a wrong gradient), the first moments gathered after step
+   1, ``(1 - b1)`` times the clipped gradient, within ``TP_MOMENT_RTOL`` of
+   each leaf's largest magnitude, the leaves the specs replicate equal on
+   every rank bit for bit, each rank's launches ``TRAIN_CUT`` forward and
+   backward flash launches a step; the ranks' walls and
+   ``max_memory_allocated`` are logged.  The control, (b)'s ranks for one
+   step with ``copy_to_model``'s backward all-reduce left out, must miss
+   ``TP_MOMENT_RTOL``.  A collective gloo cannot run on a CUDA tensor fails
+   the phase.
 
 Then the kernel phase: each kernel is called on the inputs one of its
 launches on those paths received (first layer) and held against its plain
@@ -482,6 +508,10 @@ call computes the scan's gradient) and appended to the kernels line
 twice, each entry with its own run's launches.  The flash kernel is held
 against its plain version on the last KV shard's launch of phase 21 and
 appended with ``at`` naming the sharded route and that phase's launches.
+The flash forward with ``lse`` and its backward are held against their
+plain versions on phase 23 (b)'s rank 0's first recorded launches (7 query
+heads on 1) and appended with ``at`` naming that route and the phase's
+launches (every rank's).
 
 Any failed check raises, so the script exits non-zero.  The line before the
 last is ``{"kernels": [...]}``; the last is the ``{"ok": true, ...}`` line.
@@ -506,6 +536,7 @@ import types
 
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device; this script runs on the GPU only")
@@ -522,6 +553,7 @@ from repro_torch.core.cost_model import s_storage_bytes  # noqa: E402
 from repro_torch.core.perf_model import V100_X4_HF, PerfModel  # noqa: E402
 from repro_torch.core.pricing import AWS_PAPER  # noqa: E402
 from repro_torch.data.synthetic import frame_batches, token_batches  # noqa: E402
+from repro_torch.distributed import tensor_parallel  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import chunked_prefill as cpk  # noqa: E402
 from repro_torch.kernels import decode_attention as dk  # noqa: E402
@@ -541,7 +573,7 @@ from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch.mesh import host_mesh  # noqa: E402
 from repro_torch.market import Marketplace, MarketPlanner  # noqa: E402
-from repro_torch.models import lm, moe  # noqa: E402
+from repro_torch.models import attention, lm, moe  # noqa: E402
 from repro_torch.models.registry import count_active_params, count_params, get_model  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     AffinityRouter,
@@ -759,6 +791,20 @@ DRYRUN_ARCH = "qwen2-0.5b"
 DRYRUN_CELLS = (("train_4k", 2), ("decode_32k", 8), ("prefill_32k", 1))
 KVDEC_B, KVDEC_LEN, KVDEC_STEPS, KVDEC_DEPTH = 4, 32768, 8, 16
 KVDEC_KEY_SCALE = 3.0
+# the tensor-parallel phase: qwen2-0.5b at full width cut to TRAIN_CUT layers
+# in bf16, TP_STEPS steps at B TP_BATCH x TP_SEQ; (a) one rank through the
+# model-axis route, bit for bit with make_train_step (the loss too: on one
+# rank the vocab-sharded log-sum-exp adds log(exp(0)) = 0); (b) and (c) the
+# gloo ranks of TP_RANKS on the card against that single-process step: the
+# loss within TP_LOSS_ATOL, each gathered parameter within
+# tp_param_bound (PERF.md: both set before the first run), and each
+# gathered first moment after step 1 ((1 - b1) times the clipped gradient)
+# within TP_MOMENT_RTOL of its leaf's largest magnitude; the control, (b)'s
+# ranks with copy_to_model's backward all-reduce left out, must exceed it
+TP_STEPS, TP_BATCH, TP_SEQ, TP_LOSS_ATOL = 2, 2, 2048, 0.02
+TP_MOMENT_RTOL = 0.1
+TP_RANKS = (("(b)", 2, "layout (a), 7 query heads on 1 kv head a rank"),
+            ("(c)", 4, "layout (c), 14 on 2 heads, head_dim 64 split 4 ways"))
 # the fused phase's RAG traffic: documents of DOC_LEN tokens, a 32-token
 # prompt per request, the reference's default chunk_tokens of 16, and
 # CacheBlend's default recompute fraction
@@ -4858,6 +4904,262 @@ def dryrun_phase():
     return cell_counts, kv_shard, kv_plain, kv_inputs
 
 
+# --------------------------------------------------------------------------- #
+# Tensor parallelism (phase 23)
+# --------------------------------------------------------------------------- #
+def tp_setup():
+    """Phase 23's model, weights, optimizer and batches, the same in every
+    process (a seeded generator on the card)."""
+    cfg = train_cfg(n_layers=TRAIN_CUT)
+    params = lm.init(cfg, seed=SEED, device=DEVICE)
+    opt = AdamW(lr=TRAIN_LR, weight_decay=0.01,
+                schedule=cosine_schedule(warmup=1, total=TP_STEPS))
+    it = token_batches(dataclasses.replace(cfg, vocab=TRAIN_DATA_VOCAB), batch=TP_BATCH,
+                       seq_len=TP_SEQ, seed=SEED + 3)
+    batches = [{k: torch.as_tensor(v, device=DEVICE) for k, v in next(it).items()}
+               for _ in range(TP_STEPS)]
+    return cfg, params, opt, batches
+
+
+def tp_param_bound(opt, want: torch.Tensor) -> float:
+    """The largest |Δ| a parameter may show after ``TP_STEPS`` steps whose
+    gradients differ only in their sums' order: a gradient element near 0
+    may flip its sign, and AdamW moves it by up to 2 lr on the first step
+    (m / sqrt(v) = ±1) and 2 x 2 lr on each later one (|m / sqrt(v)| < 2
+    at b1 0.9, b2 0.95), and each side rounds to bf16 (one ulp of the
+    leaf's largest magnitude each)."""
+    lrs = [TRAIN_LR * float(opt.schedule(torch.tensor(i + 1))) for i in range(TP_STEPS)]
+    top = want.float().abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+    return 2 * lrs[0] + 4 * sum(lrs[1:]) + 2 * ulp
+
+
+def _cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu(v) for v in tree)
+    return tree
+
+
+def tp_one_rank():
+    """Phase 23 (a).  Returns its launches and ``make_train_step``'s run
+    (losses and parameters, on the host): (b) and (c)'s reference."""
+    calls = {"_forward_tp": 0, "_nll_sharded": 0}
+    originals = {"_forward_tp": attention._forward_tp, "_nll_sharded": lm._nll_sharded}
+
+    def counted(mod, name):
+        def call(*args, **kw):
+            calls[name] += args[-1] is not None  # the model group, last
+            return originals[name](*args, **kw)
+        setattr(mod, name, call)
+
+    with host_mesh(1, 1, device="cuda") as mesh:
+        assert dist.get_backend() == "nccl", dist.get_backend()
+        cfg, params0, opt, batches = tp_setup()
+        sharded = make_sharded_train_step(cfg, opt, mesh)
+        plain = make_train_step(cfg, opt)
+        assert sharded.model_group is not None
+        counted(attention, "_forward_tp")
+        counted(lm, "_nll_sharded")
+        try:
+            with deterministic():
+                zero_counts()
+                t0 = time.perf_counter()
+                p1, s1, l1 = sharded.shard_params(params0), sharded.init(params0), []
+                for b in batches:
+                    p1, s1, m = sharded(p1, s1, b)
+                    l1.append(m["loss"].item())
+                c = counts()
+                wall = time.perf_counter() - t0
+                p2, s2, l2 = params0, opt.init(params0), []
+                for b in batches:
+                    p2, s2, m = plain(p2, s2, b)
+                    l2.append(m["loss"].item())
+                    if len(l2) == 1:
+                        m1 = _cpu(tree_leaves(s2.m))
+        finally:
+            attention._forward_tp, lm._nll_sharded = (originals["_forward_tp"],
+                                                      originals["_nll_sharded"])
+        same = [torch.equal(a, b) for a, b in zip(
+            tree_leaves((sharded.gather_params(p1), sharded.gather_state(s1))),
+            tree_leaves((p2, s2)))]
+        log(f"tensor parallelism (a): the model-axis route on {dist.get_backend()}'s one-rank "
+            f"mesh ({cfg.name}, {cfg.n_layers} layers at full width, bf16, B {TP_BATCH} x S "
+            f"{TP_SEQ}): {TP_STEPS} steps in {wall:.2f} s, route calls {calls}, launches {c}; "
+            f"losses {l1} / make_train_step {l2}; {sum(same)}/{len(same)} leaves (parameters "
+            f"and moments) equal bit for bit")
+        assert all(same) and l1 == l2, (same, l1, l2)
+        assert calls == {"_forward_tp": cfg.n_layers * TP_STEPS, "_nll_sharded": TP_STEPS}, calls
+        assert c["flash_attention"] == c["flash_attention_bwd"] == cfg.n_layers * TP_STEPS, c
+        assert sum(c.values()) == 2 * cfg.n_layers * TP_STEPS, c
+        reference = (l2, [t.cpu() for t in tree_leaves(p2)], opt, m1)
+        del p1, s1, p2, s2, params0, batches
+    assert not dist.is_initialized()
+    release()
+    return c, reference
+
+
+def tp_rank(rank: int, world: int, workdir: str, control: bool = False) -> None:
+    """One gloo rank of phase 23 (b) or (c), in its own process on the
+    card: ``TP_STEPS`` steps of ``make_sharded_train_step`` on a ``(data 1,
+    model world)`` mesh; its losses, walls, peak memory, launches,
+    parameter shards and first moments' shards after step 1 (and rank 0's
+    first recorded flash launches) go to ``workdir``.  The ``control`` runs
+    one step with ``copy_to_model``'s backward all-reduce left out on every
+    rank (a wrong gradient the gate must catch)."""
+    workdir = pathlib.Path(workdir)
+    torch.cuda.set_device(0)
+    if control:
+        tensor_parallel._CopyToModel.backward = staticmethod(lambda ctx, g: (g, None))
+    dist.init_process_group("gloo", store=dist.FileStore(str(workdir / "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = init_device_mesh("cuda", (1, world), mesh_dim_names=("data", "model"))
+        cfg, params, opt, batches = tp_setup()
+        step = make_sharded_train_step(cfg, opt, mesh)
+        params = step.shard_params(params)
+        state = step.init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls = [], []
+        with deterministic(), TrainRecorder() as rec:
+            zero_counts()
+            for b in batches[:1] if control else batches:
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, b)
+                losses.append(m["loss"].item())
+                walls.append(time.perf_counter() - t0)
+                if len(losses) == 1:
+                    m1 = _cpu(tree_leaves(state.m))  # data 1: ZeRO-1 slices are whole
+            c = counts()
+        out = dict(losses=losses, walls=walls, peak=torch.cuda.max_memory_allocated(),
+                   counts=c, local=_cpu(tree_leaves(params)), m1=m1,
+                   specs=[tuple(sp) for sp in tree_leaves(step.param_specs)])
+        if rank == 0:
+            out["fwd"], out["bwd"] = _cpu(rec.fwd), _cpu(rec.bwd)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, workdir / f"out_{rank}.pt")
+
+
+def tp_spawn(world, workdir, control=False):
+    """``world`` processes of ``tp_rank`` in ``workdir``; returns their
+    outputs and the processes' wall."""
+    workdir.mkdir()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank",
+                               str(r), str(world), str(workdir)] + ["control"] * control)
+             for r in range(world)]
+    try:
+        rcs = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert rcs == [0] * world, f"tensor parallelism: ranks' exit codes {rcs}"
+    return [torch.load(workdir / f"out_{r}.pt") for r in range(world)], time.perf_counter() - t0
+
+
+def tp_gathered(outs, key):
+    """The whole leaves from the ranks' shards under ``key``, and whether
+    every leaf the specs replicate is equal on every rank."""
+    got, replicated_equal = [], True
+    for i, spec in enumerate(outs[0]["specs"]):
+        parts = [o[key][i] for o in outs]
+        if "model" in spec:
+            got.append(torch.cat(parts, dim=spec.index("model")))
+        else:
+            got.append(parts[0])
+            replicated_equal &= all(torch.equal(parts[0], q) for q in parts[1:])
+    return got, replicated_equal
+
+
+def tp_moment_error(outs, want_m):
+    """The worst leaf's largest |Δ| of the first moments after step 1 over
+    that leaf's largest magnitude, and the leaf's index."""
+    got, _ = tp_gathered(outs, "m1")
+    errs = [((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+            for g, w in zip(got, want_m)]
+    return max(errs), errs.index(max(errs))
+
+
+def tp_gloo_ranks(label, world, what, reference, tmp):
+    """Phase 23 (b) or (c): ``world`` processes of ``tp_rank``, held to
+    the single-process step.  Returns every rank's launches summed and rank
+    0's recorded flash launches."""
+    want_losses, want_params, opt, want_m = reference
+    outs, wall = tp_spawn(world, pathlib.Path(tmp) / f"tp{world}")
+    got, replicated_equal = tp_gathered(outs, "local")
+    errs = [((g.float() - w.float()).abs().max().item(), tp_param_bound(opt, w))
+            for g, w in zip(got, want_params)]
+    moved = sum(int((g != w).sum()) for g, w in zip(got, want_params))
+    worst = max(errs, key=lambda e: e[0] / e[1])
+    loss_err = max(abs(a - b) for o in outs for a, b in zip(o["losses"], want_losses))
+    m_err, m_leaf = tp_moment_error(outs, want_m)
+    n = outs[0]["counts"]
+    log(f"tensor parallelism {label}: {world} gloo ranks on the card, mesh (data 1, model "
+        f"{world}), {what}: processes' wall {wall:.1f} s; losses "
+        f"{[o['losses'] for o in outs]} / make_train_step {want_losses}, max |Δ| {loss_err:.3e} "
+        f"(atol {TP_LOSS_ATOL}); gathered parameters: worst leaf max |Δ| {worst[0]:.3e} "
+        f"against its bound {worst[1]:.3e} ({moved} of {sum(w.numel() for w in want_params)} "
+        f"elements differ); first moments after step 1: worst leaf (#{m_leaf}) max |Δ| / max "
+        f"|m| {m_err:.4e} (rtol {TP_MOMENT_RTOL}); replicated leaves equal on every rank "
+        f"{replicated_equal}; launches a rank {n}")
+    for r, o in enumerate(outs):
+        log(f"tensor parallelism {label} rank {r}: step walls ms "
+            f"{[round(x * 1e3, 1) for x in o['walls']]}, max_memory_allocated "
+            f"{o['peak'] / 2**30:.3f} GiB")
+    assert loss_err <= TP_LOSS_ATOL, loss_err
+    assert all(e <= b for e, b in errs), errs
+    assert m_err <= TP_MOMENT_RTOL, (m_err, m_leaf)
+    assert replicated_equal
+    layers = TRAIN_CUT * TP_STEPS
+    for o in outs:
+        c = o["counts"]
+        assert c["flash_attention"] == c["flash_attention_bwd"] == layers, c
+        assert sum(c.values()) == 2 * layers, c
+    total = {k: sum(o["counts"][k] for o in outs) for k in n}
+    return total, outs[0]["fwd"], outs[0]["bwd"]
+
+
+def tp_control(reference, tmp):
+    """Phase 23's control: (b)'s two ranks for one step with
+    ``copy_to_model``'s backward all-reduce left out; its first moments
+    must miss ``TP_MOMENT_RTOL``."""
+    outs, wall = tp_spawn(2, pathlib.Path(tmp) / "control", control=True)
+    m_err, m_leaf = tp_moment_error(outs, reference[3])
+    log(f"tensor parallelism control (b) without copy_to_model's backward all-reduce: "
+        f"processes' wall {wall:.1f} s; losses {[o['losses'] for o in outs]}; first moments "
+        f"after step 1: worst leaf (#{m_leaf}) max |Δ| / max |m| {m_err:.4e} (must exceed "
+        f"{TP_MOMENT_RTOL})")
+    assert m_err > TP_MOMENT_RTOL, (m_err, m_leaf)
+
+
+def tensor_parallel_phase():
+    """Phase 23 (see the module docstring).  Returns its launches (every
+    process's) and (b)'s rank 0's first recorded flash launches."""
+    t0 = time.perf_counter()
+    total, reference = tp_one_rank()
+    recorded = None
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, world, what in TP_RANKS:
+            c, fwd, bwd = tp_gloo_ranks(label, world, what, reference, tmp)
+            total = {k: total[k] + c[k] for k in total}
+            recorded = recorded or (fwd, bwd)
+        tp_control(reference, tmp)
+    log(f"tensor-parallel phase wall: {time.perf_counter() - t0:.1f} s; launches {total}")
+    fwd, bwd = recorded
+    to_card = lambda t: t.to(DEVICE) if isinstance(t, torch.Tensor) else t  # noqa: E731
+    fwd = ([to_card(t) for t in fwd[0]], {k: to_card(v) for k, v in fwd[1].items()})
+    bwd = ([to_card(t) for t in bwd[0]], {k: to_card(v) for k, v in bwd[1].items()})
+    return total, fwd, bwd
+
+
 SSD_BWD_KERNELS = {"chunk states": "chunk_state_kernel<false>",
                    "state pass": "state_pass_kernel", "local dh": "chunk_state_kernel<true>",
                    "reverse pass": "reverse_pass_kernel", "x grads": "x_grad_kernel",
@@ -5187,6 +5489,9 @@ def main() -> None:
     # ---- dry run: records against real steps, the models' KV-sharded decode --
     dry_counts, kv_shard_counts, kv_plain_counts, kv_inputs = dryrun_phase()
 
+    # ---- tensor parallelism: the model axis on one rank and on gloo ranks ---
+    tp_counts, tp_fwd, tp_bwd = tensor_parallel_phase()
+
     # ---- kernel phase -----------------------------------------------------
     # the kernels line counts each kernel's launches on its llama path and
     # on the same path of nemo's, olmoe's, mixtral's, granite's, internvl's
@@ -5340,6 +5645,15 @@ def main() -> None:
                           "llama-7b 32k decode"),
              at=f"llama-7b, {KVDEC_DEPTH} layers, decode over {KVDEC_LEN} rows (phase 22)")]
     log(f"dry-run phase cells' launches (qwen2-0.5b): {dry_counts}")
+    # the tensor-parallel phase's: rank 0 of the model axis of 2 (7 query
+    # heads on 1), its first forward with lse and first backward, with the
+    # phase's launches (every process's)
+    tp_at = "qwen2-0.5b, model rank 0 of 2 (layout (a), 7 on 1 heads; phase 23)"
+    kernels += [
+        dict(check_flash(tp_fwd, tp_counts["flash_attention"], "tensor-parallel rank"),
+             at=tp_at),
+        dict(check_flash_bwd(tp_bwd, tp_counts["flash_attention_bwd"], "tensor-parallel rank"),
+             at=tp_at)]
     log_device_times()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5359,4 +5673,7 @@ def _leaves(tree):
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--tp-rank"]:
+        tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5:6] == ["control"])
+    else:
+        main()

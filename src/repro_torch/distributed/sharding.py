@@ -281,13 +281,17 @@ def data_specs(cfg: ArchConfig, batch_kwargs: Dict[str, Any], batch: int, mesh: 
     return out
 
 
+def spec_dim(spec: P, name: str) -> Optional[int]:
+    """The tensor dim whose entry in ``spec`` names the mesh axis ``name``,
+    or None."""
+    dims = [i for i, entry in enumerate(spec)
+            if entry == name or (isinstance(entry, tuple) and name in entry)]
+    return dims[0] if dims else None
+
+
 def to_placements(spec: P, mesh: Any) -> Tuple[Any, ...]:
     """The DTensor placements of ``spec`` on ``mesh`` (a ``DeviceMesh``),
     one per mesh dim: ``Shard(i)`` where tensor dim ``i``'s entry names
     that mesh dim, else ``Replicate()`` (the reference's ``to_named``)."""
-    placements = []
-    for name in mesh.mesh_dim_names:
-        dims = [i for i, entry in enumerate(spec)
-                if entry == name or (isinstance(entry, tuple) and name in entry)]
-        placements.append(Shard(dims[0]) if dims else Replicate())
-    return tuple(placements)
+    dims = [spec_dim(spec, name) for name in mesh.mesh_dim_names]
+    return tuple(Replicate() if d is None else Shard(d) for d in dims)

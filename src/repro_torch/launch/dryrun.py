@@ -12,12 +12,20 @@ the batch from ``configs.shapes.input_specs``, at one data shard's batch
 on).  The process group is a fake one of the mesh's size in this one
 process (``torch.testing``'s ``FakeStore`` and the ``"fake"`` backend):
 its collectives move nothing, and the meshes of ``launch/mesh.py``'s
-shapes are built on it.  Each cell's record, in the reference's schema:
+shapes are built on it, as rank 0.  A train cell of a dense ``dp`` arch
+(``train_step.runs_model_axis``) runs the step on the whole mesh: this
+rank's ``model`` shards of the parameters (``tensor_parallel``) and its
+rows of the batch over ``("pod", "data")``.  The other cells run whole on
+every rank of the ``model`` axis: the other families' train steps on the
+``data`` sub-mesh at a pod's rows (ROADMAP A11d-2), prefill and decode
+unsharded but for a ``kv_shard`` shape's attention (tensor-parallel
+serving is not run).  Each cell's record, in the reference's schema:
 
   * ``flops``: ``torch.utils.flop_counter.FlopCounterMode``'s count of the
-    data shard's step (matmuls, convolutions, attention products), over
-    the ``model`` axis's size: the ideal tensor-parallel split, which the
-    port does not run yet (ROADMAP A11d);
+    model rank's own step (matmuls, convolutions, attention products) where
+    the step runs the model axis; elsewhere the data shard's step over the
+    ``model`` axis's size (the ideal split, not run).  ``step_flops`` is
+    the data shard's whole step unsplit in both;
   * ``bytes_accessed``: the inputs' and outputs' bytes of every op the
     step dispatches but views (``StepCounter``), each hand-written kernel
     one op (``kernels_as_ops``: its plain version's intermediates live in
@@ -27,17 +35,21 @@ shapes are built on it.  Each cell's record, in the reference's schema:
     on the fake group, by op (``all-reduce``, ``all-gather``, ...) and
     ``total``: the data axis's gradient all-reduce and ZeRO-1 gathers of a
     train step, the KV-length-sharded merge's all-reduces of a decode
-    whose shape has ``kv_shard`` (``long_500k``).  The ``pod`` axis's gradient sync and the
-    ``model`` axis's tensor-parallel collectives are not run by the port
-    (``make_sharded_train_step`` raises on both) and are recorded as null
-    under their own keys, not estimated;
+    whose shape has ``kv_shard`` (``long_500k``).  Where the step runs the
+    model axis, ``model_tensor_parallel`` and ``pod_gradient_sync`` are
+    the bytes of those it calls on the ``model`` and ``pod`` groups (told
+    apart by the process group each op receives; part of ``total``).
+    Where the port does not run them (the other families' train cells,
+    every prefill and decode cell's tensor parallelism) they are null,
+    with the reason under ``not_run``, not estimated;
   * ``memory``: ``argument_bytes`` and ``output_bytes``, each leaf's
     largest local shard over the ranks under ``param_specs``,
     ``opt_specs``, ``data_specs`` and ``state_specs`` (through
     ``to_placements``' DTensor chunks); ``temp_bytes``, the peak of the
     storages the step allocates and still holds (``StepCounter``; a
-    kernel's outputs, not its plain version's intermediates), with the
-    activations whole on every rank of the ``model`` axis;
+    kernel's outputs, not its plain version's intermediates): the model
+    rank's own activations where the step runs the model axis, else the
+    activations whole on every rank of it;
     ``generated_code_bytes`` null;
   * ``basis``: what each field rests on.
 
@@ -89,7 +101,7 @@ from repro_torch.kernels import ssd_scan as ssk
 from repro_torch.launch.mesh import production_mesh_shape
 from repro_torch.models import lm, registry
 from repro_torch.training.optimizer import AdamW, opt_specs
-from repro_torch.training.train_step import make_sharded_train_step
+from repro_torch.training.train_step import make_sharded_train_step, runs_model_axis
 from repro_torch.training.tree import tree_leaves
 
 ARTIFACT_DIR = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
@@ -101,13 +113,16 @@ _COLLECTIVES = (
     ("alltoall", "all-to-all"), ("all_to_all", "all-to-all"), ("broadcast", "broadcast"),
     ("send", "collective-permute"), ("recv", "collective-permute"),
 )
+# why a record's model or pod entry is null: what the port does not run
 _NOT_RUN = {
-    "pod_gradient_sync": "the pod axis's gradient sync is not run by the port "
-                         "(make_sharded_train_step raises on a pod axis > 1; ROADMAP A11d)",
-    "model_tensor_parallel": "the model axis's tensor-parallel collectives are not run by "
-                             "the port (make_sharded_train_step raises on a model axis > 1; "
-                             "ROADMAP A11d)",
+    "pod_gradient_sync": "this family's train step on a pod axis is not run by the port "
+                         "(make_sharded_train_step raises; ROADMAP A11d-2)",
+    "model_tensor_parallel": "this family's tensor-parallel train step is not run by the port "
+                             "(make_sharded_train_step raises on a model axis > 1; ROADMAP "
+                             "A11d-2)",
 }
+_NOT_RUN_SERVING = ("tensor-parallel prefill and decode are not run by the port (ROADMAP: "
+                    "tensor-parallel serving)")
 
 
 def mesh_name(multi_pod: bool) -> str:
@@ -138,6 +153,20 @@ def _tensors(tree: Any) -> list:
 _NO_TRAFFIC = {torch.ops._c10d_functional.wait_tensor.default}
 
 
+def _group_name(func: Any, args: Any, kwargs: Dict[str, Any]) -> Optional[str]:
+    """The process group a collective op receives, found by the op's
+    schema: a c10d op's ``ProcessGroup`` argument, a functional
+    collective's ``group_name`` (its other strings are reduce ops)."""
+    for i, arg in enumerate(func._schema.arguments):
+        a = args[i] if i < len(args) else kwargs.get(arg.name)
+        if isinstance(a, torch.ScriptObject) and a._type().qualified_name().endswith(
+                ".ProcessGroup"):
+            return dist.ProcessGroup.unbox(a).group_name
+        if arg.name == "group_name":
+            return a
+    return None
+
+
 def _from_host(func, ins, outs) -> bool:
     return (func is torch.ops.aten._to_copy.default and ins[0].device.type == "cpu"
             and outs[0].device.type != "cpu")
@@ -150,17 +179,21 @@ class StepCounter(TorchDispatchMode):
     dispatched op but views.  ``collectives``: each collective's output
     bytes by the reference's op name.  ``live`` / ``peak``: the bytes of
     the storages the step's ops allocated and that are still alive, and
-    their peak.  A storage counts from the op that makes it until its last
+    their peak.  ``by_group``: the collectives' bytes under the names
+    ``groups`` gives their process groups (``group_name`` -> name).  A
+    storage counts from the op that makes it until its last
     tensor dies: each of its tensors (views included) holds it through a
     finalizer, and autograd keeps the Python object of a tensor it saves
     alive with it; a storage whose tensors are gone but that some other
     reference still holds is checked again after every op until it is
     freed."""
 
-    def __init__(self):
+    def __init__(self, groups: Optional[Dict[str, str]] = None):
         super().__init__()
         self.bytes_accessed = 0
         self.collectives: Dict[str, int] = {}
+        self.groups = groups or {}
+        self.by_group: Dict[str, int] = {}
         self._live = 0
         self.peak = 0
         self._depth = 0  # inside a kernel's plain version
@@ -240,7 +273,11 @@ class StepCounter(TorchDispatchMode):
             return out
         kind = collective_kind(func)
         if kind is not None:
-            self.collectives[kind] = self.collectives.get(kind, 0) + sum(map(_nbytes, outs))
+            nbytes = sum(map(_nbytes, outs))
+            self.collectives[kind] = self.collectives.get(kind, 0) + nbytes
+            name = self.groups.get(_group_name(func, args, kwargs))
+            if name is not None:
+                self.by_group[name] = self.by_group.get(name, 0) + nbytes
         self._op(ins, outs, moves=not func.is_view and func not in _NO_TRAFFIC)
         return out
 
@@ -332,13 +369,18 @@ def local_bytes(tree: Any, specs: Any, mesh: Any) -> int:
 @dataclasses.dataclass
 class Cell:
     """A cell's step on ``meta`` tensors: ``run()`` runs it once; the
-    argument and output bytes are per device under the specs."""
+    argument and output bytes are per device under the specs.  A train
+    step that runs the model axis names its groups (a ``group_name`` -> the
+    record's key) and ``unsplit()``, the data shard's whole step (its
+    FLOPs are the record's ``step_flops``)."""
 
     run: Callable[[], Any]
     argument_bytes: int
     output_bytes: int
     local_batch: int
     kv_shard: bool
+    groups: Optional[Dict[str, str]] = None
+    unsplit: Optional[Callable[[], Any]] = None
 
 
 def _rows(tree: Any, n: int, device: torch.device) -> Any:
@@ -376,14 +418,29 @@ def build_cell(arch: str, shape_name: str, mesh: Any, *, cfg: Optional[ArchConfi
         opt = AdamW(lr=1e-4)
         o_specs = opt_specs(p_specs, params, mesh)
         state_bytes = 2 * local_bytes(_f32(params), o_specs.m, mesh)
-        # the port runs the data axis; a pod axis's rows are cut here
-        sub = mesh[sharding.DATA] if sharding.DATA in axes else mesh
-        step = make_sharded_train_step(cfg, opt, sub)
-        opt_state = step.init(params)
-        batch = _rows(spec.batch, gb // axes.get(sharding.POD, 1), device)
-        return Cell(lambda: step(params, opt_state, batch),
-                    arg_bytes + state_bytes,
-                    local_bytes(params, p_specs, mesh) + state_bytes, local, False)
+        out_bytes = local_bytes(params, p_specs, mesh) + state_bytes
+
+        def data_step():
+            """The step on the ``data`` sub-mesh at a pod's rows: the
+            parameters whole, the model and pod axes not run."""
+            sub = mesh[sharding.DATA] if sharding.DATA in axes else mesh
+            step = make_sharded_train_step(cfg, opt, sub)
+            opt_state = step.init(params)
+            batch = _rows(spec.batch, gb // axes.get(sharding.POD, 1), device)
+            return lambda: step(params, opt_state, batch)
+
+        if not runs_model_axis(cfg):
+            return Cell(data_step(), arg_bytes + state_bytes, out_bytes, local, False)
+        step = make_sharded_train_step(cfg, opt, mesh)
+        mine = step.shard_params(params)
+        opt_state = step.init(mine)
+        batch = _rows(spec.batch, gb, device)
+        groups = {mesh.get_group(a).group_name: key
+                  for a, key in ((sharding.MODEL, "model_tensor_parallel"),
+                                 (sharding.POD, "pod_gradient_sync")) if axes.get(a, 1) > 1}
+        return Cell(lambda: step(mine, opt_state, batch), arg_bytes + state_bytes, out_bytes,
+                    local, False, groups=groups,
+                    unsplit=data_step() if axes.get(sharding.MODEL, 1) > 1 else None)
 
     # the state at the local batch, as input_specs lays it out at the global one
     group = None
@@ -427,21 +484,25 @@ def _f32(tree: Any) -> Any:
 
 
 BASIS = {
-    "flops": "FlopCounterMode over the eager meta step at one data shard's batch, "
-             "divided by the model axis's size (the ideal tensor-parallel split, A11d)",
+    "flops": "FlopCounterMode over the eager meta step of model rank 0 at one batch shard "
+             "(the dense dp archs' train cells); elsewhere the data shard's step divided by "
+             "the model axis's size (the ideal split: that model axis is not run)",
     "bytes_accessed": "inputs' and outputs' bytes of every dispatched op but views, each "
                       "hand-written kernel one op (an eager step's HBM traffic on the card, "
-                      "caches ignored), activations whole on every model rank",
+                      "caches ignored): model rank 0's own where the step runs the model "
+                      "axis, else activations whole on every model rank",
     "collectives": "output bytes of the c10d / functional collectives the port's step "
-                   "calls on the fake group; the pod and model-axis collectives the port "
-                   "does not run are null",
+                   "calls on the fake group, by op; model_tensor_parallel and "
+                   "pod_gradient_sync: those on the model and pod groups; null where the "
+                   "port does not run them (not_run says why)",
     "memory.argument_bytes": "each input leaf's largest local shard under param_specs, "
                              "opt_specs (f32 moments), data_specs and state_specs",
     "memory.output_bytes": "parameters and moments (train) or f32 logits at the local "
                            "batch and the state (prefill, decode), largest local shards",
     "memory.temp_bytes": "peak of the live storages the step allocates (views and "
                          "autograd's saved tensors followed to their storage; a kernel's "
-                         "outputs, not its plain version's intermediates), activations whole "
+                         "outputs, not its plain version's intermediates): model rank 0's "
+                         "own where the step runs the model axis, else activations whole "
                          "on every model rank",
     "memory.generated_code_bytes": "no compiled program: null",
 }
@@ -478,24 +539,39 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Optional[Path
     try:
         with fake_mesh(dims, axes) as mesh:
             cell = build_cell(arch, shape_name, mesh, cfg=cfg, shape=shape, device=device)
-            counter = StepCounter()
+            counter = StepCounter(cell.groups)
             flops = FlopCounterMode(display=False)
             with flops, counter, kernels_as_ops(counter):
                 result = cell.run()
             del result
+            own_flops = step_flops = flops.get_total_flops()
+            if cell.unsplit is not None:
+                unsplit = FlopCounterMode(display=False)
+                with unsplit:
+                    cell.unsplit()
+                step_flops = unsplit.get_total_flops()
             model = sharding.axis_size(mesh, sharding.MODEL)
             pods = sharding.axis_size(mesh, sharding.POD)
         coll = dict(counter.collectives)
         coll["total"] = sum(coll.values())
-        if model > 1:
-            coll["model_tensor_parallel"] = None
-        if pods > 1 and shape.kind == "train":
-            coll["pod_gradient_sync"] = None
-        step_flops = flops.get_total_flops()
+        not_run = {}
+        if cell.groups is not None:  # the step runs the model axis
+            for key, size in (("model_tensor_parallel", model), ("pod_gradient_sync", pods)):
+                if size > 1:
+                    coll[key] = counter.by_group.get(key, 0)
+        else:
+            if model > 1:
+                coll["model_tensor_parallel"] = None
+                not_run["model_tensor_parallel"] = (_NOT_RUN["model_tensor_parallel"]
+                                                    if shape.kind == "train"
+                                                    else _NOT_RUN_SERVING)
+            if pods > 1 and shape.kind == "train":
+                coll["pod_gradient_sync"] = None
+                not_run["pod_gradient_sync"] = _NOT_RUN["pod_gradient_sync"]
         record.update(
             ok=True,
             trace_s=round(time.time() - t0, 3),
-            flops=step_flops / model,
+            flops=own_flops if cell.groups is not None else step_flops / model,
             step_flops=step_flops,
             bytes_accessed=float(counter.bytes_accessed),
             collectives=coll,
@@ -503,7 +579,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Optional[Path
                     "temp_bytes": counter.peak, "generated_code_bytes": None},
             local_batch=cell.local_batch,
             kv_shard=cell.kv_shard,
-            not_run={k: v for k, v in _NOT_RUN.items() if k in coll},
+            not_run=not_run,
             basis=BASIS,
         )
         print(f"[dryrun] OK  {arch:24s} {shape_name:12s} {name:10s} "

@@ -57,6 +57,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import ops
 from repro_torch.models import common
 from repro_torch.models.common import Params
@@ -230,6 +231,77 @@ def _prefill_sharded(p, cfg, q, k_new, v_new, cache, offset, positions, group):
 # --------------------------------------------------------------------------- #
 # Forward over the call's own tokens (no cache)
 # --------------------------------------------------------------------------- #
+def _kv_heads_of(t: torch.Tensor, first: int, n_q: int, G: int) -> torch.Tensor:
+    """The kv heads of ``t [B, S, KV, hd]`` that query heads ``first ..
+    first + n_q - 1`` read (``G`` query heads a kv head): a contiguous run
+    where each of its heads serves an equal run of those queries, else one
+    kv head per query head."""
+    lo, hi = first // G, (first + n_q - 1) // G + 1
+    per = n_q // (hi - lo)
+    if per * (hi - lo) == n_q and all((first + i) // G - lo == i // per for i in range(n_q)):
+        return t[:, :, lo:hi]
+    idx = torch.tensor([(first + i) // G for i in range(n_q)], device=t.device)
+    return t.index_select(2, idx)
+
+
+def _split(shape: Any, heads: int, hd: int, group: Any) -> str:
+    """How ``param_specs`` laid out this rank's shard of an attention
+    weight whose (heads, head_dim) dims have local sizes ``shape``: over its
+    ``"heads"``, its ``"head_dim"``, or ``"whole"`` (replicated)."""
+    if tp.shard_count(shape[0], heads, group) > 1:
+        return "heads"
+    return "head_dim" if tp.shard_count(shape[1], hd, group) > 1 else "whole"
+
+
+def _forward_tp(p: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
+                causal: bool, group: Any) -> torch.Tensor:
+    """``forward``'s body on this rank's shards of the weights, as
+    ``param_specs`` lays them out (read from the local shapes; with no
+    group, or one rank, every weight is whole and no operator issues
+    anything):
+
+    * (a) query and kv heads split: each rank projects its heads (through
+      ``copy_to_model``), attends them and multiplies its rows of ``wo``;
+    * (b) query heads split, the kv heads' head_dim split (or whole): ``k``
+      and ``v`` are gathered whole and each rank takes the kv heads its
+      query heads read (``copy_to_model`` first: the ranks' reads of one kv
+      head sum in the backward);
+    * (c) every head_dim split (or whole): ``q``, ``k`` and ``v`` gathered,
+      attention on every head on every rank, the output's head_dim slice
+      (``split_last_dim``) meets ``wo``'s rows.
+
+    RoPE runs after any gather (it pairs elements across head_dim); the
+    partial sums of ``wo`` meet in ``reduce_from_model``."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    xc = tp.copy_to_model(x, group)  # one all-reduce of the projections' input gradients
+    proj = {}
+    for name, bias, n in (("wq", "bq", H), ("wk", "bk", KV), ("wv", "bv", KV)):
+        w = p[name]
+        how = _split(w.shape[1:], n, hd, group)
+        y = (x if how == "whole" else xc) @ w.to(x.dtype).reshape(x.shape[-1], -1)
+        y = y.view(*x.shape[:2], w.shape[1], -1)
+        if cfg.qkv_bias:
+            y = y + p[bias].to(x.dtype)
+        proj[name] = (tp.gather_last_dim(y, group) if how == "head_dim" else y, how)
+    (q, q_how), (k, k_how), (v, _) = proj["wq"], proj["wk"], proj["wv"]
+    if cfg.rope_theta is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if q_how == "heads" and k_how != "heads":  # (b)
+        first = tp.group_rank(group) * q.shape[2]
+        k, v = (_kv_heads_of(tp.copy_to_model(t, group), first, q.shape[2], H // KV)
+                for t in (k, v))
+    o = ops.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), q_pos=positions, kv_pos=positions,
+        causal=causal, window=cfg.sliding_window,
+    )
+    if q_how == "heads":  # (a), (b): this rank's heads meet their rows of wo
+        return tp.reduce_from_model(_out(p, o), group)
+    if _split(p["wo"].shape[:2], H, hd, group) == "head_dim":  # (c)
+        return tp.reduce_from_model(_out(p, tp.split_last_dim(o, group)), group)
+    return _out(p, o)  # every attention weight whole
+
+
 def forward(
     p: Params,
     cfg: ArchConfig,
@@ -237,22 +309,16 @@ def forward(
     *,
     causal: bool = True,
     positions: Optional[torch.Tensor] = None,  # [B, S] int32; 0 .. S-1 if not given
+    model_group: Any = None,
 ) -> torch.Tensor:
     """Every token attends the call's tokens at ``positions`` (causally, or
-    all of them), through ``ops.flash_attention``."""
+    all of them), through ``ops.flash_attention``; with ``model_group``, on
+    this rank's shards of the weights (``_forward_tp``)."""
     B, S, _ = x.shape
-    q, k, v = _qkv(p, cfg, x)
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     positions = positions.to(torch.int32).contiguous()
-    if cfg.rope_theta is not None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    o = ops.flash_attention(
-        q.contiguous(), k.contiguous(), v.contiguous(), q_pos=positions, kv_pos=positions,
-        causal=causal, window=cfg.sliding_window,
-    )
-    return _out(p, o)
+    return _forward_tp(p, cfg, x, positions, causal, model_group)
 
 
 # --------------------------------------------------------------------------- #

@@ -83,10 +83,11 @@ def init_block_cache(cfg: ArchConfig, kind: BlockKind, n: int, batch: int, max_l
     return BlockCache(None, ssm.MambaState(*(t.expand(n, *t.shape).clone() for t in one)))
 
 
-def _ffn(p: Params, cfg: ArchConfig, kind: BlockKind,
-         x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _ffn(p: Params, cfg: ArchConfig, kind: BlockKind, x: torch.Tensor,
+         model_group: Any = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The FFN's residual step and its aux loss (the MoE's load-balancing
-    term; 0 for an MLP or none), f32 scalar."""
+    term; 0 for an MLP or none), f32 scalar; an MLP tensor parallel over
+    ``model_group`` where given."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind.ffn == "none":
         return x, zero
@@ -94,7 +95,7 @@ def _ffn(p: Params, cfg: ArchConfig, kind: BlockKind,
     if kind.ffn == "moe":
         out, aux = moe.apply_moe(p["ffn"], cfg, h)
         return x + out, aux
-    return x + layers.apply_mlp(p["ffn"], cfg, h), zero
+    return x + layers.apply_mlp(p["ffn"], cfg, h, model_group), zero
 
 
 def _apply_ffn(p: Params, cfg: ArchConfig, kind: BlockKind, x: torch.Tensor) -> torch.Tensor:
@@ -106,17 +107,23 @@ def _apply_ffn(p: Params, cfg: ArchConfig, kind: BlockKind, x: torch.Tensor) -> 
 # --------------------------------------------------------------------------- #
 def forward(
     p: Params, cfg: ArchConfig, kind: BlockKind, x: torch.Tensor,
-    positions: Optional[torch.Tensor] = None,
+    positions: Optional[torch.Tensor] = None, model_group: Any = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block over the call's own tokens (attention causally at
     ``positions``, or the Mamba mixer from a zero state), returning ``(x,
-    aux)`` (the reference's ``blocks.forward``)."""
+    aux)`` (the reference's ``blocks.forward``).  With ``model_group`` the
+    attention and the MLP run tensor parallel on this rank's shards (the
+    dense blocks: a Mamba mixer or an MoE FFN raises)."""
+    if model_group is not None and (kind.mixer != "a" or kind.ffn == "moe"):
+        raise ValueError(f"{cfg.name}: tensor-parallel execution of a {kind} block is "
+                         "ROADMAP item A11d-2")
     h = layers.apply_norm(p["norm1"], cfg, x)
     if kind.mixer == "a":
-        x = x + attention.forward(p["attn"], cfg, h, positions=positions)
+        x = x + attention.forward(p["attn"], cfg, h, positions=positions,
+                                  model_group=model_group)
     else:
         x = x + ssm.forward(p["mamba"], cfg, h)[0]
-    return _ffn(p, cfg, kind, x)
+    return _ffn(p, cfg, kind, x, model_group)
 
 
 def _write_state(dst: ssm.MambaState, src: ssm.MambaState) -> None:

@@ -4,9 +4,10 @@ chunked prefill, dense and paged decode.
 
 API:
   init(cfg, seed=0, device=None) -> params
-  forward(params, cfg, tokens [B, S], embeds=None) -> (logits [B, E + S, V], aux)
+  forward(params, cfg, tokens [B, S], embeds=None, model_group=None)
+      -> (logits [B, E + S, V], aux)
   cross_entropy(logits, labels, mask=None) -> loss
-  nll_sums(logits, labels, mask=None) -> (nll sum, count)
+  nll_sums(logits, labels, mask=None, model_group=None) -> (nll sum, count)
   init_state(cfg, batch, max_len, device=None) -> LMState
   prefill(params, cfg, tokens [B, S], state, embeds=None) -> (last logits [B, V], LMState)
   prefill_packed(params, cfg, tokens, caches, **layout) -> (logits [n, V], caches)
@@ -42,6 +43,7 @@ import torch.distributed
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import attention, blocks, common, layers
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import Params, resolve_device, resolve_dtype
@@ -144,6 +146,7 @@ def shard_state(state: LMState, group: Any) -> Optional[LMState]:
 # --------------------------------------------------------------------------- #
 def forward(
     params: Params, cfg: ArchConfig, tokens: Optional[torch.Tensor] = None, embeds=None,
+    model_group: Any = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training forward: every position attends causally over the
     call's tokens (``embeds [B, E, D]`` first where given); returns the f32
@@ -156,16 +159,23 @@ def forward(
     either way and only memory differs.  A Mamba layer's scan gets its
     gradient through ``ops.SSDChunkedFn``, an attention layer's through
     ``ops.FlashAttentionFn``; the encoder-decoder's training forward is
-    ``encdec.forward``."""
+    ``encdec.forward``.
+
+    With ``model_group`` (the ``model`` axis's process group) ``params``
+    are this rank's shards (``tensor_parallel.shard_params``): the
+    embedding, the attention and MLP layers and the logits run tensor
+    parallel, and the logits are this rank's vocab columns (``nll_sums``
+    takes the same group)."""
     kinds, _ = _layout(cfg)
-    x = _embed_inputs(params, cfg, tokens, embeds)
+    x = _embed_inputs(params, cfg, tokens, embeds, model_group)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
 
     def period_fn(x, *layer_params):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp, kind in zip(layer_params, kinds):
-            x, a = blocks.forward(lp, cfg, kind, x, positions=positions)
+            x, a = blocks.forward(lp, cfg, kind, x, positions=positions,
+                                  model_group=model_group)
             aux = aux + a
         return x, aux
 
@@ -180,7 +190,7 @@ def forward(
                                                      use_reentrant=False)
         aux = aux + a
     x = layers.apply_norm(params["final_norm"], cfg, x)
-    return layers.lm_logits(params["embed"], cfg, x), aux
+    return layers.lm_logits(params["embed"], cfg, x, model_group), aux
 
 
 def cross_entropy(
@@ -204,14 +214,38 @@ def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return lse - label_logit
 
 
+def _nll_sharded(logits: torch.Tensor, labels: torch.Tensor, group: Any) -> torch.Tensor:
+    """``_nll`` over logits whose last dim is this rank's equal share of the
+    vocab (rank order): each rank's log-sum-exp, shifted by their max over
+    the ranks and summed in exp space, and the label's logit from the rank
+    that holds it.  On one rank this is ``_nll``'s arithmetic bit for bit
+    (``log(exp(0))`` adds 0 and passes the gradient unscaled)."""
+    logits = logits.float()
+    n = logits.shape[-1]
+    part = torch.logsumexp(logits, dim=-1)
+    top = tp.all_max(part, group)
+    lse = top + torch.log(tp.reduce_from_model(torch.exp(part - top), group))
+    idx, owned = layers.local_ids(labels, tp.group_rank(group) * n, n)
+    label_logit = logits.gather(-1, idx[..., None])[..., 0]
+    label_logit = tp.reduce_from_model(
+        torch.where(owned, label_logit, torch.zeros_like(label_logit)), group)
+    return lse - label_logit
+
+
 def nll_sums(
     logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None,
+    model_group: Any = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``cross_entropy``'s numerator and denominator, f32 scalars: the
     masked negative log-likelihood's sum and the mask's (the positions'
     count where no mask is given).  A data-parallel step sums both over its
-    ranks before it divides, so its loss is the whole batch's."""
-    nll = _nll(logits, labels)
+    ranks before it divides, so its loss is the whole batch's.  With
+    ``model_group`` the logits are this rank's vocab columns (``forward``'s
+    with the same group) and every rank gets the whole vocab's sums."""
+    if model_group is None:
+        nll = _nll(logits, labels)
+    else:
+        nll = _nll_sharded(logits, labels, model_group)
     if mask is None:
         return nll.sum(), torch.tensor(float(nll.numel()), device=nll.device)
     mask = mask.float()
@@ -222,7 +256,7 @@ def nll_sums(
 # Prefill (full when state.pos == 0; suffix when state.pos > 0)
 # --------------------------------------------------------------------------- #
 def _embed_inputs(params: Params, cfg: ArchConfig, tokens: Optional[torch.Tensor],
-                  embeds) -> torch.Tensor:
+                  embeds, model_group: Any = None) -> torch.Tensor:
     """The token embeddings, after the precomputed ``embeds [B, E, D]`` (a
     VLM's image patches; a tensor or an array) cast to ``cfg.dtype`` where
     given (the reference's ``_embed_inputs``)."""
@@ -231,7 +265,7 @@ def _embed_inputs(params: Params, cfg: ArchConfig, tokens: Optional[torch.Tensor
         device = params["embed"]["table"].device
         parts.append(torch.as_tensor(embeds, device=device).to(resolve_dtype(cfg.dtype)))
     if tokens is not None:
-        parts.append(layers.embed_tokens(params["embed"], cfg, tokens))
+        parts.append(layers.embed_tokens(params["embed"], cfg, tokens, model_group))
     if not parts:
         raise ValueError("the model needs tokens, embeds or both")
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)

@@ -18,9 +18,10 @@ checkpoint either package's loop writes resumes in the other's.
 
 Under a mesh (a ``train_step.ShardedTrainStep``) the loop checkpoints
 elastically, as the reference's unsharded layout allows: before a save the
-ranks gather their ZeRO-1 moment slices, rank 0 of the ``data`` group
-writes, and the ranks meet at a barrier before they read; a restore re-slices
-the moments by the step's ``opt_specs``, whatever ``data`` size wrote them.
+ranks gather their ``model`` shards and ZeRO-1 moment slices, global rank 0
+writes, and the ranks meet at a barrier before they read; a restore
+re-shards the parameters by the step's ``param_specs`` and re-slices the
+moments by its ``opt_specs``, whatever mesh wrote them.
 """
 from __future__ import annotations
 
@@ -90,10 +91,11 @@ class ResilientLoop:
         self.stragglers = 0
         self._ema_s: Optional[float] = None
         self.sharded = step_fn if isinstance(step_fn, ShardedTrainStep) else None
-        self.writes = self.sharded is None or self.sharded.rank == 0
+        self.writes = self.sharded is None or dist.get_rank() == 0
 
     def _to_disk(self, params: Any, opt_state: Any) -> Any:
         if self.sharded is not None:
+            params = self.sharded.gather_params(params)
             opt_state = self.sharded.gather_state(opt_state)
         if self.model_cfg is None:
             return params, opt_state
@@ -108,12 +110,13 @@ class ResilientLoop:
                                         dtype=table.dtype)
             o = adam_from_jax(self.model_cfg, o, device=table.device)
         if self.sharded is not None:
+            p = self.sharded.shard_params(p)
             o = self.sharded.shard_state(o)
         return p, o, start
 
     def _barrier(self) -> None:
         if self.sharded is not None:
-            dist.barrier(group=self.sharded.group)
+            dist.barrier()
 
     def run(self, params: Any, opt_state: Any) -> Dict[str, Any]:
         """Run (or resume) to total_steps.  On entry, restores the newest

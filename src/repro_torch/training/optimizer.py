@@ -11,11 +11,13 @@ step needs no host sync.
 ``opt_specs`` is the reference's ZeRO-1 rule: each moment takes its
 parameter's spec, and where that does not use the ``data`` axis, the
 largest unsharded dim that ``data`` divides gets it.  ``Zero1`` applies the
-rule on a mesh (each rank keeps its slice of every moment) and
-``AdamW.update_zero1`` is the update over it: the global-norm clip reads
-the full gradient, each rank updates its slice of ``m``, ``v`` and the
-parameter, and the ranks all-gather the parameter, which gives the
-unsharded update's bits (every other op is elementwise).
+rule on a mesh (each rank keeps its ``data`` slice of every moment of its
+``model`` shard) and ``AdamW.update_zero1`` is the update over it: the
+global-norm clip reads the whole gradient (a ``model``-sharded leaf's sum
+of squares summed over the ``model`` ranks), each rank updates its slice of
+``m``, ``v`` and the parameter, and the ranks all-gather the parameter over
+``data``, which gives the unsharded update's bits (every other op is
+elementwise; over ``model`` the norm's sums run in another order).
 """
 from __future__ import annotations
 
@@ -24,9 +26,10 @@ import math
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, distribute_tensor
+import torch.distributed as dist
 
-from repro_torch.distributed.sharding import DATA, P, axis_size, to_placements
+from repro_torch.distributed.sharding import DATA, MODEL, P, axis_size, spec_dim
+from repro_torch.distributed.tensor_parallel import gather_dim, shard_dim
 from repro_torch.models.common import Params
 from repro_torch.training.tree import tree_leaves, tree_map
 
@@ -67,21 +70,25 @@ class AdamW:
     def update_zero1(self, grads: Params, state: AdamState, params: Params,
                      zero: "Zero1") -> Tuple[Params, AdamState]:
         """``update`` with ``state``'s moments sliced by ``zero``: ``grads``
-        are the full (all-reduced) gradients and ``params`` the full
-        parameters on every rank; returns the full new parameters and the
-        new sliced state, the bits ``update`` gives."""
+        (all-reduced over the batch axes) and ``params`` are this rank's
+        ``model`` shards, whole over ``data``; returns the new parameters in
+        the same layout and the new sliced state, the bits ``update`` gives
+        on a ``model`` axis of one."""
         step = state.step + 1
-        m, v = self._moments(state, zero.shard(self._clipped(grads)))
+        m, v = self._moments(state, zero.shard(self._clipped(grads, zero.whole_squares)))
         local = tree_map(self._param_update(step), zero.shard(params), m, v)
         return zero.gather(local), AdamState(step=step, m=m, v=v)
 
-    def _clipped(self, grads: Params) -> Params:
+    def _clipped(self, grads: Params,
+                 whole: Optional[Callable[[list], list]] = None) -> Params:
         """The gradients in f32, scaled down to a global norm of
-        ``grad_clip`` where it is exceeded."""
+        ``grad_clip`` where it is exceeded; ``whole`` takes the leaves' sums
+        of squares to the whole tensors' (a sharded step's)."""
         g32 = tree_map(lambda g: g.float(), grads)
         if self.grad_clip is None:
             return g32
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in tree_leaves(g32)))
+        squares = [torch.sum(torch.square(g)) for g in tree_leaves(g32)]
+        gnorm = torch.sqrt(sum(whole(squares) if whole else squares))
         scale = torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
         return tree_map(lambda g: g * scale, g32)
 
@@ -149,28 +156,47 @@ def opt_specs(param_spec_tree: Any, params_shapes: Any, mesh: Any) -> AdamState:
 
 class Zero1:
     """The moments' ZeRO-1 layout on a ``DeviceMesh``: ``shard`` takes a
-    tree of full tensors (moments, gradients or parameters, in the moment
-    specs' tree) to this rank's slices and ``gather`` takes slices back to
-    full tensors (an all-gather over ``data``), both through DTensor.  Only
-    the ``data`` axis slices: tensor-parallel execution over ``model`` is
-    not run (queue item A11d), so every other mesh dim has size 1.  On a
-    mesh whose ``data`` has size 1 both are the identity."""
+    tree (moments, gradients or parameters, in the moment specs' tree) of
+    this rank's ``model`` shards, whole over ``data``, to its ``data``
+    slices, and ``gather`` takes the slices back (an all-gather over
+    ``data``), along the dim each moment's spec names ``data``
+    (``tensor_parallel.shard_dim`` / ``gather_dim``): that dim is one the
+    spec leaves whole over ``model``, so the slice of the shard is the slice
+    of the whole.  On a mesh whose ``data`` has size 1 both are the
+    identity.  ``whole_squares`` sums the ``model``-sharded leaves' sums of
+    squares over ``model`` (one all-reduce)."""
 
     def __init__(self, m_specs: Any, mesh: Any):
-        self.mesh = mesh
         self.specs = m_specs
         self.active = axis_size(mesh, DATA) > 1
+        self.group = mesh.get_group(DATA) if self.active else None
+        self.model_group = mesh.get_group(MODEL) if axis_size(mesh, MODEL) > 1 else None
+
+    def whole_squares(self, squares: list) -> list:
+        """Per leaf (the moment specs' order) its sum of squares over the
+        whole tensor, from this rank's shard's."""
+        if self.model_group is None:
+            return squares
+        split = [i for i, spec in enumerate(tree_leaves(self.specs)) if MODEL in spec]
+        summed = torch.stack([squares[i] for i in split])
+        dist.all_reduce(summed, group=self.model_group)
+        out = list(squares)
+        for i, s in zip(split, summed.unbind()):
+            out[i] = s
+        return out
 
     def _each(self, fn, tree: Any) -> Any:
         if not self.active:
             return tree
-        return tree_map(lambda t, spec: fn(t, to_placements(spec, self.mesh))
-                        if DATA in spec else t, tree, self.specs)
+
+        def one(t, spec):
+            dim = spec_dim(spec, DATA)
+            return t if dim is None else fn(t, dim, self.group)
+
+        return tree_map(one, tree, self.specs)
 
     def shard(self, tree: Any) -> Any:
-        return self._each(lambda t, pl: distribute_tensor(
-            t, self.mesh, pl, src_data_rank=None).to_local(), tree)
+        return self._each(shard_dim, tree)
 
     def gather(self, tree: Any) -> Any:
-        return self._each(lambda t, pl: DTensor.from_local(
-            t, self.mesh, pl, run_check=False).full_tensor(), tree)
+        return self._each(gather_dim, tree)

@@ -11,12 +11,15 @@ Gradients come from ``torch.autograd.grad`` on detached copies of the
 parameters that require grad, so a step leaves its inputs as they were, as
 the reference's pure step does.
 
-``make_sharded_train_step`` is the data-parallel step over a mesh's
-``data`` axis, the counterpart of the reference's ``jax.jit(step,
-in_shardings=...)``: every rank holds the full parameters and runs its
-shard of the batch (``sharding.data_specs``), the loss is the whole
-batch's, the gradients are summed over the ranks and the update is
-``AdamW.update_zero1`` (moments sliced by ``opt_specs``).
+``make_sharded_train_step`` is the step over a ``(pod, data, model)``
+mesh, the counterpart of the reference's ``jax.jit(step,
+in_shardings=...)``: each rank runs its shard of the batch over ``("pod",
+"data")`` (``sharding.data_specs``); the dense ``dp`` archs run the
+``model`` axis tensor parallel on their ``param_specs`` shards
+(``tensor_parallel``, the models' ``model_group``); the loss is the whole
+batch's, the gradients are summed over ``data`` and then over ``pod`` (the
+pod axis is plain data parallelism, as the reference's step is) and the
+update is ``AdamW.update_zero1`` (moments sliced by ``opt_specs``).
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed import sharding
+from repro_torch.distributed import sharding, tensor_parallel
 from repro_torch.models import encdec, lm, registry
 from repro_torch.training.optimizer import AdamState, AdamW, Zero1, opt_specs
 from repro_torch.training.tree import tree_leaves, tree_map, tree_unflatten
@@ -38,11 +41,14 @@ def _on(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-def _forward(params: Any, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
-    """(logits, aux) of the family's training forward."""
+def _forward(params: Any, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+             model_group: Any = None):
+    """(logits, aux) of the family's training forward (tensor parallel over
+    ``model_group`` where given: the dense families)."""
     if cfg.family == "encdec":
         return encdec.forward(params, cfg, batch["frames"], batch["dec_tokens"])
-    return lm.forward(params, cfg, batch["tokens"], embeds=batch.get("embeds"))
+    return lm.forward(params, cfg, batch["tokens"], embeds=batch.get("embeds"),
+                      model_group=model_group)
 
 
 def loss_fn(params: Any, cfg: ArchConfig,
@@ -108,51 +114,93 @@ def make_grad_accum_step(cfg: ArchConfig, opt: AdamW, accum: int):
     return step
 
 
+# the families whose train step runs a model axis, and their parameters'
+# layout (A11d-1); the others run the data and pod axes only (A11d-2)
+TENSOR_PARALLEL_FAMILIES = ("dense", "vlm")
+
+
+def runs_model_axis(cfg: ArchConfig) -> bool:
+    """Whether ``cfg``'s train step runs tensor parallel over ``model``."""
+    return cfg.family in TENSOR_PARALLEL_FAMILIES and cfg.param_partition == "dp"
+
+
 class ShardedTrainStep:
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``
-    over a mesh's ``data`` axis (see the module docstring); ``opt_state``
-    holds this rank's moment slices (``init``, ``shard_state``), and
-    ``gather_state`` gives the full state (a collective: every rank calls
-    it).
+    over a mesh (see the module docstring).  ``params`` are this rank's
+    ``model`` shards (``shard_params``; the whole tree on a ``model`` axis
+    of one) and so are the returned ones; ``opt_state`` holds this rank's
+    moment slices (``init``, ``shard_state``); ``gather_params`` and
+    ``gather_state`` give the whole trees (collectives: every rank calls
+    them).
 
     The loss is ``lm.cross_entropy`` of the whole batch: each rank's masked
-    NLL sum and mask count are summed over the ranks before the division,
-    and each rank differentiates its own sum over the global count, so the
-    summed gradients are the whole batch's.  The MoE load-balancing loss is
-    each rank's own tokens' and the ranks' mean (ROADMAP C12: the
-    reference's is the global batch's).  A batch the ranks do not divide is
-    run whole on every rank, with no sum.  With one rank on ``data`` this
-    is ``make_train_step``'s arithmetic, bit for bit."""
+    NLL sum and mask count are summed over ``data`` and ``pod`` before the
+    division, and each rank differentiates its own sum over the global
+    count, so the summed gradients are the whole batch's.  Over ``model``
+    the ranks compute the same loss from the vocab-sharded logits
+    (``lm.nll_sums(model_group=...)``); a leaf their specs replicate gets
+    the same gradient on each with no collective of its own.  The MoE
+    load-balancing loss is each rank's own tokens' and the ranks' mean
+    (ROADMAP C12: the reference's is the global batch's).  A batch the
+    batch axes do not divide is run whole on every rank, with no sum.  With
+    one rank on every axis this is ``make_train_step``'s arithmetic, bit
+    for bit.
+
+    The dense ``dp`` families (``runs_model_axis``) take the model group
+    down on any ``model`` size; the other families, and any arch on a
+    ``model`` or ``pod`` axis over one, raise (ROADMAP A11d-2)."""
 
     def __init__(self, cfg: ArchConfig, opt: AdamW, mesh: Any):
         axes = sharding.mesh_axes(mesh)
-        if axes.get(sharding.MODEL, 1) > 1:
-            raise ValueError(f"make_sharded_train_step: model axis of size {axes['model']}; "
-                             "tensor-parallel execution is ROADMAP item A11d")
-        if axes.get(sharding.POD, 1) > 1:
-            raise ValueError(f"make_sharded_train_step: pod axis of size {axes['pod']}; only "
-                             "the data axis runs data parallel")
+        tensor_parallel = runs_model_axis(cfg)
+        wide = {a: axes[a] for a in (sharding.MODEL, sharding.POD) if axes.get(a, 1) > 1}
+        if wide and not tensor_parallel:
+            raise ValueError(
+                f"make_sharded_train_step: {cfg.name} ({cfg.family}, {cfg.param_partition}) on "
+                f"{wide}: the model and pod axes run for the dense dp families; the MoE, SSM, "
+                "hybrid and encoder-decoder families and FSDP are ROADMAP item A11d-2")
         self.cfg, self.opt, self.mesh = cfg, opt, mesh
         self.group = mesh.get_group(sharding.DATA)
-        self.ranks = dist.get_world_size(self.group)
-        self.rank = dist.get_rank(self.group)
+        self.pod_group = (mesh.get_group(sharding.POD) if axes.get(sharding.POD, 1) > 1
+                          else None)
+        self.model_group = (mesh.get_group(sharding.MODEL)
+                            if tensor_parallel and sharding.MODEL in axes else None)
+        self.ranks = dist.get_world_size(self.group) * axes.get(sharding.POD, 1)
+        self.rank = (dist.get_rank(self.group) if self.pod_group is None else
+                     dist.get_rank(self.pod_group) * dist.get_world_size(self.group)
+                     + dist.get_rank(self.group))
         shapes = registry.get_model(cfg).init(cfg, device="meta")
         self.param_specs = sharding.param_specs(cfg, shapes, mesh)
         self.opt_specs = opt_specs(self.param_specs, shapes, mesh)
         self.zero = Zero1(self.opt_specs.m, mesh)
 
+    def shard_params(self, params: Any) -> Any:
+        """This rank's ``model`` shards of the whole tree ``params``."""
+        return tensor_parallel.shard_params(params, self.param_specs, self.mesh)
+
+    def gather_params(self, params: Any) -> Any:
+        return tensor_parallel.gather_params(params, self.param_specs, self.mesh)
+
     def init(self, params: Any) -> AdamState:
-        return self.shard_state(self.opt.init(params))
+        """The sliced state of this rank's shards ``params``."""
+        state = self.opt.init(params)
+        return AdamState(step=state.step, m=self.zero.shard(state.m),
+                         v=self.zero.shard(state.v))
 
     def shard_state(self, state: AdamState) -> AdamState:
-        return AdamState(step=state.step, m=self.zero.shard(state.m), v=self.zero.shard(state.v))
+        """This rank's slices of the whole state."""
+        return AdamState(step=state.step, m=self.zero.shard(self.shard_params(state.m)),
+                         v=self.zero.shard(self.shard_params(state.v)))
 
     def gather_state(self, state: AdamState) -> AdamState:
-        return AdamState(step=state.step, m=self.zero.gather(state.m),
-                         v=self.zero.gather(state.v))
+        return AdamState(step=state.step, m=self.gather_params(self.zero.gather(state.m)),
+                         v=self.gather_params(self.zero.gather(state.v)))
 
     def _all_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the batch axes: ``data``, then ``pod``."""
         dist.all_reduce(t, group=self.group)
+        if self.pod_group is not None:
+            dist.all_reduce(t, group=self.pod_group)
         return t
 
     def _local(self, batch: Dict[str, torch.Tensor]):
@@ -166,25 +214,33 @@ class ShardedTrainStep:
         return {k: v[self.rank * rows:(self.rank + 1) * rows] for k, v in batch.items()}
 
     def __call__(self, params: Any, opt_state: AdamState, batch: Dict[str, Any]):
-        cfg = self.cfg
+        cfg, group = self.cfg, self.model_group
         batch = _on(batch, params["embed"]["table"].device)
         local = self._local(batch)
-        if local is None and self.ranks > 1:  # every rank runs the whole batch
+        if local is None and self.ranks > 1 and group is None:
+            # every rank runs the whole batch
             (loss, parts), grads = value_and_grad(params, cfg, batch)
         else:
-            local = batch if local is None else local
+            # the batch whole on this rank (one batch rank, or a model group
+            # running a batch the batch axes do not divide): no sums over them
+            whole = local is None
+            local = batch if whole else local
+            ranks = 1 if whole else self.ranks
 
             def objective(p):
-                logits, aux = _forward(p, cfg, local)
-                total, n = lm.nll_sums(logits, local["labels"], local.get("mask"))
-                count = self._all_sum(n).clamp_min(1.0)
-                share = total / count + AUX_COEF * aux / (max(cfg.n_layers, 1) * self.ranks)
+                logits, aux = _forward(p, cfg, local, group)
+                total, n = lm.nll_sums(logits, local["labels"], local.get("mask"), group)
+                count = n if whole else self._all_sum(n)
+                count = count.clamp_min(1.0)
+                share = total / count + AUX_COEF * aux / (max(cfg.n_layers, 1) * ranks)
                 return share, {"total": total.detach(), "count": count, "aux": aux.detach()}
 
             (_, parts), grads = _grads(params, objective)
-            grads = tree_map(self._all_sum, grads)
-            ce = self._all_sum(parts["total"]) / parts["count"]
-            aux = self._all_sum(parts["aux"]) / self.ranks
+            if not whole:
+                grads = tree_map(self._all_sum, grads)
+            total = parts["total"] if whole else self._all_sum(parts["total"])
+            aux = parts["aux"] if whole else self._all_sum(parts["aux"]) / ranks
+            ce = total / parts["count"]
             loss = ce + AUX_COEF * aux / max(cfg.n_layers, 1)
             parts = {"ce": ce, "aux": aux}
         params, opt_state = self.opt.update_zero1(grads, opt_state, params, self.zero)
@@ -192,6 +248,6 @@ class ShardedTrainStep:
 
 
 def make_sharded_train_step(cfg: ArchConfig, opt: AdamW, mesh: Any) -> ShardedTrainStep:
-    """The data-parallel train step over ``mesh`` (a ``DeviceMesh`` with
-    ``data`` and ``model`` dims; ``model`` must have size 1)."""
+    """The train step over ``mesh`` (a ``DeviceMesh`` with ``data`` and
+    ``model`` dims and optionally ``pod``; see ``ShardedTrainStep``)."""
     return ShardedTrainStep(cfg, opt, mesh)

@@ -51,7 +51,8 @@ def test_no_jax_or_reference_imports():
             "distributed/sharding.py", "launch/mesh.py", "configs/shapes.py",
             "training/compression.py", "launch/dryrun.py", "models/attention.py",
             "models/lm.py", "models/blocks.py", "kernels/ref.py",
-            "kernels/flash_backward.py", "kernels/flash_prefill.py"} <= names, names
+            "kernels/flash_backward.py", "kernels/flash_prefill.py",
+            "distributed/tensor_parallel.py"} <= names, names
     assert any(p.name == "torch_roofline.py" for p in files)
     hits = [f"{p}: {m.group(0).strip()}" for p in files for m in pattern.finditer(p.read_text())]
     assert not hits, hits

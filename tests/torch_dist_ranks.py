@@ -285,9 +285,10 @@ def case_kv_shard_model(rank: int, world: int, inputs: dict) -> dict:
 
 def case_dryrun_collectives(rank: int, world: int, inputs: dict) -> dict:
     """The bytes the real steps' collectives move, counted by wrapping
-    ``dist.all_reduce`` and the functional all-gathers DTensor calls (each
-    call's output bytes): a data-parallel train step on a (data 2, model 1)
-    mesh, and a KV-length-sharded decode on a (data 1, model 2) mesh."""
+    ``dist.all_reduce``, ``dist.all_gather`` and the functional all-gathers
+    (each call's output bytes): a data-parallel train step on a (data 2,
+    model 1) mesh, and a KV-length-sharded decode on a (data 1, model 2)
+    mesh."""
     import torch
     import torch.distributed as dist
     import torch.distributed._functional_collectives as funcol
@@ -304,20 +305,24 @@ def case_dryrun_collectives(rank: int, world: int, inputs: dict) -> dict:
     def count(kind, fn):
         def call(*args, **kw):
             out = fn(*args, **kw)
-            t = args[0] if kind == "all-reduce" else out
-            seen[kind] = seen.get(kind, 0) + t.numel() * t.element_size()
+            ts = [args[0]] if fn is wrapped["all_reduce"] else (
+                args[0] if fn is wrapped["all_gather"] else [out])
+            seen[kind] = seen.get(kind, 0) + sum(t.numel() * t.element_size() for t in ts)
             return out
         return call
 
     def wrap():
-        wrapped.update(all_reduce=dist.all_reduce, all_gather_single=funcol.all_gather_single,
+        wrapped.update(all_reduce=dist.all_reduce, all_gather=dist.all_gather,
+                       all_gather_single=funcol.all_gather_single,
                        all_gather_tensor=funcol.all_gather_tensor)
         dist.all_reduce = count("all-reduce", dist.all_reduce)
+        dist.all_gather = count("all-gather", dist.all_gather)
         funcol.all_gather_single = count("all-gather", funcol.all_gather_single)
         funcol.all_gather_tensor = count("all-gather", funcol.all_gather_tensor)
 
     def unwrap():
-        dist.all_reduce = wrapped["all_reduce"]
+        for name in ("all_reduce", "all_gather"):
+            setattr(dist, name, wrapped[name])
         funcol.all_gather_single = wrapped["all_gather_single"]
         funcol.all_gather_tensor = wrapped["all_gather_tensor"]
 
@@ -351,8 +356,177 @@ def case_dryrun_collectives(rank: int, world: int, inputs: dict) -> dict:
     return out
 
 
+def _mesh(dims):
+    """A DeviceMesh of ``dims`` ((pod,) data, model) on the gloo group."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    names = ("pod", "data", "model")[-len(dims):]
+    return init_device_mesh("cpu", tuple(dims), mesh_dim_names=names)
+
+
+def _specs_np(tree):
+    """A spec tree's leaves as tuples (pickled by value)."""
+    from repro_torch.training.tree import tree_leaves
+
+    return [tuple(s) for s in tree_leaves(tree)]
+
+
+def case_tensor_parallel(rank: int, world: int, inputs: dict) -> dict:
+    """The step over (pod, data, model) meshes (``inputs["runs"]``: a name,
+    the arch, the ``n_heads`` override, the mesh dims): its losses, the
+    gathered parameters, this rank's shards and the specs; ``ResilientLoop``
+    over the runs of ``inputs["loop_runs"]`` (``_tp_loops``); and the
+    vocab-sharded ``nll_sums`` on model groups of 2 and 4 ranks."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import convert, lm
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_step import make_sharded_train_step
+
+    out = {}
+    for name, arch, heads, dims in inputs["runs"]:
+        cfg = reduced_config(get_config(arch))
+        if heads:
+            cfg = dataclasses.replace(cfg, n_heads=heads)
+        full = convert.from_jax_params(cfg, inputs["params"][name], device="cpu")
+        mesh = _mesh(dims)
+        step = make_sharded_train_step(cfg, AdamW(**inputs["adamw"]), mesh)
+        params = step.shard_params(full)
+        state = step.init(params)
+        losses = []
+        for b in inputs["batches"][name]:
+            params, state, m = step(params, state, {k: torch.from_numpy(v) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        out[name] = dict(losses=losses, local=_np(params), specs=_specs_np(step.param_specs),
+                         params=convert.to_jax_params(cfg, step.gather_params(params)),
+                         model_rank=dist.get_rank(mesh.get_group("model")))
+        if name in inputs["loop_runs"]:
+            batches = [{k: torch.from_numpy(v) for k, v in b.items()}
+                       for b in inputs["batches"][name]]
+            out[("loop", name)] = _tp_loops(step, cfg, full, batches, params,
+                                            pathlib.Path(inputs["dir"]) / name.replace("/", "_"))
+
+    logits = torch.from_numpy(inputs["logits"])
+    labels = torch.from_numpy(inputs["labels"])
+    mask = torch.from_numpy(inputs["mask"])
+    for n in (2, 4):
+        group = dist.new_group(list(range(n)))
+        if rank >= n:
+            continue
+        cols = logits.shape[-1] // n
+        part = logits[..., rank * cols:(rank + 1) * cols]
+        for masked in (False, True):
+            total, count = lm.nll_sums(part, labels, mask if masked else None, model_group=group)
+            out[("nll", n, masked)] = (float(total), float(count))
+    return out
+
+
+def _tp_loops(step, cfg, full, batches, after, workdir) -> dict:
+    """``ResilientLoop`` over a model-axis ``step`` from the whole tree
+    ``full``, a checkpoint after every step: the loop run whole (its
+    shards against ``after``, the step's own run), and preempted before
+    its last step then resumed (shards gathered, written in the reference's
+    layout by global rank 0, re-sharded on restore) against the whole run,
+    bit for bit on this rank; and the state's and parameters' shards
+    through ``gather_*`` then ``shard_*``."""
+    import torch
+
+    from repro_torch.training.fault import LoopConfig, Preempted, ResilientLoop
+    from repro_torch.training.tree import tree_leaves
+
+    def loop(path, **kw):
+        return ResilientLoop(step, lambda i: batches[i],
+                             LoopConfig(total_steps=len(batches), ckpt_every=1,
+                                        ckpt_dir=str(workdir / path)), model_cfg=cfg, **kw)
+
+    def equal(a, b):
+        return [torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b))]
+
+    def bomb(i):
+        if i == len(batches) - 1:
+            raise Preempted("simulated preemption")
+
+    params = step.shard_params(full)
+    whole = loop("whole").run(params, step.init(params))
+    cut = loop("preempted", failure_hook=bomb)
+    try:
+        cut.run(params, step.init(params))
+        preempted = False
+    except Preempted:
+        preempted = True
+        cut.ckpt.wait()
+    resumed = loop("preempted").run(params, step.init(params))
+    state = whole["opt_state"]
+    return dict(
+        preempted=preempted,
+        whole_is_the_step=equal(whole["params"], after),
+        resume_equal=equal((whole["params"], state), (resumed["params"], resumed["opt_state"])),
+        state_round_trip=equal(step.shard_state(step.gather_state(state)), state),
+        params_round_trip=equal(step.shard_params(step.gather_params(whole["params"])),
+                                whole["params"]))
+
+
+def case_dryrun_tp(rank: int, world: int, inputs: dict) -> dict:
+    """The collectives the real tensor-parallel and pod-axis steps call,
+    by op and by group (``dist.all_reduce`` and ``dist.all_gather``
+    wrapped: each call's output bytes, under the group it received), and
+    rank 0's ``FlopCounterMode`` count of its step, on each mesh of
+    ``inputs["meshes"]``."""
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import lm
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_step import make_sharded_train_step
+
+    cfg = reduced_config(get_config(inputs["arch"]))
+    batch = {k: torch.from_numpy(v) for k, v in inputs["batch"].items()}
+    out = {}
+    for dims in inputs["meshes"]:
+        mesh = _mesh(dims)
+        names = {}
+        for axis in ("model", "pod"):
+            if axis in mesh.mesh_dim_names and mesh.shape[mesh.mesh_dim_names.index(axis)] > 1:
+                names[id(mesh.get_group(axis))] = axis
+        by_op, by_group = {}, {}
+        originals = {"all_reduce": dist.all_reduce, "all_gather": dist.all_gather}
+
+        def counted(name, kind):
+            def call(*args, **kw):
+                result = originals[name](*args, **kw)
+                ts = [args[0]] if name == "all_reduce" else args[0]
+                nbytes = sum(t.numel() * t.element_size() for t in ts)
+                by_op[kind] = by_op.get(kind, 0) + nbytes
+                axis = names.get(id(kw.get("group")))
+                if axis is not None:
+                    by_group[axis] = by_group.get(axis, 0) + nbytes
+                return result
+            return call
+
+        step = make_sharded_train_step(cfg, AdamW(lr=1e-4), mesh)
+        params = step.shard_params(lm.init(cfg, seed=0, device="cpu"))
+        state = step.init(params)
+        flops = FlopCounterMode(display=False)
+        dist.all_reduce = counted("all_reduce", "all-reduce")
+        dist.all_gather = counted("all_gather", "all-gather")
+        try:
+            with flops:
+                step(params, state, batch)
+        finally:
+            dist.all_reduce, dist.all_gather = originals["all_reduce"], originals["all_gather"]
+        out[tuple(dims)] = dict(by_op=by_op, by_group=by_group, flops=flops.get_total_flops())
+    return out
+
+
 CASES = {"collectives": case_collectives, "train": case_train, "checkpoint": case_checkpoint,
-         "kv_shard_model": case_kv_shard_model, "dryrun_collectives": case_dryrun_collectives}
+         "kv_shard_model": case_kv_shard_model, "dryrun_collectives": case_dryrun_collectives,
+         "tensor_parallel": case_tensor_parallel, "dryrun_tp": case_dryrun_tp}
 
 
 def main(argv) -> None:
